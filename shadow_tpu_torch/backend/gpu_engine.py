@@ -1,8 +1,9 @@
 """Lane engine driver: config -> lane tables and state -> run -> SimResult.
 
-The counterpart of the JAX package's ``TpuEngine`` for the passive lane
-path: it builds the same tables and initial state from a config (same host
-ordering, routing, runahead, bucket parameters and int32 guards), runs the
+The counterpart of the JAX package's ``TpuEngine`` for the datagram lane
+path (tgen, phold, ping; loss, bootstrap, dynamic runahead): it builds the
+same tables and initial state from a config (same host ordering, routing,
+runahead, bucket parameters, loss thresholds and int32 guards), runs the
 window loop with the lane kernels on one device, and reads the result back
 into a :class:`SimResult` that compares directly with the reference's.
 """
@@ -19,7 +20,8 @@ from .. import default_device
 from ..config.options import ConfigOptions, LaneCompatError
 from ..core import time as stime
 from ..models.base import create_model
-from ..models.tgen import TgenClient, TgenMesh, TgenServer
+from ..models.phold import Phold
+from ..models.tgen import Ping, TgenClient, TgenMesh, TgenServer
 from ..net import codel as codel_mod
 from ..net.token_bucket import bucket_params
 from . import lanes
@@ -55,6 +57,7 @@ class GpuEngine:
         p_size = np.zeros(n, dtype=np.int32)
         p_interval = np.ones(n, dtype=np.int64)
         p_peer = np.zeros(n, dtype=np.int32)
+        p_count = np.zeros(n, dtype=np.int64)
         p_stride = np.ones(n, dtype=np.int64)
         recv_mult = np.zeros(n, dtype=np.int32)
         local_seq0 = np.ones(n, dtype=np.int64)
@@ -83,6 +86,14 @@ class GpuEngine:
                 # multi-process tgen hosts: at most one timer-driving
                 # process; the others contribute start anchors and delivery
                 # counting (recv_mult), as in the reference
+                trio = (TgenMesh, TgenClient, TgenServer)
+                if not all(isinstance(a, trio) for _p, a in apps):
+                    raise LaneCompatError(
+                        f"host {hopt.hostname!r}: multi-process lane "
+                        "hosts support tgen mesh/client/server "
+                        "combinations only (use the shadow_tpu package's "
+                        "cpu backend)"
+                    )
                 drivers = [(p, a) for p, a in apps
                            if isinstance(a, (TgenMesh, TgenClient))]
                 if len(drivers) > 1:
@@ -102,9 +113,29 @@ class GpuEngine:
                 continue
             recv_mult[hid] = 1
             proc, app = apps[0]
-            assert isinstance(app, (TgenMesh, TgenClient, TgenServer))
-            assign_tgen(hid, app)
-            init_events.append((hid, proc.start_time, lanes.LOCAL, hid, 0, -1))
+            t0 = proc.start_time
+            if isinstance(app, Phold):
+                # the initial messages are size-0 LOCAL events: timers
+                # whose pop sends
+                model[hid] = lanes.M_PHOLD
+                p_size[hid] = app.size
+                for i in range(app.messages):
+                    init_events.append((hid, t0, lanes.LOCAL, hid, i, 0))
+                local_seq0[hid] = max(app.messages, 1)
+            elif isinstance(app, Ping):
+                if app.peer is None:
+                    model[hid] = lanes.M_PING_SERVER
+                else:
+                    model[hid] = lanes.M_PING_CLIENT
+                    p_peer[hid] = self.dns.resolve(app.peer)
+                    p_count[hid] = app.count_target
+                    p_interval[hid] = app.interval
+                p_size[hid] = app.size
+                init_events.append((hid, t0, lanes.LOCAL, hid, 0, -1))
+            else:
+                assert isinstance(app, (TgenMesh, TgenClient, TgenServer))
+                assign_tgen(hid, app)
+                init_events.append((hid, t0, lanes.LOCAL, hid, 0, -1))
         ev = np.asarray(init_events, dtype=np.int64).reshape(-1, 6)
         self._init_cols = tuple(ev[:, j] for j in range(6))
         self._local_seq0 = local_seq0
@@ -126,7 +157,7 @@ class GpuEngine:
                 "initial events per lane (+8 headroom)"
             )
 
-        node_idx, lat = self.routing.device_tables()
+        node_idx, lat, thresh = self.routing.device_tables()
         if log_capacity is None:
             log_capacity = 200_000
         self.params = lanes.LaneParams(
@@ -136,6 +167,12 @@ class GpuEngine:
             log_capacity=log_capacity,
             stop_time=cfg.general.stop_time,
             runahead=runahead,
+            seed=cfg.general.seed,
+            bootstrap_end=cfg.general.bootstrap_end_time,
+            models_present=tuple(int(x) for x in np.unique(model)),
+            has_loss=bool(np.any(np.asarray(thresh) > 0)),
+            dynamic_runahead=bool(cfg.experimental.use_dynamic_runahead),
+            runahead_floor=max(cfg.experimental.runahead or 0, 1),
             cross_capacity=cfg.experimental.tpu_cross_capacity,
         )
 
@@ -159,6 +196,8 @@ class GpuEngine:
                 f"bucket interval {interval} ns exceeds the chunked-mod "
                 f"ceiling ({lanes.MOD_SMALL_LIMIT})"
             )
+        # strictly below NEVER32: a latency equal to the sentinel would read
+        # as "no sends yet" in the dynamic-runahead scalar
         _check("link latency (ns)", np.asarray(lat), _I32MAX - 1)
         _check("runahead (ns)", np.asarray([runahead]), _I32MAX)
         for side, b in (("up", up), ("dn", dn)):
@@ -196,13 +235,16 @@ class GpuEngine:
 
         self.tables = lanes.LaneTables(
             node_of=t32(node_idx), lat=t32(lat),
+            thresh=torch.as_tensor(np.asarray(thresh, dtype=np.int64),
+                                   device=self.device),
             up_rate=t32(up[:, 0]), up_burst=t32(up[:, 1]),
             up_kfull=t32(up_kfull), up_kfi=t32(up_kfi),
             dn_rate=t32(dn[:, 0]), dn_burst=t32(dn[:, 1]),
             dn_kfull=t32(dn_kfull), dn_kfi=t32(dn_kfi),
             model=t32(model), recv_mult=t32(recv_mult), p_size=t32(p_size),
             p_int_hi=t32(p_interval >> 31), p_int_lo=t32(p_interval & lanes.MASK31),
-            p_peer=t32(p_peer), p_stride=t32(p_stride),
+            p_peer=t32(p_peer), p_count=t32(np.minimum(p_count, _I32MAX)),
+            p_stride=t32(p_stride),
             codel_div=t32(codel_mod.CODEL_DIV),
         )
         self._up_burst = up[:, 1]
@@ -256,6 +298,7 @@ class GpuEngine:
             q_thi=t32(q_thi), q_tlo=t32(q_tlo), q_auxh=t32(q_auxh),
             q_auxl=t32(q_auxl), q_size=t32(q_size),
             send_seq=zeros(), local_seq=t32(self._local_seq0),
+            app_draws=zeros(),
             up_tokens=t32(self._up_burst), up_nr_hi=zeros(),
             up_nr_lo=t32(np.full(n, p.bucket_interval)),
             up_ld_hi=zeros(), up_ld_lo=zeros(),
@@ -266,14 +309,29 @@ class GpuEngine:
             cd_dnext_hi=zeros(), cd_dnext_lo=zeros(), cd_drop_count=zeros(),
             cd_dropping=torch.zeros(n, dtype=torch.bool, device=dev),
             m_sent=zeros(), m_peer_offset=zeros(),
-            n_delivered=zeros(), n_codel=zeros(), n_queue=zeros(),
-            recv_bytes=zeros(), n_sends=zeros(),
+            n_delivered=zeros(), n_loss=zeros(), n_codel=zeros(),
+            n_queue=zeros(), recv_bytes=zeros(), n_sends=zeros(),
+            n_hops=zeros(),
             log=torch.zeros((max(p.log_capacity, 1), 6), dtype=torch.int64,
                             device=dev),
             log_count=scalar(0), log_lost=scalar(0),
             rounds=scalar(0), iters=scalar(0),
             now_we_hi=scalar(0), now_we_lo=scalar(0),
+            min_used_lat=scalar(lanes.NEVER32),
         )
+
+    def current_runahead(self) -> int:
+        """The live window width: the static runahead, or with dynamic
+        runahead the smallest latency sent over so far in the last run
+        (never below the floor)."""
+        p = self.params
+        state = getattr(self, "_live_state", None)
+        if not p.dynamic_runahead or state is None:
+            return p.runahead
+        used = int(state.min_used_lat)
+        if used >= lanes.NEVER32:
+            return p.runahead
+        return max(used, max(p.runahead_floor, 1))
 
     # -- running -----------------------------------------------------------
 
@@ -288,6 +346,7 @@ class GpuEngine:
         if mode not in ("device", "step"):
             raise ValueError(f"mode must be 'device' or 'step', got {mode!r}")
         state = self.initial_state()
+        self._live_state = state
         p, tb = self.params, self.tables
         if mode == "device":
             run_fn = lanes._build_full_run(p, tb, state)
@@ -308,8 +367,8 @@ class GpuEngine:
     def collect(self, s: lanes.LaneState, wall: float) -> SimResult:
         # every per-lane counter is monotone, so an int32 wrap shows as a
         # negative value: raise instead of reporting garbage
-        for fname in ("send_seq", "local_seq", "n_delivered", "n_sends",
-                      "recv_bytes", "m_peer_offset"):
+        for fname in ("send_seq", "local_seq", "app_draws", "n_delivered",
+                      "n_sends", "n_hops", "recv_bytes", "m_peer_offset"):
             if int(getattr(s, fname).min()) < 0:
                 raise RuntimeError(
                     f"lane counter {fname} wrapped past 2**31; this run "
@@ -340,8 +399,10 @@ class GpuEngine:
                 counters[key] = counters.get(key, 0) + int(val)
 
         add("tgen_recv_bytes", int(s.recv_bytes[tgen].sum()))
+        add("phold_hops", int(s.n_hops[model == lanes.M_PHOLD].sum()))
         add("lane_iters", int(s.iters))
         add("lane_delivered", int(s.n_delivered.sum()))
+        add("lane_drop_loss", int(s.n_loss.sum()))
         add("lane_drop_codel", int(s.n_codel.sum()))
         add("lane_drop_queue", n_queue_drops)
         add("lane_sends", int(s.n_sends.sum()))

@@ -1,7 +1,7 @@
 """The lane engine's CUDA kernels: build, binding and wrappers.
 
-``csrc/lanes.cu`` holds four kernels for Hopper (``sm_90a``) behind a plain C
-interface.  At first use on the card it is compiled with ``nvcc`` into
+``csrc/lanes.cu`` holds the four lane kernels for Hopper (``sm_90a``) and the
+threefry launcher behind a plain C interface.  At first use on the card it is compiled with ``nvcc`` into
 ``build/shadow_tpu_torch/`` at the root of the checkout, keyed by a hash of
 the source, and loaded with ``ctypes``.  Nothing is built or loaded when
 this module is imported.
@@ -14,6 +14,10 @@ version from ``lanes.py``; on CUDA tensors it launches the kernel on
 PyTorch's current stream and raises if the launch fails.  There is no
 fallback from one to the other.  Each wrapper counts its launches in its
 ``launches`` attribute (plain runs count nothing).
+
+The threefry draws run as a device function inside kernel A; the
+``rand_u32`` wrapper launches the same function on its own, so that it can
+be held against the plain version and timed.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pathlib import Path
 
 import torch
 
+from ..core import rng as rng_mod
 from . import lanes
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "lanes.cu"
@@ -44,8 +49,9 @@ _PTR_FIELDS = (
     lanes.LaneState._fields + lanes.LaneTables._fields
     + lanes.Workspace._fields
 )
-_INT_FIELDS = ("n", "c", "k", "cx", "g", "log_cap", "stop", "runahead",
-               "interval")
+_INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
+               "interval", "seed_lo", "seed_hi", "bootstrap_end", "has_loss",
+               "all_passive", "dyn_runahead", "runahead_floor")
 
 
 class LaneBufs(ctypes.Structure):
@@ -105,6 +111,9 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.queue_min_window.argtypes = [vp, ctypes.c_int, vp]
     lib.queue_min_window.restype = ctypes.c_int
+    u32 = ctypes.c_uint32
+    lib.rand_u32.argtypes = [u32, u32, vp, vp, vp, ctypes.c_int64, vp]
+    lib.rand_u32.restype = ctypes.c_int
     lib.lanes_error_string.argtypes = [ctypes.c_int]
     lib.lanes_error_string.restype = ctypes.c_char_p
     return lib
@@ -134,22 +143,23 @@ class LaneArgs:
         n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
         g = int(tb.lat.shape[0])
         i32, i64 = torch.int32, torch.int64
-        n_rec = n * (k + cx) + k * n if p.log_capacity else 1
+        n_rec = p.n_records if p.log_capacity else 1
         shapes = {
             **{f: (n, c) for f in ("q_thi", "q_tlo", "q_auxh", "q_auxl",
                                    "q_size")},
             **{f: (n,) for f in lanes._SLOT_FIELDS + ("n_queue",)},
             **{f: () for f in ("log_count", "log_lost", "rounds", "iters",
-                               "now_we_hi", "now_we_lo")},
+                               "now_we_hi", "now_we_lo", "min_used_lat")},
             "log": (max(p.log_capacity, 1), 6),
             **{f: (n,) for f in lanes.LaneTables._fields},
-            "lat": (g, g), "codel_div": (1025,),
-            "ctl": (4,), "self_blk": (5, n, k), "out_blk": (6, k, n),
+            "lat": (g, g), "thresh": (g, g), "codel_div": (1025,),
+            "ctl": (4,), "self_blk": (5, n, p.self_width), "out_blk": (6, k, n),
             "recs": (n_rec, 6), "rec_valid": (n_rec,),
             "x_cnt": (n,), "x_start": (n,), "x_fill": (n,),
             "x_order": (k * n,),
         }
-        dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64}
+        dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
+                  "thresh": i64}
         tensors = {**s._asdict(), **tb._asdict(), **ws._asdict()}
         for f in _PTR_FIELDS:
             _check(f, tensors[f], dev, dtypes.get(f, i32), shapes[f])
@@ -163,11 +173,16 @@ class LaneArgs:
                     "queue or cross capacity"
                 )
             _lib()  # build and load before the run starts
+        seed_lo, seed_hi = rng_mod.split_seed(p.seed)
         self.bufs = LaneBufs(
             **{f: tensors[f].data_ptr() for f in _PTR_FIELDS},
-            n=n, c=c, k=k, cx=cx, g=g, log_cap=p.log_capacity,
-            stop=p.stop_time, runahead=p.runahead,
-            interval=p.bucket_interval,
+            n=n, c=c, k=k, cx=cx, sw=p.self_width, g=g,
+            log_cap=p.log_capacity, stop=p.stop_time, runahead=p.runahead,
+            interval=p.bucket_interval, seed_lo=seed_lo, seed_hi=seed_hi,
+            bootstrap_end=p.bootstrap_end, has_loss=int(p.has_loss),
+            all_passive=int(p.all_passive),
+            dyn_runahead=int(p.dynamic_runahead),
+            runahead_floor=max(p.runahead_floor, 1),
         )
 
 
@@ -183,15 +198,20 @@ def _launch(name: str, args: LaneArgs, *extra) -> None:
 
 
 def lane_slots(args: LaneArgs) -> None:
-    """Kernel A: pop, passive slot law, emit blocks.
+    """Kernel A: pop under the co-pop rule, the slot law, emit blocks.
 
     Replaces ``shadow_tpu/backend/lanes.py:2900`` ``_build_iter.iter_body``
-    (pop) and the passive arm of ``lanes.py:884`` ``_process_slot`` with
-    ``bucket_charge_vec`` (``:477``) and ``codel_offer_arrays`` (``:596``).
-    Bound on the card by bytes: each lane reads its K head slots, ~30 state
-    words and its table row, and writes them back with the emit blocks —
-    no reuse, so one thread per lane keeps the whole K-slot walk in
-    registers and touches each word once."""
+    (pop) and ``lanes.py:884`` ``_process_slot`` — the passive arm with
+    ``bucket_charge_vec`` (``:477``) and ``codel_offer_arrays`` (``:596``),
+    and the active arms (DELIVERY inserts, phold, ping, the loss draw over
+    ``core/rng.py:46`` ``threefry2x32``, ``min_used_lat``).  Bound on the
+    card by bytes: each lane reads its K head slots, ~35 state words and
+    its table row, and writes them back with the emit blocks — no reuse,
+    so one thread per lane keeps the whole K-slot walk in registers and
+    touches each word once.  The threefry draw (about 80 integer
+    operations) is computed in registers where it is needed, never stored.
+    One kernel serves passive and active runs: a passive-only variant
+    saved nothing measurable end to end (PERF.md)."""
     if not args.on_cuda:
         return lanes.lane_slots_plain(args.p, args.tb, args.s, args.ws)
     _launch("lane_slots", args)
@@ -247,7 +267,47 @@ def append_log(args: LaneArgs) -> None:
     append_log.launches += 1
 
 
-WRAPPERS = (lane_slots, exchange_merge, queue_min_window, append_log)
+def rand_u32(seed: int, stream: torch.Tensor,
+             counter: torch.Tensor) -> torch.Tensor:
+    """Threefry-2x32 draws under the master ``seed``: ``stream`` and
+    ``counter`` are ``[M]`` int32 tensors of 32-bit words (bit patterns, as
+    the lane state holds them), and the result ``[M]`` int32 holds the bits
+    of each draw's first output word (the lane engine's draw, counter word
+    ``c1 = 0``).
+
+    Replaces ``shadow_tpu/core/rng.py:46`` ``threefry2x32`` with
+    ``backend/lanes.py:672`` ``rand_u32_lane`` and ``:695``
+    ``_seed_keys``, as the device function kernel A calls; this launcher
+    runs it alone, one thread per draw, so it can be held against the plain
+    version bit for bit.  Bound by operations: 80 32-bit integer
+    operations per draw against 12 bytes moved (two words in, one out)."""
+    if (stream.dim() != 1 or stream.shape != counter.shape
+            or stream.dtype != torch.int32 or counter.dtype != torch.int32
+            or stream.device != counter.device):
+        raise ValueError(
+            f"rand_u32: expected two [M] int32 tensors on one device, got "
+            f"{tuple(stream.shape)} {stream.dtype} {stream.device} and "
+            f"{tuple(counter.shape)} {counter.dtype} {counter.device}")
+    seed_lo, seed_hi = rng_mod.split_seed(seed)
+    if stream.device.type != "cuda":
+        return rng_mod.as_i32(
+            rng_mod.rand_u32_words(seed_lo, seed_hi, stream, counter))
+    stream, counter = stream.contiguous(), counter.contiguous()
+    out = torch.empty_like(stream)
+    lib = _lib()
+    cuda_stream = torch.cuda.current_stream(stream.device).cuda_stream
+    err = lib.rand_u32(seed_lo, seed_hi, stream.data_ptr(),
+                       counter.data_ptr(), out.data_ptr(), stream.numel(),
+                       cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rand_u32: CUDA error {err}: "
+                           f"{lib.lanes_error_string(err).decode()}")
+    rand_u32.launches += 1
+    return out
+
+
+WRAPPERS = (lane_slots, exchange_merge, queue_min_window, append_log,
+            rand_u32)
 
 
 def reset_launches() -> None:

@@ -1,22 +1,25 @@
 """Lane backend of the port: state, laws, and the plain versions of the four
 lane kernels, plus the two drivers (round by round, and the device loop).
 
-Counterpart of the JAX package's ``backend/lanes.py``, restricted to the
-passive lane path: every host runs ``tgen-mesh``, ``tgen-client``,
-``tgen-server`` or nothing, graphs are loss-free, and the window is the
-static runahead.  One **lane per simulated host**; per-host state lives in
-``[N]`` or ``[N, C]`` tensors, and one iteration of the window loop is four
-kernels (``kernels.py`` binds their CUDA versions):
+Counterpart of the JAX package's ``backend/lanes.py`` for the datagram
+lane path: hosts run ``tgen-mesh``, ``tgen-client``, ``tgen-server``,
+``phold``, ``ping`` or nothing, over graphs with or without loss, with a
+static or dynamic runahead.  One **lane per simulated host**; per-host
+state lives in ``[N]`` or ``[N, C]`` tensors, and one iteration of the
+window loop is four kernels (``kernels.py`` binds their CUDA versions):
 
-- A ``lane_slots``: pop up to K events inside the window, run the passive
-  slot law on each (down bucket, CoDel, inline delivery, timer tick, up
-  bucket, latency gather, re-arm), emit the self, outbound and record
-  blocks;
+- A ``lane_slots``: pop up to K events inside the window under the co-pop
+  rule, run the slot law on each (down bucket, CoDel, inline delivery or a
+  DELIVERY self-insert; app sends — tgen ticks, phold hops to a threefry
+  peer, ping requests and echoes — with the up bucket, the latency gather
+  and the threefry loss draw; timer re-arms), emit the self, outbound and
+  record blocks;
 - B ``exchange_merge``: the cross-lane exchange into an ``[N, Cx]`` block
-  and the keyed row merge of ``[old C | self K | cross Cx]``, keeping the
-  first C;
-- C ``queue_min_window``: the global earliest head, the window law and the
-  ``live`` flag;
+  and the keyed row merge of ``[old C | self | cross Cx]``, keeping the
+  first C (the self block is ``[N, K]`` re-arms when every model is
+  passive, else ``[N, 2K]``: DELIVERY inserts, then re-arms);
+- C ``queue_min_window``: the global earliest head, the window law (static
+  or dynamic runahead) and the ``live`` flag;
 - D ``append_log``: compaction of the iteration's records into the log.
 
 The layout is the reference's: the event key ``(time, kind, src, seq)`` is
@@ -42,11 +45,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import rng as rng_mod
 from ..core import time as stime
 from ..net import codel as codel_mod
 from ..net.token_bucket import DEFAULT_INTERVAL_NS, FRAME_OVERHEAD_BYTES
 from . import lanes_pairs as _pairs
-from .results import DELIVERED, DROP_CODEL, DROP_QUEUE
+from .results import DELIVERED, DROP_CODEL, DROP_LOSS, DROP_QUEUE
 
 i32 = torch.int32
 i64 = torch.int64
@@ -57,11 +61,14 @@ PACKET, LOCAL, DELIVERY = 0, 1, 2
 NEVER = stime.NEVER
 
 # model ids: the reference's numbering, so model tables compare equal.
-# This slice runs M_NONE and the tgen trio, all PASSIVE (delivery only
-# counts): deliveries apply inline at packet arrival and every lane may
-# co-pop any prefix of its queue
+# PASSIVE models only count deliveries: those apply inline at packet
+# arrival, and their lanes may co-pop any prefix of their queue.  Active
+# models (phold, ping) run app logic on a DELIVERY event, so their lanes
+# get DELIVERY self-inserts and co-pop only same-instant PACKET prefixes.
+# The stream models are not ported yet.
 (M_NONE, M_PHOLD, M_TGEN_MESH, M_TGEN_CLIENT, M_TGEN_SERVER, M_PING_CLIENT,
  M_PING_SERVER, M_STREAM_CLIENT, M_STREAM_SERVER) = range(9)
+PASSIVE_MODELS = frozenset({M_NONE, M_TGEN_MESH, M_TGEN_CLIENT, M_TGEN_SERVER})
 
 # LOCAL size marker: a non-driving process's start event on a multi-process
 # host — anchors the window like any start, drives nothing (the driver's
@@ -127,7 +134,7 @@ def t_join(hi, lo):
 class LaneState(NamedTuple):
     """The simulation state, on one device, updated in place by the
     kernels.  Field names, dtypes and layout are the reference's
-    ``LaneState`` restricted to the passive lane path."""
+    ``LaneState`` restricted to the datagram lane path."""
 
     # event queues [N, C]: int32 key words, kept sorted by the 4-word key;
     # a (NEVER32, NEVER32) time pair marks an empty slot
@@ -139,6 +146,7 @@ class LaneState(NamedTuple):
     # per-lane counters [N] int32 (checked for wrap at collect)
     send_seq: torch.Tensor
     local_seq: torch.Tensor
+    app_draws: torch.Tensor  # APP_STREAM draws taken (phold peer picks)
     # token buckets [N]: tokens int32, next_refill / last_depart as pairs
     up_tokens: torch.Tensor
     up_nr_hi: torch.Tensor
@@ -158,14 +166,16 @@ class LaneState(NamedTuple):
     cd_drop_count: torch.Tensor
     cd_dropping: torch.Tensor  # bool
     # app state [N]
-    m_sent: torch.Tensor  # tgen-client messages sent
+    m_sent: torch.Tensor  # tgen-client / ping messages sent
     m_peer_offset: torch.Tensor  # tgen-mesh round-robin cursor
     # stats [N]
     n_delivered: torch.Tensor
+    n_loss: torch.Tensor
     n_codel: torch.Tensor
     n_queue: torch.Tensor
     recv_bytes: torch.Tensor
     n_sends: torch.Tensor
+    n_hops: torch.Tensor  # app-processed deliveries (phold hop count)
     # event log [max(L, 1), 6] int64 (time, src, dst, seq, size, outcome)
     log: torch.Tensor
     log_count: torch.Tensor  # int32 scalar
@@ -175,6 +185,8 @@ class LaneState(NamedTuple):
     iters: torch.Tensor
     now_we_hi: torch.Tensor  # current window end, as a pair
     now_we_lo: torch.Tensor
+    # smallest latency sent over so far (NEVER32 = none): dynamic runahead
+    min_used_lat: torch.Tensor  # int32 scalar
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +199,20 @@ class LaneParams:
     log_capacity: int  # L (0 disables logging)
     stop_time: int
     runahead: int
+    seed: int = 1
+    bootstrap_end: int = 0  # sends before this time are never lost
     bucket_interval: int = DEFAULT_INTERVAL_NS
+    # models present in this simulation: a passive-only simulation has no
+    # DELIVERY self-insert channel (the self block is K wide) and its lanes
+    # co-pop any prefix
+    models_present: tuple = (M_NONE, M_PHOLD, M_TGEN_MESH, M_TGEN_CLIENT,
+                             M_TGEN_SERVER, M_PING_CLIENT, M_PING_SERVER)
+    # any edge with packet_loss > 0?  Loss-free graphs skip the loss draw
+    has_loss: bool = False
+    # dynamic runahead (runahead.rs:44-118): the window widens to the
+    # smallest latency actually sent over so far, never below the floor
+    dynamic_runahead: bool = False
+    runahead_floor: int = 1
     # cross-lane receive block width per iteration (0 = the queue capacity);
     # a lane receiving more packets in one iteration sheds the excess like
     # queue overflow (counted; strict mode raises)
@@ -198,9 +223,32 @@ class LaneParams:
         return min(self.cross_capacity, self.capacity) or self.capacity
 
     @property
+    def all_passive(self) -> bool:
+        return set(self.models_present) <= PASSIVE_MODELS
+
+    @property
+    def draws(self) -> bool:
+        """Does kernel A draw from threefry (loss, or phold peers)?"""
+        return self.has_loss or M_PHOLD in self.models_present
+
+    @property
+    def self_width(self) -> int:
+        """Self block columns: K re-arms, plus K DELIVERY inserts unless
+        every model is passive."""
+        k = self.pops_per_iter
+        return k if self.all_passive else 2 * k
+
+    @property
     def merge_width(self) -> int:
-        """W = C + K + Cx: the row the merge sorts."""
-        return self.capacity + self.pops_per_iter + self.cross_cap
+        """W = C + self width + Cx: the row the merge sorts."""
+        return self.capacity + self.self_width + self.cross_cap
+
+    @property
+    def n_records(self) -> int:
+        """Record slots per iteration: the merge tail [N, self + Cx], then
+        one per popped slot [K, N]."""
+        n, k = self.n_lanes, self.pops_per_iter
+        return n * (self.self_width + self.cross_cap) + k * n
 
     def __post_init__(self) -> None:
         if self.n_lanes > MAX_LANES:
@@ -218,10 +266,16 @@ class LaneParams:
 
 
 class LaneTables(NamedTuple):
-    """Per-lane constants (not mutated by the simulation), all int32."""
+    """Per-lane constants (not mutated by the simulation), int32 but for
+    the int64 loss thresholds."""
 
     node_of: torch.Tensor  # [N] lane -> graph node index
     lat: torch.Tensor  # [G, G] latency ns (< 2**31 enforced)
+    # [G, G] int64 loss thresholds in core.rng.loss_threshold's u64 domain:
+    # a send is lost iff its 32-bit draw < thresh (2**32: always).  The
+    # reference splits it into thresh_u32 (uint32) and thresh_all (bool);
+    # bridge.py joins them
+    thresh: torch.Tensor
     up_rate: torch.Tensor  # [N] bits/interval
     up_burst: torch.Tensor
     up_kfull: torch.Tensor  # [N] intervals that certainly fill the burst
@@ -235,7 +289,8 @@ class LaneTables(NamedTuple):
     p_size: torch.Tensor  # [N] datagram size
     p_int_hi: torch.Tensor  # [N] timer interval ns, as a pair
     p_int_lo: torch.Tensor
-    p_peer: torch.Tensor  # [N] fixed peer (tgen-client)
+    p_peer: torch.Tensor  # [N] fixed peer (tgen-client, ping client)
+    p_count: torch.Tensor  # [N] message budget (ping client)
     p_stride: torch.Tensor  # [N] (tgen-mesh)
     codel_div: torch.Tensor  # [1025]
 
@@ -246,15 +301,17 @@ class Workspace(NamedTuple):
     # [4] int32: live (min head < stop), in_window (min head < window end),
     # and the min head pair (hi, lo) — written by queue_min_window
     ctl: torch.Tensor
-    # [5, N, K] int32: the same-lane (timer re-arm) block: thi, tlo, auxh,
-    # auxl, size; invalid entries carry the NEVER time pair
+    # [5, N, S] int32: the same-lane block, S = self_width: DELIVERY
+    # inserts in columns [0, K) unless every model is passive, then the
+    # timer re-arms; words thi, tlo, auxh, auxl, size; invalid entries
+    # carry the NEVER time pair
     self_blk: torch.Tensor
     # [6, K, N] int32: outbound packets: dst, thi, tlo, auxh, auxl, size;
     # invalid entries have dst = N, the NEVER time pair and zero words
     out_blk: torch.Tensor
-    # [R, 6] int64 log records + [R] int32 valid flags, R = N*(K+Cx) + K*N:
-    # first the merge tail (DROP_QUEUE, lane-major [N, K+Cx]), then the slot
-    # records (slot-major [K, N]) — the reference's append order.
+    # [R, 6] int64 log records + [R] int32 valid flags, R = N*(S+Cx) + K*N:
+    # first the merge tail (DROP_QUEUE, lane-major [N, S+Cx]), then the
+    # slot records (slot-major [K, N]) — the reference's append order.
     # [1, 6] / [1] placeholders when logging is off.
     recs: torch.Tensor
     rec_valid: torch.Tensor
@@ -268,13 +325,13 @@ class Workspace(NamedTuple):
 
 def make_workspace(p: LaneParams, device) -> Workspace:
     n, k = p.n_lanes, p.pops_per_iter
-    n_rec = n * (k + p.cross_cap) + k * n if p.log_capacity else 1
+    n_rec = p.n_records if p.log_capacity else 1
 
     def z(*shape, dtype=i32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return Workspace(
-        ctl=z(4), self_blk=z(5, n, k), out_blk=z(6, k, n),
+        ctl=z(4), self_blk=z(5, n, p.self_width), out_blk=z(6, k, n),
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
         x_cnt=z(n), x_start=z(n), x_fill=z(n), x_order=z(k * n),
     )
@@ -404,20 +461,57 @@ def codel_offer_arrays(
 
 # LaneState fields kernel A reads and writes per lane
 _SLOT_FIELDS = (
-    "send_seq", "local_seq",
+    "send_seq", "local_seq", "app_draws",
     "up_tokens", "up_nr_hi", "up_nr_lo", "up_ld_hi", "up_ld_lo",
     "dn_tokens", "dn_nr_hi", "dn_nr_lo", "dn_ld_hi", "dn_ld_lo",
     "cd_fat_hi", "cd_fat_lo", "cd_dnext_hi", "cd_dnext_lo", "cd_drop_count",
     "cd_dropping", "m_sent", "m_peer_offset",
-    "n_delivered", "n_codel", "recv_bytes", "n_sends",
+    "n_delivered", "n_loss", "n_codel", "recv_bytes", "n_sends", "n_hops",
 )
 
 
+def rand_u32_lane(seed: int, stream, counter32):
+    """The lane engine's threefry draw (``core.rng.rand_u32`` with counter
+    word ``c1 = 0``): bit-identical to it for counters below 2**32.  The
+    reference's ``_seed_keys`` reduces to the static seed here (the port
+    has no sweep path that traces seeds)."""
+    s_lo, s_hi = rng_mod.split_seed(seed)
+    return rng_mod.rand_u32_words(s_lo, s_hi, stream, counter32)
+
+
+def passive_lanes(model):
+    """[N] bool: the lane's model is passive (delivery only counts)."""
+    out = torch.zeros_like(model, dtype=torch.bool)
+    for m in sorted(PASSIVE_MODELS):
+        out |= model == m
+    return out
+
+
+def _pop_mask(p: LaneParams, passive, thi, tlo, kind, we_hi, we_lo):
+    """[N, K] bool: the head columns this iteration pops — the co-pop rule
+    (the reference's ``_build_iter.iter_body``).  Passive lanes co-pop any
+    prefix inside the window; active lanes may generate same-window events
+    (DELIVERY inserts) that the CPU heap pops before later queue entries,
+    so they co-pop only a same-instant prefix of PACKETs, or column 0
+    alone.  Rows are sorted, so either rule gives a row prefix."""
+    inside = pair_lt(thi, tlo, we_hi, we_lo)
+    if p.all_passive:
+        return inside
+    same_t = (thi == thi[:, :1]) & (tlo == tlo[:, :1])
+    pkt_prefix = torch.cumprod((kind == PACKET).to(i32), dim=1).bool()
+    first_col = (torch.arange(thi.shape[1], device=thi.device) == 0)[None, :]
+    allowed = passive[:, None] | (same_t & (pkt_prefix | first_col))
+    return inside & allowed
+
+
 def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
-                  we_hi, we_lo, lanes):
-    """The passive slot law on one popped column (all lanes, masked by
-    kind); ``v`` holds the [N] state vectors and is updated in place.
-    Returns the column's arm, outbound and record channels.  Mirrors the
+                  we_hi, we_lo, lanes, lw: dict):
+    """The slot law on one popped column (all lanes, masked by kind and
+    model); ``v`` holds the [N] state vectors and ``min_used_lat``, and the
+    law rebinds its entries to new tensors (it never writes into them).
+    ``lw`` holds per-lane constants of the iteration (``passive``, the
+    lanes' PACKET and LOCAL key words).  Returns the column's
+    DELIVERY-insert, re-arm, outbound and record channels.  Mirrors the
     reference's ``_process_slot`` for the ported models."""
     n = p.n_lanes
     thi, tlo = col["thi"], col["tlo"]
@@ -425,65 +519,129 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     active = col["act"]
     model = tb.model
     interval = p.bucket_interval
+    passive = lw["passive"]
+    false_n = torch.zeros_like(active)
+    # the laws below are masked: a law whose mask is empty in this column
+    # changes nothing and is skipped (its outputs are then never read)
 
-    # ---- PACKET pops: down bucket + CoDel, delivered inline -------------
+    # ---- PACKET pops: down bucket + CoDel -------------------------------
     is_pkt = active & (kind == PACKET)
-    bits = (size + FRAME_OVERHEAD_BYTES) * 8
-    (v["dn_tokens"], v["dn_nr_hi"], v["dn_nr_lo"], v["dn_ld_hi"],
-     v["dn_ld_lo"], td_hi, td_lo, _dn_wait) = bucket_charge_vec(
-        v["dn_tokens"], v["dn_nr_hi"], v["dn_nr_lo"], v["dn_ld_hi"],
-        v["dn_ld_lo"], tb.dn_rate, tb.dn_burst, tb.dn_kfull, tb.dn_kfi,
-        thi, tlo, bits, is_pkt, interval,
-    )
-    sojourn = pair_sub_clamp(td_hi, td_lo, thi, tlo, NEVER32)
-    (v["cd_fat_hi"], v["cd_fat_lo"], v["cd_dnext_hi"], v["cd_dnext_lo"],
-     v["cd_drop_count"], v["cd_dropping"], codel_drop) = codel_offer_arrays(
-        v["cd_fat_hi"], v["cd_fat_lo"], v["cd_dnext_hi"], v["cd_dnext_lo"],
-        v["cd_drop_count"], v["cd_dropping"], td_hi, td_lo, sojourn, is_pkt,
-        tb.codel_div,
-    )
+    td_hi, td_lo, codel_drop = thi, tlo, false_n
+    if bool(is_pkt.any()):
+        bits = (size + FRAME_OVERHEAD_BYTES) * 8
+        (v["dn_tokens"], v["dn_nr_hi"], v["dn_nr_lo"], v["dn_ld_hi"],
+         v["dn_ld_lo"], td_hi, td_lo, _dn_wait) = bucket_charge_vec(
+            v["dn_tokens"], v["dn_nr_hi"], v["dn_nr_lo"], v["dn_ld_hi"],
+            v["dn_ld_lo"], tb.dn_rate, tb.dn_burst, tb.dn_kfull, tb.dn_kfi,
+            thi, tlo, bits, is_pkt, interval,
+        )
+        sojourn = pair_sub_clamp(td_hi, td_lo, thi, tlo, NEVER32)
+        (v["cd_fat_hi"], v["cd_fat_lo"], v["cd_dnext_hi"], v["cd_dnext_lo"],
+         v["cd_drop_count"], v["cd_dropping"], codel_drop) = codel_offer_arrays(
+            v["cd_fat_hi"], v["cd_fat_lo"], v["cd_dnext_hi"], v["cd_dnext_lo"],
+            v["cd_drop_count"], v["cd_dropping"], td_hi, td_lo, sojourn,
+            is_pkt, tb.codel_div,
+        )
     deliver = is_pkt & ~codel_drop
     v["n_codel"] = v["n_codel"] + (is_pkt & codel_drop)
     v["n_delivered"] = v["n_delivered"] + deliver
-    # every ported model is passive: each counting app on the host adds
-    # the size (recv_mult apps; 0 on empty hosts)
+    # passive lanes consume the delivery inline: each counting app on the
+    # host adds the size (recv_mult apps; 0 on empty hosts).  Active lanes
+    # get a DELIVERY self-insert keyed by the packet's (src, seq)
     v["recv_bytes"] = v["recv_bytes"] + torch.where(
-        deliver, size * tb.recv_mult, 0)
+        deliver & passive, size * tb.recv_mult, 0)
+    ins = None  # a passive-only run has no insert channel
+    if not p.all_passive:
+        ins_valid = deliver & ~passive
+        ins = (
+            torch.where(ins_valid, td_hi, NEVER32),
+            torch.where(ins_valid, td_lo, NEVER32),
+            torch.where(ins_valid, pack_aux_hi(DELIVERY, src), 0),
+            torch.where(ins_valid, seq, 0),
+            torch.where(ins_valid, size, 0),
+        )
 
-    # ---- LOCAL pops: start markers (-1), anchors (-5), timer ticks ------
+    # ---- DELIVERY pops: phold sends on, the ping server echoes ----------
+    is_del = active & (kind == DELIVERY)
+    del_send_phold = is_del & (model == M_PHOLD)
+    del_send_echo = is_del & (model == M_PING_SERVER)
+    v["n_hops"] = v["n_hops"] + del_send_phold
+
+    # ---- LOCAL pops: start markers (-1), anchors (-5), timers -----------
+    # (phold's initial messages are size-0 LOCAL events: timers that send)
     is_loc = active & (kind == LOCAL)
     is_start = is_loc & (size == -1)
     is_timer = is_loc & (size >= 0)
+    loc_send_phold = is_timer & (model == M_PHOLD)
     mesh_tick = is_timer & (model == M_TGEN_MESH) & (n > 1)
     client_tick = is_timer & (model == M_TGEN_CLIENT)
-    do_send = mesh_tick | client_tick
+    ping_tick = is_timer & (model == M_PING_CLIENT) & (v["m_sent"] < tb.p_count)
+    send_phold = del_send_phold | loc_send_phold
+    do_send = send_phold | del_send_echo | mesh_tick | client_tick | ping_tick
 
+    # phold peer: an APP_STREAM draw at counter app_draws, consumed only
+    # where a phold send happens
+    if M_PHOLD in p.models_present and bool(send_phold.any()):
+        draw = rand_u32_lane(p.seed, lanes.to(i64) | rng_mod.APP_STREAM,
+                             v["app_draws"])
+        r = rng_mod.u32_below(draw, max(n - 1, 1))
+        phold_dst = lanes if n == 1 else ((lanes + 1 + r) % n).to(i32)
+        v["app_draws"] = v["app_draws"] + send_phold
+    else:
+        phold_dst = lanes
     mesh_off = v["m_peer_offset"] % max(n - 1, 1)
     mesh_dst = (lanes + 1 + mesh_off) % n
     v["m_peer_offset"] = v["m_peer_offset"] + torch.where(
         mesh_tick, tb.p_stride, 0)
-    v["m_sent"] = v["m_sent"] + client_tick
-    dst = torch.where(mesh_tick, mesh_dst, tb.p_peer)
-    out_size = tb.p_size
+    v["m_sent"] = v["m_sent"] + (client_tick | ping_tick)
+    dst = torch.where(
+        send_phold, phold_dst,
+        torch.where(del_send_echo, src,
+                    torch.where(mesh_tick, mesh_dst, tb.p_peer)))
+    out_size = torch.where(del_send_echo, size, tb.p_size)
 
     snd_seq = v["send_seq"]
     v["send_seq"] = v["send_seq"] + do_send
     v["n_sends"] = v["n_sends"] + do_send
 
-    out_bits = (out_size + FRAME_OVERHEAD_BYTES) * 8
-    (v["up_tokens"], v["up_nr_hi"], v["up_nr_lo"], v["up_ld_hi"],
-     v["up_ld_lo"], dep_hi, dep_lo, _up_wait) = bucket_charge_vec(
-        v["up_tokens"], v["up_nr_hi"], v["up_nr_lo"], v["up_ld_hi"],
-        v["up_ld_lo"], tb.up_rate, tb.up_burst, tb.up_kfull, tb.up_kfi,
-        thi, tlo, out_bits, do_send, interval,
-    )
-    lat = tb.lat[tb.node_of.long(), tb.node_of[dst.long()].long()]
+    any_send = bool(do_send.any())
+    dep_hi, dep_lo = thi, tlo
+    if any_send:
+        out_bits = (out_size + FRAME_OVERHEAD_BYTES) * 8
+        (v["up_tokens"], v["up_nr_hi"], v["up_nr_lo"], v["up_ld_hi"],
+         v["up_ld_lo"], dep_hi, dep_lo, _up_wait) = bucket_charge_vec(
+            v["up_tokens"], v["up_nr_hi"], v["up_nr_lo"], v["up_ld_hi"],
+            v["up_ld_lo"], tb.up_rate, tb.up_burst, tb.up_kfull, tb.up_kfi,
+            thi, tlo, out_bits, do_send, interval,
+        )
+    my_node = tb.node_of.long()
+    dst_node = tb.node_of[dst.long()].long()
+    lat = tb.lat[my_node, dst_node]
+
+    # loss: a LOSS_STREAM draw at counter = the send's sequence number;
+    # sends before bootstrap_end are never lost
+    if p.has_loss and any_send:
+        u = rand_u32_lane(p.seed, lanes.to(i64) | rng_mod.LOSS_STREAM,
+                          snd_seq)
+        bs_hi, bs_lo = p.bootstrap_end >> 31, p.bootstrap_end & MASK31
+        lost = (do_send & pair_ge(thi, tlo, bs_hi, bs_lo)
+                & (u < tb.thresh[my_node, dst_node]))
+        v["n_loss"] = v["n_loss"] + lost
+    else:
+        lost = false_n
+    if p.dynamic_runahead and any_send:
+        # every send counts, lost or not (the CPU law records the path
+        # before the loss draw)
+        v["min_used_lat"] = torch.minimum(
+            v["min_used_lat"], torch.where(do_send, lat, NEVER32).min())
     arr_hi, arr_lo = pair_max(*pair_add32(dep_hi, dep_lo, lat), we_hi, we_lo)
+    out_valid = do_send & ~lost
 
     # ---- timer re-arm ----------------------------------------------------
-    has_timer = (model == M_TGEN_MESH) | (model == M_TGEN_CLIENT)
+    has_timer = ((model == M_TGEN_MESH) | (model == M_TGEN_CLIENT)
+                 | (model == M_PING_CLIENT))
     rearm = (
-        (is_start & has_timer) | mesh_tick | client_tick
+        (is_start & has_timer) | mesh_tick | client_tick | ping_tick
         | (is_timer & (model == M_TGEN_MESH) & (n == 1))
     )
     ti_hi, ti_lo = pair_add_pair(thi, tlo, tb.p_int_hi, tb.p_int_lo)
@@ -493,52 +651,66 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     zero = torch.zeros_like(lanes)
     arm = (
         torch.where(rearm, ti_hi, NEVER32), torch.where(rearm, ti_lo, NEVER32),
-        pack_aux_hi(LOCAL, lanes), arm_auxl, zero,
+        lw["loc_auxh"], arm_auxl, zero,
     )
     out = (
-        torch.where(do_send, dst, n),
-        torch.where(do_send, arr_hi, NEVER32),
-        torch.where(do_send, arr_lo, NEVER32),
-        torch.where(do_send, pack_aux_hi(PACKET, lanes), 0),
-        torch.where(do_send, snd_seq, 0),
-        torch.where(do_send, out_size, 0),
+        torch.where(out_valid, dst, n),
+        torch.where(out_valid, arr_hi, NEVER32),
+        torch.where(out_valid, arr_lo, NEVER32),
+        torch.where(out_valid, lw["pkt_auxh"], 0),
+        torch.where(out_valid, snd_seq, 0),
+        torch.where(out_valid, out_size, 0),
     )
-    # packet outcome record (zeros where no packet was popped)
-    outcome = torch.where(codel_drop, DROP_CODEL, DELIVERED)
+    # one record per slot: the popped packet's outcome, or the send's loss
+    # (zeros where neither)
     rec = torch.stack([
-        t_join(td_hi, td_lo), src.to(i64), lanes.to(i64), seq.to(i64),
-        size.to(i64), outcome.to(i64),
+        torch.where(is_pkt, t_join(td_hi, td_lo), t_join(thi, tlo)),
+        torch.where(is_pkt, src, lanes).to(i64),
+        torch.where(is_pkt, lanes, dst).to(i64),
+        torch.where(is_pkt, seq, snd_seq).to(i64),
+        torch.where(is_pkt, size, out_size).to(i64),
+        torch.where(is_pkt, torch.where(codel_drop, DROP_CODEL, DELIVERED),
+                    DROP_LOSS).to(i64),
     ], dim=1)
-    rec = torch.where(is_pkt[:, None], rec, 0)
-    return arm, out, rec, is_pkt
+    rec_valid = is_pkt | lost
+    rec = torch.where(rec_valid[:, None], rec, 0)
+    return ins, arm, out, rec, rec_valid
 
 
 def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
                      ws: Workspace) -> None:
-    """Kernel A, plain: pop up to K events per lane inside the window and
-    run the passive slot law on each, in slot order.  Consumed slots
-    become NEVER in place; the state vectors are updated in place; the
-    self, outbound and record blocks go to ``ws``."""
+    """Kernel A, plain: pop up to K events per lane inside the window under
+    the co-pop rule and run the slot law on each, in slot order.  Consumed
+    slots become NEVER in place; the state vectors are updated in place;
+    the self, outbound and record blocks go to ``ws``."""
     if not int(ws.ctl[0]):
         return
     n, k = p.n_lanes, p.pops_per_iter
+    arm0 = 0 if p.all_passive else k  # first re-arm column of the self block
     lanes = torch.arange(n, dtype=i32, device=s.q_thi.device)
     thi = s.q_thi[:, :k].clone()
     tlo = s.q_tlo[:, :k].clone()
-    # every lane is passive: it co-pops any prefix inside the window
-    act = pair_lt(thi, tlo, s.now_we_hi, s.now_we_lo)
+    kind, src = unpack_aux_hi(s.q_auxh[:, :k])
+    lw = {"passive": passive_lanes(tb.model),
+          "loc_auxh": pack_aux_hi(LOCAL, lanes),
+          "pkt_auxh": pack_aux_hi(PACKET, lanes)}
+    act = _pop_mask(p, lw["passive"], thi, tlo, kind, s.now_we_hi, s.now_we_lo)
     s.q_thi[:, :k] = torch.where(act, NEVER32, thi)
     s.q_tlo[:, :k] = torch.where(act, NEVER32, tlo)
-    kind, src = unpack_aux_hi(s.q_auxh[:, :k])
-    v = {f: getattr(s, f).clone() for f in _SLOT_FIELDS}
-    rec_base = n * (k + p.cross_cap)
+    # the slot law rebinds v's entries to new tensors; the state's own
+    # tensors are written once, at the end
+    v = {f: getattr(s, f) for f in _SLOT_FIELDS + ("min_used_lat",)}
+    rec_base = n * (p.self_width + p.cross_cap)
     # pops are row prefixes: past the longest one no lane is active, the
     # state cannot change, and every emit is empty
     n_live = int(act.sum(dim=1).max()) if n else 0
     for j in range(n_live, k):
-        ws.self_blk[:2, :, j] = NEVER32
-        ws.self_blk[2, :, j] = pack_aux_hi(LOCAL, lanes)
-        ws.self_blk[4, :, j] = 0
+        if not p.all_passive:
+            ws.self_blk[:2, :, j] = NEVER32
+            ws.self_blk[2:, :, j] = 0
+        ws.self_blk[:2, :, arm0 + j] = NEVER32
+        ws.self_blk[2, :, arm0 + j] = lw["loc_auxh"]
+        ws.self_blk[4, :, arm0 + j] = 0
         ws.out_blk[:, j] = torch.tensor(
             [n, NEVER32, NEVER32, 0, 0, 0], dtype=i32, device=lanes.device
         )[:, None]
@@ -552,10 +724,12 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
             "src": src[:, j], "seq": s.q_auxl[:, j], "size": s.q_size[:, j],
             "act": act[:, j],
         }
-        arm, out, rec, rec_valid = _process_slot(
-            p, tb, v, col, s.now_we_hi, s.now_we_lo, lanes)
+        ins, arm, out, rec, rec_valid = _process_slot(
+            p, tb, v, col, s.now_we_hi, s.now_we_lo, lanes, lw)
         for w in range(5):
-            ws.self_blk[w, :, j] = arm[w]
+            if not p.all_passive:
+                ws.self_blk[w, :, j] = ins[w]
+            ws.self_blk[w, :, arm0 + j] = arm[w]
         for w in range(6):
             ws.out_blk[w, j] = out[w]
         if p.log_capacity:
@@ -563,9 +737,10 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
             ws.recs[rows] = rec
             ws.rec_valid[rows] = rec_valid.to(i32)
     for j in range(n_live, k):
-        ws.self_blk[3, :, j] = v["local_seq"]
-    for f in _SLOT_FIELDS:
-        getattr(s, f).copy_(v[f])
+        ws.self_blk[3, :, arm0 + j] = v["local_seq"]
+    for f, t in v.items():
+        if t is not getattr(s, f):
+            getattr(s, f).copy_(t)
 
 
 def _key_order(thi, tlo, auxh, auxl):
@@ -586,12 +761,13 @@ def exchange_merge_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
     Outbound entries are grouped by destination in (slot, source lane)
     order; each lane takes the first Cx of its group as its cross block
     and counts the rest as shed (``n_queue``).  Then each row of
-    ``[queue C | self K | cross Cx]`` is sorted by the event key, ties in
+    ``[queue C | self S | cross Cx]`` is sorted by the event key, ties in
     index order, and the first C kept; real events past column C are
     queue overflow (``n_queue``, and DROP_QUEUE records when logging)."""
     if not int(ws.ctl[0]):
         return
     n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
+    tail_w = p.self_width + cx
     dev = s.q_thi.device
     out = ws.out_blk.reshape(6, k * n)
     dst = out[0].long()
@@ -626,9 +802,20 @@ def exchange_merge_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
             tail[4].to(i64), torch.full_like(rows, DROP_QUEUE),
         ], dim=2)
         rec = torch.where(tail_valid[:, :, None], rec, 0)
-        ws.recs[: n * (k + cx)] = rec.reshape(-1, 6)
-        ws.rec_valid[: n * (k + cx)] = tail_valid.reshape(-1).to(i32)
+        ws.recs[: n * tail_w] = rec.reshape(-1, 6)
+        ws.rec_valid[: n * tail_w] = tail_valid.reshape(-1).to(i32)
     s.iters.add_(1)
+
+
+def effective_runahead(p: LaneParams, min_used_lat):
+    """The window width (the reference's ``_effective_runahead``): the
+    static runahead, or with dynamic runahead the smallest latency sent
+    over so far, never below the floor (the static value until a send)."""
+    if not p.dynamic_runahead:
+        return p.runahead
+    return torch.where(
+        min_used_lat == NEVER32, p.runahead,
+        torch.clamp(min_used_lat, min=max(p.runahead_floor, 1)))
 
 
 def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
@@ -636,14 +823,15 @@ def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
     """Kernel C, plain: the earliest head over all queues, then the window
     law.  With ``advance``, a live step whose head lies at or past the
     window end opens the next window ``[head, min(head + runahead,
-    stop))`` and counts a round.  Writes ``ctl = (live, in_window,
-    head_hi, head_lo)``."""
+    stop))`` and counts a round; the runahead is dynamic where the
+    parameters say so.  Writes ``ctl = (live, in_window, head_hi,
+    head_lo)``."""
     mh, ml = _pairs.pair_min_lanes(s.q_thi[:, 0], s.q_tlo[:, 0])
     stop_hi, stop_lo = p.stop_time >> 31, p.stop_time & MASK31
     live = pair_lt(mh, ml, stop_hi, stop_lo)
     if advance:
         fresh = live & pair_ge(mh, ml, s.now_we_hi, s.now_we_lo)
-        c_hi, c_lo = pair_add32(mh, ml, p.runahead)
+        c_hi, c_lo = pair_add32(mh, ml, effective_runahead(p, s.min_used_lat))
         stop_t = torch.tensor([stop_hi, stop_lo], dtype=i32, device=mh.device)
         c_hi, c_lo = pair_sel(pair_lt(c_hi, c_lo, stop_hi, stop_lo),
                               c_hi, c_lo, stop_t[0], stop_t[1])

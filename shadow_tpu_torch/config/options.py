@@ -3,16 +3,17 @@ trimmed to what the ported lane path reads.
 
     general:      { stop_time, seed, bootstrap_end_time }
     network:      { graph: { type: gml|1_gbit_switch, file|inline }, ... }
-    experimental: { runahead, network_backend, tpu_lane_queue_capacity,
-                    tpu_events_per_round, tpu_cross_capacity }
+    experimental: { runahead, use_dynamic_runahead, network_backend,
+                    tpu_lane_queue_capacity, tpu_events_per_round,
+                    tpu_cross_capacity }
     hosts:
       <hostname>:
         network_node_id: 0
         processes: [ { path, args, start_time } ]
 
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
-accepts but this slice cannot run yet (fault schedules, pcap capture,
-netobs, flowtrace, dynamic runahead, device-loop unrolling) raise
+accepts but the port cannot run yet (fault schedules, pcap capture,
+netobs, flowtrace, device-loop unrolling) raise
 :class:`LaneCompatError`, which names the JAX package as the way to run
 them.  ``network_backend: tpu`` selects the lane backend, as there.
 
@@ -59,7 +60,6 @@ class NetworkOptions:
 
 # experimental options this slice cannot run: name -> the value it can
 _UNPORTED_EXPERIMENTAL = {
-    "use_dynamic_runahead": False,
     "netobs": False,
     "flowtrace": False,
     "tpu_round_unroll": 1,
@@ -69,6 +69,9 @@ _UNPORTED_EXPERIMENTAL = {
 @dataclasses.dataclass
 class ExperimentalOptions:
     runahead: Optional[int] = stime.NANOS_PER_MILLI  # lower bound, ns
+    # the window widens to the smallest latency actually sent over so far,
+    # never below the runahead floor (runahead.rs:44-118)
+    use_dynamic_runahead: bool = False
     network_backend: str = "cpu"  # "cpu" | "tpu"
     tpu_lane_queue_capacity: int = 64  # per-host in-flight event slots (C)
     tpu_events_per_round: int = 8  # max pops per lane per iteration (K)

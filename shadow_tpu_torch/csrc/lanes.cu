@@ -1,9 +1,10 @@
-// The passive lane engine's four kernels for Hopper (sm_90a).
+// The lane engine's four kernels for Hopper (sm_90a), and the threefry
+// draw they share.
 //
 // Plain C interface, bound from shadow_tpu_torch/backend/kernels.py with
-// ctypes.  Every launcher takes one LaneBufs block (the device pointers of
-// the run's state, tables and workspace, built and checked once per run on
-// the Python side) and PyTorch's current stream, launches without
+// ctypes.  Every lane launcher takes one LaneBufs block (the device pointers
+// of the run's state, tables and workspace, built and checked once per run
+// on the Python side) and PyTorch's current stream, launches without
 // synchronising, and returns cudaGetLastError().
 //
 // Arithmetic: the lane state keeps the JAX reference's int32 (hi, lo) time
@@ -25,8 +26,9 @@ constexpr int64_t NEVER64 = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int64_t MASK31 = 0x7FFFFFFFLL;
 constexpr int32_t CD_UNSET = -2147483647;  // -(1 << 31) + 1
 
-constexpr int32_t PACKET = 0, LOCAL = 1;
-constexpr int32_t M_TGEN_MESH = 2, M_TGEN_CLIENT = 3;
+constexpr int32_t PACKET = 0, LOCAL = 1, DELIVERY = 2;
+constexpr int32_t M_NONE = 0, M_PHOLD = 1, M_TGEN_MESH = 2, M_TGEN_CLIENT = 3,
+                  M_TGEN_SERVER = 4, M_PING_CLIENT = 5, M_PING_SERVER = 6;
 constexpr int AUX_SRC_SHIFT = 12, AUX_KIND_SHIFT = 29;
 constexpr int32_t SRC_MASK = (1 << 17) - 1;
 
@@ -35,7 +37,11 @@ constexpr int64_t INTERVAL_NS = 100000000LL;  // CoDel interval, 100 ms
 constexpr int32_t DIV_LAST = 1024;            // codel_div has 1025 entries
 constexpr int32_t FRAME_OVERHEAD_BYTES = 24;
 
-constexpr int64_t DELIVERED = 0, DROP_CODEL = 2, DROP_QUEUE = 3;
+constexpr int64_t DELIVERED = 0, DROP_LOSS = 1, DROP_CODEL = 2,
+                  DROP_QUEUE = 3;
+
+// threefry stream ids (core/rng.py)
+constexpr uint32_t LOSS_STREAM = 1u << 30, APP_STREAM = 2u << 30;
 
 }  // namespace
 
@@ -44,27 +50,32 @@ constexpr int64_t DELIVERED = 0, DROP_CODEL = 2, DROP_QUEUE = 3;
 struct LaneBufs {
   // LaneState
   int32_t *q_thi, *q_tlo, *q_auxh, *q_auxl, *q_size;
-  int32_t *send_seq, *local_seq;
+  int32_t *send_seq, *local_seq, *app_draws;
   int32_t *up_tokens, *up_nr_hi, *up_nr_lo, *up_ld_hi, *up_ld_lo;
   int32_t *dn_tokens, *dn_nr_hi, *dn_nr_lo, *dn_ld_hi, *dn_ld_lo;
   int32_t *cd_fat_hi, *cd_fat_lo, *cd_dnext_hi, *cd_dnext_lo, *cd_drop_count;
   uint8_t *cd_dropping;
   int32_t *m_sent, *m_peer_offset;
-  int32_t *n_delivered, *n_codel, *n_queue, *recv_bytes, *n_sends;
+  int32_t *n_delivered, *n_loss, *n_codel, *n_queue, *recv_bytes, *n_sends,
+      *n_hops;
   int64_t *log;
-  int32_t *log_count, *log_lost, *rounds, *iters, *now_we_hi, *now_we_lo;
+  int32_t *log_count, *log_lost, *rounds, *iters, *now_we_hi, *now_we_lo,
+      *min_used_lat;
   // LaneTables
   int32_t *node_of, *lat;
+  int64_t *thresh;
   int32_t *up_rate, *up_burst, *up_kfull, *up_kfi;
   int32_t *dn_rate, *dn_burst, *dn_kfull, *dn_kfi;
   int32_t *model, *recv_mult, *p_size, *p_int_hi, *p_int_lo, *p_peer,
-      *p_stride, *codel_div;
+      *p_count, *p_stride, *codel_div;
   // Workspace
   int32_t *ctl, *self_blk, *out_blk;
   int64_t *recs;
   int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order;
-  // sizes
-  int64_t n, c, k, cx, g, log_cap, stop, runahead, interval;
+  // sizes (sw: self block width, K or 2K) and run constants
+  int64_t n, c, k, cx, sw, g, log_cap, stop, runahead, interval;
+  int64_t seed_lo, seed_hi, bootstrap_end, has_loss, all_passive,
+      dyn_runahead, runahead_floor;
 };
 
 namespace {
@@ -86,6 +97,43 @@ __device__ __forceinline__ void split(int64_t v, int32_t* hi, int32_t* lo) {
     *hi = static_cast<int32_t>(v >> 31);
     *lo = static_cast<int32_t>(v & MASK31);
   }
+}
+
+// ---- threefry-2x32, 20 rounds (core/rng.py threefry2x32) ---------------------
+// Returns the first output word.  The rotations are funnel shifts; every add
+// wraps mod 2**32 as the reference's uint32 arithmetic does.
+__device__ __forceinline__ uint32_t rotl(uint32_t x, int d) {
+  return __funnelshift_l(x, x, d);
+}
+
+__device__ __forceinline__ uint32_t threefry2x32_x0(uint32_t ks0, uint32_t ks1,
+                                                   uint32_t c0, uint32_t c1) {
+  const uint32_t ks2 = ks0 ^ ks1 ^ 0x1BD11BDAu;
+  uint32_t x0 = c0 + ks0, x1 = c1 + ks1;
+#define TF_ROUND(r) \
+  x0 += x1;         \
+  x1 = rotl(x1, r); \
+  x1 ^= x0;
+#define TF_GROUP_A TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+#define TF_GROUP_B TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  TF_GROUP_A x0 += ks1; x1 += ks2 + 1u;
+  TF_GROUP_B x0 += ks2; x1 += ks0 + 2u;
+  TF_GROUP_A x0 += ks0; x1 += ks1 + 3u;
+  TF_GROUP_B x0 += ks1; x1 += ks2 + 4u;
+  TF_GROUP_A x0 += ks2; x1 += ks0 + 5u;
+#undef TF_GROUP_B
+#undef TF_GROUP_A
+#undef TF_ROUND
+  return x0;
+}
+
+// The lane engine's draw (lanes.py rand_u32_lane): key (seed lo, stream ^
+// seed hi), counter (counter, 0).
+__device__ __forceinline__ uint32_t lane_draw(uint32_t seed_lo,
+                                              uint32_t seed_hi,
+                                              uint32_t stream,
+                                              uint32_t counter) {
+  return threefry2x32_x0(seed_lo, stream ^ seed_hi, counter, 0u);
 }
 
 struct Bucket {
@@ -187,18 +235,25 @@ __device__ bool codel_offer(int32_t& fat_hi, int32_t& fat_lo, int64_t& dn,
 
 // ---- kernel A: lane_slots ---------------------------------------------------
 // One thread per lane walks its first K queue columns in registers: the
-// co-pop rule (every lane is passive: any prefix inside the window), the
-// down bucket + CoDel + inline delivery for PACKET pops, the tgen tick (peer,
-// up bucket, latency gather, arrival) and the timer re-arm for LOCAL pops.
+// co-pop rule, then the slot law on each popped column — down bucket +
+// CoDel for PACKET pops, delivered inline on passive lanes or as a DELIVERY
+// self-insert on active ones; the app sends (tgen ticks, phold hops to a
+// threefry peer, ping requests and echoes) with the up bucket, the latency
+// gather and the threefry loss draw; the timer re-arms.
 __global__ void lane_slots_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   const int64_t n = b.n;
   if (i >= n) return;
-  const int64_t c = b.c, k = b.k;
+  const int64_t c = b.c, k = b.k, sw = b.sw;
   const int32_t interval = static_cast<int32_t>(b.interval);
   const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
   const int32_t lane = static_cast<int32_t>(i);
+  const bool all_passive = b.all_passive != 0;
+  const bool has_loss = b.has_loss != 0;
+  const bool dyn = b.dyn_runahead != 0;
+  const uint32_t seed_lo = static_cast<uint32_t>(b.seed_lo);
+  const uint32_t seed_hi = static_cast<uint32_t>(b.seed_hi);
 
   Bucket dn{b.dn_tokens[i], join_raw(b.dn_nr_hi[i], b.dn_nr_lo[i]),
             join_raw(b.dn_ld_hi[i], b.dn_ld_lo[i])};
@@ -209,34 +264,55 @@ __global__ void lane_slots_kernel(LaneBufs b) {
   int32_t dcount = b.cd_drop_count[i];
   uint8_t dropping = b.cd_dropping[i];
   int32_t send_seq = b.send_seq[i], local_seq = b.local_seq[i];
+  int32_t app_draws = b.app_draws[i];
   int32_t m_sent = b.m_sent[i], peer_off = b.m_peer_offset[i];
   int32_t n_del = b.n_delivered[i], n_codel = b.n_codel[i];
+  int32_t n_loss = b.n_loss[i], n_hops = b.n_hops[i];
   int32_t recv = b.recv_bytes[i], n_sends = b.n_sends[i];
+  int32_t min_lat = NEVER32;
 
   const int32_t model = b.model[i];
+  const bool passive = model == M_NONE || model == M_TGEN_MESH ||
+                       model == M_TGEN_CLIENT || model == M_TGEN_SERVER;
   const int32_t recv_mult = b.recv_mult[i];
   const int32_t p_size = b.p_size[i];
+  const int32_t p_count = b.p_count[i];
   const int64_t p_int = join_raw(b.p_int_hi[i], b.p_int_lo[i]);
   const int32_t my_node = b.node_of[i];
   const bool mesh = model == M_TGEN_MESH, client = model == M_TGEN_CLIENT;
+  const bool phold = model == M_PHOLD;
+  const bool ping_cl = model == M_PING_CLIENT;
+  const bool ping_sv = model == M_PING_SERVER;
   const int32_t lane_pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
   const int32_t lane_loc_auxh = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-  const int64_t rec_base = n * (k + b.cx);
+  const int64_t rec_base = n * (sw + b.cx);
+  const int64_t nk = n * k, nsw = n * sw;
+  const int64_t arm0 = all_passive ? 0 : k;  // first re-arm column
+
+  // co-pop rule: passive lanes pop any prefix inside the window; active
+  // lanes only a same-instant prefix of PACKETs, or column 0 alone
+  const int32_t head_hi = b.q_thi[i * c], head_lo = b.q_tlo[i * c];
+  bool pkt_prefix = true;
 
   for (int64_t j = 0; j < k; ++j) {
     const int64_t qi = i * c + j;
     const int32_t thi = b.q_thi[qi], tlo = b.q_tlo[qi];
     const int64_t t = join_t(thi, tlo);
-    const bool act = t < we;
+    const int32_t auxh = b.q_auxh[qi], seq = b.q_auxl[qi], size = b.q_size[qi];
+    const int32_t kind = auxh >> AUX_KIND_SHIFT;
+    const int32_t src = (auxh >> AUX_SRC_SHIFT) & SRC_MASK;
+    bool allowed = true;
+    if (!all_passive && !passive) {
+      pkt_prefix = pkt_prefix && kind == PACKET;
+      allowed = j == 0 || (thi == head_hi && tlo == head_lo && pkt_prefix);
+    }
+    const bool act = allowed && t < we;
     if (act) {
       b.q_thi[qi] = NEVER32;
       b.q_tlo[qi] = NEVER32;
     }
-    const int32_t auxh = b.q_auxh[qi], seq = b.q_auxl[qi], size = b.q_size[qi];
-    const int32_t kind = auxh >> AUX_KIND_SHIFT;
-    const int32_t src = (auxh >> AUX_SRC_SHIFT) & SRC_MASK;
 
-    // PACKET: down bucket, CoDel, inline (passive) delivery
+    // PACKET: down bucket, CoDel
     const bool is_pkt = act && kind == PACKET;
     const int64_t td = bucket_charge(dn, b.dn_rate[i], b.dn_burst[i],
                                      b.dn_kfull[i], b.dn_kfi[i], t,
@@ -251,27 +327,66 @@ __global__ void lane_slots_kernel(LaneBufs b) {
                                   sojourn, is_pkt, b.codel_div);
     const bool deliver = is_pkt && !drop;
     if (is_pkt && drop) n_codel += 1;
-    if (deliver) {
-      n_del += 1;
-      recv += size * recv_mult;
+    if (deliver) n_del += 1;
+    // passive lanes count inline; active lanes get a DELIVERY self-insert
+    // keyed by the packet's (src, seq)
+    if (deliver && passive) recv += size * recv_mult;
+    if (!all_passive) {
+      const int64_t si = i * sw + j;
+      const bool ins = deliver && !passive;
+      int32_t ins_hi = NEVER32, ins_lo = NEVER32;
+      if (ins) split(td, &ins_hi, &ins_lo);
+      b.self_blk[0 * nsw + si] = ins_hi;
+      b.self_blk[1 * nsw + si] = ins_lo;
+      b.self_blk[2 * nsw + si] =
+          ins ? (DELIVERY << AUX_KIND_SHIFT) | (src << AUX_SRC_SHIFT) : 0;
+      b.self_blk[3 * nsw + si] = ins ? seq : 0;
+      b.self_blk[4 * nsw + si] = ins ? size : 0;
     }
 
-    // LOCAL: start markers, timer ticks
+    // DELIVERY: phold sends on, the ping server echoes
+    const bool is_del = act && kind == DELIVERY;
+    const bool del_send_phold = is_del && phold;
+    const bool del_send_echo = is_del && ping_sv;
+    if (del_send_phold) n_hops += 1;
+
+    // LOCAL: start markers, anchors, timer ticks (phold's initial messages
+    // are size-0 timers that send)
     const bool is_loc = act && kind == LOCAL;
     const bool is_start = is_loc && size == -1;
     const bool is_timer = is_loc && size >= 0;
     const bool mesh_tick = is_timer && mesh && n > 1;
     const bool client_tick = is_timer && client;
-    const bool do_send = mesh_tick || client_tick;
+    const bool ping_tick = is_timer && ping_cl && m_sent < p_count;
+    const bool send_phold = del_send_phold || (is_timer && phold);
+    const bool do_send =
+        send_phold || del_send_echo || mesh_tick || client_tick || ping_tick;
 
     const int32_t nm1 = n > 1 ? static_cast<int32_t>(n - 1) : 1;
     int32_t off = peer_off % nm1;
     if (off < 0) off += nm1;  // floor modulo, as the reference's %
-    const int32_t dst = mesh_tick
-                            ? static_cast<int32_t>((i + 1 + off) % n)
-                            : b.p_peer[i];
+    int32_t dst = b.p_peer[i];
+    if (send_phold) {
+      // phold peer: an APP_STREAM draw at counter app_draws
+      if (n == 1) {
+        dst = lane;
+      } else {
+        const uint32_t u = lane_draw(seed_lo, seed_hi,
+                                     static_cast<uint32_t>(lane) | APP_STREAM,
+                                     static_cast<uint32_t>(app_draws));
+        const int64_t r = static_cast<int64_t>(
+            (static_cast<uint64_t>(u) * static_cast<uint64_t>(nm1)) >> 32);
+        dst = static_cast<int32_t>((i + 1 + r) % n);
+      }
+      app_draws += 1;
+    } else if (del_send_echo) {
+      dst = src;
+    } else if (mesh_tick) {
+      dst = static_cast<int32_t>((i + 1 + off) % n);
+    }
     if (mesh_tick) peer_off += b.p_stride[i];
-    if (client_tick) m_sent += 1;
+    if (client_tick || ping_tick) m_sent += 1;
+    const int32_t out_size = del_send_echo ? size : p_size;
     const int32_t snd_seq = send_seq;
     if (do_send) {
       send_seq += 1;
@@ -279,37 +394,48 @@ __global__ void lane_slots_kernel(LaneBufs b) {
     }
     const int64_t dep = bucket_charge(up, b.up_rate[i], b.up_burst[i],
                                       b.up_kfull[i], b.up_kfi[i], t,
-                                      (p_size + FRAME_OVERHEAD_BYTES) * 8,
+                                      (out_size + FRAME_OVERHEAD_BYTES) * 8,
                                       do_send, interval);
 
     // timer re-arm
-    const bool rearm = (is_start && (mesh || client)) || mesh_tick ||
-                       client_tick || (is_timer && mesh && n == 1);
-    const int64_t si = (i * k + j);
-    const int64_t nk = n * k;
+    const bool rearm = (is_start && (mesh || client || ping_cl)) || mesh_tick ||
+                       client_tick || ping_tick || (is_timer && mesh && n == 1);
+    const int64_t ai = i * sw + arm0 + j;
     int32_t arm_hi = NEVER32, arm_lo = NEVER32;
     if (rearm) split(t + p_int, &arm_hi, &arm_lo);
-    b.self_blk[0 * nk + si] = arm_hi;
-    b.self_blk[1 * nk + si] = arm_lo;
-    b.self_blk[2 * nk + si] = lane_loc_auxh;
-    b.self_blk[3 * nk + si] = local_seq;
-    b.self_blk[4 * nk + si] = 0;
+    b.self_blk[0 * nsw + ai] = arm_hi;
+    b.self_blk[1 * nsw + ai] = arm_lo;
+    b.self_blk[2 * nsw + ai] = lane_loc_auxh;
+    b.self_blk[3 * nsw + ai] = local_seq;
+    b.self_blk[4 * nsw + ai] = 0;
     if (rearm) local_seq += 1;
 
-    // outbound packet: arrival = max(depart + latency, window end)
+    // outbound packet: arrival = max(depart + latency, window end), unless
+    // the LOSS_STREAM draw at counter snd_seq loses it (never before
+    // bootstrap_end)
     const int64_t oi = j * n + i;
+    bool lost = false;
     if (do_send) {
-      const int32_t lat = b.lat[static_cast<int64_t>(my_node) * b.g + b.node_of[dst]];
+      const int64_t pair = static_cast<int64_t>(my_node) * b.g + b.node_of[dst];
+      const int32_t lat = b.lat[pair];
+      if (dyn) min_lat = lat < min_lat ? lat : min_lat;
+      if (has_loss && t >= b.bootstrap_end) {
+        const uint32_t u = lane_draw(seed_lo, seed_hi,
+                                     static_cast<uint32_t>(lane) | LOSS_STREAM,
+                                     static_cast<uint32_t>(snd_seq));
+        lost = static_cast<int64_t>(u) < b.thresh[pair];
+      }
+      if (lost) n_loss += 1;
       int64_t arr = dep + lat;
       if (arr < we) arr = we;
       int32_t a_hi, a_lo;
       split(arr, &a_hi, &a_lo);
-      b.out_blk[0 * nk + oi] = dst;
-      b.out_blk[1 * nk + oi] = a_hi;
-      b.out_blk[2 * nk + oi] = a_lo;
-      b.out_blk[3 * nk + oi] = lane_pkt_auxh;
-      b.out_blk[4 * nk + oi] = snd_seq;
-      b.out_blk[5 * nk + oi] = p_size;
+      b.out_blk[0 * nk + oi] = lost ? static_cast<int32_t>(n) : dst;
+      b.out_blk[1 * nk + oi] = lost ? NEVER32 : a_hi;
+      b.out_blk[2 * nk + oi] = lost ? NEVER32 : a_lo;
+      b.out_blk[3 * nk + oi] = lost ? 0 : lane_pkt_auxh;
+      b.out_blk[4 * nk + oi] = lost ? 0 : snd_seq;
+      b.out_blk[5 * nk + oi] = lost ? 0 : out_size;
     } else {
       b.out_blk[0 * nk + oi] = static_cast<int32_t>(n);
       b.out_blk[1 * nk + oi] = NEVER32;
@@ -319,7 +445,7 @@ __global__ void lane_slots_kernel(LaneBufs b) {
       b.out_blk[5 * nk + oi] = 0;
     }
 
-    // packet outcome record
+    // one record: the popped packet's outcome, or the send's loss
     if (b.log_cap > 0) {
       const int64_t r = rec_base + oi;
       int64_t* row = b.recs + r * 6;
@@ -330,10 +456,17 @@ __global__ void lane_slots_kernel(LaneBufs b) {
         row[3] = seq;
         row[4] = size;
         row[5] = drop ? DROP_CODEL : DELIVERED;
+      } else if (lost) {
+        row[0] = t;
+        row[1] = lane;
+        row[2] = dst;
+        row[3] = snd_seq;
+        row[4] = out_size;
+        row[5] = DROP_LOSS;
       } else {
         for (int w = 0; w < 6; ++w) row[w] = 0;
       }
-      b.rec_valid[r] = is_pkt ? 1 : 0;
+      b.rec_valid[r] = (is_pkt || lost) ? 1 : 0;
     }
   }
 
@@ -356,12 +489,18 @@ __global__ void lane_slots_kernel(LaneBufs b) {
   b.n_codel[i] = n_codel;
   b.recv_bytes[i] = recv;
   b.n_sends[i] = n_sends;
+  b.app_draws[i] = app_draws;
+  b.n_loss[i] = n_loss;
+  b.n_hops[i] = n_hops;
+  // the smallest latency sent over (exact: min is order-free)
+  if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
 }
 
 // ---- kernel B: exchange_merge -----------------------------------------------
 // A counting sort of the outbound block by destination (count, scan, place),
-// then one block per lane merges [queue C | self K | cross Cx] by the event
-// key in shared memory and keeps the first C.
+// then one block per lane merges [queue C | self S | cross Cx] by the event
+// key in shared memory and keeps the first C (S = sw: K re-arms, or K
+// DELIVERY inserts then K re-arms).
 
 __global__ void x_count_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
@@ -419,8 +558,8 @@ __global__ void merge_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   extern __shared__ int32_t sm[];
   const int64_t i = blockIdx.x;
-  const int64_t n = b.n, c = b.c, k = b.k, cx = b.cx;
-  const int64_t w_all = c + k + cx, tail = k + cx, nk = n * k;
+  const int64_t n = b.n, c = b.c, k = b.k, cx = b.cx, sw = b.sw;
+  const int64_t w_all = c + sw + cx, tail = sw + cx, nk = n * k, nsw = n * sw;
   int32_t* e = sm;                  // [W][5]
   int32_t* sel = sm + 5 * w_all;    // [Cx]
   __shared__ int32_t n_tail;
@@ -460,11 +599,11 @@ __global__ void merge_kernel(LaneBufs b) {
       ex[2] = b.q_auxh[qi];
       ex[3] = b.q_auxl[qi];
       ex[4] = b.q_size[qi];
-    } else if (x < c + k) {
-      const int64_t si = i * k + (x - c);
-      for (int w = 0; w < 5; ++w) ex[w] = b.self_blk[w * nk + si];
+    } else if (x < c + sw) {
+      const int64_t si = i * sw + (x - c);
+      for (int w = 0; w < 5; ++w) ex[w] = b.self_blk[w * nsw + si];
     } else {
-      const int64_t r = x - c - k;
+      const int64_t r = x - c - sw;
       if (r < take) {
         const int64_t m = sel[r];
         for (int w = 0; w < 5; ++w) ex[w] = b.out_blk[(w + 1) * nk + m];
@@ -526,7 +665,9 @@ __global__ void merge_kernel(LaneBufs b) {
 
 // ---- kernel C: queue_min_window ---------------------------------------------
 // One block: the lexicographic minimum of the queue heads (column 0 of every
-// sorted row), then the window law and the live flag.
+// sorted row), then the window law and the live flag.  With dynamic runahead
+// the window is the smallest latency sent over so far, never below the
+// floor (the static runahead until the first send).
 __global__ void queue_min_kernel(LaneBufs b, int advance) {
   __shared__ int64_t warp_min[32];
   int64_t m = NEVER64;
@@ -547,7 +688,13 @@ __global__ void queue_min_kernel(LaneBufs b, int advance) {
   const bool live = m < b.stop;
   int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
   if (advance && live && m >= we) {
-    int64_t end = m + b.runahead;
+    int64_t runahead = b.runahead;
+    if (b.dyn_runahead) {
+      const int32_t used = *b.min_used_lat;
+      if (used != NEVER32)
+        runahead = used > b.runahead_floor ? used : b.runahead_floor;
+    }
+    int64_t end = m + runahead;
     we = end < b.stop ? end : b.stop;
     split(we, b.now_we_hi, b.now_we_lo);
     *b.rounds += 1;
@@ -616,6 +763,18 @@ __global__ void append_log_kernel(LaneBufs b, int64_t n_rec) {
   }
 }
 
+// ---- rand_u32: the threefry draw alone, one thread per draw -----------------
+// One master seed's key words; stream and counter words in, first output
+// word out, all [m] uint32.
+__global__ void rand_u32_kernel(uint32_t seed_lo, uint32_t seed_hi,
+                                const uint32_t* stream,
+                                const uint32_t* counter, uint32_t* out,
+                                int64_t m) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= m) return;
+  out[i] = lane_draw(seed_lo, seed_hi, stream[i], counter[i]);
+}
+
 inline unsigned blocks_for(int64_t items, unsigned threads) {
   return static_cast<unsigned>((items + threads - 1) / threads);
 }
@@ -638,7 +797,7 @@ int exchange_merge(const LaneBufs* b, cudaStream_t stream) {
   x_count_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(*b);
   x_scan_kernel<<<1, 1024, 0, stream>>>(*b);
   x_place_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(*b);
-  const int64_t w_all = b->c + b->k + b->cx;
+  const int64_t w_all = b->c + b->sw + b->cx;
   int64_t threads = (w_all + 31) / 32 * 32;
   threads = threads < 256 ? threads : 256;
   const int smem = static_cast<int>((5 * w_all + b->cx) * sizeof(int32_t));
@@ -653,8 +812,17 @@ int queue_min_window(const LaneBufs* b, int advance, cudaStream_t stream) {
 }
 
 int append_log(const LaneBufs* b, cudaStream_t stream) {
-  const int64_t n_rec = b->n * (b->k + b->cx) + b->k * b->n;
+  const int64_t n_rec = b->n * (b->sw + b->cx) + b->k * b->n;
   append_log_kernel<<<1, LOG_THREADS, 0, stream>>>(*b, n_rec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int rand_u32(uint32_t seed_lo, uint32_t seed_hi, const uint32_t* stream_words,
+             const uint32_t* counter, uint32_t* out, int64_t m,
+             cudaStream_t stream) {
+  if (m > 0)
+    rand_u32_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(
+        seed_lo, seed_hi, stream_words, counter, out, m);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,6 +10,10 @@ server; the server counts.
 
 All three are passive receivers: delivery only bumps counters, so the lane
 engine applies it inline at packet arrival.
+
+``ping`` — ``--peer H`` sends ``--count`` echo requests, one every
+``--interval``; a peerless instance is the echo server, which bounces each
+request straight back.  Both are active: their deliveries run app logic.
 """
 
 from __future__ import annotations
@@ -62,3 +66,25 @@ class TgenServer:
     def from_args(cls, args: list[str]) -> "TgenServer":
         parse_kv_args(args, known=set())  # accepts no args
         return cls()
+
+
+@register_model("ping")
+class Ping:
+    """``--peer H --count K --interval I --size B``: send K echo requests;
+    a peerless instance is the echo server."""
+
+    def __init__(self, peer: str | None, count: int, interval_ns: int, size: int) -> None:
+        self.peer = peer
+        self.count_target = count
+        self.interval = interval_ns
+        self.size = size
+
+    @classmethod
+    def from_args(cls, args: list[str]) -> "Ping":
+        kv = parse_kv_args(args, known={"peer", "count", "interval", "size"})
+        return cls(
+            peer=kv.pop("peer", None),
+            count=int(kv.pop("count", 10)),
+            interval_ns=positive_interval(units.parse_time(kv.pop("interval", "1s")), "ping"),
+            size=int(kv.pop("size", 84)),
+        )

@@ -6,16 +6,18 @@ Behavior parity with the reference's ``src/main/network/graph/mod.rs``:
   target, latency, packet_loss]``; undirected graphs use each edge in both
   directions; a self-loop edge supplies the path properties between two hosts
   attached to the same node (graph/mod.rs:228-286).
-- Edge latency must be > 0.
-- Path latencies add; shortest paths minimize latency (graph/mod.rs:301-303).
+- Edge latency must be > 0; packet loss must be in [0, 1].
+- Path properties combine: latency adds, reliability multiplies
+  (``1-(1-a)(1-b)``, graph/mod.rs:321-322); shortest paths minimize latency
+  first, then loss (graph/mod.rs:301-303).
 - Routing can be all-pairs shortest paths or direct-edges-only
   (graph/mod.rs:181,228).
 - IPs are auto-assigned from 11.0.0.0/8 (graph/mod.rs:348).
 
-Routing resolves to a dense ``latency_ns[G, G]`` table, because every
-per-packet latency lookup on the lane backend is a gather into it.  This
-slice of the port runs loss-free graphs only: an edge with
-``packet_loss > 0`` is refused here, so no loss table exists.
+Routing resolves to dense ``latency_ns[G, G]`` and ``loss_threshold[G, G]``
+int64 tables (u64-domain Bernoulli thresholds, see ``core.rng.loss_threshold``),
+because every per-packet (latency, loss) lookup on the lane backend is a
+gather into them.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from typing import Optional
 import numpy as np
 
 from ..config import units
-from ..config.options import LaneCompatError
 from . import gml as gml_mod
 
 #: Built-in one-node graph (config ``type: 1_gbit_switch``), as upstream.
@@ -102,12 +103,6 @@ class NetworkGraph:
                 raise GraphError(
                     f"edge {e.source}->{e.target}: packet_loss not in [0,1]"
                 )
-            if e.packet_loss > 0.0:
-                raise LaneCompatError(
-                    f"edge {e.source}->{e.target}: packet_loss "
-                    f"{e.packet_loss} > 0; lossy graphs are not ported yet "
-                    "(use the shadow_tpu package)"
-                )
             if e.source not in self.id_to_index or e.target not in self.id_to_index:
                 raise GraphError(f"edge {e.source}->{e.target}: unknown node id")
         self._compile_routes(use_shortest_path)
@@ -173,6 +168,7 @@ class NetworkGraph:
     def _compile_routes(self, use_shortest_path: bool) -> None:
         g = len(self.nodes)
         lat = np.full((g, g), _UNREACHABLE, dtype=np.int64)
+        loss = np.zeros((g, g), dtype=np.float64)
         # direct edges (off-diagonal) and self-loops (diagonal)
         for e in self.edges:
             s, t = self.id_to_index[e.source], self.id_to_index[e.target]
@@ -183,15 +179,41 @@ class NetworkGraph:
                         f"more than one edge connecting node {e.source} to {e.target}"
                     )
                 lat[a, b] = e.latency_ns
-        if use_shortest_path and g > 1:
-            lat = self._all_pairs_shortest(lat)
-        self.latency_ns = lat
+                loss[a, b] = e.packet_loss
 
-    @staticmethod
-    def _all_pairs_shortest(direct_lat: np.ndarray) -> np.ndarray:
-        """All-pairs shortest paths by latency: scipy's C Dijkstra on exact
-        integer latencies (float64 is exact below 2**53 ns) with
-        predecessor reconstruction, so no float error reaches the table."""
+        if use_shortest_path and g > 1:
+            lat, loss = self._all_pairs_shortest(lat, loss)
+
+        self.latency_ns = lat
+        self.packet_loss = loss
+        # u64-domain thresholds for the device tables (int64 holds 2**32 fine;
+        # vectorized mirror of core.rng.loss_threshold)
+        self.loss_threshold = np.where(
+            loss <= 0.0,
+            np.int64(0),
+            np.where(
+                loss >= 1.0,
+                np.int64(1) << 32,
+                (loss * 4294967296.0).astype(np.int64),
+            ),
+        )
+
+    def _all_pairs_shortest(
+        self, direct_lat: np.ndarray, direct_loss: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """All-pairs shortest paths minimizing (latency, then loss).
+
+        Lossless graphs (the overwhelmingly common case) go through scipy's
+        C Dijkstra on exact integer latencies (float64 is exact below 2**53
+        ns ≈ 104 days) with predecessor reconstruction, so no float error
+        reaches the tables.  Graphs with lossy edges use an exact
+        tuple-weight ``(latency, -log reliability)`` Dijkstra so latency
+        ties genuinely break on loss — a float "epsilon" composite cannot
+        represent a sub-ns perturbation at ms latencies.
+        """
+        if (direct_loss > 0.0).any():
+            return self._all_pairs_shortest_lossy(direct_lat, direct_loss)
+
         from scipy.sparse import csr_matrix
         from scipy.sparse.csgraph import dijkstra
 
@@ -219,10 +241,50 @@ class NetworkGraph:
                     continue
                 base_lat = 0 if p == s else lat[s, p]
                 lat[s, v] = base_lat + direct_lat[p, v]
+        loss = np.zeros((g, g), dtype=np.float64)
         # keep self-loop (diagonal) direct properties: they model same-node
         # host-to-host paths and are not part of shortest-path routing
         np.fill_diagonal(lat, np.diag(direct_lat))
-        return lat
+        np.fill_diagonal(loss, np.diag(direct_loss))
+        return lat, loss
+
+    def _all_pairs_shortest_lossy(
+        self, direct_lat: np.ndarray, direct_loss: np.ndarray
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Exact (latency, then loss) Dijkstra with tuple weights."""
+        import heapq
+
+        g = direct_lat.shape[0]
+        adj: list[list[tuple[int, int, float]]] = [[] for _ in range(g)]
+        for i in range(g):
+            for j in range(g):
+                if i != j and direct_lat[i, j] != _UNREACHABLE:
+                    logloss = -math.log(max(1.0 - direct_loss[i, j], 1e-300))
+                    adj[i].append((j, int(direct_lat[i, j]), logloss))
+
+        lat = np.full((g, g), _UNREACHABLE, dtype=np.int64)
+        loss = np.zeros((g, g), dtype=np.float64)
+        for s in range(g):
+            best: dict[int, tuple[int, float]] = {s: (0, 0.0)}
+            done: set[int] = set()
+            heap: list[tuple[int, float, int]] = [(0, 0.0, s)]
+            while heap:
+                d_lat, d_log, u = heapq.heappop(heap)
+                if u in done:
+                    continue
+                done.add(u)
+                for v, w_lat, w_log in adj[u]:
+                    cand = (d_lat + w_lat, d_log + w_log)
+                    if v not in best or cand < best[v]:
+                        best[v] = cand
+                        heapq.heappush(heap, (cand[0], cand[1], v))
+            for v, (d_lat, d_log) in best.items():
+                if v != s:
+                    lat[s, v] = d_lat
+                    loss[s, v] = 1.0 - math.exp(-d_log)
+        np.fill_diagonal(lat, np.diag(direct_lat))
+        np.fill_diagonal(loss, np.diag(direct_loss))
+        return lat, loss
 
     def node_bandwidth(self, node_id: int) -> tuple[Optional[int], Optional[int]]:
         n = self.nodes[self.id_to_index[node_id]]
@@ -302,11 +364,11 @@ class RoutingInfo:
             raise GraphError("no routable path between any pair of used nodes")
         return int(lat[mask].min())
 
-    def device_tables(self) -> tuple[np.ndarray, np.ndarray]:
-        """(host_node_index[N], latency_ns[G,G]) ready to ship to the
-        device."""
+    def device_tables(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(host_node_index[N], latency_ns[G,G], loss_threshold[G,G]) ready
+        to ship to the device."""
         n = max(self.host_node_index) + 1
         idx = np.zeros(n, dtype=np.int32)
         for h, i in self.host_node_index.items():
             idx[h] = i
-        return idx, self.graph.latency_ns
+        return idx, self.graph.latency_ns, self.graph.loss_threshold

@@ -3,18 +3,27 @@
 ``GpuEngine(cfg, device="cpu")`` and ``TpuEngine`` build from the same
 config; every field the port carries must be equal, through the numpy
 bridge.  Integer data: the tolerance is exact equality.
+
+The loss thresholds are the one field kept in another layout: the
+reference's ``thresh_u32`` (uint32) and ``thresh_all`` (bool) pair is
+compared, through ``bridge.thresh_from_split``, with the port's int64
+``thresh`` — and both with ``loss_threshold`` of the graph's edge losses.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import test_lane_parity as lp_cfg
 from shadow_tpu.backend.tpu_engine import TpuEngine
 from shadow_tpu.config import presets as ref_presets
+from shadow_tpu.config.options import ConfigOptions as RefConfig
 from shadow_tpu_torch.backend import bridge
 from shadow_tpu_torch.backend.gpu_engine import GpuEngine
 from shadow_tpu_torch.backend.lanes import LaneState, LaneTables
 from shadow_tpu_torch.config import presets as port_presets
+from shadow_tpu_torch.config.options import ConfigOptions
+from shadow_tpu_torch.core.rng import loss_threshold
 
 
 def _graft(pkg):
@@ -27,15 +36,60 @@ def _star(pkg):
     return pkg.udp_star_config(16)
 
 
+def _yaml(text):
+    def make(pkg):
+        return (RefConfig if pkg is ref_presets else ConfigOptions).from_yaml(text)
+    return make
+
+
+# phold, lossy tgen with a bootstrap window, ping, and dynamic runahead
+# over a lossy two-node graph with a ping pair
+_ACTIVE = {
+    "phold": lp_cfg.PHOLD_SMALL,
+    "tgen_lossy_bootstrap": lp_cfg.TGEN_PAIR.replace(
+        "general: {stop_time: 300ms, seed: 3}",
+        "general: {stop_time: 300ms, seed: 3, bootstrap_end_time: 150ms}"),
+    "ping": lp_cfg.PING,
+    "dynamic_runahead_lossy": """
+general: {stop_time: 1s, seed: 18446744073709551615}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 host_bandwidth_up "100 Mbit" host_bandwidth_down "100 Mbit" ]
+        node [ id 1 host_bandwidth_up "100 Mbit" host_bandwidth_down "100 Mbit" ]
+        edge [ source 0 target 0 latency "2 ms" packet_loss 1.0 ]
+        edge [ source 0 target 1 latency "40 ms" packet_loss 0.01 ]
+        edge [ source 1 target 1 latency "2 ms" ]
+      ]
+experimental: {use_dynamic_runahead: true, runahead: 3ms}
+hosts:
+  a: {network_node_id: 0, processes: [{path: ping, args: "--peer b --count 3000000000 --interval 30ms"}]}
+  b: {network_node_id: 1, processes: [{path: ping}]}
+  c: {network_node_id: 0, processes: [{path: phold, args: [--messages, "0"]}]}
+""",
+}
+
+
 def _numpy(nt, fields):
     return {f: np.asarray(getattr(nt, f)) for f in fields}
 
 
-@pytest.mark.parametrize("make", [_graft, _star], ids=["graft", "udp_star16"])
+def _ref_tables(tb):
+    d = _numpy(tb, [f for f in LaneTables._fields if f != "thresh"])
+    d["thresh"] = bridge.thresh_from_split(tb.thresh_u32, tb.thresh_all)
+    return d
+
+
+@pytest.mark.parametrize(
+    "make", [_graft, _star] + [_yaml(t) for t in _ACTIVE.values()],
+    ids=["graft", "udp_star16"] + list(_ACTIVE))
 def test_tables_and_initial_state_match_reference(make):
     ref = TpuEngine(make(ref_presets), log_capacity=256)
     port = GpuEngine(make(port_presets), log_capacity=256, device="cpu")
-    ref_tb = _numpy(ref.tables, LaneTables._fields)
+    ref_tb = _ref_tables(ref.tables)
     port_tb = _numpy(port.tables, LaneTables._fields)
     for f in LaneTables._fields:
         np.testing.assert_array_equal(port_tb[f], ref_tb[f], err_msg=f)
@@ -46,12 +100,34 @@ def test_tables_and_initial_state_match_reference(make):
         np.testing.assert_array_equal(port_s[f], ref_s[f], err_msg=f)
         assert port_s[f].dtype == ref_s[f].dtype, f
     for f in ("n_lanes", "capacity", "pops_per_iter", "log_capacity",
-              "stop_time", "runahead", "bucket_interval", "cross_capacity"):
+              "stop_time", "runahead", "bucket_interval", "cross_capacity",
+              "seed", "bootstrap_end", "models_present", "all_passive",
+              "has_loss", "dynamic_runahead", "runahead_floor"):
         assert getattr(port.params, f) == getattr(ref.params, f), f
-    # the reference's dicts lift into the port's types unchanged
-    lifted = bridge.tables_from_numpy(ref_tb)
+    assert port.params.merge_width == port.params.capacity + (
+        1 if ref.params.all_passive else 2) * ref.params.pops_per_iter + (
+        ref.params.cross_cap)
+    # the reference's split thresholds lift into the port's int64 table
+    lifted = bridge.tables_from_numpy(_numpy(ref.tables, ref.tables._fields))
     for f in LaneTables._fields:
         assert torch.equal(getattr(lifted, f), getattr(port.tables, f)), f
+    # and that table is loss_threshold of each node pair's path loss
+    loss = port.routing.graph.packet_loss
+    want = np.vectorize(loss_threshold, otypes=[np.int64])(loss)
+    np.testing.assert_array_equal(port_tb["thresh"], want)
+
+
+def test_active_tables_carry_the_models():
+    """The phold, ping and loss columns really carry the config."""
+    phold = GpuEngine(ConfigOptions.from_yaml(lp_cfg.PHOLD_SMALL), device="cpu")
+    assert phold.tables.model.tolist() == [1, 1, 1]
+    assert phold.initial_state().local_seq.tolist() == [3, 3, 2]
+    assert not phold.params.all_passive and phold.params.draws
+    dyn = GpuEngine(ConfigOptions.from_yaml(_ACTIVE["dynamic_runahead_lossy"]),
+                    device="cpu")
+    assert dyn.tables.p_count.tolist() == [(1 << 31) - 1, 0, 0]
+    assert dyn.tables.thresh.tolist() == [[1 << 32, 42949672], [42949672, 0]]
+    assert dyn.params.runahead_floor == 3_000_000
 
 
 def test_state_bridge_round_trips():
@@ -88,16 +164,29 @@ hosts:
     ("hosts:", "faults: {events: [{at: 50ms, kind: link_down, source: 0, target: 0}]}\nhosts:"),
     ("hosts:", "experimental: {netobs: true}\nhosts:"),
     ("hosts:", "experimental: {flowtrace: true}\nhosts:"),
-    ("hosts:", "experimental: {use_dynamic_runahead: true}\nhosts:"),
     ("hosts:", "experimental: {tpu_round_unroll: 2}\nhosts:"),
     ("m: {count: 4,", "m: {count: 4, pcap_enabled: true,"),
-    ("path: tgen-mesh", "path: phold"),
-    ('latency "1 ms"', 'latency "1 ms" packet_loss 0.01'),
-], ids=["faults", "netobs", "flowtrace", "dynamic_runahead", "unroll",
-        "pcap", "phold", "lossy_edge"])
+    ("{path: tgen-mesh}", "{path: phold}, {path: phold}"),
+    ("path: tgen-mesh", "path: stream-client"),
+    ("path: tgen-mesh", "path: tgen-tcp-server"),
+], ids=["faults", "netobs", "flowtrace", "unroll", "pcap",
+        "multi_process_phold", "stream_client", "tgen_tcp_server"])
 def test_unported_configs_raise(edit):
     from shadow_tpu_torch.config.options import ConfigOptions, LaneCompatError
 
     assert GpuEngine(ConfigOptions.from_yaml(_MESH), device="cpu")
     with pytest.raises(LaneCompatError):
         GpuEngine(ConfigOptions.from_yaml(_MESH.replace(*edit)), device="cpu")
+
+
+@pytest.mark.parametrize("edit", [
+    ("hosts:", "experimental: {use_dynamic_runahead: true}\nhosts:"),
+    ("path: tgen-mesh", "path: phold"),
+    ('latency "1 ms"', 'latency "1 ms" packet_loss 0.01'),
+], ids=["dynamic_runahead", "phold", "lossy_edge"])
+def test_ported_configs_build(edit):
+    """What the first slice refused and this one runs."""
+    from shadow_tpu_torch.config.options import ConfigOptions
+
+    eng = GpuEngine(ConfigOptions.from_yaml(_MESH.replace(*edit)), device="cpu")
+    assert eng.params.n_lanes == 4
