@@ -25,17 +25,29 @@ Phases, in order (any failure exits nonzero and prints no result line):
    tgen mesh with logging, a CoDel bottleneck, a non-strict overflow, and
    small phold, lossy tgen, ping and dynamic-runahead configurations —
    equal event logs, counters and final states, word for word;
-8. full-width parity: PHOLD at 10,000 hosts for 50 sim ms and the lossy
-   flagship for 1 sim s, card against the CPU plain path — equal logs and
-   final states;
+8. full-width parity: PHOLD at 10,000 hosts for 50 sim ms, the lossy
+   flagship for 1 sim s and the mixed mesh for 100 sim ms, card against
+   the CPU plain path — equal logs and final states;
 9. the main paths, launch counts reset just before each and read just
-   after: ``flagship_mesh_config(10000)`` with the bench tuning (C=16,
+   after: the mixed TCP/UDP mesh (``mixed_flagship_config(10000)``:
+   9,800 tgen-mesh hosts and 100 one-to-one stream pairs of 2 MB,
+   untiered, C=48, K=4, Cx=8, strict), 5 sim s;
+   ``flagship_mesh_config(10000)`` with the bench tuning (C=16,
    K=2, Cx=8, strict), 1 sim s with logging and 10 sim s without;
    PHOLD at 10,000 hosts (``examples/phold.yaml`` with ``count: 10000``,
    default capacities), 10 sim s; the flagship with 1% loss on its edge,
-   10 sim s — all in device mode; counters held to the mesh's closed form,
-   PHOLD's message conservation and the loss count's 5-sigma band; every
-   kernel of each path launched.
+   10 sim s — all in device mode; counters held to the flows' byte
+   counts, the mesh's closed form, PHOLD's message conservation and the
+   loss count's 5-sigma band; every kernel of each path launched.
+
+Between 5 and 6, kernels A, B and E against their plain versions on
+seeded stream states (flows in every state, owned and stale RTOs,
+segments and foreign datagrams, losses on both sides of the bootstrap end,
+throttled bursts; the star's stream entries in B's exchange; E's rows
+overflowing); between 7 and 8, card/CPU parity on five stream configs
+(the pair, the lossy pair, the star, ``examples/cubic-vs-reno.yaml`` and a
+small mixed mesh, untiered) and ``examples/stream-tcp.yaml`` for 60 sim s,
+its first 1.5 sim s card against CPU.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -58,10 +70,13 @@ if not torch.cuda.is_available():
     sys.exit(1)
 
 from shadow_tpu_torch.backend import kernels, lanes  # noqa: E402
+from shadow_tpu_torch.backend import lanes_stream as lstr  # noqa: E402
 from shadow_tpu_torch.backend.gpu_engine import GpuEngine  # noqa: E402
+from shadow_tpu_torch.config import presets  # noqa: E402
 from shadow_tpu_torch.config.options import ConfigOptions  # noqa: E402
 from shadow_tpu_torch.config.presets import flagship_mesh_config  # noqa: E402
 from shadow_tpu_torch.core import rng as rng_mod  # noqa: E402
+from shadow_tpu_torch.net import ltcp  # noqa: E402
 from shadow_tpu_torch.net.token_bucket import bucket_params  # noqa: E402
 
 DEV = torch.device("cuda")
@@ -77,6 +92,8 @@ THREEFRY_OPS = 3 + 2 + 20 * 3 + 5 * 3
 N_FLAG, C_FLAG, K_FLAG, CX_FLAG = 10_000, 16, 2, 8
 # PHOLD at the package's default capacities (C=64, K=8, Cx = C)
 C_PHOLD, K_PHOLD = 64, 8
+# the mixed TCP/UDP mesh, untiered, at the reference's pre-tier queue shape
+C_MIX, K_MIX = 48, 4
 SEED = 20261017
 FAILED: list[str] = []
 
@@ -315,7 +332,7 @@ def random_exchange(p: lanes.LaneParams, ws: lanes.Workspace, rng) -> None:
         rng.integers(0, 1 << 20, (n, sw)),
         np.where(ins, rng.integers(28, 1500, (n, sw)), 0),
     ])
-    ws.self_blk.copy_(torch.as_tensor(self_blk.astype(np.int32), device=DEV))
+    ws.self_blk[:5].copy_(torch.as_tensor(self_blk.astype(np.int32), device=DEV))
 
 
 def run_pair(p, tb, s0, ws0, call, plain):
@@ -570,6 +587,298 @@ def check_active_kernels():
             log(f"queue_min_window active dyn={dyn}: equal")
 
 
+# ---- seeded stream states ----------------------------------------------------
+
+
+def mixed_mesh(sim_seconds=5):
+    """``mixed_flagship_config(10000)`` (BASELINE config #4 with streams: 9,800
+    tgen-mesh hosts, 100 one-to-one stream pairs of 2,000,000 bytes, one
+    1 Gbit switch, 10 ms latency, Cx=8), untiered, at the reference's
+    pre-tier queue shape C=48, K=4."""
+    cfg = presets.mixed_flagship_config(N_FLAG, sim_seconds=sim_seconds)
+    cfg.experimental.tpu_stream_tiered = False
+    cfg.experimental.tpu_lane_queue_capacity = C_MIX
+    cfg.experimental.tpu_events_per_round = K_MIX
+    return cfg
+
+
+def stream_flows(rng, s: int) -> np.ndarray:
+    """[2, S, F] flow matrices covering every state, recovery, RTO
+    back-off, both algorithms and windows near MAX_CWND_FP."""
+    m = 2 * s
+    f = np.zeros((m, lstr.N_COLS), dtype=np.int64)
+    f[:, lstr.C_STATE] = rng.integers(0, 7, m)
+    una = rng.integers(0, 40, m)
+    f[:, lstr.C_SND_UNA] = una
+    f[:, lstr.C_SND_NXT] = una + rng.integers(0, 30, m)
+    f[:, lstr.C_RCV_NXT] = rng.integers(0, 40, m)
+    f[:, lstr.C_CWND] = rng.choice(
+        [ltcp.FP, 3 * ltcp.FP + 17, 10 * ltcp.FP, ltcp.MAX_CWND_FP - 5,
+         ltcp.MAX_CWND_FP], m)
+    in_rec = rng.integers(0, 2, m)
+    f[:, lstr.C_IN_REC] = in_rec
+    f[:, lstr.C_SSTHRESH] = np.where(
+        in_rec, rng.choice([2 * ltcp.FP, 8 * ltcp.FP], m),
+        rng.choice([2 * ltcp.FP, 8 * ltcp.FP, ltcp.INIT_SSTHRESH_FP], m))
+    f[:, lstr.C_DUP_ACKS] = rng.integers(0, 4, m)
+    f[:, lstr.C_RECOVER] = una + rng.integers(0, 30, m)
+    f[:, lstr.C_MAX_SENT] = f[:, lstr.C_SND_NXT] + rng.integers(0, 5, m)
+    f[:, lstr.C_RTT_SEQ] = rng.choice([-1, 0, 5, 20, 45], m)
+    none = rng.random(m) < 0.3
+    srtt = rng.integers(1_000_000, 400_000_000, m)
+    f[:, lstr.C_SRTT_HI] = np.where(none, -1, srtt >> 31)
+    f[:, lstr.C_SRTT_LO] = np.where(none, 0, srtt & lanes.MASK31)
+    f[:, lstr.C_RTTVAR_HI], f[:, lstr.C_RTTVAR_LO] = pairs(
+        rng.integers(0, 200_000_000, m))
+    f[:, lstr.C_RTO_HI], f[:, lstr.C_RTO_LO] = pairs(rng.choice(
+        [ltcp.RTO_MIN, ltcp.RTO_INIT, 3_200_000_000, ltcp.RTO_MAX], m))
+    f[:, lstr.C_RTT_TS_HI], f[:, lstr.C_RTT_TS_LO] = pairs(
+        T0 - rng.integers(0, 900_000_000, m))
+    for hi, lo in ((lstr.C_RTODL_HI, lstr.C_RTODL_LO),
+                   (lstr.C_RTOEV_HI, lstr.C_RTOEV_LO)):
+        t = T0 + rng.integers(-200_000_000, 900_000_000, m)
+        never = rng.random(m) < 0.3
+        f[:, hi] = np.where(never, lanes.NEVER32, t >> 31)
+        f[:, lo] = np.where(never, lanes.NEVER32, t & lanes.MASK31)
+    f[:, lstr.C_TX_SEGS] = rng.integers(0, 1000, m)
+    f[:, lstr.C_RETRANS] = rng.integers(0, 100, m)
+    f[:, lstr.C_COMPLETED] = rng.integers(0, 2, m)
+    f[:, lstr.C_RX_SEGS] = rng.integers(0, 1000, m)
+    f[:, lstr.C_RX_BYTES] = rng.integers(0, 1 << 24, m)
+    f[:, lstr.C_WMAX] = rng.choice([0, 12 * ltcp.FP, ltcp.MAX_CWND_FP], m)
+    f[:, lstr.C_ORIGIN] = rng.choice([0, 20 * ltcp.FP], m)
+    none = rng.random(m) < 0.4
+    ep = T0 - rng.integers(0, 12_000_000_000, m)
+    f[:, lstr.C_EPOCH_HI] = np.where(none, lanes.NEVER32, ep >> 31)
+    f[:, lstr.C_EPOCH_LO] = np.where(none, lanes.NEVER32, ep & lanes.MASK31)
+    f[:, lstr.C_KQ] = rng.integers(0, 3000, m)
+    return f.reshape(2, s, lstr.N_COLS)
+
+
+def t32(a):
+    return torch.as_tensor(np.asarray(a, dtype=np.int32), device=DEV)
+
+
+def stream_case(eng: GpuEngine, rng):
+    """Params, tables and a state for kernel A on stream lanes beside mesh
+    lanes: flows in every state, queue heads that open flows, fire owned
+    and stale RTOs and carry segments (foreign zero-payload datagrams
+    too), loss thresholds 0, 2**31 and 2**32 per endpoint on both sides of
+    the bootstrap end, and 2 Mbit up buckets that throttle the bursts."""
+    p = dataclasses.replace(eng.params, has_loss=True,
+                            bootstrap_end=T0 + 1_500_000, seed=(1 << 64) - 5)
+    n, c, k, sf = p.n_lanes, p.capacity, p.pops_per_iter, p.s_flows
+    tb = eng.tables
+    el = tb.flow_lanes.cpu().numpy()
+    clid = tb.flow_clid.cpu().numpy()
+    peers = tb.flow_peers.cpu().numpy()
+    rate, burst = bucket_params(2_000_000)
+    up = {f: getattr(tb, f).cpu().numpy().copy()
+          for f in ("up_rate", "up_burst", "up_kfull", "up_kfi")}
+    up["up_rate"][el], up["up_burst"][el] = rate, burst
+    up["up_kfull"][el] = burst // rate + 1
+    up["up_kfi"][el] = (burst // rate + 1) * INTERVAL
+    tb = tb._replace(
+        **{f: t32(v) for f, v in up.items()},
+        **{"flow_" + f: t32(v[el]) for f, v in up.items()},
+        flow_thresh=torch.as_tensor(
+            rng.choice([0, 1 << 31, 1 << 32], 2 * sf), device=DEV))
+    s = random_state(eng, tb, rng)
+    # stream lanes' rows: events at T0 + {0..3} ms for the lane's endpoints
+    q = {f: getattr(s, f).cpu().numpy().copy()
+         for f in ("q_thi", "q_tlo", "q_auxh", "q_auxl", "q_size", "q_phi",
+                   "q_plo")}
+    flows = stream_flows(rng, sf).reshape(2 * sf, lstr.N_COLS)
+    rows_of = {}
+    for r, lane in enumerate(el):
+        rows_of.setdefault(int(lane), []).append(r)
+    for lane, rows in rows_of.items():
+        # a few events on two instants per row, the rows' instants on both
+        # sides of the bootstrap end
+        fill = int(rng.integers(1, 2 * k + 1))
+        times = np.full(c, lanes.NEVER, dtype=np.int64)
+        auxh = np.zeros(c, np.int64)
+        size = np.zeros(c, np.int64)
+        phi = np.zeros(c, np.int64)
+        plo = np.zeros(c, np.int64)
+        times[:fill] = T0 + (int(rng.integers(0, 4)) + rng.integers(
+            0, 2, fill)) * 1_000_000
+        for x in range(fill):
+            r = rows[int(rng.integers(0, len(rows)))]
+            what = rng.choice(["start", "rto", "seg", "seg", "foreign", "pkt"])
+            if what == "start":
+                auxh[x], size[x] = lanes.LOCAL << 29 | lane << 12, -1
+            elif what == "rto":
+                auxh[x], size[x], plo[x] = (lanes.LOCAL << 29 | lane << 12,
+                                            lstr.SZ_RTO, clid[r])
+                if rng.random() < 0.5:  # the flow owns this event
+                    flows[r, lstr.C_RTOEV_HI], flows[r, lstr.C_RTOEV_LO] = \
+                        pairs(times[x])
+            else:
+                kind = lanes.PACKET if what == "pkt" else lanes.DELIVERY
+                src = int(rng.integers(0, n)) if what == "foreign" else int(
+                    peers[r])
+                auxh[x] = kind << 29 | src << 12
+                size[x] = rng.choice([ltcp.HDR_BYTES, ltcp.HDR_BYTES + 1448])
+                if what != "foreign":
+                    flags = rng.choice([ltcp.F_SYN, ltcp.F_SYN | ltcp.F_ACK,
+                                        ltcp.F_ACK, ltcp.F_DATA | ltcp.F_ACK,
+                                        ltcp.F_FIN | ltcp.F_ACK])
+                    phi[x] = flags << 26 | int(rng.integers(0, 50))
+                    plo[x] = flows[r, lstr.C_SND_UNA] + rng.integers(-1, 12)
+        auxl = np.arange(c) + int(rng.integers(0, 1 << 20)) * c
+        order = np.lexsort((auxl, auxh, times))
+        never = times[order] == lanes.NEVER
+        q["q_thi"][lane] = np.where(never, lanes.NEVER32, times[order] >> 31)
+        q["q_tlo"][lane] = np.where(never, lanes.NEVER32,
+                                    times[order] & lanes.MASK31)
+        for f, v in (("q_auxh", auxh), ("q_auxl", auxl), ("q_size", size),
+                     ("q_phi", phi), ("q_plo", plo)):
+            q[f][lane] = v[order]
+    s = s._replace(**{f: t32(v) for f, v in q.items()},
+                   stream=t32(flows.reshape(2, sf, lstr.N_COLS)))
+    return p, tb, s
+
+
+def star_doc(servers: int = 50, fan_in: int = 4) -> dict:
+    """Stars at examples/stream-tcp.yaml's settings (40 ms, 2% loss, 1 MiB
+    flows), ``servers`` of them with ``fan_in`` clients each, C=64: the
+    star layout at a width where one seeded state reaches every case."""
+    doc = presets.stream_tcp_example_doc()
+    doc["experimental"] = {"tpu_lane_queue_capacity": 64}
+    doc["hosts"] = {}
+    for i in range(servers):
+        doc["hosts"][f"s{i:03d}"] = {"network_node_id": 1, "processes": [
+            {"path": "stream-server"}]}
+        for j in range(fan_in):
+            doc["hosts"][f"c{i:03d}x{j}"] = {"network_node_id": 0, "processes": [{
+                "path": "stream-client",
+                "args": ["--server", f"s{i:03d}", "--size", "1MiB"]}]}
+    return doc
+
+
+def sx_counts(p, sx: torch.Tensor) -> dict:
+    """Valid control sends, RTO arms and burst segments in a stream block."""
+    k, sf = p.pops_per_iter, p.s_flows
+    valid = (sx[1] != lanes.NEVER32).cpu()
+    return {"sends": int(valid[:2 * k * sf].sum()),
+            "rto_arms": int(valid[2 * k * sf:4 * k * sf].sum()),
+            "burst_segments": int(valid[4 * k * sf:].sum())}
+
+
+def random_stream_block(p, ws, rng, n_lanes_hot: int) -> None:
+    """A stream block of distinct keys: about half the entries valid, most
+    addressed to the first ``n_lanes_hot`` lanes (overflow past Cx)."""
+    m = ws.sx_blk.shape[1]
+    valid = rng.random(m) < 0.5
+    dst = np.where(rng.random(m) < 0.8, rng.integers(0, n_lanes_hot, m),
+                   rng.integers(0, p.n_lanes, m))
+    arr = T0 + 10_000_000 + rng.integers(0, 30_000_000, m)
+    src = rng.integers(0, p.n_lanes, m)
+    kind = rng.choice([lanes.PACKET, lanes.LOCAL], m)
+    blk = np.stack([
+        np.where(valid, dst, p.n_lanes),
+        np.where(valid, arr >> 31, lanes.NEVER32),
+        np.where(valid, arr & lanes.MASK31, lanes.NEVER32),
+        np.where(valid, kind << 29 | src << 12, 0),
+        np.where(valid, np.arange(m) + (1 << 25), 0),
+        np.where(valid, rng.integers(40, 1500, m), 0),
+        np.where(valid, rng.integers(0, 1 << 30, m), 0),
+        np.where(valid, rng.integers(0, 1 << 20, m), 0),
+    ])
+    ws.sx_blk.copy_(t32(blk))
+
+
+@phase("kernels A, B, E vs plain on seeded stream states (tolerance: exact, "
+       "integer)")
+def check_stream_kernels():
+    rng = np.random.default_rng(SEED + 2)
+    # A on the mixed mesh's lanes (one-to-one, wide pop) and on the star of
+    # examples/stream-tcp.yaml; logging off and on
+    engines = {"mixed": GpuEngine(mixed_mesh(1), log_capacity=0),
+               "star": GpuEngine(ConfigOptions.from_dict(star_doc()),
+                                 log_capacity=0)}
+    for name, eng in engines.items():
+        for log_cap in (0, 1_000_000):
+            for rep in range(2):
+                p, tb, s0 = stream_case(eng, rng)
+                p = dataclasses.replace(p, log_capacity=log_cap)
+                if log_cap:
+                    s0 = s0._replace(log=torch.zeros((log_cap, 6),
+                                                     dtype=torch.int64,
+                                                     device=DEV))
+                ws0 = lanes.make_workspace(p, DEV)
+                ws0.ctl[0] = 1
+                tag = f"{name} L={log_cap} rep={rep}"
+                kern, plain = run_pair(
+                    p, tb, s0, ws0, kernels.lane_slots,
+                    lambda p_, tb_, s, ws: lanes.lane_slots_plain(p_, tb_, s, ws))
+                check("lane_slots", f"stream {tag}", kern, plain)
+                moved = int((plain["stream"] != s0.stream).any(dim=2).sum())
+                got = sx_counts(p, plain["sx_blk"])
+                lost = int((plain["n_loss"] - s0.n_loss).sum())
+                throttled = int(((plain["up_ld_hi"] != s0.up_ld_hi)
+                                 | (plain["up_ld_lo"] != s0.up_ld_lo)).sum())
+                log(f"lane_slots stream {tag}: equal; flow rows changed "
+                    f"{moved}, {got}, losses {lost}, up departures moved "
+                    f"{throttled}")
+                if not (moved and got["sends"] and got["rto_arms"]
+                        and got["burst_segments"] and lost):
+                    raise AssertionError("stream inputs missed a case")
+    # B with the star's stream entries in the exchange, payload words on
+    star = engines["star"]
+    for log_cap in (0, 100_000):
+        p = dataclasses.replace(star.params, log_capacity=log_cap)
+        tb = star.tables
+        s0 = random_state(star, tb, rng)
+        live = s0.q_thi != lanes.NEVER32
+        s0 = s0._replace(
+            q_phi=torch.where(live, t32(rng.integers(0, 1 << 30, live.shape)), 0),
+            q_plo=torch.where(live, t32(rng.integers(0, 1 << 20, live.shape)), 0))
+        if log_cap:
+            s0 = s0._replace(log=torch.zeros((log_cap, 6), dtype=torch.int64,
+                                             device=DEV))
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        random_exchange(p, ws0, rng)
+        ws0.self_blk[5:] = t32(rng.integers(0, 1 << 30, ws0.self_blk[5:].shape))
+        random_stream_block(p, ws0, rng, 3)
+        kern, plain = run_pair(
+            p, tb, s0, ws0, kernels.exchange_merge,
+            lambda p_, tb_, s, ws: lanes.exchange_merge_plain(p_, s, ws))
+        check("exchange_merge", f"star L={log_cap}", kern, plain)
+        shed = int(plain["n_queue"].sum())
+        log(f"exchange_merge star L={log_cap}: equal on [C {p.capacity} | self "
+            f"{p.self_width} | cross {p.cross_cap}] rows of {p.words} words, "
+            f"{ws0.sx_blk.shape[1]} stream entries; shed {shed}")
+        if not shed:
+            raise AssertionError("star exchange missed the overflow case")
+    # E on the mixed mesh: stream lanes' rows nearly full, half the stream
+    # block valid, so rows overflow past C
+    mixed = engines["mixed"]
+    for log_cap in (0, 100_000):
+        p = dataclasses.replace(mixed.params, log_capacity=log_cap)
+        tb = mixed.tables
+        s0 = random_state(mixed, tb, rng)
+        if log_cap:
+            s0 = s0._replace(log=torch.zeros((log_cap, 6), dtype=torch.int64,
+                                             device=DEV))
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        random_stream_block(p, ws0, rng, p.n_lanes)
+        kern, plain = run_pair(
+            p, tb, s0, ws0, kernels.stream_rows_merge,
+            lambda p_, tb_, s, ws: lanes.stream_rows_merge_plain(p_, tb_, s, ws))
+        check("stream_rows_merge", f"L={log_cap}", kern, plain)
+        el = tb.flow_lanes.long()
+        shed = int(plain["n_queue"][el].sum() - s0.n_queue[el].sum())
+        log(f"stream_rows_merge L={log_cap}: equal on {2 * p.s_flows} rows of "
+            f"[C {p.capacity} | W_s {p.stream_row_width}] x {p.words} words; "
+            f"overflow {shed}")
+        if not shed:
+            raise AssertionError("stream rows missed the overflow case")
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -589,36 +898,55 @@ def _event_ms(fn, restore, reps: int) -> float:
 
 
 def kernel_bytes(p: lanes.LaneParams, tb, ws) -> dict:
-    """Bytes each kernel must move at these inputs (``ws`` after one A and
-    one B): every input read once, every output written once.  A logging
-    run writes every record slot's valid flag but only the valid rows: B
-    the merge tail's, A those of its popped slots."""
+    """Bytes each kernel must move at these inputs (``ws`` after one A, one
+    B and, in one-to-one stream configs, one E): every input read once,
+    every output written once.  A logging run writes every record slot's
+    valid flag but only the valid rows: B the merge tail's, E the split
+    tail's, A those of its popped slots and stream sends."""
     n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
-    sw = p.self_width
+    sw, words = p.self_width, p.words
     g = int(tb.lat.shape[0])
+    tail, slots, _srec, _brec, end = p.rec_offsets
     n_rec = ws.rec_valid.numel() if p.log_capacity else 0
-    tail = n * (sw + cx)  # the merge tail's record slots come first
     tail_rows = int(ws.rec_valid[:tail].sum()) if n_rec else 0
-    a_rows = int(ws.rec_valid[tail:].sum()) if n_rec else 0
+    split_rows = int(ws.rec_valid[tail:slots].sum()) if n_rec else 0
+    a_rows = int(ws.rec_valid[slots:].sum()) if n_rec else 0
     state_vec = (len(lanes._SLOT_FIELDS) - 1) * 4 + 1  # [N] words (+ the bool)
     tables = 17 * 4  # [N] table words read per lane
-    a_in = (n * (k * 5 * 4 + state_vec + tables) + g * g * (4 + 8)
+    a_in = (n * (k * words * 4 + state_vec + tables) + g * g * (4 + 8)
             + 1025 * 4 + 4 * 4)
-    a_out = n * (k * 2 * 4 + state_vec) + (5 * sw + 6 * k) * n * 4 + 4
+    a_out = n * (k * 2 * 4 + state_vec) + (words * sw + 6 * k) * n * 4 + 4
+    n_ent = p.stream_entries
+    if p.stream_present:
+        # the flow rows read and written, the [2S] flow tables (14 int32, the
+        # int64 threshold), the lane -> row table, the stream block written
+        s2 = 2 * p.s_flows
+        a_in += s2 * lstr.N_COLS * 4 + s2 * (14 * 4 + 8) + (n + 1 + s2) * 4
+        a_out += s2 * lstr.N_COLS * 4 + n_ent * 8 * 4
     if p.log_capacity:
-        a_out += k * n * 4 + a_rows * 6 * 8
-    b_in = n * c * 5 * 4 + 5 * n * sw * 4 + k * n * 4 + n * 4
-    b_in += int(ws.x_cnt.clamp(max=cx).sum()) * 5 * 4  # selected cross entries
-    b_out = n * c * 5 * 4 + n * 4
+        a_out += (end - slots) * 4 + a_rows * 6 * 8
+    x_ent = k * n + (0 if p.split else n_ent)
+    b_in = n * c * words * 4 + words * n * sw * 4 + x_ent * 4 + n * 4
+    # the selected cross entries (stream entries carry two more words)
+    b_in += int(ws.x_cnt.clamp(max=cx).sum()) * words * 4
+    b_out = n * c * words * 4 + n * 4
     if p.log_capacity:
         b_out += tail * 4 + tail_rows * 6 * 8
+    e_io = 0
+    if p.split:
+        s2 = 2 * p.s_flows
+        e_io = (2 * s2 * c * words * 4 + n_ent * 7 * 4 + 2 * s2 * 4
+                + s2 * 4)
+        if p.log_capacity:
+            e_io += (slots - tail) * 4 + split_rows * 6 * 8
     c_io = n * 8 + 4 * 4 + 6 * 4 + 4
-    d_in = n_rec * 4 + (tail_rows + a_rows) * 6 * 8
-    d_out = (tail_rows + a_rows) * 6 * 8 + 8
+    valid = tail_rows + split_rows + a_rows
+    d_in = n_rec * 4 + valid * 6 * 8
+    d_out = valid * 6 * 8 + 8
     return {
         "lane_slots": a_in + a_out, "exchange_merge": b_in + b_out,
-        "queue_min_window": c_io, "append_log": d_in + d_out,
-        "valid_records": tail_rows + a_rows,
+        "stream_rows_merge": e_io, "queue_min_window": c_io,
+        "append_log": d_in + d_out, "valid_records": valid,
     }
 
 
@@ -628,12 +956,14 @@ KERNEL_PARTS = {
     "lane_slots": ("lane_slots_kernel",),
     "exchange_merge": ("x_count_kernel", "x_scan_kernel", "x_place_kernel",
                        "merge_kernel", "Memset"),
+    "stream_rows_merge": ("stream_rows_kernel",),
     "queue_min_window": ("queue_min_kernel",),
     "append_log": ("append_log_kernel",),
 }
 
 
-def profile_steps(window, iteration, steps: int, logging: bool) -> dict:
+def profile_steps(window, iteration, steps: int, logging: bool,
+                  split: bool) -> dict:
     """Device time per step of each wrapper's kernels, from the profiler's
     CUDA activity over ``steps`` live steps of the device loop; {} when the
     profiler records no device time."""
@@ -646,7 +976,8 @@ def profile_steps(window, iteration, steps: int, logging: bool) -> dict:
             iteration()
         torch.cuda.synchronize()
     parts = {name: v for name, v in KERNEL_PARTS.items()
-             if logging or name != "append_log"}
+             if (logging or name != "append_log")
+             and (split or name != "stream_rows_merge")}
     totals = {name: 0.0 for name in parts}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
@@ -696,7 +1027,7 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         window(True)
         iteration()
     step_ms = loop_step_ms(window, iteration, ws_, 2)
-    prof_ms = profile_steps(window, iteration, 40, log_cap > 0)
+    prof_ms = profile_steps(window, iteration, 40, log_cap > 0, p.split)
     window(True)  # the next window, as the loop would open it
     torch.cuda.synchronize()
     snap_s, snap_ws = clone(s), clone(ws_)
@@ -708,9 +1039,11 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         for dst, src in zip(ws_, snap[1]):
             dst.copy_(src)
 
-    # inputs of B and D are A's outputs (and B's tail): stage them once
+    # inputs of B, E and D are A's outputs (and B's tail): stage them once
     kernels.lane_slots(args)
     kernels.exchange_merge(args)
+    if p.split:
+        kernels.stream_rows_merge(args)
     torch.cuda.synchronize()
     snap_mid = (clone(s), clone(ws_))
     nbytes = kernel_bytes(p, tb, ws_)
@@ -727,6 +1060,12 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
             restore, lambda: kernels.queue_min_window(args, True),
             lambda: lanes.queue_min_window_plain(p, s, ws_, True)),
     }
+    if p.split:
+        plan["stream_rows_merge"] = (
+            lambda: (restore(), kernels.lane_slots(args),
+                     kernels.exchange_merge(args)),
+            lambda: kernels.stream_rows_merge(args),
+            lambda: lanes.stream_rows_merge_plain(p, tb, s, ws_))
     if log_cap:
         plan["append_log"] = (lambda: restore(snap_mid),
                               lambda: kernels.append_log(args),
@@ -775,6 +1114,8 @@ def time_all() -> dict:
         "phold": time_kernels("phold", phold(stop_time="1s"), 0, 200),
         "lossy": time_kernels("lossy", flagship(sim_seconds=2,
                                                 packet_loss=0.01), 0, 20),
+        # this slice's main path: 40 steps in, the flows are in slow start
+        "mixed": time_kernels("mixed mesh", mixed_mesh(2), 0, 40),
     }
     # rand_u32 alone: one draw per lane and slot of a PHOLD iteration
     m = N_FLAG * K_PHOLD
@@ -966,6 +1307,130 @@ def parity():
             assert_equal(f"{name} {key} final state", st, ref_st)
 
 
+def _stream_pair_doc(loss: float = 0.0, cubic: bool = False) -> dict:
+    """``tests/test_lane_parity.py``'s STREAM_PAIR: 200 kB over one 15 ms
+    link between two 20 Mbit nodes, 30 sim s; untiered."""
+    edge_loss = f" packet_loss {loss}" if loss else ""
+    client = {"network_node_id": 0, "processes": [{
+        "path": "stream-client", "args": ["--server", "s", "--size", "200kB"]}]}
+    if cubic:
+        client["congestion"] = "cubic"
+    return {
+        "general": {"stop_time": "30s", "seed": 5},
+        "experimental": {"tpu_lane_queue_capacity": 128,
+                         "tpu_stream_tiered": False},
+        "network": {"graph": {"type": "gml", "inline": (
+            'graph [ directed 0 '
+            'node [ id 0 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ] '
+            'node [ id 1 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ] '
+            f'edge [ source 0 target 1 latency "15 ms"{edge_loss} ] ]')}},
+        "hosts": {"c": client, "s": {"network_node_id": 1, "processes": [
+            {"path": "stream-server"}]}},
+    }
+
+
+def _cubic_vs_reno():
+    doc = presets.cubic_vs_reno_example_doc()
+    doc["experimental"] = {"tpu_stream_tiered": False}
+    return ConfigOptions.from_dict(doc)
+
+
+def _mixed_small():
+    cfg = flagship_mesh_config(12, sim_seconds=2, stream_pairs=2,
+                               stream_bytes=200_000, queue_capacity=96,
+                               pops_per_round=4)
+    cfg.experimental.tpu_stream_tiered = False
+    return cfg
+
+
+# the stream parity configs: name -> (config, CPU modes, what must happen).
+# The long ones run on the CPU in device mode only: the CPU tests hold the
+# plain path's step mode equal to its device mode.
+STREAM_PARITY = {
+    "stream_pair": (lambda: ConfigOptions.from_dict(_stream_pair_doc()),
+                    ("step", "device"), "stream_complete"),
+    "stream_pair_lossy": (
+        lambda: ConfigOptions.from_dict(_stream_pair_doc(loss=0.03)),
+        ("step", "device"), "stream_retransmits"),
+    # tests/test_lane_parity.py's STREAM_STAR: 6 clients x 80 kB into one
+    # server, 1% loss, C=512 (merge rows of W = 1040): the combined exchange
+    "stream_star": (lambda: ConfigOptions.from_dict({
+        "general": {"stop_time": "60s", "seed": 9},
+        "experimental": {"tpu_lane_queue_capacity": 512},
+        "network": _switch("50 Mbit", "50 Mbit", "5 ms", 0.01),
+        "hosts": {
+            "c": {"count": 6, "network_node_id": 0, "processes": [{
+                "path": "stream-client",
+                "args": ["--server", "srv", "--size", "80kB"]}]},
+            "srv": {"network_node_id": 0, "processes": [
+                {"path": "stream-server"}]},
+        }}), ("device",), "stream_retransmits"),
+    # examples/cubic-vs-reno.yaml, untiered: the CUBIC growth law
+    "cubic_vs_reno": (_cubic_vs_reno, ("device",), "stream_retransmits"),
+    # a 12-host mesh whose spray crosses two stream pairs
+    "mixed_small": (_mixed_small, ("step", "device"), "stream_rx_bytes"),
+}
+
+
+@phase("stream parity: card (step and device) and CPU, five configs")
+def stream_parity():
+    for name, (cfg_fn, cpu_modes, must) in STREAM_PARITY.items():
+        runs = {}
+        for dev, modes in (("cpu", cpu_modes), ("cuda", ("step", "device"))):
+            for mode in modes:
+                t0 = time.perf_counter()
+                res, st = run_engine(GpuEngine(cfg_fn(), device=dev), mode)
+                runs[(dev, mode)] = (res, st)
+                log(f"{name} {dev}/{mode}: {len(res.event_log)} records, "
+                    f"{res.counters}, rounds {res.rounds} "
+                    f"({time.perf_counter() - t0:.1f} s)")
+        ref_res, ref_st = runs[("cpu", cpu_modes[0])]
+        if ref_res.counters.get(must, 0) == 0:
+            raise AssertionError(f"{name}: no {must}")
+        if ref_res.counters.get("stream_rx_bytes", 0) == 0:
+            raise AssertionError(f"{name}: no stream bytes")
+        for key, (res, st) in runs.items():
+            if res.log_tuples() != ref_res.log_tuples():
+                raise AssertionError(f"{name} {key}: event log differs")
+            if res.counters != ref_res.counters or res.rounds != ref_res.rounds:
+                raise AssertionError(f"{name} {key}: counters differ")
+            assert_equal(f"{name} {key} final state", st, ref_st)
+
+
+@phase("examples/stream-tcp.yaml: 60 sim s on the card; a prefix card = CPU")
+def stream_tcp_example():
+    """4 clients x 1 MiB into one server over a 40 ms link with 2% loss:
+    every flow completes with retransmissions; over the first 1.5 sim s,
+    which hold retransmissions already, card and CPU are equal word for
+    word."""
+    res, _st = run_engine(GpuEngine(ConfigOptions.from_dict(
+        presets.stream_tcp_example_doc())), "device")
+    c = res.counters
+    log(f"stream-tcp.yaml 60 s on the card: {c}, rounds {res.rounds}")
+    if (c.get("stream_complete") != 4 or c.get("stream_flows_done") != 4
+            or c.get("stream_rx_bytes") != 4 * 1_048_576
+            or not c.get("stream_retransmits")):
+        raise AssertionError(f"stream-tcp.yaml counters {c}")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        doc = presets.stream_tcp_example_doc()
+        doc["general"]["stop_time"] = "1500ms"
+        t0 = time.perf_counter()
+        runs[dev] = run_engine(GpuEngine(ConfigOptions.from_dict(doc),
+                                         device=dev), "device")
+        log(f"stream-tcp.yaml 1.5 s {dev}: {runs[dev][0].counters} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
+    retx = int(st_c["stream"][0, :, lstr.C_RETRANS].sum())
+    if not retx:
+        raise AssertionError("the prefix holds no retransmission")
+    if res_g.log_tuples() != res_c.log_tuples() or res_g.counters != res_c.counters:
+        raise AssertionError("stream-tcp.yaml prefix: card and CPU differ")
+    assert_equal("stream-tcp.yaml prefix final state", st_g, st_c)
+    log(f"stream-tcp.yaml prefix: equal, {retx} retransmissions, "
+        f"{len(res_c.event_log)} records")
+
+
 def expected_mesh(n: int, sim_s: int) -> dict:
     """The flagship mesh's closed form (10 ms timers, 10 ms links, no
     drops): ticks at 10, 20, ... ms before the stop send; a packet sent at
@@ -978,13 +1443,20 @@ def expected_mesh(n: int, sim_s: int) -> dict:
 
 @phase("full width: card against the CPU plain path")
 def full_width_parity():
-    """PHOLD at 10,000 hosts for 50 sim ms and the lossy flagship for 1 sim
-    s, device mode with logging: equal event logs, counters and final
-    states."""
+    """PHOLD at 10,000 hosts for 50 sim ms, the lossy flagship for 1 sim s
+    and the mixed mesh for 100 sim ms (the handshakes and the first
+    bursts), device mode with logging: equal event logs, counters and
+    final states."""
+    def mixed_100ms():
+        cfg = mixed_mesh(1)
+        cfg.general.stop_time = 100_000_000
+        return cfg
+
     for name, cfg_fn, log_cap in (
             ("phold 50 ms", lambda: phold(stop_time="50ms"), 1_000_000),
             ("lossy flagship 1 s",
-             lambda: flagship(sim_seconds=1, packet_loss=0.01), 1_200_000)):
+             lambda: flagship(sim_seconds=1, packet_loss=0.01), 1_200_000),
+            ("mixed mesh 100 ms", mixed_100ms, 400_000)):
         runs = {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
@@ -1001,6 +1473,8 @@ def full_width_parity():
         if res_g.counters != res_c.counters or res_g.rounds != res_c.rounds:
             raise AssertionError(f"{name}: counters differ")
         assert_equal(f"{name} final state", st_g, st_c)
+        if name.startswith("mixed") and not res_c.counters.get("stream_rx_segs"):
+            raise AssertionError("mixed mesh 100 ms: no stream data yet")
 
 
 def check_flagship(res, sim_s: int, log_cap: int) -> None:
@@ -1053,8 +1527,27 @@ def check_lossy(res, _sim_s: int, _log_cap: int) -> None:
         raise AssertionError(f"{unsettled} sends neither delivered nor lost")
 
 
+def check_mixed(res, _sim_s: int, _log_cap: int) -> None:
+    """Every one of the 100 flows completes at both ends with its 2,000,000
+    bytes; nothing is dropped (strict capacity raised nothing)."""
+    c = res.counters
+    log(f"mixed mesh: {c.get('lane_iters')} iterations, {res.rounds} "
+        f"windows; streams {({k: v for k, v in c.items() if 'stream' in k})}")
+    want = {"stream_complete": 100, "stream_flows_done": 100,
+            "stream_rx_bytes": 200_000_000}
+    got = {k: c.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"stream counters {got} != {want}")
+    drops = {k: c.get(k, 0) for k in
+             ("lane_drop_loss", "lane_drop_codel", "lane_drop_queue")}
+    if any(drops.values()):
+        raise AssertionError(f"drops {drops}")
+
+
 # the main paths: name -> (config, log capacity, check, kernels of the path)
 MAIN_PATHS = {
+    # this slice's: the mixed TCP/UDP mesh at 10,000 hosts, untiered
+    "mixed mesh 10k, 5 s": (lambda: mixed_mesh(5), 0, check_mixed, 5),
     "flagship 1 s, logging": (lambda: flagship(sim_seconds=1), 1_200_000,
                               check_flagship, 1),
     "flagship 10 s": (lambda: flagship(sim_seconds=10), 0, check_flagship, 10),
@@ -1087,6 +1580,8 @@ def main_path():
         rates[name] = res.sim_seconds_per_wall_second
         check_fn(res, sim_s, log_cap)
         need = ["lane_slots", "exchange_merge", "queue_min_window"]
+        if eng.params.split:
+            need.append("stream_rows_merge")
         if log_cap:
             need.append("append_log")
         for k in need:
@@ -1113,15 +1608,22 @@ def main() -> int:
         traceback.print_exc()
         return 1
     log(f"kernel build: {time.perf_counter() - t0:.2f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  ptxas: {line.strip()}")
+    # the compiler's report per kernel: function name, then its registers
+    ptxas = [line.strip() for line in
+             lib.with_suffix(".log").read_text().splitlines()
+             if "Compiling entry" in line or "registers" in line
+             or "spill" in line or "error" in line]
+    for line in ptxas:
+        log(f"  ptxas: {line}")
 
     check_kernels()
     check_rand_u32()
     check_active_kernels()
+    check_stream_kernels()
     times = time_all()
     parity()
+    stream_parity()
+    stream_tcp_example()
     full_width_parity()
     main_out = main_path()
     if FAILED:
@@ -1129,9 +1631,11 @@ def main() -> int:
         return 1
     launches, rates, drawing = main_out
     smi = smi_line()
+    for line in ptxas:  # again here: the start of a long output is cut
+        log(f"ptxas: {line}")
     for name, rate in rates.items():
         log(f"sim-s/wall-s, {name}: {rate:.3f} ({smi})")
-    for cfg_name in ("flagship", "flagship_log", "phold", "lossy"):
+    for cfg_name in ("mixed", "flagship", "flagship_log", "phold", "lossy"):
         for name, t in times[cfg_name].items():
             if name == "loop":
                 log(f"device busy, {cfg_name}: {t['busy']:.4f} of "
@@ -1144,13 +1648,16 @@ def main() -> int:
         f"{times['rand_u32']['ms'] * 1e3:.3f} (bound "
         f"{times['rand_u32']['bound_ms'] * 1e3:.3f}, "
         f"{times['rand_u32']['bound_by']}) ({smi})")
-    # A, B and C at the PHOLD main path's shapes; D where a main path logs
-    # (the flagship, 1 s)
-    source = {"lane_slots": "phold", "exchange_merge": "phold",
-              "queue_min_window": "phold", "append_log": "flagship_log"}
+    # A, B, C and E at this slice's main path, the mixed mesh; D where a
+    # main path logs (the flagship, 1 s); the other paths' times are on the
+    # lines above
+    source = {"lane_slots": "mixed", "exchange_merge": "mixed",
+              "stream_rows_merge": "mixed", "queue_min_window": "mixed",
+              "append_log": "flagship_log"}
     replaces = {
         "lane_slots": "shadow_tpu/backend/lanes.py:2900",
         "exchange_merge": "shadow_tpu/backend/lanes.py:1581",
+        "stream_rows_merge": "shadow_tpu/backend/lanes.py:1924",
         "queue_min_window": "shadow_tpu/backend/lanes.py:2260",
         "append_log": "shadow_tpu/backend/lanes.py:2056",
         "rand_u32": "shadow_tpu/core/rng.py:46",
@@ -1166,9 +1673,10 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": None,
         }
         if name == "lane_slots":
-            # the threefry draw runs fused in A on the main paths
+            # the threefry draw and the lane-TCP law run fused in A
             row["fused"] = "rand_u32"
             row["launches_that_draw"] = drawing
+            row["stream_law"] = "shadow_tpu/backend/lanes_stream.py:604"
         if name == "rand_u32":
             # the launcher runs on no main path: its own launches in the
             # phase that timed it

@@ -8,11 +8,22 @@ touches JAX.  Fields the port does not carry are ignored.
 
 Every field must arrive in the dtype the port keeps — int32, the int64
 log and loss thresholds, the bool ``cd_dropping`` — and any other dtype
-raises, with one mapping made explicit: the reference keeps its loss
-thresholds as ``thresh_u32`` (uint32, the low word) and ``thresh_all``
-(bool, loss 1.0); the port keeps one int64 ``thresh`` in
-``core.rng.loss_threshold``'s u64 domain, since PyTorch cannot compare
-uint32.  ``thresh = 2**32`` where ``thresh_all``, else ``thresh_u32``.
+raises, with these mappings made explicit:
+
+- the reference keeps its loss thresholds as ``thresh_u32`` (uint32, the
+  low word) and ``thresh_all`` (bool, loss 1.0), per node pair and per
+  stream endpoint (``flow_thresh_u32``/``flow_thresh_all``); the port
+  keeps one int64 ``thresh``/``flow_thresh`` in
+  ``core.rng.loss_threshold``'s u64 domain, since PyTorch cannot compare
+  uint32.  ``thresh = 2**32`` where ``thresh_all``, else ``thresh_u32``;
+- the reference's ``()`` placeholder of a stream field in a run without
+  streams (``q_phi``, ``q_plo``, ``stream`` — ``np.asarray(())`` is an
+  empty float64 array) is the port's empty int32 tensor;
+- the reference's ``StreamState(cl, sv)`` arrives stacked, ``[2, S, F]``
+  (what ``np.asarray`` makes of it), which is the port's ``stream``;
+- the port's lane -> endpoint-row table (``lane_ep_start``,
+  ``lane_ep_rows``), which the reference has no counterpart of, is
+  derived from ``flow_lanes``.
 """
 
 from __future__ import annotations
@@ -23,13 +34,15 @@ import torch
 from .lanes import LaneState, LaneTables
 
 _DTYPES = {"cd_dropping": torch.bool, "log": torch.int64,
-           "thresh": torch.int64}
+           "thresh": torch.int64, "flow_thresh": torch.int64}
 _NP = {torch.int32: np.int32, torch.int64: np.int64, torch.bool: np.bool_}
 
 
 def _tensor(name: str, arr, device) -> torch.Tensor:
     dtype = _DTYPES.get(name, torch.int32)
     a = np.asarray(arr)
+    if a.size == 0 and a.dtype == np.float64:  # the reference's ()
+        a = a.astype(_NP[dtype])
     if a.dtype != _NP[dtype]:
         raise TypeError(f"{name}: dtype {a.dtype}, expected {_NP[dtype]}")
     return torch.from_numpy(np.array(a, copy=True)).to(device)
@@ -48,9 +61,29 @@ def thresh_from_split(thresh_u32, thresh_all) -> np.ndarray:
     return np.where(every, np.int64(1) << 32, low.astype(np.int64))
 
 
-def tables_from_numpy(d: dict, device="cpu") -> LaneTables:
+def lane_endpoints(flow_lanes, n_lanes: int, s_flows: int):
+    """The lane -> endpoint-row table: ``(start [N + 1], rows)``, the rows
+    of lane ``l`` being ``rows[start[l]:start[l + 1]]``."""
+    el = np.asarray(flow_lanes, dtype=np.int64)
+    if not s_flows:
+        return np.zeros(n_lanes + 1, dtype=np.int32), np.zeros(2, np.int32)
+    order = np.argsort(el, kind="stable")
+    start = np.searchsorted(el[order], np.arange(n_lanes + 1))
+    return start.astype(np.int32), order.astype(np.int32)
+
+
+def tables_from_numpy(d: dict, device="cpu", s_flows: int = 0) -> LaneTables:
+    """``s_flows``: the number of stream flows (0 when no stream model is
+    present, and the flow tables are placeholders)."""
     if "thresh" not in d and "thresh_u32" in d:
         d = {**d, "thresh": thresh_from_split(d["thresh_u32"], d["thresh_all"])}
+    if "flow_thresh" not in d and "flow_thresh_u32" in d:
+        d = {**d, "flow_thresh": thresh_from_split(d["flow_thresh_u32"],
+                                                   d["flow_thresh_all"])}
+    if "lane_ep_start" not in d:
+        start, rows = lane_endpoints(d["flow_lanes"], len(d["node_of"]),
+                                     s_flows)
+        d = {**d, "lane_ep_start": start, "lane_ep_rows": rows}
     return LaneTables(**{f: _tensor(f, d[f], device) for f in LaneTables._fields})
 
 

@@ -1,11 +1,12 @@
 """Lane engine driver: config -> lane tables and state -> run -> SimResult.
 
-The counterpart of the JAX package's ``TpuEngine`` for the datagram lane
-path (tgen, phold, ping; loss, bootstrap, dynamic runahead): it builds the
-same tables and initial state from a config (same host ordering, routing,
-runahead, bucket parameters, loss thresholds and int32 guards), runs the
-window loop with the lane kernels on one device, and reads the result back
-into a :class:`SimResult` that compares directly with the reference's.
+The counterpart of the JAX package's ``TpuEngine`` for its untiered lane
+path (tgen, phold, ping, lane-TCP streams; loss, bootstrap, dynamic
+runahead): it builds the same tables and initial state from a config (same
+host ordering, routing, runahead, bucket parameters, loss thresholds, flow
+tables and int32 guards), runs the window loop with the lane kernels on one
+device, and reads the result back into a :class:`SimResult` that compares
+directly with the reference's.
 """
 
 from __future__ import annotations
@@ -21,10 +22,13 @@ from ..config.options import ConfigOptions, LaneCompatError
 from ..core import time as stime
 from ..models.base import create_model
 from ..models.phold import Phold
+from ..models.tcpflow import StreamClient, StreamServer
 from ..models.tgen import Ping, TgenClient, TgenMesh, TgenServer
 from ..net import codel as codel_mod
+from ..net import ltcp
 from ..net.token_bucket import bucket_params
-from . import lanes
+from . import bridge, lanes
+from . import lanes_stream as lstr
 from .results import LogRecord, SimResult
 from .setup import build_world
 
@@ -61,6 +65,10 @@ class GpuEngine:
         p_stride = np.ones(n, dtype=np.int64)
         recv_mult = np.zeros(n, dtype=np.int32)
         local_seq0 = np.ones(n, dtype=np.int64)
+        st_segs = np.zeros(n, dtype=np.int32)  # stream-client flow shapes
+        st_last = np.zeros(n, dtype=np.int32)
+        st_mss = np.zeros(n, dtype=np.int32)
+        st_cc = np.zeros(n, dtype=np.int32)
         init_events: list[tuple[int, int, int, int, int, int]] = []  # lane,t,kind,src,seq,size
 
         def assign_tgen(hid: int, a) -> None:
@@ -82,6 +90,9 @@ class GpuEngine:
                 continue  # M_NONE: receives, counts nothing
             apps = [(p, create_model(p.path, list(p.args)))
                     for p in hopt.processes]
+            for _p, a in apps:
+                if hasattr(a, "set_congestion"):
+                    a.set_congestion(hopt.congestion)
             if len(apps) > 1:
                 # multi-process tgen hosts: at most one timer-driving
                 # process; the others contribute start anchors and delivery
@@ -132,6 +143,31 @@ class GpuEngine:
                     p_interval[hid] = app.interval
                 p_size[hid] = app.size
                 init_events.append((hid, t0, lanes.LOCAL, hid, 0, -1))
+            elif isinstance(app, StreamClient):
+                model[hid] = lanes.M_STREAM_CLIENT
+                p_peer[hid] = self.dns.resolve(app.server)
+                # magnitude guards: seq units ride a 26-bit payload field
+                # and rx_bytes an int32 counter
+                if app.fs.segs + 2 >= (1 << lstr.PAY_SEQ_BITS):
+                    raise LaneCompatError(
+                        f"stream flow of {app.fs.segs} segments exceeds the "
+                        f"lane backend's {lstr.PAY_SEQ_BITS}-bit sequence "
+                        "space (use the shadow_tpu package's cpu backend)"
+                    )
+                if app.size >= (1 << 31):
+                    raise LaneCompatError(
+                        "stream transfer size exceeds the lane backend's "
+                        "int32 byte counter (use the shadow_tpu package's "
+                        "cpu backend)"
+                    )
+                st_segs[hid], st_last[hid] = app.fs.segs, app.fs.last_bytes
+                st_mss[hid], st_cc[hid] = app.mss, app.fs.cc
+                init_events.append((hid, t0, lanes.LOCAL, hid, 0, -1))
+            elif isinstance(app, StreamServer):
+                model[hid] = lanes.M_STREAM_SERVER
+                # the start marker anchors windows like the CPU engine's
+                # start task (flows open on the first SYN)
+                init_events.append((hid, t0, lanes.LOCAL, hid, 0, -1))
             else:
                 assert isinstance(app, (TgenMesh, TgenClient, TgenServer))
                 assign_tgen(hid, app)
@@ -160,6 +196,38 @@ class GpuEngine:
         node_idx, lat, thresh = self.routing.device_tables()
         if log_capacity is None:
             log_capacity = 200_000
+
+        # stream pairing: one-to-one when every stream server is the peer of
+        # exactly one client (the split exchange), else the star (combined)
+        client_ids = np.nonzero(model == lanes.M_STREAM_CLIENT)[0]
+        server_ids = set(np.nonzero(model == lanes.M_STREAM_SERVER)[0].tolist())
+        peer_counts: dict[int, int] = {}
+        for cid in client_ids:
+            peer_counts[int(p_peer[cid])] = peer_counts.get(int(p_peer[cid]), 0) + 1
+        if server_ids and not client_ids.size:
+            # the reference sizes its flow tables by the clients: with
+            # none, its [2] placeholders would read as flows
+            raise LaneCompatError(
+                "stream-server hosts without any stream-client are not "
+                "supported on the lane backend (use the shadow_tpu "
+                "package's cpu backend)"
+            )
+        one_to_one = bool(client_ids.size) and all(
+            peer_counts.get(sid, 0) == 1 for sid in server_ids
+        ) and all(pid in server_ids for pid in peer_counts)
+        if one_to_one and cfg.experimental.tpu_stream_tiered:
+            raise LaneCompatError(
+                "one-to-one stream configs run on the reference's tiered "
+                "stream backend (experimental.tpu_stream_tiered: true), which "
+                "is not ported yet; set tpu_stream_tiered: false for the "
+                "untiered path, bit-identical in events"
+            )
+        # wide stream co-pop is sound only when every possible window ends
+        # before RTO_MIN (a DELIVERY pop then inserts nothing same-window);
+        # the dynamic window never exceeds the largest link latency
+        max_lat = int(np.max(np.asarray(lat), initial=0))
+        stream_wide_pop = max(runahead, max_lat) < ltcp.RTO_MIN
+
         self.params = lanes.LaneParams(
             n_lanes=n,
             capacity=capacity,
@@ -174,6 +242,9 @@ class GpuEngine:
             dynamic_runahead=bool(cfg.experimental.use_dynamic_runahead),
             runahead_floor=max(cfg.experimental.runahead or 0, 1),
             cross_capacity=cfg.experimental.tpu_cross_capacity,
+            stream_one_to_one=one_to_one,
+            stream_clients=tuple(int(c) for c in client_ids),
+            stream_wide_pop=stream_wide_pop,
         )
 
         up = np.array([bucket_params(int(b)) for b in bw_up], dtype=np.int64)
@@ -233,6 +304,31 @@ class GpuEngine:
             return torch.as_tensor(np.asarray(a, dtype=np.int32),
                                    device=self.device)
 
+        # stream flows on [2S] endpoint rows (clients, then their servers,
+        # flow order = ascending client lane), everything static per flow
+        # precomputed; [2] placeholders when no stream model is present
+        s_flows = int(client_ids.size)
+        if s_flows:
+            fcl = client_ids.astype(np.int64)
+            fsv = p_peer[fcl].astype(np.int64)
+            el = np.concatenate([fcl, fsv])
+            peer = np.concatenate([fsv, fcl])
+            e_nodes, p_nodes = np.asarray(node_idx)[el], np.asarray(node_idx)[peer]
+            flow_lat = np.asarray(lat)[e_nodes, p_nodes]
+            flow_thr = np.asarray(thresh)[e_nodes, p_nodes]
+            zs = np.zeros(s_flows, dtype=np.int32)
+            # CC follows the data sender; receiver rows stay CC_RENO
+            flow_shape = [np.concatenate([a[fcl], zs])
+                          for a in (st_segs, st_mss, st_last, st_cc)]
+            flow_clid = np.concatenate([fcl, fcl])
+        else:
+            el = peer = flow_clid = np.zeros(2, dtype=np.int64)
+            flow_lat = np.zeros(2, dtype=np.int64)
+            flow_thr = np.zeros(2, dtype=np.int64)
+            flow_shape = [np.zeros(2, dtype=np.int32)] * 4
+        # lane -> endpoint rows, for kernel A's thread per lane
+        ep_start, ep_rows = bridge.lane_endpoints(el, n, s_flows)
+
         self.tables = lanes.LaneTables(
             node_of=t32(node_idx), lat=t32(lat),
             thresh=torch.as_tensor(np.asarray(thresh, dtype=np.int64),
@@ -246,6 +342,15 @@ class GpuEngine:
             p_peer=t32(p_peer), p_count=t32(np.minimum(p_count, _I32MAX)),
             p_stride=t32(p_stride),
             codel_div=t32(codel_mod.CODEL_DIV),
+            flow_lanes=t32(el), flow_peers=t32(peer), flow_clid=t32(flow_clid),
+            flow_lat=t32(flow_lat),
+            flow_thresh=torch.as_tensor(flow_thr.astype(np.int64),
+                                        device=self.device),
+            flow_segs=t32(flow_shape[0]), flow_mss=t32(flow_shape[1]),
+            flow_last=t32(flow_shape[2]), flow_cc=t32(flow_shape[3]),
+            flow_up_rate=t32(up[el, 0]), flow_up_burst=t32(up[el, 1]),
+            flow_up_kfull=t32(up_kfull[el]), flow_up_kfi=t32(up_kfi[el]),
+            lane_ep_start=t32(ep_start), lane_ep_rows=t32(ep_rows),
         )
         self._up_burst = up[:, 1]
         self._dn_burst = dn[:, 1]
@@ -292,11 +397,16 @@ class GpuEngine:
         def scalar(v):
             return torch.tensor(v, dtype=torch.int32, device=dev)
 
+        def pay():  # payload words only where stream events ride the queues
+            shape = (n, c) if p.stream_present else (0,)
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
         # bucket state: next_refill one interval in (grid-aligned),
         # last_depart 0; CoDel first_above at the UNSET sentinel
         return lanes.LaneState(
             q_thi=t32(q_thi), q_tlo=t32(q_tlo), q_auxh=t32(q_auxh),
             q_auxl=t32(q_auxl), q_size=t32(q_size),
+            q_phi=pay(), q_plo=pay(),
             send_seq=zeros(), local_seq=t32(self._local_seq0),
             app_draws=zeros(),
             up_tokens=t32(self._up_burst), up_nr_hi=zeros(),
@@ -315,6 +425,8 @@ class GpuEngine:
             log=torch.zeros((max(p.log_capacity, 1), 6), dtype=torch.int64,
                             device=dev),
             log_count=scalar(0), log_lost=scalar(0),
+            stream=(lstr.init_stream_state(p.s_flows, dev) if p.stream_present
+                    else torch.zeros(0, dtype=torch.int32, device=dev)),
             rounds=scalar(0), iters=scalar(0),
             now_we_hi=scalar(0), now_we_lo=scalar(0),
             min_used_lat=scalar(lanes.NEVER32),
@@ -406,6 +518,19 @@ class GpuEngine:
         add("lane_drop_codel", int(s.n_codel.sum()))
         add("lane_drop_queue", n_queue_drops)
         add("lane_sends", int(s.n_sends.sum()))
+        if self.params.stream_present:
+            cl_m, sv_m = s.stream[0], s.stream[1]
+            done = cl_m[:, lstr.C_COMPLETED] != 0
+            if bool(done.any()):
+                # totals at completion, like the CPU oracle (zero-valued
+                # keys included: counter-set parity)
+                counters["stream_complete"] = int(done.sum())
+                counters["stream_tx_segs"] = int(cl_m[done, lstr.C_TX_SEGS].sum())
+                counters["stream_retransmits"] = int(
+                    cl_m[done, lstr.C_RETRANS].sum())
+            add("stream_rx_bytes", int(sv_m[:, lstr.C_RX_BYTES].sum()))
+            add("stream_rx_segs", int(sv_m[:, lstr.C_RX_SEGS].sum()))
+            add("stream_flows_done", int((sv_m[:, lstr.C_COMPLETED] != 0).sum()))
         return SimResult(
             sim_time_ns=self.params.stop_time,
             wall_seconds=wall,

@@ -1,6 +1,6 @@
 """The lane engine's CUDA kernels: build, binding and wrappers.
 
-``csrc/lanes.cu`` holds the four lane kernels for Hopper (``sm_90a``) and the
+``csrc/lanes.cu`` holds the five lane kernels for Hopper (``sm_90a``) and the
 threefry launcher behind a plain C interface.  At first use on the card it is compiled with ``nvcc`` into
 ``build/shadow_tpu_torch/`` at the root of the checkout, keyed by a hash of
 the source, and loaded with ``ctypes``.  Nothing is built or loaded when
@@ -51,7 +51,9 @@ _PTR_FIELDS = (
 )
 _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "interval", "seed_lo", "seed_hi", "bootstrap_end", "has_loss",
-               "all_passive", "dyn_runahead", "runahead_floor")
+               "all_passive", "dyn_runahead", "runahead_floor", "words",
+               "s_flows", "wide_pop", "one_to_one", "n_x", "rec_slots",
+               "rec_srec", "rec_brec", "n_rec")
 
 
 class LaneBufs(ctypes.Structure):
@@ -105,7 +107,8 @@ def build() -> Path:
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
-    for name in ("lane_slots", "exchange_merge", "append_log"):
+    for name in ("lane_slots", "exchange_merge", "stream_rows_merge",
+                 "append_log"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp]
         fn.restype = ctypes.c_int
@@ -144,36 +147,49 @@ class LaneArgs:
         g = int(tb.lat.shape[0])
         i32, i64 = torch.int32, torch.int64
         n_rec = p.n_records if p.log_capacity else 1
+        sp, sf = p.stream_present, p.s_flows
+        n_ep = 2 * sf if sp else 2
         shapes = {
             **{f: (n, c) for f in ("q_thi", "q_tlo", "q_auxh", "q_auxl",
                                    "q_size")},
+            **{f: (n, c) if sp else (0,) for f in ("q_phi", "q_plo")},
+            "stream": (2, sf, lanes.lstr.N_COLS) if sp else (0,),
             **{f: (n,) for f in lanes._SLOT_FIELDS + ("n_queue",)},
             **{f: () for f in ("log_count", "log_lost", "rounds", "iters",
                                "now_we_hi", "now_we_lo", "min_used_lat")},
             "log": (max(p.log_capacity, 1), 6),
             **{f: (n,) for f in lanes.LaneTables._fields},
+            **{f: (n_ep,) for f in lanes.LaneTables._fields
+               if f.startswith("flow_")},
+            "lane_ep_start": (n + 1,), "lane_ep_rows": (n_ep,),
             "lat": (g, g), "thresh": (g, g), "codel_div": (1025,),
-            "ctl": (4,), "self_blk": (5, n, p.self_width), "out_blk": (6, k, n),
+            "ctl": (4,), "self_blk": (p.words, n, p.self_width),
+            "out_blk": (6, k, n), "sx_blk": (8, max(p.stream_entries, 1)),
             "recs": (n_rec, 6), "rec_valid": (n_rec,),
             "x_cnt": (n,), "x_start": (n,), "x_fill": (n,),
-            "x_order": (k * n,),
+            "x_order": (p.exchange_entries,),
         }
         dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
-                  "thresh": i64}
+                  "thresh": i64, "flow_thresh": i64}
         tensors = {**s._asdict(), **tb._asdict(), **ws._asdict()}
         for f in _PTR_FIELDS:
             _check(f, tensors[f], dev, dtypes.get(f, i32), shapes[f])
         self.on_cuda = dev.type == "cuda"
         if self.on_cuda:
-            smem = 4 * (5 * p.merge_width + cx)
-            if smem > MERGE_SMEM_LIMIT:
-                raise ValueError(
-                    f"merge row of {p.merge_width} entries needs {smem} B of "
-                    f"shared memory (limit {MERGE_SMEM_LIMIT}); lower the "
-                    "queue or cross capacity"
-                )
+            rows = {"merge": (p.merge_width, 4 * cx)}
+            if p.split:
+                rows["stream merge"] = (c + p.stream_row_width, 0)
+            for what, (width, extra) in rows.items():
+                smem = 4 * p.words * width + extra
+                if smem > MERGE_SMEM_LIMIT:
+                    raise ValueError(
+                        f"{what} row of {width} entries needs {smem} B of "
+                        f"shared memory (limit {MERGE_SMEM_LIMIT}); lower "
+                        "the queue or cross capacity"
+                    )
             _lib()  # build and load before the run starts
         seed_lo, seed_hi = rng_mod.split_seed(p.seed)
+        _tail, rec_slots, rec_srec, rec_brec, rec_end = p.rec_offsets
         self.bufs = LaneBufs(
             **{f: tensors[f].data_ptr() for f in _PTR_FIELDS},
             n=n, c=c, k=k, cx=cx, sw=p.self_width, g=g,
@@ -182,7 +198,11 @@ class LaneArgs:
             bootstrap_end=p.bootstrap_end, has_loss=int(p.has_loss),
             all_passive=int(p.all_passive),
             dyn_runahead=int(p.dynamic_runahead),
-            runahead_floor=max(p.runahead_floor, 1),
+            runahead_floor=max(p.runahead_floor, 1), words=p.words,
+            s_flows=sf, wide_pop=int(sp and p.stream_wide_pop),
+            one_to_one=int(p.stream_one_to_one), n_x=p.exchange_entries,
+            rec_slots=rec_slots, rec_srec=rec_srec, rec_brec=rec_brec,
+            n_rec=rec_end,
         )
 
 
@@ -201,17 +221,25 @@ def lane_slots(args: LaneArgs) -> None:
     """Kernel A: pop under the co-pop rule, the slot law, emit blocks.
 
     Replaces ``shadow_tpu/backend/lanes.py:2900`` ``_build_iter.iter_body``
-    (pop) and ``lanes.py:884`` ``_process_slot`` — the passive arm with
-    ``bucket_charge_vec`` (``:477``) and ``codel_offer_arrays`` (``:596``),
-    and the active arms (DELIVERY inserts, phold, ping, the loss draw over
-    ``core/rng.py:46`` ``threefry2x32``, ``min_used_lat``).  Bound on the
-    card by bytes: each lane reads its K head slots, ~35 state words and
-    its table row, and writes them back with the emit blocks — no reuse,
-    so one thread per lane keeps the whole K-slot walk in registers and
-    touches each word once.  The threefry draw (about 80 integer
-    operations) is computed in registers where it is needed, never stored.
-    One kernel serves passive and active runs: a passive-only variant
-    saved nothing measurable end to end (PERF.md)."""
+    (pop, with the stream co-pop rule) and ``lanes.py:884`` ``_process_slot``
+    — the passive arm with ``bucket_charge_vec`` (``:477``) and
+    ``codel_offer_arrays`` (``:596``), the active arms (DELIVERY inserts,
+    phold, ping, the loss draw over ``core/rng.py:46`` ``threefry2x32``,
+    ``min_used_lat``) and the stream arm (``:1013-1085``, ``:1197-1400``,
+    ``bucket_charge_chained_vec`` ``:549``) with the lane-TCP law of
+    ``backend/lanes_stream.py`` (``open_flow_vec`` ``:549``, ``on_rto_vec``
+    ``:566``, ``on_segment_vec`` ``:604``, ``pump_epilogue_vec`` ``:462``
+    and their helpers) as ``__device__`` functions.  Bound on the card by
+    bytes: each lane reads its K head slots, ~35 state words and its table
+    row, and writes them back with the emit blocks — no reuse, so one
+    thread per lane keeps the whole K-slot walk in registers and touches
+    each word once.  The thread also owns its lane's flow endpoint rows (a
+    lane -> rows table): at most one is stimulated per slot, so that row's
+    33 words live in registers for the slot and no atomics are needed; the
+    stream block's entries go to fixed positions.  The threefry draw (about
+    80 integer operations) is computed in registers where it is needed,
+    never stored.  One kernel serves passive, active and stream runs: a
+    passive-only variant saved nothing measurable end to end (PERF.md)."""
     if not args.on_cuda:
         return lanes.lane_slots_plain(args.p, args.tb, args.s, args.ws)
     _launch("lane_slots", args)
@@ -222,18 +250,36 @@ def exchange_merge(args: LaneArgs) -> None:
     """Kernel B: cross-lane exchange and keyed row merge.
 
     Replaces ``shadow_tpu/backend/lanes.py:1581`` ``_merge_append`` (with
-    ``_window_gather``, ``:1539``) and ``:763`` ``_sort_queues``.  Bound by
-    bytes: the ``[N, C]`` queue words are read and written once, plus the
-    K*N outbound entries.  The TPU's sort-by-destination and barrel-shift
-    gather become a counting sort (atomic counts, one-block scan, atomic
-    placement), and the row sort a rank merge of the whole ``[C | K | Cx]``
-    row in one block's shared memory, so the row is read from device memory
-    once.  The chain of dependent launches and the one-block scan keep it
-    well above its bound (PERF.md)."""
+    ``_window_gather``, ``:1539``, and the star's stream entries,
+    ``:1658-1735``) and ``:763`` ``_sort_queues``.  Bound by bytes: the
+    ``[N, C]`` queue words are read and written once, plus the K*N
+    outbound entries and, in star stream configs, the stream block.  The
+    TPU's sort-by-destination and barrel-shift gather become a counting
+    sort (atomic counts, one-block scan, atomic placement), and the row
+    sort a rank merge of the whole ``[C | K or 2K | Cx]`` row in one
+    block's shared memory (5 words an entry, 7 with the stream payload), so
+    the row is read from device memory once.  The chain of dependent
+    launches and the one-block scan keep it well above its bound
+    (PERF.md)."""
     if not args.on_cuda:
         return lanes.exchange_merge_plain(args.p, args.s, args.ws)
     _launch("exchange_merge", args)
     exchange_merge.launches += 1
+
+
+def stream_rows_merge(args: LaneArgs) -> None:
+    """Kernel E: the split stream exchange of one-to-one stream configs.
+
+    Replaces ``shadow_tpu/backend/lanes.py:1924`` ``_merge_stream_rows``.
+    One block per endpoint row builds its ``[C + W_s]`` row — its lane's
+    queue row and the ``W_s = 2K + K*B`` stream entries that the static
+    layout sends it — and merges it with B's keyed-merge device function,
+    so the row is read from device memory once and written once.  Bound by
+    bytes: 2S queue rows and the stream block."""
+    if not args.on_cuda:
+        return lanes.stream_rows_merge_plain(args.p, args.tb, args.s, args.ws)
+    _launch("stream_rows_merge", args)
+    stream_rows_merge.launches += 1
 
 
 def queue_min_window(args: LaneArgs, advance: bool) -> None:
@@ -306,8 +352,8 @@ def rand_u32(seed: int, stream: torch.Tensor,
     return out
 
 
-WRAPPERS = (lane_slots, exchange_merge, queue_min_window, append_log,
-            rand_u32)
+WRAPPERS = (lane_slots, exchange_merge, stream_rows_merge, queue_min_window,
+            append_log, rand_u32)
 
 
 def reset_launches() -> None:

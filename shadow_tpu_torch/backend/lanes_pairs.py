@@ -86,6 +86,20 @@ def pair_sub_clamp(ahi, alo, bhi, blo, lim):
     ).to(torch.int32)
 
 
+def pair_sub_pair(ahi, alo, bhi, blo):
+    """a - b as a pair, valid when a >= b (callers mask the a < b case)."""
+    t = alo - blo
+    return ahi - bhi - (t < 0).to(torch.int32), t & MASK31
+
+
+def pair_abs_diff(ahi, alo, bhi, blo):
+    """|a - b| as a pair (both subtractions computed, the valid one kept)."""
+    ge = pair_ge(ahi, alo, bhi, blo)
+    d1h, d1l = pair_sub_pair(ahi, alo, bhi, blo)
+    d2h, d2l = pair_sub_pair(bhi, blo, ahi, alo)
+    return pair_sel(ge, d1h, d1l, d2h, d2l)
+
+
 def pair_div_pow2(hi, lo, k: int):
     """(hi, lo) >> k for static 1 <= k <= 30 (non-negative pairs)."""
     mask = (1 << k) - 1

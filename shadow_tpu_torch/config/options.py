@@ -5,10 +5,12 @@ trimmed to what the ported lane path reads.
     network:      { graph: { type: gml|1_gbit_switch, file|inline }, ... }
     experimental: { runahead, use_dynamic_runahead, network_backend,
                     tpu_lane_queue_capacity, tpu_events_per_round,
-                    tpu_cross_capacity }
+                    tpu_cross_capacity, tpu_stream_tiered,
+                    tpu_stream_events_per_round, tpu_stream_queue_capacity }
     hosts:
       <hostname>:
         network_node_id: 0
+        congestion: reno | cubic
         processes: [ { path, args, start_time } ]
 
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
@@ -78,6 +80,12 @@ class ExperimentalOptions:
     # cross-lane receive block width per iteration (0 = queue capacity);
     # overflow is counted and strict mode raises, like queue overflow
     tpu_cross_capacity: int = 0
+    # the reference's TIERED stream backend for one-to-one stream configs
+    # (a dedicated [2S]-row tier); the port runs the untiered path and
+    # refuses a one-to-one stream config while this is true
+    tpu_stream_tiered: bool = True
+    tpu_stream_events_per_round: int = 8  # tier pops per iteration (K_s)
+    tpu_stream_queue_capacity: int = 64  # tier queue width (C2)
 
 
 @dataclasses.dataclass
@@ -95,6 +103,8 @@ class HostOptions:
     bandwidth_down: Optional[int] = None  # bits/sec; falls back to graph node
     bandwidth_up: Optional[int] = None
     processes: list[ProcessOptions] = dataclasses.field(default_factory=list)
+    # congestion control of the host's stream flows (the data sender's)
+    congestion: str = "reno"  # "reno" | "cubic"
 
 
 @dataclasses.dataclass
@@ -227,6 +237,12 @@ class ConfigOptions:
         names = [h.hostname for h in self.hosts]
         if len(set(names)) != len(names):
             raise ConfigError("duplicate hostnames")
+        for h in self.hosts:
+            if h.congestion not in ("reno", "cubic"):
+                raise ConfigError(
+                    f"host {h.hostname!r}: congestion must be reno|cubic, "
+                    f"got {h.congestion!r}"
+                )
 
 
 def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:
@@ -260,6 +276,7 @@ def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:
         bandwidth_down=units.parse_bandwidth(bw_down) if bw_down is not None else None,
         bandwidth_up=units.parse_bandwidth(bw_up) if bw_up is not None else None,
         processes=procs,
+        congestion=str(doc.pop("congestion", "reno")),
     )
     if doc:
         raise ConfigError(f"unknown host options on {name!r}: {sorted(doc)}")

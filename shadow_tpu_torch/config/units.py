@@ -54,7 +54,25 @@ def _bit_units() -> dict[str, int]:
     return units
 
 
+def _byte_units() -> dict[str, int]:
+    units: dict[str, int] = {}
+    for p, mult in _SI.items():
+        units[p + "B"] = mult
+        if p:
+            units[p + "byte"] = mult
+            units[p + "bytes"] = mult
+    for p, mult in _IEC.items():
+        units[p + "B"] = mult
+        units[p + "byte"] = mult
+        units[p + "bytes"] = mult
+    units["B"] = 1
+    units["byte"] = 1
+    units["bytes"] = 1
+    return units
+
+
 _BIT_UNITS = _bit_units()
+_BYTE_UNITS = _byte_units()
 
 
 class UnitError(ValueError):
@@ -97,6 +115,22 @@ def parse_bandwidth(value: str | int) -> int:
     if unit not in _BIT_UNITS:
         raise UnitError(f"unknown bandwidth unit {unit!r} in {value!r}")
     scale = _BIT_UNITS[unit]
+    if isinstance(num, float) and num != int(num):
+        return round(num * scale)
+    return int(num) * scale
+
+
+def parse_bytes(value: str | int) -> int:
+    """Parse a size quantity to bytes (``"16 MiB"``, ``"1500 B"``; bare
+    numbers — int or digit string — are bytes)."""
+    if isinstance(value, int):
+        return value
+    num, unit = _split(value)
+    if unit == "":
+        return round(num)
+    if unit not in _BYTE_UNITS:
+        raise UnitError(f"unknown size unit {unit!r} in {value!r}")
+    scale = _BYTE_UNITS[unit]
     if isinstance(num, float) and num != int(num):
         return round(num * scale)
     return int(num) * scale

@@ -1,5 +1,5 @@
-// The lane engine's four kernels for Hopper (sm_90a), and the threefry
-// draw they share.
+// The lane engine's five kernels for Hopper (sm_90a), the threefry draw and
+// the lane-TCP stream law they share.
 //
 // Plain C interface, bound from shadow_tpu_torch/backend/kernels.py with
 // ctypes.  Every lane launcher takes one LaneBufs block (the device pointers
@@ -12,6 +12,10 @@
 // engine's guarded ranges (kernels.py / gpu_engine.py) that gives the same
 // integers as the reference's pair arithmetic.  Where the reference relies
 // on int32 width (counters, token counts, k*rate) the kernels use int32.
+// The stream law is the exception: it repeats the reference's int32 pair
+// arithmetic step by step, with every sum and product that may wrap done in
+// uint32 (signed overflow is undefined in C++, and wraps in XLA and
+// PyTorch) and every division floored as theirs are.
 //
 // Every kernel that changes state is gated on ctl[0] (the `live` flag that
 // queue_min_window writes), so steps after the end of the run are no-ops.
@@ -28,7 +32,8 @@ constexpr int32_t CD_UNSET = -2147483647;  // -(1 << 31) + 1
 
 constexpr int32_t PACKET = 0, LOCAL = 1, DELIVERY = 2;
 constexpr int32_t M_NONE = 0, M_PHOLD = 1, M_TGEN_MESH = 2, M_TGEN_CLIENT = 3,
-                  M_TGEN_SERVER = 4, M_PING_CLIENT = 5, M_PING_SERVER = 6;
+                  M_TGEN_SERVER = 4, M_PING_CLIENT = 5, M_PING_SERVER = 6,
+                  M_STREAM_CLIENT = 7, M_STREAM_SERVER = 8;
 constexpr int AUX_SRC_SHIFT = 12, AUX_KIND_SHIFT = 29;
 constexpr int32_t SRC_MASK = (1 << 17) - 1;
 
@@ -49,7 +54,7 @@ constexpr uint32_t LOSS_STREAM = 1u << 30, APP_STREAM = 2u << 30;
 // LaneTables fields, then Workspace fields, then the sizes.
 struct LaneBufs {
   // LaneState
-  int32_t *q_thi, *q_tlo, *q_auxh, *q_auxl, *q_size;
+  int32_t *q_thi, *q_tlo, *q_auxh, *q_auxl, *q_size, *q_phi, *q_plo;
   int32_t *send_seq, *local_seq, *app_draws;
   int32_t *up_tokens, *up_nr_hi, *up_nr_lo, *up_ld_hi, *up_ld_lo;
   int32_t *dn_tokens, *dn_nr_hi, *dn_nr_lo, *dn_ld_hi, *dn_ld_lo;
@@ -59,8 +64,8 @@ struct LaneBufs {
   int32_t *n_delivered, *n_loss, *n_codel, *n_queue, *recv_bytes, *n_sends,
       *n_hops;
   int64_t *log;
-  int32_t *log_count, *log_lost, *rounds, *iters, *now_we_hi, *now_we_lo,
-      *min_used_lat;
+  int32_t *log_count, *log_lost, *stream, *rounds, *iters, *now_we_hi,
+      *now_we_lo, *min_used_lat;
   // LaneTables
   int32_t *node_of, *lat;
   int64_t *thresh;
@@ -68,14 +73,24 @@ struct LaneBufs {
   int32_t *dn_rate, *dn_burst, *dn_kfull, *dn_kfi;
   int32_t *model, *recv_mult, *p_size, *p_int_hi, *p_int_lo, *p_peer,
       *p_count, *p_stride, *codel_div;
+  int32_t *flow_lanes, *flow_peers, *flow_clid, *flow_lat;
+  int64_t *flow_thresh;
+  int32_t *flow_segs, *flow_mss, *flow_last, *flow_cc, *flow_up_rate,
+      *flow_up_burst, *flow_up_kfull, *flow_up_kfi, *lane_ep_start,
+      *lane_ep_rows;
   // Workspace
-  int32_t *ctl, *self_blk, *out_blk;
+  int32_t *ctl, *self_blk, *out_blk, *sx_blk;
   int64_t *recs;
   int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order;
-  // sizes (sw: self block width, K or 2K) and run constants
+  // sizes (sw: self block width, K or 2K; words: 5, or 7 with the stream
+  // payload words) and run constants
   int64_t n, c, k, cx, sw, g, log_cap, stop, runahead, interval;
   int64_t seed_lo, seed_hi, bootstrap_end, has_loss, all_passive,
-      dyn_runahead, runahead_floor;
+      dyn_runahead, runahead_floor, words;
+  // streams: S flows, the wide co-pop rule and the pairing it takes,
+  // exchanged entries, and where the record groups start
+  int64_t s_flows, wide_pop, one_to_one, n_x, rec_slots, rec_srec, rec_brec,
+      n_rec;
 };
 
 namespace {
@@ -233,19 +248,692 @@ __device__ bool codel_offer(int32_t& fat_hi, int32_t& fat_lo, int64_t& dn,
   return drop_in_dropping || enter;
 }
 
+// ---- the lane-TCP stream law (backend/lanes_stream.py) ----------------------
+// One flow endpoint in registers.  Every time is an int32 (hi, lo) pair and
+// the pair helpers are the reference's lanes_pairs.py; wrap-prone sums and
+// products go through uint32, divisions are floored.
+
+constexpr int32_t F_SYN = 1, F_ACK = 2, F_FIN = 4, F_DATA = 8;
+constexpr int32_t CLOSED = 0, SYN_SENT = 1, SYN_RCVD = 2, ESTAB = 3,
+                  FIN_WAIT = 4, LAST_ACK = 5, DONE = 6;
+constexpr int32_t SENDER = 0, RECEIVER = 1;
+constexpr int32_t FP = 1024, MIN_SSTHRESH_FP = 2 * FP, DUP_THRESH = 3;
+constexpr int32_t CC_CUBIC = 1;
+constexpr int32_t CUBIC_BETA_MUL = 717, CUBIC_FC_MUL = 870, CUBIC_C_MUL = 410,
+                  CUBIC_K_MUL = 40960, CUBIC_D_MAX = 8192;
+constexpr int32_t RWND_SEGS = 24, MAX_CWND_FP = 2 * RWND_SEGS * FP;
+constexpr int PUMP_BURST = RWND_SEGS;
+constexpr int32_t HDR_BYTES = 40;
+constexpr int32_t SZ_RTO = -3;
+constexpr int PAY_SEQ_BITS = 26;
+constexpr int32_t PAY_SEQ_MASK = (1 << PAY_SEQ_BITS) - 1;
+constexpr int N_COLS = 33;
+constexpr int32_t M31 = 0x7FFFFFFF;
+// RTO_MIN 200 ms, RTO_MAX 60 s and the 1 ms granularity floor, as pairs
+constexpr int32_t RTO_MIN_HI = 0, RTO_MIN_LO = 200000000;
+constexpr int32_t RTO_MAX_HI = 27, RTO_MAX_LO = 2017941504;
+constexpr int32_t GRAN_HI = 0, GRAN_LO = 1000000;
+
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) * static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int32_t wshl(int32_t a, int s) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) << s);
+}
+// Python's // on int32 (floor); b != 0
+__device__ __forceinline__ int32_t floordiv(int32_t a, int32_t b) {
+  if (b == -1) return wsub(0, a);  // INT_MIN / -1 wraps, as XLA's does
+  int32_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q -= 1;
+  return q;
+}
+__device__ __forceinline__ int32_t imin(int32_t a, int32_t b) { return a < b ? a : b; }
+__device__ __forceinline__ int32_t imax(int32_t a, int32_t b) { return a > b ? a : b; }
+
+struct Pair {
+  int32_t hi, lo;
+};
+__device__ __forceinline__ bool p_lt(Pair a, Pair b) {
+  return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
+}
+__device__ __forceinline__ Pair p_add32(Pair a, int32_t x) {
+  const int32_t t = wadd(a.lo, x);
+  return {wadd(a.hi, t < 0 ? 1 : 0), t & M31};
+}
+__device__ __forceinline__ Pair p_add(Pair a, Pair b) {
+  const int32_t t = wadd(a.lo, b.lo);
+  return {wadd(wadd(a.hi, b.hi), t < 0 ? 1 : 0), t & M31};
+}
+__device__ __forceinline__ Pair p_sub(Pair a, Pair b) {
+  const int32_t t = wsub(a.lo, b.lo);
+  return {wsub(wsub(a.hi, b.hi), t < 0 ? 1 : 0), t & M31};
+}
+__device__ __forceinline__ Pair p_max(Pair a, Pair b) { return p_lt(a, b) ? b : a; }
+__device__ __forceinline__ Pair p_abs_diff(Pair a, Pair b) {
+  return p_lt(a, b) ? p_sub(b, a) : p_sub(a, b);
+}
+__device__ __forceinline__ Pair p_div_pow2(Pair a, int k) {
+  const int32_t mask = (1 << k) - 1;
+  return {a.hi >> k, wadd(wshl(a.hi & mask, 31 - k), a.lo >> k)};
+}
+__device__ __forceinline__ Pair p_mul_small(Pair a, int32_t c) {
+  const int32_t lh = a.lo >> 16, ll = a.lo & 0xFFFF;
+  const int32_t mid = wmul(lh, c);
+  const int32_t q = mid >> 15, s = mid & 0x7FFF;
+  const int32_t t = wadd(wshl(s, 16), wmul(ll, c));
+  return {wadd(wadd(wmul(a.hi, c), q), t < 0 ? 1 : 0), t & M31};
+}
+
+// one endpoint's flow state: the 33 columns of lanes_stream.py, then the
+// row's static shape
+struct Flow {
+  int32_t state, snd_una, snd_nxt, rcv_nxt, cwnd, ssthresh, dup_acks, in_rec,
+      recover, max_sent, rtt_seq;
+  Pair srtt, rttvar, rto, rtt_ts, rtodl, rtoev;
+  int32_t tx_segs, retransmits, completed, rx_segs, rx_bytes, w_max, origin;
+  Pair epoch;
+  int32_t k_q;
+  int32_t role, segs, mss, last_bytes, cc;
+};
+
+__device__ void flow_load(Flow& f, const int32_t* r) {
+  f.state = r[0]; f.snd_una = r[1]; f.snd_nxt = r[2]; f.rcv_nxt = r[3];
+  f.cwnd = r[4]; f.ssthresh = r[5]; f.dup_acks = r[6]; f.in_rec = r[7];
+  f.recover = r[8]; f.max_sent = r[9]; f.rtt_seq = r[10];
+  f.srtt = {r[11], r[12]}; f.rttvar = {r[13], r[14]}; f.rto = {r[15], r[16]};
+  f.rtt_ts = {r[17], r[18]}; f.rtodl = {r[19], r[20]}; f.rtoev = {r[21], r[22]};
+  f.tx_segs = r[23]; f.retransmits = r[24]; f.completed = r[25];
+  f.rx_segs = r[26]; f.rx_bytes = r[27]; f.w_max = r[28]; f.origin = r[29];
+  f.epoch = {r[30], r[31]}; f.k_q = r[32];
+}
+
+__device__ void flow_store(const Flow& f, int32_t* r) {
+  r[0] = f.state; r[1] = f.snd_una; r[2] = f.snd_nxt; r[3] = f.rcv_nxt;
+  r[4] = f.cwnd; r[5] = f.ssthresh; r[6] = f.dup_acks; r[7] = f.in_rec;
+  r[8] = f.recover; r[9] = f.max_sent; r[10] = f.rtt_seq;
+  r[11] = f.srtt.hi; r[12] = f.srtt.lo; r[13] = f.rttvar.hi;
+  r[14] = f.rttvar.lo; r[15] = f.rto.hi; r[16] = f.rto.lo;
+  r[17] = f.rtt_ts.hi; r[18] = f.rtt_ts.lo; r[19] = f.rtodl.hi;
+  r[20] = f.rtodl.lo; r[21] = f.rtoev.hi; r[22] = f.rtoev.lo;
+  r[23] = f.tx_segs; r[24] = f.retransmits; r[25] = f.completed;
+  r[26] = f.rx_segs; r[27] = f.rx_bytes; r[28] = f.w_max; r[29] = f.origin;
+  r[30] = f.epoch.hi; r[31] = f.epoch.lo; r[32] = f.k_q;
+}
+
+// what one stimulus emits: the control send and the RTO arm
+struct Emit {
+  bool send_valid, send_retx, rto_valid, completed_now;
+  int32_t send_flags, send_seq, send_ack, send_size;
+  Pair rto_t;
+};
+
+__device__ __forceinline__ int32_t seg_wire_size(const Flow& f, int32_t unit) {
+  if (unit >= 1 && unit <= f.segs)
+    return HDR_BYTES + (unit == f.segs ? f.last_bytes : f.mss);
+  return HDR_BYTES;
+}
+
+__device__ __forceinline__ int32_t seg_flags(const Flow& f, int32_t unit) {
+  if (unit == 0) return f.role == SENDER ? F_SYN : (F_SYN | F_ACK);
+  if (f.role == SENDER && unit >= 1 && unit <= f.segs) return F_DATA | F_ACK;
+  return F_FIN | F_ACK;
+}
+
+__device__ __forceinline__ int32_t flight(const Flow& f) {
+  return wsub(f.snd_nxt, f.snd_una);
+}
+
+// ltcp.icbrt32: the 11-iteration bitwise floor cube root
+__device__ int32_t icbrt32(int32_t x) {
+  int32_t y = 0;
+  for (int s = 30; s >= 0; s -= 3) {
+    y = wadd(y, y);
+    const int32_t b = wadd(wmul(wmul(3, y), wadd(y, 1)), 1);
+    if ((x >> s) >= b) {
+      x = wsub(x, wshl(b, s));
+      y = wadd(y, 1);
+    }
+  }
+  return y;
+}
+
+__device__ void cc_on_loss(Flow& f) {
+  if (f.cc == CC_CUBIC) {
+    f.w_max = f.cwnd < f.w_max ? wmul(f.cwnd, CUBIC_FC_MUL) >> 10 : f.cwnd;
+    f.epoch = {NEVER32, NEVER32};
+    f.ssthresh = imax(wmul(f.cwnd, CUBIC_BETA_MUL) >> 10, MIN_SSTHRESH_FP);
+  } else {
+    const int32_t fl_fp = wmul(imin(flight(f), 1 << 15), FP);
+    f.ssthresh = imax(floordiv(fl_fp, 2), MIN_SSTHRESH_FP);
+  }
+}
+
+__device__ void cc_grow_ca(Flow& f, Pair now) {
+  const bool cub = f.cc == CC_CUBIC;
+  if (cub && f.epoch.hi == NEVER32) {
+    const bool below = f.cwnd < f.w_max;
+    f.epoch = now;
+    f.origin = below ? f.w_max : f.cwnd;
+    f.k_q = below ? wmul(4, icbrt32(wmul(wsub(f.w_max, f.cwnd), CUBIC_K_MUL))) : 0;
+  }
+  int32_t grow;
+  if (cub) {
+    const Pair d = p_sub(now, f.epoch);
+    const int32_t d_q =
+        imin(wadd(wmul(imin(d.hi, 1 << 19), 1 << 11), d.lo >> 20), CUBIC_D_MAX);
+    int32_t offs = wsub(d_q, f.k_q);
+    const bool neg = offs < 0;
+    offs = imin(neg ? wsub(0, offs) : offs, CUBIC_D_MAX);
+    const int32_t delta =
+        wmul(wmul(wmul(offs, offs) >> 10, offs) >> 10, CUBIC_C_MUL) >> 10;
+    const int32_t target = neg ? wsub(f.origin, delta) : wadd(f.origin, delta);
+    const int32_t safe = imax(f.cwnd, 1);
+    grow = target > f.cwnd
+               ? imax(1, floordiv(wmul(wsub(target, f.cwnd), FP), safe))
+               : imax(1, floordiv(FP * FP, wmul(100, safe)));
+  } else {
+    grow = imax(1, floordiv(FP * FP, imax(f.cwnd, 1)));
+  }
+  f.cwnd = wadd(f.cwnd, grow);
+}
+
+__device__ void rtt_sample(Flow& f, Pair now) {
+  Pair r = p_lt(now, f.rtt_ts) ? Pair{0, 0} : p_sub(now, f.rtt_ts);
+  const bool first = f.srtt.hi < 0;
+  const Pair s = p_div_pow2(p_add(p_mul_small(f.srtt, 7), r), 3);
+  const Pair srtt1 = first ? r : s;
+  const Pair d = p_abs_diff(f.srtt, r);
+  const Pair v = p_div_pow2(p_add(p_mul_small(f.rttvar, 3), d), 2);
+  const Pair var1 = first ? p_div_pow2(r, 1) : v;
+  const Pair v4 = p_max(p_mul_small(var1, 4), Pair{GRAN_HI, GRAN_LO});
+  Pair to = p_add(srtt1, v4);
+  if (p_lt(to, Pair{RTO_MIN_HI, RTO_MIN_LO})) to = {RTO_MIN_HI, RTO_MIN_LO};
+  if (p_lt(Pair{RTO_MAX_HI, RTO_MAX_LO}, to)) to = {RTO_MAX_HI, RTO_MAX_LO};
+  f.srtt = srtt1;
+  f.rttvar = var1;
+  f.rto = to;
+}
+
+// (re)start the retransmission timer: arm a new RTO event only when none
+// is queued or the new deadline is earlier (the dedup law)
+__device__ void restart_rto(Flow& f, Pair now, Emit& em) {
+  const Pair dl = p_add(now, f.rto);
+  f.rtodl = dl;
+  if (f.rtoev.hi == NEVER32 || p_lt(dl, f.rtoev)) {
+    f.rtoev = dl;
+    em.rto_valid = true;
+    em.rto_t = dl;
+  }
+}
+
+__device__ void emit_unit(Flow& f, int32_t unit, bool retransmit, Emit& em) {
+  f.tx_segs = wadd(f.tx_segs, 1);
+  if (retransmit) {
+    f.retransmits = wadd(f.retransmits, 1);
+    if (f.rtt_seq >= 0 && unit <= f.rtt_seq) f.rtt_seq = -1;
+  } else if (f.rtt_seq < 0) {
+    f.rtt_seq = unit;
+  }
+  if (wadd(unit, 1) > f.max_sent) f.max_sent = wadd(unit, 1);
+  em.send_valid = true;
+  em.send_flags = seg_flags(f, unit);
+  em.send_seq = unit;
+  em.send_ack = f.rcv_nxt;
+  em.send_size = seg_wire_size(f, unit);
+  em.send_retx = retransmit;
+}
+
+__device__ __forceinline__ void control(Emit& em, int32_t seq, int32_t ack) {
+  em.send_valid = true;
+  em.send_flags = F_ACK;
+  em.send_seq = seq;
+  em.send_ack = ack;
+  em.send_size = HDR_BYTES;
+}
+
+// go-back-N loss response (the epilogue pump re-streams the rest)
+__device__ void pull_back(Flow& f, Pair now, Emit& em) {
+  f.snd_nxt = wadd(f.snd_una, 1);
+  if (f.role == SENDER && f.state == FIN_WAIT) f.state = ESTAB;
+  emit_unit(f, f.snd_una, true, em);
+  restart_rto(f, now, em);
+}
+
+__device__ void open_flow(Flow& f, Pair now, Emit& em) {
+  f.state = SYN_SENT;
+  f.snd_nxt = 1;
+  emit_unit(f, 0, false, em);
+  f.rtt_ts = now;
+  restart_rto(f, now, em);
+}
+
+__device__ void on_rto(Flow& f, Pair now, Emit& em) {
+  // ownership law: only the event at time rto_evt speaks for the timer
+  if (now.hi != f.rtoev.hi || now.lo != f.rtoev.lo) return;
+  f.rtoev = {NEVER32, NEVER32};
+  if (f.rtodl.hi == NEVER32 || flight(f) <= 0) return;
+  if (p_lt(now, f.rtodl)) {  // the deadline moved later: re-arm there
+    f.rtoev = f.rtodl;
+    em.rto_valid = true;
+    em.rto_t = f.rtodl;
+    return;
+  }
+  Pair r2 = p_mul_small(f.rto, 2);
+  if (p_lt(Pair{RTO_MAX_HI, RTO_MAX_LO}, r2)) r2 = {RTO_MAX_HI, RTO_MAX_LO};
+  cc_on_loss(f);
+  f.cwnd = FP;
+  f.dup_acks = 0;
+  f.in_rec = 0;
+  f.rto = r2;
+  pull_back(f, now, em);
+}
+
+// the scalar law's on_segment: its early returns become `live` turning off
+__device__ void on_segment(Flow& f, Pair now, int32_t flags, int32_t seq,
+                           int32_t ack, int32_t size, Emit& em) {
+  const bool is_syn = flags & F_SYN, is_ack = flags & F_ACK,
+             is_fin = flags & F_FIN, is_data = flags & F_DATA;
+  bool live = true;
+  if (f.state == DONE) {  // a dup FIN from a peer that missed our last ACK
+    if (f.role == SENDER && is_fin) control(em, f.snd_nxt, f.rcv_nxt);
+    live = false;
+  }
+  if (live && f.role == RECEIVER && f.state == CLOSED) {  // passive open
+    if (is_syn && !is_ack) {
+      f.state = SYN_RCVD;
+      f.rcv_nxt = 1;
+      f.snd_nxt = 1;
+      emit_unit(f, 0, false, em);
+      f.rtt_ts = now;
+      restart_rto(f, now, em);
+    }
+    live = false;
+  }
+  if (live && f.role == RECEIVER && f.state == SYN_RCVD && is_syn && !is_ack) {
+    emit_unit(f, 0, true, em);  // a retransmitted SYN: resend the SYN-ACK
+    restart_rto(f, now, em);
+    live = false;
+  }
+
+  // ACK processing
+  const bool new_ack = live && is_ack && ack > f.snd_una;
+  const int32_t acked = imin(wsub(ack, f.snd_una), 1 << 15);
+  const int32_t pre_snd_una = f.snd_una;
+  const bool pre_in_rec = f.in_rec != 0;
+  if (new_ack) {
+    const bool was_syn_sent = f.state == SYN_SENT;
+    const bool was_syn_rcvd = f.state == SYN_RCVD;
+    f.snd_una = ack;
+    if (f.snd_nxt < f.snd_una) f.snd_nxt = f.snd_una;
+    if (was_syn_sent || was_syn_rcvd) f.state = ESTAB;
+    if (was_syn_sent) f.rcv_nxt = 1;  // the SYN-ACK consumed unit 0
+    if (pre_in_rec && ack >= f.recover) {  // full ACK: recovery exit
+      f.cwnd = f.ssthresh;
+      f.in_rec = 0;
+      f.dup_acks = 0;
+    }
+    if (!pre_in_rec) {
+      f.dup_acks = 0;
+      if (f.cwnd < f.ssthresh) {
+        f.cwnd = wadd(f.cwnd, wmul(acked, FP));  // slow start
+      } else {
+        cc_grow_ca(f, now);
+      }
+      f.cwnd = imin(f.cwnd, MAX_CWND_FP);
+    }
+    if (f.rtt_seq >= 0 && ack > f.rtt_seq) {
+      rtt_sample(f, now);
+      f.rtt_seq = -1;
+    }
+    if (flight(f) > 0) {
+      restart_rto(f, now, em);
+    } else {
+      f.rtodl = {NEVER32, NEVER32};
+    }
+  }
+  // a pure duplicate ACK
+  if (live && is_ack && ack == pre_snd_una && !new_ack && flight(f) > 0 &&
+      !(is_data || is_syn || is_fin)) {
+    if (f.in_rec) {
+      f.cwnd = wadd(f.cwnd, FP);
+    } else {
+      f.dup_acks = wadd(f.dup_acks, 1);
+      if (f.dup_acks == DUP_THRESH) {  // fast retransmit
+        f.in_rec = 1;
+        f.recover = f.snd_nxt;
+        cc_on_loss(f);
+        f.cwnd = wadd(f.ssthresh, DUP_THRESH * FP);
+        pull_back(f, now, em);
+      }
+    }
+  }
+
+  // the sender's teardown (a window this ACK opened is streamed by the pump)
+  if (live && f.role == SENDER) {
+    if (is_fin && f.snd_una == wadd(f.segs, 2)) {
+      f.rcv_nxt = 2;
+      control(em, f.snd_nxt, f.rcv_nxt);
+      em.completed_now = true;
+      f.state = DONE;
+      f.rtodl = {NEVER32, NEVER32};
+    }
+    live = false;
+  }
+
+  // the receiver's data path
+  if (live && (f.state == SYN_RCVD || f.state == ESTAB) && is_syn && is_ack)
+    live = false;  // a stray SYN-ACK
+  const bool est = live && (f.state == ESTAB || f.state == SYN_RCVD);
+  if (est && is_data) {
+    if (seq == f.rcv_nxt) {
+      f.rcv_nxt = wadd(f.rcv_nxt, 1);
+      f.rx_segs = wadd(f.rx_segs, 1);
+      f.rx_bytes = wadd(f.rx_bytes, wsub(size, HDR_BYTES));
+    }
+    control(em, f.snd_nxt, f.rcv_nxt);  // ACK everything
+  }
+  if (est && !is_data && is_fin) {
+    if (seq == f.rcv_nxt) {
+      const int32_t unit = f.snd_nxt;
+      const bool fresh_ts = f.rtt_seq < 0;
+      f.rcv_nxt = wadd(f.rcv_nxt, 1);
+      f.snd_nxt = wadd(f.snd_nxt, 1);
+      if (fresh_ts) f.rtt_ts = now;
+      emit_unit(f, unit, false, em);
+      f.state = LAST_ACK;
+      restart_rto(f, now, em);
+    } else {
+      control(em, f.snd_nxt, f.rcv_nxt);
+    }
+  }
+  // LAST_ACK (a flow the branch above just moved there is not re-examined)
+  if (live && !est && f.state == LAST_ACK) {
+    if (f.snd_una >= 2) {
+      f.state = DONE;
+      f.rtodl = {NEVER32, NEVER32};
+      em.completed_now = true;
+    } else if ((is_data || is_fin) && seq < f.rcv_nxt) {
+      emit_unit(f, f.snd_una, true, em);  // a stale retransmission
+      restart_rto(f, now, em);
+    }
+  }
+}
+
+// the transmission-opportunity epilogue, in closed form: up to PUMP_BURST
+// window-permitted units u0 .. u0 + count - 1; returns count
+__device__ int32_t pump_epilogue(Flow& f, Pair now, Emit& em) {
+  const int32_t u0 = f.snd_nxt;
+  int32_t cnt = 0;
+  if (f.role == SENDER && f.state == ESTAB) {
+    const int32_t lim_w =
+        wsub(imin(floordiv(f.cwnd, FP), RWND_SEGS), wsub(u0, f.snd_una));
+    const int32_t lim_fin = wsub(wadd(f.segs, 2), u0);
+    cnt = imax(imin(imin(lim_w, lim_fin), PUMP_BURST), 0);
+  }
+  const int32_t n_re = imin(imax(wsub(f.max_sent, u0), 0), cnt);
+  const bool cleared = n_re > 0 && f.rtt_seq >= 0 && u0 <= f.rtt_seq;
+  const bool take_ts = cnt > n_re && (f.rtt_seq < 0 || cleared);
+  if (take_ts) {
+    f.rtt_ts = now;
+    f.rtt_seq = wadd(u0, n_re);
+  } else if (cleared) {
+    f.rtt_seq = -1;
+  }
+  f.tx_segs = wadd(f.tx_segs, cnt);
+  f.retransmits = wadd(f.retransmits, n_re);
+  if (cnt > 0) {
+    f.max_sent = imax(f.max_sent, wadd(u0, cnt));
+    if (wadd(u0, cnt) == wadd(f.segs, 2)) f.state = FIN_WAIT;
+  }
+  f.snd_nxt = wadd(u0, cnt);
+  if (cnt > 0) restart_rto(f, now, em);
+  return cnt;
+}
+
+// one charge of an intra-instant chain, for burst units after the first
+// (the reference's bucket_charge_chained_vec): the wait machinery only
+__device__ int64_t bucket_charge_chained(Bucket& b, int32_t rate, int32_t burst,
+                                         int64_t t, int32_t bits,
+                                         int32_t interval) {
+  const bool act = rate != 0;
+  const bool have = b.tokens >= bits;
+  const bool wait = act && !have;
+  const int32_t r1 = rate > 1 ? rate : 1;
+  int32_t w = 1;
+  if (wait) w = (bits - b.tokens + r1 - 1) / r1;
+  const int64_t te = t > b.ld ? t : b.ld;
+  const int64_t dep =
+      wait ? b.nr + static_cast<int64_t>((w - 1) * interval) : te;
+  if (act) {
+    if (have) {
+      b.tokens -= bits;
+    } else {
+      const int32_t cap = burst / r1 + 1;
+      const int32_t w_r = w < cap ? w : cap;
+      const int32_t filled = b.tokens + w_r * rate;
+      const int32_t left = (filled < burst ? filled : burst) - bits;
+      b.tokens = left > 0 ? left : 0;
+    }
+    b.ld = dep;
+  }
+  if (wait) b.nr += static_cast<int64_t>(w * interval);
+  return dep;
+}
+
+// The stream arm of slot j for lane i (the reference's _process_slot stream
+// tier and compacted channels): the lane's endpoint row that this popped
+// event stimulates — a start marker opens a client flow, an RTO local owned
+// by the row's flow fires its timer, a stream segment (non-zero payload; at
+// a server row only from its own client) runs on_segment — runs the law and
+// the pump epilogue; its control send and data burst charge the lane's up
+// bucket in order (the burst after its first unit by the chained law), each
+// drawing its loss at counter = its send sequence number; its RTO arm takes
+// the lane's local sequence.  Every entry of the stream block and every
+// stream loss record of the lane's rows for slot j is written, valid or not.
+struct StreamLane {
+  Bucket& up;
+  int32_t &send_seq, &local_seq, &n_sends, &n_loss, &min_lat;
+};
+
+__device__ void put_entry(const LaneBufs& b, int64_t n_ent, int64_t idx,
+                          bool valid, int32_t dst, int64_t t, int32_t auxh,
+                          int32_t auxl, int32_t size, int32_t phi,
+                          int32_t plo) {
+  int32_t* x = b.sx_blk + idx;
+  int32_t hi = NEVER32, lo = NEVER32;
+  if (valid) split(t, &hi, &lo);
+  x[0 * n_ent] = valid ? dst : static_cast<int32_t>(b.n);
+  x[1 * n_ent] = hi;
+  x[2 * n_ent] = lo;
+  x[3 * n_ent] = valid ? auxh : 0;
+  x[4 * n_ent] = valid ? auxl : 0;
+  x[5 * n_ent] = valid ? size : 0;
+  x[6 * n_ent] = valid ? phi : 0;
+  x[7 * n_ent] = valid ? plo : 0;
+}
+
+__device__ void put_loss(const LaneBufs& b, int64_t r, bool lost, int64_t t,
+                         int32_t src, int32_t dst, int32_t seq, int32_t size) {
+  if (b.log_cap <= 0) return;
+  int64_t* row = b.recs + r * 6;
+  row[0] = lost ? t : 0;
+  row[1] = lost ? src : 0;
+  row[2] = lost ? dst : 0;
+  row[3] = lost ? seq : 0;
+  row[4] = lost ? size : 0;
+  row[5] = lost ? DROP_LOSS : 0;
+  b.rec_valid[r] = lost ? 1 : 0;
+}
+
+__device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
+                            int32_t kind, int32_t src, int32_t size,
+                            int32_t phi, int32_t plo, int32_t thi,
+                            int32_t tlo, int64_t we, StreamLane sl) {
+  const int32_t r0 = b.lane_ep_start[i], r1 = b.lane_ep_start[i + 1];
+  if (r0 == r1) return;  // no flow endpoint on this lane
+  const int64_t sf = b.s_flows, s2 = 2 * sf, k = b.k;
+  const int64_t n_ent = 4 * k * sf + k * PUMP_BURST * sf;
+  const int32_t lane = static_cast<int32_t>(i);
+  const int64_t t = join_raw(thi, tlo);
+
+  // the stimulated row (at most one per lane and slot)
+  int32_t e = -1, stim = 0;  // 1 open, 2 RTO, 3 segment
+  for (int32_t r = r0; act && r < r1 && e < 0; ++r) {
+    const int32_t row = b.lane_ep_rows[r];
+    const bool cl = row < sf;
+    if (kind == LOCAL && size == -1 && cl) {
+      e = row, stim = 1;
+    } else if (kind == LOCAL && size == SZ_RTO && plo == b.flow_clid[row]) {
+      e = row, stim = 2;
+    } else if (kind == DELIVERY && (phi | plo) != 0 &&
+               (cl || src == b.flow_clid[row])) {
+      e = row, stim = 3;
+    }
+  }
+
+  Emit em{};
+  Flow f;
+  int32_t cnt = 0, u0 = 0, se_seq = 0, lseq_arm = 0;
+  bool se_lost = false;
+  int64_t se_arr = 0;
+  if (e >= 0) {
+    int32_t* frow = b.stream + static_cast<int64_t>(e) * N_COLS;
+    flow_load(f, frow);
+    f.role = e < sf ? SENDER : RECEIVER;
+    f.segs = b.flow_segs[e];
+    f.mss = b.flow_mss[e];
+    f.last_bytes = b.flow_last[e];
+    f.cc = b.flow_cc[e];
+    const Pair now{thi, tlo};
+    if (stim == 1) {
+      open_flow(f, now, em);
+    } else if (stim == 2) {
+      on_rto(f, now, em);
+    } else {
+      on_segment(f, now, phi >> PAY_SEQ_BITS, phi & PAY_SEQ_MASK, plo, size,
+                 em);
+    }
+    if (em.completed_now) f.completed = 1;  // latched once
+    u0 = f.snd_nxt;
+    cnt = pump_epilogue(f, now, em);
+    flow_store(f, frow);
+
+    const int32_t interval = static_cast<int32_t>(b.interval);
+    const bool past_bs = t >= b.bootstrap_end;
+    const int32_t lat = b.flow_lat[e];
+    const uint32_t stream = static_cast<uint32_t>(lane) | LOSS_STREAM;
+    // slot-0 control send
+    se_seq = sl.send_seq;
+    if (em.send_valid) {
+      const int64_t dep = bucket_charge(
+          sl.up, b.flow_up_rate[e], b.flow_up_burst[e], b.flow_up_kfull[e],
+          b.flow_up_kfi[e], t, (em.send_size + FRAME_OVERHEAD_BYTES) * 8, true,
+          interval);
+      sl.send_seq = wadd(sl.send_seq, 1);
+      sl.n_sends = wadd(sl.n_sends, 1);
+      if (b.has_loss && past_bs) {
+        const uint32_t u = lane_draw(static_cast<uint32_t>(b.seed_lo),
+                                     static_cast<uint32_t>(b.seed_hi), stream,
+                                     static_cast<uint32_t>(se_seq));
+        se_lost = static_cast<int64_t>(u) < b.flow_thresh[e];
+      }
+      if (se_lost) sl.n_loss = wadd(sl.n_loss, 1);
+      if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, lat);
+      se_arr = dep + lat;
+      if (se_arr < we) se_arr = we;
+    }
+    lseq_arm = sl.local_seq;
+    if (em.rto_valid) sl.local_seq = wadd(sl.local_seq, 1);
+
+    // the burst (client rows: the law's role gate empties server bursts)
+    int32_t sent = em.send_valid ? 1 : 0;
+    const int64_t peer = b.flow_peers[e];
+    const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+    for (int32_t u = 0; u < cnt; ++u) {
+      const int32_t unit = wadd(u0, u);
+      const int32_t bsize = seg_wire_size(f, unit);
+      const int32_t bits = (bsize + FRAME_OVERHEAD_BYTES) * 8;
+      const int64_t dep =
+          u == 0 ? bucket_charge(sl.up, b.flow_up_rate[e], b.flow_up_burst[e],
+                                 b.flow_up_kfull[e], b.flow_up_kfi[e], t, bits,
+                                 true, interval)
+                 : bucket_charge_chained(sl.up, b.flow_up_rate[e],
+                                         b.flow_up_burst[e], t, bits,
+                                         interval);
+      const int32_t bseq = wadd(se_seq, sent);
+      bool lost = false;
+      if (b.has_loss && past_bs) {
+        const uint32_t d = lane_draw(static_cast<uint32_t>(b.seed_lo),
+                                     static_cast<uint32_t>(b.seed_hi), stream,
+                                     static_cast<uint32_t>(bseq));
+        lost = static_cast<int64_t>(d) < b.flow_thresh[e];
+      }
+      if (lost) sl.n_loss = wadd(sl.n_loss, 1);
+      if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, lat);
+      int64_t arr = dep + lat;
+      if (arr < we) arr = we;
+      const int64_t slot = j * PUMP_BURST + u;
+      put_entry(b, n_ent, 4 * k * sf + slot * sf + e, !lost,
+                static_cast<int32_t>(peer), arr, pkt_auxh, bseq, bsize,
+                wshl(seg_flags(f, unit), PAY_SEQ_BITS) | unit, f.rcv_nxt);
+      put_loss(b, b.rec_brec + slot * sf + e, lost, t, lane,
+               static_cast<int32_t>(peer), bseq, bsize);
+      sent += 1;
+    }
+    sl.send_seq = wadd(sl.send_seq, cnt);
+    sl.n_sends = wadd(sl.n_sends, cnt);
+  }
+
+  // the lane's rows: control sends, RTO arms, the rest of the bursts, and
+  // the control sends' loss records
+  for (int32_t r = r0; r < r1; ++r) {
+    const int32_t row = b.lane_ep_rows[r];
+    const bool me = row == e;
+    const int32_t peer = b.flow_peers[row];
+    const int32_t auxh_pkt = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+    const int32_t auxh_loc = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+    const bool se_v = me && em.send_valid;
+    put_entry(b, n_ent, j * s2 + row, se_v && !se_lost, peer, se_arr,
+              auxh_pkt, se_seq, em.send_size,
+              wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
+    put_loss(b, b.rec_srec + j * s2 + row, se_v && se_lost, t, lane, peer,
+             se_seq, em.send_size);
+    const bool sa_v = me && em.rto_valid;
+    put_entry(b, n_ent, k * s2 + j * s2 + row, sa_v, lane,
+              join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, lseq_arm, SZ_RTO,
+              0, b.flow_clid[row]);
+    if (row < sf) {
+      for (int32_t u = me ? cnt : 0; u < PUMP_BURST; ++u) {
+        const int64_t slot = j * PUMP_BURST + u;
+        put_entry(b, n_ent, 4 * k * sf + slot * sf + row, false, 0, 0, 0, 0,
+                  0, 0, 0);
+        put_loss(b, b.rec_brec + slot * sf + row, false, 0, 0, 0, 0, 0);
+      }
+    }
+  }
+}
+
 // ---- kernel A: lane_slots ---------------------------------------------------
 // One thread per lane walks its first K queue columns in registers: the
 // co-pop rule, then the slot law on each popped column — down bucket +
 // CoDel for PACKET pops, delivered inline on passive lanes or as a DELIVERY
 // self-insert on active ones; the app sends (tgen ticks, phold hops to a
 // threefry peer, ping requests and echoes) with the up bucket, the latency
-// gather and the threefry loss draw; the timer re-arms.
+// gather and the threefry loss draw; the timer re-arms; and on stream lanes
+// the stream arm (stream_slot), whose endpoint rows the thread owns.
 __global__ void lane_slots_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   const int64_t n = b.n;
   if (i >= n) return;
   const int64_t c = b.c, k = b.k, sw = b.sw;
+  const bool streams = b.s_flows > 0;
   const int32_t interval = static_cast<int32_t>(b.interval);
   const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
   const int32_t lane = static_cast<int32_t>(i);
@@ -283,16 +971,20 @@ __global__ void lane_slots_kernel(LaneBufs b) {
   const bool phold = model == M_PHOLD;
   const bool ping_cl = model == M_PING_CLIENT;
   const bool ping_sv = model == M_PING_SERVER;
+  const bool stream_lane = model == M_STREAM_CLIENT || model == M_STREAM_SERVER;
   const int32_t lane_pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
   const int32_t lane_loc_auxh = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-  const int64_t rec_base = n * (sw + b.cx);
+  const int64_t rec_base = b.rec_slots;
   const int64_t nk = n * k, nsw = n * sw;
   const int64_t arm0 = all_passive ? 0 : k;  // first re-arm column
 
   // co-pop rule: passive lanes pop any prefix inside the window; active
-  // lanes only a same-instant prefix of PACKETs, or column 0 alone
+  // lanes only a same-instant prefix of PACKETs, or column 0 alone; with
+  // the wide rule, stream lanes also a prefix free of LOCALs (one-to-one)
+  // or a PACKET-only or DELIVERY-only prefix (star)
   const int32_t head_hi = b.q_thi[i * c], head_lo = b.q_tlo[i * c];
-  bool pkt_prefix = true;
+  bool pkt_prefix = true, no_local_prefix = true, del_prefix = true;
+  const bool wide = b.wide_pop && stream_lane;
 
   for (int64_t j = 0; j < k; ++j) {
     const int64_t qi = i * c + j;
@@ -304,7 +996,12 @@ __global__ void lane_slots_kernel(LaneBufs b) {
     bool allowed = true;
     if (!all_passive && !passive) {
       pkt_prefix = pkt_prefix && kind == PACKET;
+      no_local_prefix = no_local_prefix && kind != LOCAL;
+      del_prefix = del_prefix && kind == DELIVERY;
       allowed = j == 0 || (thi == head_hi && tlo == head_lo && pkt_prefix);
+      if (wide)
+        allowed = allowed || (b.one_to_one ? no_local_prefix
+                                           : (pkt_prefix || del_prefix));
     }
     const bool act = allowed && t < we;
     if (act) {
@@ -342,6 +1039,10 @@ __global__ void lane_slots_kernel(LaneBufs b) {
           ins ? (DELIVERY << AUX_KIND_SHIFT) | (src << AUX_SRC_SHIFT) : 0;
       b.self_blk[3 * nsw + si] = ins ? seq : 0;
       b.self_blk[4 * nsw + si] = ins ? size : 0;
+      if (streams) {  // stream segments keep their payload words
+        b.self_blk[5 * nsw + si] = ins ? b.q_phi[qi] : 0;
+        b.self_blk[6 * nsw + si] = ins ? b.q_plo[qi] : 0;
+      }
     }
 
     // DELIVERY: phold sends on, the ping server echoes
@@ -408,6 +1109,10 @@ __global__ void lane_slots_kernel(LaneBufs b) {
     b.self_blk[2 * nsw + ai] = lane_loc_auxh;
     b.self_blk[3 * nsw + ai] = local_seq;
     b.self_blk[4 * nsw + ai] = 0;
+    if (streams) {
+      b.self_blk[5 * nsw + ai] = 0;
+      b.self_blk[6 * nsw + ai] = 0;
+    }
     if (rearm) local_seq += 1;
 
     // outbound packet: arrival = max(depart + latency, window end), unless
@@ -468,6 +1173,12 @@ __global__ void lane_slots_kernel(LaneBufs b) {
       }
       b.rec_valid[r] = (is_pkt || lost) ? 1 : 0;
     }
+
+    if (streams)
+      stream_slot(b, i, j, act, kind, src, size,
+                  act ? b.q_phi[qi] : 0, act ? b.q_plo[qi] : 0, thi, tlo, we,
+                  StreamLane{up, send_seq, local_seq, n_sends, n_loss,
+                             min_lat});
   }
 
   b.dn_tokens[i] = dn.tokens;
@@ -497,16 +1208,28 @@ __global__ void lane_slots_kernel(LaneBufs b) {
 }
 
 // ---- kernel B: exchange_merge -----------------------------------------------
-// A counting sort of the outbound block by destination (count, scan, place),
-// then one block per lane merges [queue C | self S | cross Cx] by the event
-// key in shared memory and keeps the first C (S = sw: K re-arms, or K
-// DELIVERY inserts then K re-arms).
+// A counting sort of the exchanged entries by destination (count, scan,
+// place) — the outbound block, then in star stream configs the stream
+// block — then one block per lane merges [queue C | self S | cross Cx] by the
+// event key in shared memory and keeps the first C (S = sw: K re-arms, or K
+// DELIVERY inserts then K re-arms).  Entries are `words` words: the key,
+// the size and, when streams run, the two payload words.
+
+__device__ __forceinline__ int64_t stream_entries(const LaneBufs& b) {
+  return 4 * b.k * b.s_flows + b.k * PUMP_BURST * b.s_flows;
+}
+
+// destination of exchanged entry m: the outbound block, then the stream block
+__device__ __forceinline__ int32_t x_dst(const LaneBufs& b, int64_t m) {
+  const int64_t nk = b.k * b.n;
+  return m < nk ? b.out_blk[m] : b.sx_blk[m - nk];
+}
 
 __global__ void x_count_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (m >= b.k * b.n) return;
-  const int32_t d = b.out_blk[m];
+  if (m >= b.n_x) return;
+  const int32_t d = x_dst(b, m);
   if (d < b.n) atomicAdd(&b.x_cnt[d], 1);
 }
 
@@ -538,30 +1261,97 @@ __global__ void x_scan_kernel(LaneBufs b) {
 __global__ void x_place_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (m >= b.k * b.n) return;
-  const int32_t d = b.out_blk[m];
+  if (m >= b.n_x) return;
+  const int32_t d = x_dst(b, m);
   if (d < b.n) {
     const int32_t pos = b.x_start[d] + atomicAdd(&b.x_fill[d], 1);
     b.x_order[pos] = static_cast<int32_t>(m);
   }
 }
 
-__device__ __forceinline__ bool key_less(const int32_t* a, const int32_t* b) {
-  if (a[0] != b[0]) return a[0] < b[0];
-  if (a[1] != b[1]) return a[1] < b[1];
-  if (a[2] != b[2]) return a[2] < b[2];
-  return a[3] < b[3];
+// The merges are templates on the words an entry has (W = 5, or 7 with the
+// stream payload words), so every per-word loop unrolls and the queue
+// pointers stay in registers.
+
+// Load the queue row of `lane` into entries e[0, C) of W words.
+template <int W>
+__device__ __forceinline__ void load_queue_row(const LaneBufs& b, int32_t* e,
+                                               int64_t lane) {
+  int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                         b.q_phi, b.q_plo};
+  for (int64_t x = threadIdx.x; x < b.c; x += blockDim.x) {
+#pragma unroll
+    for (int w = 0; w < W; ++w) e[W * x + w] = q[w][lane * b.c + x];
+  }
 }
 
-// dynamic shared memory: W entries x 5 words + Cx selected entry indices
+// The keyed row merge, shared by kernels B and E: rank each of the w_all
+// entries in shared memory by (key, index) — a permutation, stable for
+// equal keys — write the first C to the queue row of `lane`, count the real
+// events past C into *n_tail and, when logging, record them as DROP_QUEUE
+// at recs[rec_base + rank - C].
+template <int W>
+__device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
+                                          int64_t w_all, int64_t lane,
+                                          int64_t rec_base, int32_t* n_tail) {
+  int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                         b.q_phi, b.q_plo};
+  const int64_t c = b.c;
+  int32_t local_tail = 0;
+  for (int64_t x = threadIdx.x; x < w_all; x += blockDim.x) {
+    const int32_t* ex = e + W * x;
+    // this entry's key in registers; an entry ranks below it when its key
+    // is smaller, or equal at a smaller index
+    const int32_t k0 = ex[0], k1 = ex[1], k2 = ex[2], k3 = ex[3];
+    int64_t rank = 0;
+    for (int64_t y = 0; y < w_all; ++y) {
+      const int32_t* ey = e + W * y;
+      const int32_t a0 = ey[0], a1 = ey[1], a2 = ey[2], a3 = ey[3];
+      const bool less = a0 != k0   ? a0 < k0
+                        : a1 != k1 ? a1 < k1
+                        : a2 != k2 ? a2 < k2
+                                   : a3 < k3;
+      const bool same = a0 == k0 && a1 == k1 && a2 == k2 && a3 == k3;
+      if (less || (same && y < x)) ++rank;
+    }
+    if (rank < c) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) q[w][lane * c + rank] = ex[w];
+    } else {
+      const bool valid = ex[0] != NEVER32;
+      if (valid) ++local_tail;
+      if (b.log_cap > 0) {
+        const int64_t r = rec_base + (rank - c);
+        int64_t* row = b.recs + r * 6;
+        if (valid) {
+          row[0] = join_t(ex[0], ex[1]);
+          row[1] = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
+          row[2] = lane;
+          row[3] = ex[3];
+          row[4] = ex[4];
+          row[5] = DROP_QUEUE;
+        } else {
+          for (int w = 0; w < 6; ++w) row[w] = 0;
+        }
+        b.rec_valid[r] = valid ? 1 : 0;
+      }
+    }
+  }
+  if (local_tail) atomicAdd(n_tail, local_tail);
+}
+
+// dynamic shared memory: C + S + Cx entries x W words + Cx selected entry
+// indices
+template <int W>
 __global__ void merge_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   extern __shared__ int32_t sm[];
   const int64_t i = blockIdx.x;
   const int64_t n = b.n, c = b.c, k = b.k, cx = b.cx, sw = b.sw;
   const int64_t w_all = c + sw + cx, tail = sw + cx, nk = n * k, nsw = n * sw;
-  int32_t* e = sm;                  // [W][5]
-  int32_t* sel = sm + 5 * w_all;    // [Cx]
+  const int64_t n_ent = stream_entries(b);
+  int32_t* e = sm;                  // [C + S + Cx][W]
+  int32_t* sel = sm + W * w_all;    // [Cx]
   __shared__ int32_t n_tail;
 
   const int32_t cnt = b.x_cnt[i];
@@ -575,7 +1365,7 @@ __global__ void merge_kernel(LaneBufs b) {
       // identical)
       for (int32_t r = 0; r < cnt; ++r) sel[r] = seg[r];
     } else {
-      // overflow: keep the Cx earliest in (slot, source lane) order
+      // overflow: keep the Cx earliest in index order
       int32_t prev = -1;
       for (int32_t r = 0; r < take; ++r) {
         int32_t best = 0x7FFFFFFF;
@@ -588,79 +1378,93 @@ __global__ void merge_kernel(LaneBufs b) {
       }
     }
   }
+  load_queue_row<W>(b, e, i);
   __syncthreads();
 
-  for (int64_t x = threadIdx.x; x < w_all; x += blockDim.x) {
-    int32_t* ex = e + 5 * x;
-    if (x < c) {
-      const int64_t qi = i * c + x;
-      ex[0] = b.q_thi[qi];
-      ex[1] = b.q_tlo[qi];
-      ex[2] = b.q_auxh[qi];
-      ex[3] = b.q_auxl[qi];
-      ex[4] = b.q_size[qi];
-    } else if (x < c + sw) {
+  for (int64_t x = c + threadIdx.x; x < w_all; x += blockDim.x) {
+    int32_t* ex = e + W * x;
+    if (x < c + sw) {
       const int64_t si = i * sw + (x - c);
-      for (int w = 0; w < 5; ++w) ex[w] = b.self_blk[w * nsw + si];
+#pragma unroll
+      for (int w = 0; w < W; ++w) ex[w] = b.self_blk[w * nsw + si];
     } else {
       const int64_t r = x - c - sw;
       if (r < take) {
         const int64_t m = sel[r];
-        for (int w = 0; w < 5; ++w) ex[w] = b.out_blk[(w + 1) * nk + m];
+        if (m < nk) {  // an outbound packet: no payload
+#pragma unroll
+          for (int w = 0; w < 5; ++w) ex[w] = b.out_blk[(w + 1) * nk + m];
+#pragma unroll
+          for (int w = 5; w < W; ++w) ex[w] = 0;
+        } else {
+#pragma unroll
+          for (int w = 0; w < W; ++w)
+            ex[w] = b.sx_blk[(w + 1) * n_ent + (m - nk)];
+        }
       } else {
         ex[0] = NEVER32;
         ex[1] = NEVER32;
-        ex[2] = 0;
-        ex[3] = 0;
-        ex[4] = 0;
+#pragma unroll
+        for (int w = 2; w < W; ++w) ex[w] = 0;
       }
     }
   }
   __syncthreads();
-
-  // rank by (key, index): a permutation, stable for equal keys
-  int32_t local_tail = 0;
-  for (int64_t x = threadIdx.x; x < w_all; x += blockDim.x) {
-    const int32_t* ex = e + 5 * x;
-    int64_t rank = 0;
-    for (int64_t y = 0; y < w_all; ++y) {
-      const int32_t* ey = e + 5 * y;
-      if (key_less(ey, ex) || (y < x && !key_less(ex, ey))) ++rank;
-    }
-    if (rank < c) {
-      const int64_t qi = i * c + rank;
-      b.q_thi[qi] = ex[0];
-      b.q_tlo[qi] = ex[1];
-      b.q_auxh[qi] = ex[2];
-      b.q_auxl[qi] = ex[3];
-      b.q_size[qi] = ex[4];
-    } else {
-      const bool valid = ex[0] != NEVER32;
-      if (valid) ++local_tail;
-      if (b.log_cap > 0) {
-        const int64_t r = i * tail + (rank - c);
-        int64_t* row = b.recs + r * 6;
-        if (valid) {
-          row[0] = join_t(ex[0], ex[1]);
-          row[1] = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
-          row[2] = i;
-          row[3] = ex[3];
-          row[4] = ex[4];
-          row[5] = DROP_QUEUE;
-        } else {
-          for (int w = 0; w < 6; ++w) row[w] = 0;
-        }
-        b.rec_valid[r] = valid ? 1 : 0;
-      }
-    }
-  }
-  if (local_tail) atomicAdd(&n_tail, local_tail);
+  merge_row<W>(b, e, w_all, i, i * tail, &n_tail);
   __syncthreads();
   if (threadIdx.x == 0) {
     const int32_t lost_pre = cnt > cx ? cnt - static_cast<int32_t>(cx) : 0;
     b.n_queue[i] += n_tail + lost_pre;
     if (i == 0) *b.iters += 1;
   }
+}
+
+// ---- kernel E: stream_rows_merge ----------------------------------------------
+// The split exchange of one-to-one stream configs (the reference's
+// _merge_stream_rows): one block per endpoint row r builds [its lane's queue
+// row C | W_s candidates] by the static layout — a client row takes its
+// server's control sends [K], its own RTO arms [K] and K*B empty entries; a
+// server row its client's control sends, its own RTO arms and its client's
+// bursts [K*B], slot-major — and merges it with merge_row.
+__global__ void stream_rows_kernel(LaneBufs b) {
+  if (b.ctl[0] == 0) return;
+  constexpr int W = 7;  // stream rows always carry the payload words
+  extern __shared__ int32_t sm[];
+  __shared__ int32_t n_tail;
+  const int64_t r = blockIdx.x;
+  const int64_t c = b.c, k = b.k, sf = b.s_flows, s2 = 2 * sf;
+  const int64_t w_s = 2 * k + k * PUMP_BURST, w_all = c + w_s;
+  const int64_t n_ent = stream_entries(b);
+  const int64_t lane = b.flow_lanes[r];
+  const bool client = r < sf;
+  if (threadIdx.x == 0) n_tail = 0;
+  load_queue_row<W>(b, sm, lane);
+  for (int64_t x = c + threadIdx.x; x < w_all; x += blockDim.x) {
+    int32_t* ex = sm + W * x;
+    const int64_t q = x - c;
+    int64_t idx = -1;
+    if (q < k) {  // the peer endpoint's control send of slot q
+      idx = q * s2 + (client ? r + sf : r - sf);
+    } else if (q < 2 * k) {  // the row's own RTO arm of slot q - K
+      idx = k * s2 + (q - k) * s2 + r;
+    } else if (!client) {  // the client's burst entry (slot, unit)
+      idx = 4 * k * sf + (q - 2 * k) * sf + (r - sf);
+    }
+    if (idx >= 0) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) ex[w] = b.sx_blk[(w + 1) * n_ent + idx];
+    } else {
+      ex[0] = NEVER32;
+      ex[1] = NEVER32;
+#pragma unroll
+      for (int w = 2; w < W; ++w) ex[w] = 0;
+    }
+  }
+  __syncthreads();
+  merge_row<W>(b, sm, w_all, lane, b.rec_slots - s2 * w_s + r * w_s,
+               &n_tail);
+  __syncthreads();
+  if (threadIdx.x == 0) b.n_queue[lane] += n_tail;  // lanes are distinct
 }
 
 // ---- kernel C: queue_min_window ---------------------------------------------
@@ -788,8 +1592,13 @@ int lane_slots(const LaneBufs* b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+static unsigned merge_threads(int64_t w_all) {
+  int64_t threads = (w_all + 31) / 32 * 32;
+  return static_cast<unsigned>(threads < 256 ? threads : 256);
+}
+
 int exchange_merge(const LaneBufs* b, cudaStream_t stream) {
-  const int64_t m = b->k * b->n;
+  const int64_t m = b->n_x;
   cudaError_t err = cudaMemsetAsync(b->x_cnt, 0, b->n * sizeof(int32_t), stream);
   if (err == cudaSuccess)
     err = cudaMemsetAsync(b->x_fill, 0, b->n * sizeof(int32_t), stream);
@@ -798,11 +1607,23 @@ int exchange_merge(const LaneBufs* b, cudaStream_t stream) {
   x_scan_kernel<<<1, 1024, 0, stream>>>(*b);
   x_place_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(*b);
   const int64_t w_all = b->c + b->sw + b->cx;
-  int64_t threads = (w_all + 31) / 32 * 32;
-  threads = threads < 256 ? threads : 256;
-  const int smem = static_cast<int>((5 * w_all + b->cx) * sizeof(int32_t));
-  merge_kernel<<<static_cast<unsigned>(b->n), static_cast<unsigned>(threads),
-                 smem, stream>>>(*b);
+  const int smem =
+      static_cast<int>((b->words * w_all + b->cx) * sizeof(int32_t));
+  if (b->words == 7) {
+    merge_kernel<7><<<static_cast<unsigned>(b->n), merge_threads(w_all), smem,
+                      stream>>>(*b);
+  } else {
+    merge_kernel<5><<<static_cast<unsigned>(b->n), merge_threads(w_all), smem,
+                      stream>>>(*b);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+int stream_rows_merge(const LaneBufs* b, cudaStream_t stream) {
+  const int64_t w_all = b->c + 2 * b->k + b->k * PUMP_BURST;
+  const int smem = static_cast<int>(7 * w_all * sizeof(int32_t));
+  stream_rows_kernel<<<static_cast<unsigned>(2 * b->s_flows),
+                       merge_threads(w_all), smem, stream>>>(*b);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -812,8 +1633,7 @@ int queue_min_window(const LaneBufs* b, int advance, cudaStream_t stream) {
 }
 
 int append_log(const LaneBufs* b, cudaStream_t stream) {
-  const int64_t n_rec = b->n * (b->sw + b->cx) + b->k * b->n;
-  append_log_kernel<<<1, LOG_THREADS, 0, stream>>>(*b, n_rec);
+  append_log_kernel<<<1, LOG_THREADS, 0, stream>>>(*b, b->n_rec);
   return static_cast<int>(cudaGetLastError());
 }
 

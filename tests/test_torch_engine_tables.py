@@ -4,10 +4,15 @@
 config; every field the port carries must be equal, through the numpy
 bridge.  Integer data: the tolerance is exact equality.
 
-The loss thresholds are the one field kept in another layout: the
-reference's ``thresh_u32`` (uint32) and ``thresh_all`` (bool) pair is
-compared, through ``bridge.thresh_from_split``, with the port's int64
-``thresh`` — and both with ``loss_threshold`` of the graph's edge losses.
+The loss thresholds are kept in another layout: the reference's
+``thresh_u32`` (uint32) and ``thresh_all`` (bool) pairs, per node pair and
+per stream endpoint, are compared, through ``bridge.thresh_from_split``,
+with the port's int64 ``thresh`` and ``flow_thresh`` — and the node-pair
+table with ``loss_threshold`` of the graph's edge losses.  The port's
+lane -> endpoint-row table has no reference counterpart and is compared
+with ``bridge.lane_endpoints`` of the reference's ``flow_lanes``; the
+reference's ``()`` stream fields (no stream model present) are the port's
+empty int32 tensors.
 """
 
 import numpy as np
@@ -70,6 +75,12 @@ hosts:
   b: {network_node_id: 1, processes: [{path: ping}]}
   c: {network_node_id: 0, processes: [{path: phold, args: [--messages, "0"]}]}
 """,
+    # streams: the star (combined exchange, a lossy edge: thresholds per
+    # endpoint) and the one-to-one pair on the untiered path, with CUBIC
+    "stream_star": lp_cfg.STREAM_STAR,
+    "stream_pair_untiered_cubic": lp_cfg.STREAM_PAIR.replace(
+        "experimental: {", "experimental: {tpu_stream_tiered: false, ").replace(
+        "c: {network_node_id: 0,", "c: {network_node_id: 0, congestion: cubic,"),
 }
 
 
@@ -77,10 +88,25 @@ def _numpy(nt, fields):
     return {f: np.asarray(getattr(nt, f)) for f in fields}
 
 
-def _ref_tables(tb):
-    d = _numpy(tb, [f for f in LaneTables._fields if f != "thresh"])
+_PORT_ONLY = ("thresh", "flow_thresh", "lane_ep_start", "lane_ep_rows")
+
+
+def _ref_tables(tb, s_flows):
+    d = _numpy(tb, [f for f in LaneTables._fields if f not in _PORT_ONLY])
     d["thresh"] = bridge.thresh_from_split(tb.thresh_u32, tb.thresh_all)
+    d["flow_thresh"] = bridge.thresh_from_split(tb.flow_thresh_u32,
+                                                tb.flow_thresh_all)
+    d["lane_ep_start"], d["lane_ep_rows"] = bridge.lane_endpoints(
+        tb.flow_lanes, len(d["node_of"]), s_flows)
     return d
+
+
+def _ref_state(s):
+    """The reference's state as numpy, its () stream placeholders as the
+    port's empty int32 arrays."""
+    return {f: (np.zeros(0, np.int32) if isinstance(getattr(s, f), tuple)
+                and not getattr(s, f) else np.asarray(getattr(s, f)))
+            for f in LaneState._fields}
 
 
 @pytest.mark.parametrize(
@@ -89,12 +115,12 @@ def _ref_tables(tb):
 def test_tables_and_initial_state_match_reference(make):
     ref = TpuEngine(make(ref_presets), log_capacity=256)
     port = GpuEngine(make(port_presets), log_capacity=256, device="cpu")
-    ref_tb = _ref_tables(ref.tables)
+    ref_tb = _ref_tables(ref.tables, port.params.s_flows)
     port_tb = _numpy(port.tables, LaneTables._fields)
     for f in LaneTables._fields:
         np.testing.assert_array_equal(port_tb[f], ref_tb[f], err_msg=f)
         assert port_tb[f].dtype == ref_tb[f].dtype, f
-    ref_s = _numpy(ref.initial_state(), LaneState._fields)
+    ref_s = _ref_state(ref.initial_state())
     port_s = bridge.state_to_numpy(port.initial_state())
     for f in LaneState._fields:
         np.testing.assert_array_equal(port_s[f], ref_s[f], err_msg=f)
@@ -102,13 +128,16 @@ def test_tables_and_initial_state_match_reference(make):
     for f in ("n_lanes", "capacity", "pops_per_iter", "log_capacity",
               "stop_time", "runahead", "bucket_interval", "cross_capacity",
               "seed", "bootstrap_end", "models_present", "all_passive",
-              "has_loss", "dynamic_runahead", "runahead_floor"):
+              "has_loss", "dynamic_runahead", "runahead_floor",
+              "stream_present", "stream_one_to_one", "stream_clients",
+              "stream_wide_pop"):
         assert getattr(port.params, f) == getattr(ref.params, f), f
     assert port.params.merge_width == port.params.capacity + (
         1 if ref.params.all_passive else 2) * ref.params.pops_per_iter + (
         ref.params.cross_cap)
     # the reference's split thresholds lift into the port's int64 table
-    lifted = bridge.tables_from_numpy(_numpy(ref.tables, ref.tables._fields))
+    lifted = bridge.tables_from_numpy(_numpy(ref.tables, ref.tables._fields),
+                                      s_flows=port.params.s_flows)
     for f in LaneTables._fields:
         assert torch.equal(getattr(lifted, f), getattr(port.tables, f)), f
     # and that table is loss_threshold of each node pair's path loss
@@ -167,7 +196,11 @@ hosts:
     ("hosts:", "experimental: {tpu_round_unroll: 2}\nhosts:"),
     ("m: {count: 4,", "m: {count: 4, pcap_enabled: true,"),
     ("{path: tgen-mesh}", "{path: phold}, {path: phold}"),
-    ("path: tgen-mesh", "path: stream-client"),
+    # a one-to-one pair on the reference's tiered stream backend (the
+    # default), which is not ported yet
+    ("processes: [{path: tgen-mesh}]}", "processes: [{path: tgen-mesh}]}\n"
+     "  c: {processes: [{path: stream-client, args: [--server, s]}]}\n"
+     "  s: {processes: [{path: stream-server}]}"),
     ("path: tgen-mesh", "path: tgen-tcp-server"),
 ], ids=["faults", "netobs", "flowtrace", "unroll", "pcap",
         "multi_process_phold", "stream_client", "tgen_tcp_server"])
@@ -183,10 +216,17 @@ def test_unported_configs_raise(edit):
     ("hosts:", "experimental: {use_dynamic_runahead: true}\nhosts:"),
     ("path: tgen-mesh", "path: phold"),
     ('latency "1 ms"', 'latency "1 ms" packet_loss 0.01'),
-], ids=["dynamic_runahead", "phold", "lossy_edge"])
+    # two of the four hosts become an untiered one-to-one stream pair
+    ("hosts:\n  m: {count: 4,",
+     "experimental: {tpu_stream_tiered: false}\nhosts:\n"
+     "  c: {processes: [{path: stream-client, args: [--server, s]}]}\n"
+     "  s: {processes: [{path: stream-server}]}\n  m: {count: 2,"),
+], ids=["dynamic_runahead", "phold", "lossy_edge", "stream_pair_untiered"])
 def test_ported_configs_build(edit):
-    """What the first slice refused and this one runs."""
+    """What the earlier slices refused and this one runs."""
     from shadow_tpu_torch.config.options import ConfigOptions
 
-    eng = GpuEngine(ConfigOptions.from_yaml(_MESH.replace(*edit)), device="cpu")
+    yaml = _MESH.replace(*edit)
+    assert yaml != _MESH
+    eng = GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
     assert eng.params.n_lanes == 4
