@@ -26,12 +26,14 @@ Phases, in order (any failure exits nonzero and prints no result line):
    small phold, lossy tgen, ping and dynamic-runahead configurations —
    equal event logs, counters and final states, word for word;
 8. full-width parity: PHOLD at 10,000 hosts for 50 sim ms, the lossy
-   flagship for 1 sim s and the mixed mesh for 100 sim ms, card against
-   the CPU plain path — equal logs and final states;
+   flagship for 1 sim s and the mixed mesh, untiered and tiered, for 100
+   sim ms, card against the CPU plain path — equal logs and final states;
 9. the main paths, launch counts reset just before each and read just
    after: the mixed TCP/UDP mesh (``mixed_flagship_config(10000)``:
-   9,800 tgen-mesh hosts and 100 one-to-one stream pairs of 2 MB,
-   untiered, C=48, K=4, Cx=8, strict), 5 sim s;
+   9,800 tgen-mesh hosts and 100 one-to-one stream pairs of 2 MB, strict)
+   on the tiered stream pass at the preset's tuning (C=16, K=2, Cx=8,
+   K_s=16, C2=64), then untiered at C=48, K=4, 5 sim s each;
+   ``examples/cubic-vs-reno.yaml`` (tiered), 60 sim s;
    ``flagship_mesh_config(10000)`` with the bench tuning (C=16,
    K=2, Cx=8, strict), 1 sim s with logging and 10 sim s without;
    PHOLD at 10,000 hosts (``examples/phold.yaml`` with ``count: 10000``,
@@ -44,10 +46,15 @@ Between 5 and 6, kernels A, B and E against their plain versions on
 seeded stream states (flows in every state, owned and stale RTOs,
 segments and foreign datagrams, losses on both sides of the bootstrap end,
 throttled bursts; the star's stream entries in B's exchange; E's rows
-overflowing); between 7 and 8, card/CPU parity on five stream configs
-(the pair, the lossy pair, the star, ``examples/cubic-vs-reno.yaml`` and a
-small mixed mesh, untiered) and ``examples/stream-tcp.yaml`` for 60 sim s,
-its first 1.5 sim s card against CPU.
+overflowing), then kernels F and G, B's divert, C's tier minimum and D's
+tier record groups on seeded tier states at the tiered mixed mesh's
+shapes (both pop rules, with and without a log); between 7 and 8,
+card/CPU parity on five untiered stream configs (the pair, the lossy
+pair, the star, ``examples/cubic-vs-reno.yaml`` and a small mixed mesh)
+and six tiered ones (the pair, lossy, CUBIC, the small mixed mesh, a
+250 ms link, dynamic runahead), tiered = untiered, and
+``examples/stream-tcp.yaml`` for 60 sim s, its first 1.5 sim s card
+against CPU.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -57,6 +64,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -156,7 +164,29 @@ def phold(**kw):
 
 
 def clone(nt):
-    return type(nt)(*[t.clone() for t in nt])
+    """A copy of a state or workspace (a TierState inside included)."""
+    return type(nt)(*[clone(t) if isinstance(t, tuple) else t.clone()
+                      for t in nt])
+
+
+def copy_into(dst, src) -> None:
+    for d, s_ in zip(dst, src):
+        if isinstance(d, tuple):
+            copy_into(d, s_)
+        else:
+            d.copy_(s_)
+
+
+def fields(nt) -> dict:
+    """The tensors of a state or workspace by name; a TierState's as
+    ``stream.flows``, ``stream.q``, ``stream.v``."""
+    out = {}
+    for f, t in nt._asdict().items():
+        if isinstance(t, tuple):
+            out.update({f"{f}.{g}": u for g, u in t._asdict().items()})
+        else:
+            out[f] = t
+    return out
 
 
 def assert_equal(tag: str, a: dict, b: dict) -> int:
@@ -348,8 +378,8 @@ def run_pair(p, tb, s0, ws0, call, plain):
             plain(p, tb, s, ws)
         torch.cuda.synchronize()
         # the exchange scratch (x_*) is the kernel's own working memory
-        out.append({**s._asdict(), **{f: t for f, t in ws._asdict().items()
-                                      if not f.startswith("x_")}})
+        out.append({**fields(s), **{f: t for f, t in ws._asdict().items()
+                                    if not f.startswith("x_")}})
     return out
 
 
@@ -379,7 +409,8 @@ def check_kernels():
             random_exchange(p, ws0, rng)
             kern, plain = run_pair(
                 p, tb, s0, ws0, kernels.exchange_merge,
-                lambda p_, tb_, s, ws: lanes.exchange_merge_plain(p_, s, ws))
+                lambda p_, tb_, s, ws:
+                    lanes.exchange_merge_plain(p_, tb_, s, ws))
             check("exchange_merge", tag, kern, plain)
             cnt = torch.bincount(ws0.out_blk[0].reshape(-1).long(),
                                  minlength=p.n_lanes + 1)[:p.n_lanes]
@@ -562,7 +593,8 @@ def check_active_kernels():
             random_exchange(p, ws0, rng)
             kern, plain = run_pair(
                 p, tb, s0, ws0, kernels.exchange_merge,
-                lambda p_, tb_, s, ws: lanes.exchange_merge_plain(p_, s, ws))
+                lambda p_, tb_, s, ws:
+                    lanes.exchange_merge_plain(p_, tb_, s, ws))
             check("exchange_merge", f"active L={log_cap} rep={rep_}",
                   kern, plain)
             log(f"exchange_merge active L={log_cap}: equal on [C {p.capacity} "
@@ -845,7 +877,8 @@ def check_stream_kernels():
         random_stream_block(p, ws0, rng, 3)
         kern, plain = run_pair(
             p, tb, s0, ws0, kernels.exchange_merge,
-            lambda p_, tb_, s, ws: lanes.exchange_merge_plain(p_, s, ws))
+            lambda p_, tb_, s, ws:
+                lanes.exchange_merge_plain(p_, tb_, s, ws))
         check("exchange_merge", f"star L={log_cap}", kern, plain)
         shed = int(plain["n_queue"].sum())
         log(f"exchange_merge star L={log_cap}: equal on [C {p.capacity} | self "
@@ -879,6 +912,272 @@ def check_stream_kernels():
             raise AssertionError("stream rows missed the overflow case")
 
 
+# ---- seeded tier states ----------------------------------------------------
+
+
+def mixed_tiered(sim_seconds=5):
+    """``mixed_flagship_config(10000)`` exactly as the preset defines it (the
+    JAX package's north-star tuning): 9,800 tgen-mesh hosts and 100
+    one-to-one stream pairs of 2,000,000 bytes, tiered, C=16, K=2, Cx=8,
+    K_s=16, C2=64."""
+    return presets.mixed_flagship_config(N_FLAG, sim_seconds=sim_seconds)
+
+
+def tier_case(eng: GpuEngine, rng, wide: bool, log_cap: int):
+    """Params, tables and a state for kernels F and G at the tiered mixed
+    mesh's shape (2S = 200 endpoint rows, C2 = 64, K_s = 16) beside random
+    [N] lanes: flows in every state; rows mixing stream segments (PACKET
+    and DELIVERY), foreign datagrams and LOCALs (client opens, owned and
+    stale RTOs) at instants on both sides of the window end (T0 + 3 ms) and
+    of the bootstrap end (T0 + 1.5 ms), some rows full (overflow past C2);
+    20 Mbit down buckets whose last departures make packets wait past the
+    window end and past CoDel's target, CoDel states that drop, 2 Mbit up
+    buckets that throttle the bursts, loss thresholds 0, 2**31 and 2**32
+    per endpoint; ``stream_wide_pop`` as given."""
+    p = dataclasses.replace(eng.params, has_loss=True,
+                            bootstrap_end=T0 + 1_500_000, seed=(1 << 64) - 7,
+                            stream_wide_pop=wide, log_capacity=log_cap)
+    sf, c2, n = p.s_flows, p.stream_capacity, p.n_lanes
+    s2 = 2 * sf
+    el = eng.tables.flow_lanes.cpu().numpy()
+    clid = eng.tables.flow_clid.cpu().numpy()
+    peers = eng.tables.flow_peers.cpu().numpy()
+
+    def bucket(bw):
+        rate, burst = bucket_params(bw)
+        kf = burst // rate + 1
+        return [t32(np.full(s2, x)) for x in (rate, burst, kf, kf * INTERVAL)]
+
+    up, dn = bucket(2_000_000), bucket(20_000_000)
+    tb = eng.tables._replace(
+        flow_up_rate=up[0], flow_up_burst=up[1], flow_up_kfull=up[2],
+        flow_up_kfi=up[3], flow_dn_rate=dn[0], flow_dn_burst=dn[1],
+        flow_dn_kfull=dn[2], flow_dn_kfi=dn[3],
+        flow_thresh=torch.as_tensor(rng.choice([0, 1 << 31, 1 << 32], s2),
+                                    device=DEV))
+    s = random_state(eng, tb, rng)
+    if log_cap:
+        s = s._replace(log=torch.zeros((log_cap, 6), dtype=torch.int64,
+                                       device=DEV))
+    flows = stream_flows(rng, sf).reshape(s2, lstr.N_COLS)
+    times = np.full((s2, c2), lanes.NEVER, dtype=np.int64)
+    words = np.zeros((5, s2, c2), dtype=np.int64)  # auxh, auxl, size, phi, plo
+    fill = rng.choice([0, 1, 3, p.stream_pops, 24, c2 - 2, c2], s2)
+    for r in range(s2):
+        m = int(fill[r])
+        lane = int(el[r])
+        times[r, :m] = (T0 + int(rng.integers(0, 4)) * 1_000_000
+                        + rng.integers(0, 5, m) * 500_000)
+        words[1, r, :m] = np.arange(m) + int(rng.integers(0, 1 << 20)) * c2
+        for x in range(m):
+            what = rng.choice(["start", "rto", "seg", "seg", "seg", "foreign"])
+            if what == "start":
+                words[0, r, x] = lanes.LOCAL << 29 | lane << 12
+                words[2, r, x] = -1
+            elif what == "rto":
+                words[0, r, x] = lanes.LOCAL << 29 | lane << 12
+                words[2, r, x] = lstr.SZ_RTO
+                words[4, r, x] = clid[r] if rng.random() < 0.8 else clid[r] + 1
+                if rng.random() < 0.5:  # the flow owns this event
+                    flows[r, lstr.C_RTOEV_HI], flows[r, lstr.C_RTOEV_LO] = \
+                        pairs(times[r, x])
+            elif what == "seg":
+                kind = lanes.PACKET if rng.random() < 0.6 else lanes.DELIVERY
+                words[0, r, x] = kind << 29 | int(peers[r]) << 12
+                words[2, r, x] = rng.choice([ltcp.HDR_BYTES,
+                                             ltcp.HDR_BYTES + 1448])
+                flags = rng.choice([ltcp.F_SYN, ltcp.F_SYN | ltcp.F_ACK,
+                                    ltcp.F_ACK, ltcp.F_DATA | ltcp.F_ACK,
+                                    ltcp.F_FIN | ltcp.F_ACK])
+                words[3, r, x] = flags << 26 | int(rng.integers(0, 50))
+                words[4, r, x] = (flows[r, lstr.C_SND_UNA]
+                                  + rng.integers(-1, 12))
+            else:  # a datagram of the mesh: no payload
+                src = int(rng.integers(0, n))
+                words[0, r, x] = lanes.PACKET << 29 | src << 12
+                words[2, r, x] = rng.integers(28, 1500)
+    order = np.lexsort((words[1], words[0], times), axis=1)
+    times = np.take_along_axis(times, order, axis=1)
+    words = np.stack([np.take_along_axis(w, order, axis=1) for w in words])
+    never = times == lanes.NEVER
+    q = np.concatenate([
+        np.stack([np.where(never, lanes.NEVER32, times >> 31),
+                  np.where(never, lanes.NEVER32, times & lanes.MASK31)]),
+        words])
+    v = np.zeros((lstr.TV_COUNT, s2), dtype=np.int64)
+    grid = T0 // INTERVAL
+    for row, burst in ((lstr.TV_DN_TOK, int(dn[1][0])),
+                       (lstr.TV_UP_TOK, int(up[1][0]))):
+        v[row] = rng.integers(0, burst + 1, s2)
+        v[row + 1], v[row + 2] = pairs(
+            INTERVAL * (grid + rng.choice([-200, -3, 0, 5], s2)))
+        v[row + 3], v[row + 4] = pairs(
+            T0 + rng.choice([0, 0, 1_000_000, 30_000_000], s2))
+    unset = rng.random(s2) < 0.3
+    fat = T0 + rng.integers(-200_000_000, 0, s2)
+    v[lstr.TV_CD_FATH] = np.where(unset, lanes.CD_UNSET, fat >> 31)
+    v[lstr.TV_CD_FATL] = np.where(unset, 0, fat & lanes.MASK31)
+    v[lstr.TV_CD_DNH], v[lstr.TV_CD_DNL] = pairs(
+        T0 + rng.integers(-200_000_000, 50_000_000, s2))
+    v[lstr.TV_CD_CNT] = rng.integers(0, 1100, s2)
+    v[lstr.TV_CD_DROP] = rng.integers(0, 2, s2)
+    v[lstr.TV_SEND_SEQ] = rng.integers(0, 1 << 20, s2)
+    v[lstr.TV_LOCAL_SEQ] = rng.integers(0, 1 << 20, s2)
+    for row in (lstr.TV_N_SENDS, lstr.TV_N_LOSS, lstr.TV_N_DEL,
+                lstr.TV_N_CODEL):
+        v[row] = rng.integers(0, 1000, s2)
+    we = T0 + 3_000_000
+    tier = lstr.TierState(flows=t32(flows.reshape(2, sf, lstr.N_COLS)),
+                          q=t32(q), v=t32(v))
+    return p, tb, s._replace(
+        stream=tier, now_we_hi=t32(we >> 31).reshape(()),
+        now_we_lo=t32(we & lanes.MASK31).reshape(()),
+        min_used_lat=t32(rng.choice([lanes.NEVER32, 5_000_000])).reshape(()))
+
+
+def tier_cross_block(p, ws, rng) -> int:
+    """Diverted mesh datagrams in the tier block's cross channel: up to Cx
+    per endpoint row, arriving after the window; returns how many."""
+    cx0, end = p.tier_layout[3:]
+    s2, cx = 2 * p.s_flows, p.cross_cap
+    valid = np.arange(cx)[None, :] < rng.integers(0, cx + 1, (s2, 1))
+    arr = T0 + 10_000_000 + rng.integers(0, 30_000_000, (s2, cx))
+    src = rng.integers(0, p.n_lanes, (s2, cx))
+    blk = np.stack([
+        np.where(valid, arr >> 31, lanes.NEVER32),
+        np.where(valid, arr & lanes.MASK31, lanes.NEVER32),
+        np.where(valid, lanes.PACKET << 29 | src << 12, 0),
+        np.where(valid, np.arange(s2 * cx).reshape(s2, cx) + (1 << 25), 0),
+        np.where(valid, rng.integers(28, 1500, (s2, cx)), 0),
+        np.zeros((s2, cx)), np.zeros((s2, cx)),
+    ]).reshape(7, s2 * cx)
+    ws.tier_blk[:, cx0:end] = t32(blk)
+    return int(valid.sum())
+
+
+def tier_counts(p, s0, plain) -> dict:
+    """What kernel F did, from its plain version's outputs."""
+    v0, v1 = s0.stream.v, plain["stream.v"]
+    blk = plain["tier_blk"][0] != lanes.NEVER32
+    sa0, se0, bo0, cx0, _end = p.tier_layout
+    out = {name: int((v1[row] - v0[row]).sum()) for name, row in (
+        ("delivered", lstr.TV_N_DEL), ("codel_drops", lstr.TV_N_CODEL),
+        ("losses", lstr.TV_N_LOSS), ("sends", lstr.TV_N_SENDS))}
+    out.update(fallbacks=int(blk[:sa0].sum()),
+               rto_arms=int(blk[sa0:se0].sum()),
+               control_sends=int(blk[se0:bo0].sum()),
+               burst_segments=int(blk[bo0:cx0].sum()))
+    out["elided"] = out["delivered"] - out["fallbacks"]
+    moved = ((v1[lstr.TV_UP_LDH] != v0[lstr.TV_UP_LDH])
+             | (v1[lstr.TV_UP_LDL] != v0[lstr.TV_UP_LDL]))
+    out["throttled"] = int(moved.sum())
+    out["popped"] = int((plain["stream.q"][0, :, :p.stream_pops]
+                         != s0.stream.q[0, :, :p.stream_pops]).sum())
+    return out
+
+
+@phase("kernels F, G and the tiered B, C, D vs plain on seeded tier states, "
+       "the tiered mixed mesh's shapes (tolerance: exact, integer)")
+def check_tier_kernels():
+    rng = np.random.default_rng(SEED + 3)
+    eng = GpuEngine(mixed_tiered(1), log_capacity=0)
+    for wide in (True, False):
+        seen = dict.fromkeys(("delivered", "codel_drops", "losses", "sends",
+                              "fallbacks", "rto_arms", "control_sends",
+                              "burst_segments", "throttled", "elided"), 0)
+        for log_cap in (0, 200_000):
+            for rep in range(2):
+                p, tb, s0 = tier_case(eng, rng, wide, log_cap)
+                ws0 = lanes.make_workspace(p, DEV)
+                ws0.ctl[0] = 1
+                tag = f"wide={wide} L={log_cap} rep={rep}"
+                kern, plain = run_pair(p, tb, s0, ws0, kernels.stream_tier,
+                                       lanes.stream_tier_plain)
+                check("stream_tier", tag, kern, plain)
+                got = tier_counts(p, s0, plain)
+                log(f"stream_tier {tag}: equal on {2 * p.s_flows} rows x K_s "
+                    f"{p.stream_pops}; {got}")
+                for k in seen:
+                    seen[k] += got[k]
+
+                # G on the state F left, with diverted cross entries
+                s1, ws1 = clone(s0), clone(ws0)
+                lanes.stream_tier_plain(p, tb, s1, ws1)
+                n_cross = tier_cross_block(p, ws1, rng)
+                kern, plain = run_pair(p, tb, s1, ws1, kernels.tier_merge,
+                                       lanes.tier_merge_plain)
+                check("tier_merge", tag, kern, plain)
+                over = int((plain["stream.v"][lstr.TV_N_QUEUE]
+                            - s1.stream.v[lstr.TV_N_QUEUE]).sum())
+                log(f"tier_merge {tag}: equal on {2 * p.s_flows} rows of "
+                    f"[C2 {p.stream_capacity} | W_t {p.tier_width}] x 7 "
+                    f"words; cross entries {n_cross}, overflow {over}")
+                if not (over and n_cross):
+                    raise AssertionError("tier merge missed a case")
+            # D on a tiered logging iteration's records, every group filled
+            if log_cap:
+                s1, ws1 = clone(s0), clone(ws0)
+                for fn in (lanes.lane_slots_plain, lanes.exchange_merge_plain,
+                           lanes.stream_tier_plain, lanes.tier_merge_plain):
+                    fn(p, tb, s1, ws1)
+                for start in (0, log_cap - 5):
+                    s1.log_count.fill_(start)
+                    kern, plain = run_pair(
+                        p, tb, s1, ws1, kernels.append_log,
+                        lambda p_, tb_, s, ws:
+                            lanes.append_log_plain(p_, s, ws))
+                    check("append_log", f"tiered {tag} start={start}", kern,
+                          plain)
+                trec, _s, _b, ttail, tend = p.tier_rec_offsets
+                groups = [int(ws1.rec_valid[a:b].sum()) for a, b in (
+                    (0, trec), (trec, ttail), (ttail, tend),
+                    (tend, p.n_records))]
+                log(f"append_log tiered {tag}: equal; valid records by group "
+                    f"([N] tail, tier slots, tier tail, [N] slots) {groups}")
+                if not all(groups[1:]):
+                    raise AssertionError("tier record groups missed a case")
+        # every case, and elision exactly under the wide pop rule
+        if not all(v > 0 for k, v in seen.items() if k != "elided") or (
+                (seen["elided"] > 0) != wide):
+            raise AssertionError(f"tier inputs missed a case: {seen}")
+    # B's divert and C's tier minimum on tiered states
+    for log_cap in (0, 100_000):
+        p, tb, s0 = tier_case(eng, rng, True, log_cap)
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        random_exchange(p.lane, ws0, rng)
+        kern, plain = run_pair(
+            p, tb, s0, ws0, kernels.exchange_merge,
+            lambda p_, tb_, s, ws:
+                lanes.exchange_merge_plain(p_, tb_, s, ws))
+        check("exchange_merge", f"tiered L={log_cap}", kern, plain)
+        cx0, end = p.tier_layout[3:]
+        diverted = int((plain["tier_blk"][0, cx0:end] != lanes.NEVER32).sum())
+        log(f"exchange_merge tiered L={log_cap}: equal; {diverted} cross "
+            "entries diverted to the tier")
+        if not diverted:
+            raise AssertionError("the divert missed a case")
+        for tier_first in (False, True):
+            s1 = clone(s0)
+            if tier_first:  # one tier row's head below every lane's
+                t = T0 - 5_000_000
+                s1.stream.q[0, 7, 0] = t >> 31
+                s1.stream.q[1, 7, 0] = t & lanes.MASK31
+            for advance in (False, True):
+                kern, plain = run_pair(
+                    p, tb, s1, ws0,
+                    lambda a, adv=advance: kernels.queue_min_window(a, adv),
+                    lambda p_, tb_, s, ws, adv=advance:
+                        lanes.queue_min_window_plain(p_, s, ws, adv))
+                check("queue_min_window", f"tiered tier_first={tier_first} "
+                      f"adv={advance}", kern, plain)
+                head = (int(plain["ctl"][2]) << 31) | int(plain["ctl"][3])
+                if tier_first and head != T0 - 5_000_000:
+                    raise AssertionError("the tier head was not the minimum")
+        log("queue_min_window tiered: equal, the tier's heads included")
+
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -897,14 +1196,22 @@ def _event_ms(fn, restore, reps: int) -> float:
     return total / reps
 
 
-def kernel_bytes(p: lanes.LaneParams, tb, ws) -> dict:
+def kernel_bytes(p: lanes.LaneParams, tb, ws, tier: dict) -> dict:
     """Bytes each kernel must move at these inputs (``ws`` after one A, one
-    B and, in one-to-one stream configs, one E): every input read once,
-    every output written once.  A logging run writes every record slot's
-    valid flag but only the valid rows: B the merge tail's, E the split
-    tail's, A those of its popped slots and stream sends."""
+    B and, in untiered one-to-one stream configs, one E, or on a tiered run
+    one F and one G): every input read once, every output written once.  A
+    logging run writes every record slot's valid flag but only the valid
+    rows: B the merge tail's, E the split tail's, A those of its popped
+    slots and stream sends, F its tier records', G the tier tail's.  A
+    tier entry (7 words) is read or written whole only when valid: an
+    empty one needs its time word alone.  ``tier``: the counts of this
+    iteration's tier entries — ``popped`` (the events F popped),
+    ``cross`` (the valid entries of B's diverted block), ``cand`` (F's
+    valid candidates), ``merged`` (the valid entries G merged: queue and
+    candidates) and ``kept`` (the valid entries of G's rows)."""
+    pl = p.lane
     n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
-    sw, words = p.self_width, p.words
+    sw, words = pl.self_width, pl.words
     g = int(tb.lat.shape[0])
     tail, slots, _srec, _brec, end = p.rec_offsets
     n_rec = ws.rec_valid.numel() if p.log_capacity else 0
@@ -916,8 +1223,8 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws) -> dict:
     a_in = (n * (k * words * 4 + state_vec + tables) + g * g * (4 + 8)
             + 1025 * 4 + 4 * 4)
     a_out = n * (k * 2 * 4 + state_vec) + (words * sw + 6 * k) * n * 4 + 4
-    n_ent = p.stream_entries
-    if p.stream_present:
+    n_ent = pl.stream_entries
+    if pl.stream_present:
         # the flow rows read and written, the [2S] flow tables (14 int32, the
         # int64 threshold), the lane -> row table, the stream block written
         s2 = 2 * p.s_flows
@@ -932,6 +1239,35 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws) -> dict:
     b_out = n * c * words * 4 + n * 4
     if p.log_capacity:
         b_out += tail * 4 + tail_rows * 6 * 8
+    f_io = g_io = 0
+    if p.stream_tiered:
+        s2, ks, c2 = 2 * p.s_flows, p.stream_pops, p.stream_capacity
+        sa0, _se0, _bo0, cx0, t_end = p.tier_layout
+        # B: the lane -> row table and the diverted cross block written
+        b_in += n + n * 4
+        b_out += (t_end - cx0) * 4 + tier["cross"] * 6 * 4
+        # F: its K_s columns (7 words) read and the popped time words
+        # written, the flow rows and the 22 tier vector rows read and
+        # written, its [2S] tables (16 int32, the int64 threshold), the
+        # candidate channels written; records: every slot's flag, the valid
+        # rows
+        f_io = (s2 * ks * 7 * 4 + tier["popped"] * 2 * 4
+                + 2 * s2 * (lstr.N_COLS + 22) * 4 + s2 * (16 * 4 + 8)
+                + 1025 * 4 + cx0 * 4 + tier["cand"] * 6 * 4)
+        trec, _s, _b, ttail, tend = p.tier_rec_offsets
+        if p.log_capacity:
+            f_io += ((ttail - trec) * 4
+                     + int(ws.rec_valid[trec:ttail].sum()) * 6 * 8)
+        # G: the time word of every entry it can hold (a client row has no
+        # burst block), the other six of each valid one; the rows written
+        # the same way; the overflow counter; records: every tail flag, the
+        # valid rows
+        g_in = s2 * (c2 + p.tier_width) - p.s_flows * ks * lanes.PUMP_BURST
+        g_io = (g_in * 4 + tier["merged"] * 6 * 4 + s2 * c2 * 4
+                + tier["kept"] * 6 * 4 + s2 * 8 + s2 * 4)
+        if p.log_capacity:
+            g_io += ((tend - ttail) * 4
+                     + int(ws.rec_valid[ttail:tend].sum()) * 6 * 8)
     e_io = 0
     if p.split:
         s2 = 2 * p.s_flows
@@ -940,20 +1276,26 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws) -> dict:
         if p.log_capacity:
             e_io += (slots - tail) * 4 + split_rows * 6 * 8
     c_io = n * 8 + 4 * 4 + 6 * 4 + 4
-    valid = tail_rows + split_rows + a_rows
+    if p.stream_tiered:
+        c_io += 2 * p.s_flows * 8  # the tier rows' heads
+    valid = int(ws.rec_valid.sum()) if n_rec else 0
     d_in = n_rec * 4 + valid * 6 * 8
     d_out = valid * 6 * 8 + 8
     return {
         "lane_slots": a_in + a_out, "exchange_merge": b_in + b_out,
-        "stream_rows_merge": e_io, "queue_min_window": c_io,
-        "append_log": d_in + d_out, "valid_records": valid,
+        "stream_rows_merge": e_io, "stream_tier": f_io, "tier_merge": g_io,
+        "queue_min_window": c_io, "append_log": d_in + d_out,
+        "valid_records": valid,
     }
 
 
-# device kernels of each wrapper, as CUPTI names them (substring match);
-# the exchange's two scratch memsets count to it as well
+# device kernels of each wrapper, by the names CUPTI gives them with the
+# namespace, template arguments and parameters taken off (kernel_name); the
+# exchange's two scratch memsets ("Memset (Device)") count to B as well
 KERNEL_PARTS = {
     "lane_slots": ("lane_slots_kernel",),
+    "tier_merge": ("tier_merge_kernel",),
+    "stream_tier": ("stream_tier_kernel",),
     "exchange_merge": ("x_count_kernel", "x_scan_kernel", "x_place_kernel",
                        "merge_kernel", "Memset"),
     "stream_rows_merge": ("stream_rows_kernel",),
@@ -962,8 +1304,32 @@ KERNEL_PARTS = {
 }
 
 
-def profile_steps(window, iteration, steps: int, logging: bool,
-                  split: bool) -> dict:
+WRAPPER_OF = {part: name for name, parts in KERNEL_PARTS.items()
+              for part in parts}
+assert len(WRAPPER_OF) == sum(map(len, KERNEL_PARTS.values()))
+
+
+def kernel_name(key: str) -> str:
+    """The bare name of a profiler event: "merge_kernel" for "void
+    (anonymous namespace)::merge_kernel<7>(LaneBufs)", "Memset" for
+    "Memset (Device)", the key itself for a runtime call."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+    return m.group(1) if m else key.split(" ")[0]
+
+
+def path_kernels(p: lanes.LaneParams) -> list:
+    """The wrappers a run with these parameters launches every step."""
+    out = ["lane_slots", "exchange_merge", "queue_min_window"]
+    if p.split:
+        out.append("stream_rows_merge")
+    if p.stream_tiered:
+        out += ["stream_tier", "tier_merge"]
+    if p.log_capacity:
+        out.append("append_log")
+    return out
+
+
+def profile_steps(window, iteration, steps: int, p: lanes.LaneParams) -> dict:
     """Device time per step of each wrapper's kernels, from the profiler's
     CUDA activity over ``steps`` live steps of the device loop; {} when the
     profiler records no device time."""
@@ -975,19 +1341,16 @@ def profile_steps(window, iteration, steps: int, logging: bool,
             window(True)
             iteration()
         torch.cuda.synchronize()
-    parts = {name: v for name, v in KERNEL_PARTS.items()
-             if (logging or name != "append_log")
-             and (split or name != "stream_rows_merge")}
-    totals = {name: 0.0 for name in parts}
+    totals = {name: 0.0 for name in path_kernels(p)}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", None)
         if us is None:
             us = getattr(ev, "cuda_time_total", 0.0)
-        for name, names in parts.items():
-            if any(part in ev.key for part in names):
-                totals[name] += us
-                log(f"  device {us / steps:9.3f} us/step in {ev.count:5d} "
-                    f"launches: {ev.key[:70]}")
+        name = WRAPPER_OF.get(kernel_name(ev.key))
+        if name in totals:
+            totals[name] += us
+            log(f"  device {us / steps:9.3f} us/step in {ev.count:5d} "
+                f"launches: {ev.key[:70]}")
     if not all(totals.values()):
         log(f"profiler device times incomplete: {totals}")
         return {}
@@ -1027,26 +1390,38 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         window(True)
         iteration()
     step_ms = loop_step_ms(window, iteration, ws_, 2)
-    prof_ms = profile_steps(window, iteration, 40, log_cap > 0, p.split)
+    prof_ms = profile_steps(window, iteration, 40, p)
     window(True)  # the next window, as the loop would open it
     torch.cuda.synchronize()
     snap_s, snap_ws = clone(s), clone(ws_)
     args = kernels.LaneArgs(p, tb, s, ws_)
 
     def restore(snap=(snap_s, snap_ws)):
-        for dst, src in zip(s, snap[0]):
-            dst.copy_(src)
-        for dst, src in zip(ws_, snap[1]):
-            dst.copy_(src)
+        copy_into(s, snap[0])
+        copy_into(ws_, snap[1])
 
-    # inputs of B, E and D are A's outputs (and B's tail): stage them once
+    # inputs of B, E, F, G and D are A's outputs (and B's): stage them once
     kernels.lane_slots(args)
     kernels.exchange_merge(args)
     if p.split:
         kernels.stream_rows_merge(args)
+    tier = {}
+    if p.stream_tiered:
+        cx0 = p.tier_layout[3]
+        tier["cross"] = int((ws_.tier_blk[0, cx0:] != lanes.NEVER32).sum())
+        before = s.stream.q[0, :, :p.stream_pops].clone()
+        kernels.stream_tier(args)
+        tier["popped"] = int((before != s.stream.q[0, :, :p.stream_pops])
+                             .sum())
+        tier["cand"] = int((ws_.tier_blk[0, :cx0] != lanes.NEVER32).sum())
+        tier["merged"] = (int((s.stream.q[0] != lanes.NEVER32).sum())
+                          + tier["cand"] + tier["cross"])
+        kernels.tier_merge(args)
+        tier["kept"] = int((s.stream.q[0] != lanes.NEVER32).sum())
+        log(f"{label}: tier entries in the timed iteration: {tier}")
     torch.cuda.synchronize()
     snap_mid = (clone(s), clone(ws_))
-    nbytes = kernel_bytes(p, tb, ws_)
+    nbytes = kernel_bytes(p, tb, ws_, tier)
 
     reps = 50
     plan = {
@@ -1055,7 +1430,7 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         "exchange_merge": (
             lambda: (restore(), kernels.lane_slots(args)),
             lambda: kernels.exchange_merge(args),
-            lambda: lanes.exchange_merge_plain(p, s, ws_)),
+            lambda: lanes.exchange_merge_plain(p, tb, s, ws_)),
         "queue_min_window": (
             restore, lambda: kernels.queue_min_window(args, True),
             lambda: lanes.queue_min_window_plain(p, s, ws_, True)),
@@ -1066,6 +1441,17 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
                      kernels.exchange_merge(args)),
             lambda: kernels.stream_rows_merge(args),
             lambda: lanes.stream_rows_merge_plain(p, tb, s, ws_))
+    if p.stream_tiered:
+        plan["stream_tier"] = (
+            lambda: (restore(), kernels.lane_slots(args),
+                     kernels.exchange_merge(args)),
+            lambda: kernels.stream_tier(args),
+            lambda: lanes.stream_tier_plain(p, tb, s, ws_))
+        plan["tier_merge"] = (
+            lambda: (restore(), kernels.lane_slots(args),
+                     kernels.exchange_merge(args), kernels.stream_tier(args)),
+            lambda: kernels.tier_merge(args),
+            lambda: lanes.tier_merge_plain(p, tb, s, ws_))
     if log_cap:
         plan["append_log"] = (lambda: restore(snap_mid),
                               lambda: kernels.append_log(args),
@@ -1114,8 +1500,14 @@ def time_all() -> dict:
         "phold": time_kernels("phold", phold(stop_time="1s"), 0, 200),
         "lossy": time_kernels("lossy", flagship(sim_seconds=2,
                                                 packet_loss=0.01), 0, 20),
-        # this slice's main path: 40 steps in, the flows are in slow start
-        "mixed": time_kernels("mixed mesh", mixed_mesh(2), 0, 40),
+        # the untiered mixed mesh (kernel E): 40 steps in, the flows are in
+        # slow start
+        "mixed": time_kernels("mixed mesh, untiered", mixed_mesh(2), 0, 40),
+        # this slice's main path, the tiered mixed mesh (kernels F and G):
+        # 20 steps in (the tier pops up to 16 events a row per step), the
+        # flows are in slow start
+        "mixed_tiered": time_kernels("mixed mesh, tiered", mixed_tiered(2), 0,
+                                     20),
     }
     # rand_u32 alone: one draw per lane and slot of a PHOLD iteration
     m = N_FLAG * K_PHOLD
@@ -1150,7 +1542,8 @@ def time_all() -> dict:
     launches = kernels.rand_u32.launches
     dev_us = [getattr(ev, "device_time_total", None)
               or getattr(ev, "cuda_time_total", 0.0)
-              for ev in prof.key_averages() if "rand_u32_kernel" in ev.key]
+              for ev in prof.key_averages()
+              if kernel_name(ev.key) == "rand_u32_kernel"]
     event_ms = float(np.mean(kernel_ms))
     kernel_dev_ms = sum(dev_us) / 1e3 / 50 if sum(dev_us) else event_ms
     ops_ms = m * THREEFRY_OPS / INT32_OPS_PER_S * 1e3
@@ -1276,7 +1669,7 @@ def run_engine(eng: GpuEngine, mode: str):
         while not round_fn():
             pass
     res = eng.collect(state, 0.0)
-    return res, {f: t.cpu() for f, t in state._asdict().items()}
+    return res, {f: t.cpu() for f, t in fields(state).items()}
 
 
 @phase("parity: card and CPU, step and device, seven configs")
@@ -1307,23 +1700,27 @@ def parity():
             assert_equal(f"{name} {key} final state", st, ref_st)
 
 
-def _stream_pair_doc(loss: float = 0.0, cubic: bool = False) -> dict:
+def _stream_pair_doc(loss: float = 0.0, cubic: bool = False,
+                     tiered: bool = False, latency: str = "15 ms",
+                     size: str = "200kB", dynamic: bool = False) -> dict:
     """``tests/test_lane_parity.py``'s STREAM_PAIR: 200 kB over one 15 ms
-    link between two 20 Mbit nodes, 30 sim s; untiered."""
+    link between two 20 Mbit nodes, 30 sim s; untiered unless ``tiered``
+    (the variants of ``tests/test_torch_tier.py`` by the other arguments)."""
     edge_loss = f" packet_loss {loss}" if loss else ""
     client = {"network_node_id": 0, "processes": [{
-        "path": "stream-client", "args": ["--server", "s", "--size", "200kB"]}]}
+        "path": "stream-client", "args": ["--server", "s", "--size", size]}]}
     if cubic:
         client["congestion"] = "cubic"
     return {
         "general": {"stop_time": "30s", "seed": 5},
         "experimental": {"tpu_lane_queue_capacity": 128,
-                         "tpu_stream_tiered": False},
+                         "tpu_stream_tiered": tiered,
+                         "use_dynamic_runahead": dynamic},
         "network": {"graph": {"type": "gml", "inline": (
             'graph [ directed 0 '
             'node [ id 0 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ] '
             'node [ id 1 host_bandwidth_up "20 Mbit" host_bandwidth_down "20 Mbit" ] '
-            f'edge [ source 0 target 1 latency "15 ms"{edge_loss} ] ]')}},
+            f'edge [ source 0 target 1 latency "{latency}"{edge_loss} ] ]')}},
         "hosts": {"c": client, "s": {"network_node_id": 1, "processes": [
             {"path": "stream-server"}]}},
     }
@@ -1335,12 +1732,16 @@ def _cubic_vs_reno():
     return ConfigOptions.from_dict(doc)
 
 
-def _mixed_small():
+def _mixed_small(tiered: bool = False):
     cfg = flagship_mesh_config(12, sim_seconds=2, stream_pairs=2,
                                stream_bytes=200_000, queue_capacity=96,
                                pops_per_round=4)
-    cfg.experimental.tpu_stream_tiered = False
+    cfg.experimental.tpu_stream_tiered = tiered
     return cfg
+
+
+def _pair(**kw):
+    return lambda: ConfigOptions.from_dict(_stream_pair_doc(**kw))
 
 
 # the stream parity configs: name -> (config, CPU modes, what must happen).
@@ -1369,11 +1770,32 @@ STREAM_PARITY = {
     "cubic_vs_reno": (_cubic_vs_reno, ("device",), "stream_retransmits"),
     # a 12-host mesh whose spray crosses two stream pairs
     "mixed_small": (_mixed_small, ("step", "device"), "stream_rx_bytes"),
+    # tests/test_torch_tier.py's configs on the tiered stream pass: the
+    # pair, lossy, CUBIC, the small mixed mesh, a 250 ms link (no wide pop:
+    # same-instant pops, no delivery elision) and dynamic runahead
+    "tier_pair": (_pair(tiered=True), ("step", "device"), "stream_complete"),
+    "tier_pair_lossy": (_pair(tiered=True, loss=0.03), ("device",),
+                        "stream_retransmits"),
+    "tier_cubic_pair": (_pair(tiered=True, cubic=True), ("device",),
+                        "stream_complete"),
+    "tier_mixed_small": (lambda: _mixed_small(tiered=True), ("device",),
+                         "stream_rx_bytes"),
+    "tier_slow_pair": (_pair(tiered=True, latency="250 ms", size="60kB"),
+                       ("step",), "stream_complete"),
+    "tier_dyn_pair": (_pair(tiered=True, dynamic=True), ("device",),
+                      "stream_complete"),
 }
+# the same simulation on the two stream paths: equal logs and counters (the
+# iteration count aside)
+TIERED_TWINS = (("stream_pair", "tier_pair"),
+                ("stream_pair_lossy", "tier_pair_lossy"),
+                ("mixed_small", "tier_mixed_small"))
 
 
-@phase("stream parity: card (step and device) and CPU, five configs")
+@phase("stream parity: card (step and device) and CPU, five untiered and "
+       "six tiered configs; tiered = untiered")
 def stream_parity():
+    refs = {}
     for name, (cfg_fn, cpu_modes, must) in STREAM_PARITY.items():
         runs = {}
         for dev, modes in (("cpu", cpu_modes), ("cuda", ("step", "device"))):
@@ -1385,6 +1807,7 @@ def stream_parity():
                     f"{res.counters}, rounds {res.rounds} "
                     f"({time.perf_counter() - t0:.1f} s)")
         ref_res, ref_st = runs[("cpu", cpu_modes[0])]
+        refs[name] = ref_res
         if ref_res.counters.get(must, 0) == 0:
             raise AssertionError(f"{name}: no {must}")
         if ref_res.counters.get("stream_rx_bytes", 0) == 0:
@@ -1395,6 +1818,17 @@ def stream_parity():
             if res.counters != ref_res.counters or res.rounds != ref_res.rounds:
                 raise AssertionError(f"{name} {key}: counters differ")
             assert_equal(f"{name} {key} final state", st, ref_st)
+    for untiered, tiered in TIERED_TWINS:
+        a, b = refs[untiered], refs[tiered]
+        ca = {k: v for k, v in a.counters.items() if k != "lane_iters"}
+        cb = {k: v for k, v in b.counters.items() if k != "lane_iters"}
+        if (a.log_tuples() != b.log_tuples() or ca != cb
+                or a.rounds != b.rounds):
+            raise AssertionError(f"{tiered}: the tiered run differs from "
+                                 "the untiered one")
+        log(f"{tiered} = {untiered}: {len(a.event_log)} records, iterations "
+            f"{b.counters['lane_iters']} tiered, {a.counters['lane_iters']} "
+            "untiered")
 
 
 @phase("examples/stream-tcp.yaml: 60 sim s on the card; a prefix card = CPU")
@@ -1444,19 +1878,22 @@ def expected_mesh(n: int, sim_s: int) -> dict:
 @phase("full width: card against the CPU plain path")
 def full_width_parity():
     """PHOLD at 10,000 hosts for 50 sim ms, the lossy flagship for 1 sim s
-    and the mixed mesh for 100 sim ms (the handshakes and the first
-    bursts), device mode with logging: equal event logs, counters and
-    final states."""
-    def mixed_100ms():
-        cfg = mixed_mesh(1)
-        cfg.general.stop_time = 100_000_000
-        return cfg
+    and the mixed mesh, untiered and tiered, for 100 sim ms (the handshakes
+    and the first bursts), device mode with logging: equal event logs,
+    counters and final states."""
+    def mixed_100ms(make):
+        def cfg_fn():
+            cfg = make(1)
+            cfg.general.stop_time = 100_000_000
+            return cfg
+        return cfg_fn
 
     for name, cfg_fn, log_cap in (
             ("phold 50 ms", lambda: phold(stop_time="50ms"), 1_000_000),
             ("lossy flagship 1 s",
              lambda: flagship(sim_seconds=1, packet_loss=0.01), 1_200_000),
-            ("mixed mesh 100 ms", mixed_100ms, 400_000)):
+            ("mixed mesh 100 ms", mixed_100ms(mixed_mesh), 400_000),
+            ("mixed mesh tiered 100 ms", mixed_100ms(mixed_tiered), 400_000)):
         runs = {}
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
@@ -1527,12 +1964,20 @@ def check_lossy(res, _sim_s: int, _log_cap: int) -> None:
         raise AssertionError(f"{unsettled} sends neither delivered nor lost")
 
 
-def check_mixed(res, _sim_s: int, _log_cap: int) -> None:
+# the JAX package's iteration counts for the mixed mesh's 500 windows
+# (docs/tpu-backend.md): a property of the event order and the capacities,
+# not of the chip — an expectation, not a check
+MIXED_ITERS = {True: 623, False: 2231}
+
+
+def check_mixed(res, _sim_s: int, _log_cap: int, tiered: bool) -> None:
     """Every one of the 100 flows completes at both ends with its 2,000,000
     bytes; nothing is dropped (strict capacity raised nothing)."""
     c = res.counters
-    log(f"mixed mesh: {c.get('lane_iters')} iterations, {res.rounds} "
-        f"windows; streams {({k: v for k, v in c.items() if 'stream' in k})}")
+    log(f"mixed mesh ({'tiered' if tiered else 'untiered'}): "
+        f"{c.get('lane_iters')} iterations (the reference's: "
+        f"{MIXED_ITERS[tiered]}), {res.rounds} windows; streams "
+        f"{({k: v for k, v in c.items() if 'stream' in k})}")
     want = {"stream_complete": 100, "stream_flows_done": 100,
             "stream_rx_bytes": 200_000_000}
     got = {k: c.get(k, 0) for k in want}
@@ -1544,10 +1989,36 @@ def check_mixed(res, _sim_s: int, _log_cap: int) -> None:
         raise AssertionError(f"drops {drops}")
 
 
-# the main paths: name -> (config, log capacity, check, kernels of the path)
+def check_cubic_vs_reno(res, _sim_s: int, _log_cap: int) -> None:
+    """Both flows (CUBIC and NewReno) complete with their 2,000,000 bytes
+    across the 1% loss, with retransmissions; no queue drop."""
+    c = res.counters
+    log(f"cubic-vs-reno.yaml: {c}, {res.rounds} windows")
+    want = {"stream_complete": 2, "stream_flows_done": 2,
+            "stream_rx_bytes": 4_000_000}
+    if {k: c.get(k, 0) for k in want} != want:
+        raise AssertionError(f"stream counters {c}")
+    if not (c.get("stream_retransmits") and c.get("lane_drop_loss")):
+        raise AssertionError("no loss recovery ran")
+    if c.get("lane_drop_queue"):
+        raise AssertionError("queue drops")
+
+
+# the main paths: name -> (config, log capacity, check, sim seconds)
 MAIN_PATHS = {
-    # this slice's: the mixed TCP/UDP mesh at 10,000 hosts, untiered
-    "mixed mesh 10k, 5 s": (lambda: mixed_mesh(5), 0, check_mixed, 5),
+    # this slice's: the mixed TCP/UDP mesh at 10,000 hosts, tiered at the
+    # preset's own tuning
+    "mixed mesh 10k, tiered, 5 s": (
+        lambda: mixed_tiered(5), 0,
+        lambda r, s_, l_: check_mixed(r, s_, l_, True), 5),
+    # the same mesh untiered (kernel E), at the pre-tier queue shape
+    "mixed mesh 10k, untiered, 5 s": (
+        lambda: mixed_mesh(5), 0,
+        lambda r, s_, l_: check_mixed(r, s_, l_, False), 5),
+    # examples/cubic-vs-reno.yaml as it stands: tiered, CUBIC in the tier
+    "cubic-vs-reno.yaml, 60 s": (
+        lambda: ConfigOptions.from_dict(presets.cubic_vs_reno_example_doc()),
+        0, check_cubic_vs_reno, 60),
     "flagship 1 s, logging": (lambda: flagship(sim_seconds=1), 1_200_000,
                               check_flagship, 1),
     "flagship 10 s": (lambda: flagship(sim_seconds=10), 0, check_flagship, 10),
@@ -1579,12 +2050,7 @@ def main_path():
             f"s); launches {counts}; nvidia-smi: {smi_line()}")
         rates[name] = res.sim_seconds_per_wall_second
         check_fn(res, sim_s, log_cap)
-        need = ["lane_slots", "exchange_merge", "queue_min_window"]
-        if eng.params.split:
-            need.append("stream_rows_merge")
-        if log_cap:
-            need.append("append_log")
-        for k in need:
+        for k in path_kernels(eng.params):
             if counts[k] <= 0:
                 raise AssertionError(f"{name}: {k} was not launched")
         for k, v in counts.items():
@@ -1620,6 +2086,7 @@ def main() -> int:
     check_rand_u32()
     check_active_kernels()
     check_stream_kernels()
+    check_tier_kernels()
     times = time_all()
     parity()
     stream_parity()
@@ -1635,7 +2102,8 @@ def main() -> int:
         log(f"ptxas: {line}")
     for name, rate in rates.items():
         log(f"sim-s/wall-s, {name}: {rate:.3f} ({smi})")
-    for cfg_name in ("mixed", "flagship", "flagship_log", "phold", "lossy"):
+    for cfg_name in ("mixed_tiered", "mixed", "flagship", "flagship_log",
+                     "phold", "lossy"):
         for name, t in times[cfg_name].items():
             if name == "loop":
                 log(f"device busy, {cfg_name}: {t['busy']:.4f} of "
@@ -1648,16 +2116,19 @@ def main() -> int:
         f"{times['rand_u32']['ms'] * 1e3:.3f} (bound "
         f"{times['rand_u32']['bound_ms'] * 1e3:.3f}, "
         f"{times['rand_u32']['bound_by']}) ({smi})")
-    # A, B, C and E at this slice's main path, the mixed mesh; D where a
-    # main path logs (the flagship, 1 s); the other paths' times are on the
-    # lines above
-    source = {"lane_slots": "mixed", "exchange_merge": "mixed",
-              "stream_rows_merge": "mixed", "queue_min_window": "mixed",
+    # A, B, C, F and G at this slice's main path, the tiered mixed mesh; E
+    # at the untiered mixed mesh; D where a main path logs (the flagship,
+    # 1 s); the other paths' times are on the lines above
+    source = {"lane_slots": "mixed_tiered", "exchange_merge": "mixed_tiered",
+              "stream_rows_merge": "mixed", "stream_tier": "mixed_tiered",
+              "tier_merge": "mixed_tiered", "queue_min_window": "mixed_tiered",
               "append_log": "flagship_log"}
     replaces = {
         "lane_slots": "shadow_tpu/backend/lanes.py:2900",
         "exchange_merge": "shadow_tpu/backend/lanes.py:1581",
         "stream_rows_merge": "shadow_tpu/backend/lanes.py:1924",
+        "stream_tier": "shadow_tpu/backend/lanes.py:2300",
+        "tier_merge": "shadow_tpu/backend/lanes.py:2682",
         "queue_min_window": "shadow_tpu/backend/lanes.py:2260",
         "append_log": "shadow_tpu/backend/lanes.py:2056",
         "rand_u32": "shadow_tpu/core/rng.py:46",
@@ -1677,6 +2148,10 @@ def main() -> int:
             row["fused"] = "rand_u32"
             row["launches_that_draw"] = drawing
             row["stream_law"] = "shadow_tpu/backend/lanes_stream.py:604"
+        if name == "stream_tier":
+            # the tier's state, and the same lane-TCP law (device functions
+            # shared with A)
+            row["state"] = "shadow_tpu/backend/lanes_stream.py:907"
         if name == "rand_u32":
             # the launcher runs on no main path: its own launches in the
             # phase that timed it

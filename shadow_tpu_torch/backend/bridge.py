@@ -21,6 +21,10 @@ raises, with these mappings made explicit:
   empty float64 array) is the port's empty int32 tensor;
 - the reference's ``StreamState(cl, sv)`` arrives stacked, ``[2, S, F]``
   (what ``np.asarray`` makes of it), which is the port's ``stream``;
+- on a tiered run ``stream`` arrives as the three arrays of the
+  reference's ``TierState`` — ``(flows, q, v)``, the flows stacked as
+  above — and becomes the port's ``lanes_stream.TierState``;
+  ``state_to_numpy`` gives it back in that form;
 - the port's lane -> endpoint-row table (``lane_ep_start``,
   ``lane_ep_rows``), which the reference has no counterpart of, is
   derived from ``flow_lanes``.
@@ -32,9 +36,11 @@ import numpy as np
 import torch
 
 from .lanes import LaneState, LaneTables
+from .lanes_stream import TierState
 
 _DTYPES = {"cd_dropping": torch.bool, "log": torch.int64,
-           "thresh": torch.int64, "flow_thresh": torch.int64}
+           "thresh": torch.int64, "flow_thresh": torch.int64,
+           "lane_stream": torch.bool}
 _NP = {torch.int32: np.int32, torch.int64: np.int64, torch.bool: np.bool_}
 
 
@@ -88,8 +94,18 @@ def tables_from_numpy(d: dict, device="cpu", s_flows: int = 0) -> LaneTables:
 
 
 def state_from_numpy(d: dict, device="cpu") -> LaneState:
-    return LaneState(**{f: _tensor(f, d[f], device) for f in LaneState._fields})
+    def field(f):
+        if f == "stream" and isinstance(d[f], (tuple, list)):
+            return TierState(*(_tensor(f, a, device) for a in d[f]))
+        return _tensor(f, d[f], device)
+
+    return LaneState(**{f: field(f) for f in LaneState._fields})
 
 
 def state_to_numpy(s: LaneState) -> dict:
-    return {f: getattr(s, f).cpu().numpy() for f in LaneState._fields}
+    def field(t):
+        if isinstance(t, TierState):
+            return tuple(a.cpu().numpy() for a in t)
+        return t.cpu().numpy()
+
+    return {f: field(getattr(s, f)) for f in LaneState._fields}

@@ -1,12 +1,13 @@
 """Lane engine driver: config -> lane tables and state -> run -> SimResult.
 
-The counterpart of the JAX package's ``TpuEngine`` for its untiered lane
-path (tgen, phold, ping, lane-TCP streams; loss, bootstrap, dynamic
-runahead): it builds the same tables and initial state from a config (same
-host ordering, routing, runahead, bucket parameters, loss thresholds, flow
-tables and int32 guards), runs the window loop with the lane kernels on one
-device, and reads the result back into a :class:`SimResult` that compares
-directly with the reference's.
+The counterpart of the JAX package's ``TpuEngine`` for its lane path (tgen,
+phold, ping, lane-TCP streams, untiered or on the tiered stream pass;
+loss, bootstrap, dynamic runahead): it builds the same tables and initial
+state from a config (same host ordering, routing, runahead, bucket
+parameters, loss thresholds, flow tables and int32 guards), runs the
+window loop with the lane kernels on one device, and reads the result
+back into a :class:`SimResult` that compares directly with the
+reference's.
 """
 
 from __future__ import annotations
@@ -34,6 +35,38 @@ from .setup import build_world
 
 NEVER = stime.NEVER
 _I32MAX = (1 << 31) - 1
+
+
+def _event_rows(rows, n_rows: int, width: int, t, kind, src, seq, size):
+    """Initial events into ``[n_rows, width]`` queue rows (``rows``: each
+    event's row), each row sorted by the 4-word key: the int32 words
+    ``(t_hi, t_lo, aux_hi, aux_lo, size)``."""
+    q_time = np.full((n_rows, width), NEVER, dtype=np.int64)
+    q_auxh = np.zeros((n_rows, width), dtype=np.int32)
+    q_auxl = np.zeros((n_rows, width), dtype=np.int32)
+    q_size = np.zeros((n_rows, width), dtype=np.int32)
+    if rows.size:
+        # slot each event into its per-row cumcount position
+        order = np.argsort(rows, kind="stable")
+        r = rows[order]
+        counts = np.bincount(r, minlength=n_rows)
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+        pos = np.arange(r.size) - np.repeat(starts, counts)
+        q_time[r, pos] = t[order]
+        q_auxh[r, pos] = ((kind[order] << lanes.AUX_KIND_SHIFT)
+                          | (src[order] << lanes.AUX_SRC_SHIFT))
+        q_auxl[r, pos] = seq[order]
+        q_size[r, pos] = size[order]
+    # rows sorted by the 4-word key (np.lexsort: primary key last)
+    order = np.lexsort((q_auxl, q_auxh, q_time), axis=1)
+    q_time, q_auxh, q_auxl, q_size = (np.take_along_axis(a, order, axis=1)
+                                      for a in (q_time, q_auxh, q_auxl,
+                                                q_size))
+    never = q_time == NEVER
+    q_thi = np.where(never, lanes.NEVER32, q_time >> 31).astype(np.int32)
+    q_tlo = np.where(never, lanes.NEVER32,
+                     q_time & lanes.MASK31).astype(np.int32)
+    return q_thi, q_tlo, q_auxh, q_auxl, q_size
 
 
 class GpuEngine:
@@ -215,13 +248,10 @@ class GpuEngine:
         one_to_one = bool(client_ids.size) and all(
             peer_counts.get(sid, 0) == 1 for sid in server_ids
         ) and all(pid in server_ids for pid in peer_counts)
-        if one_to_one and cfg.experimental.tpu_stream_tiered:
-            raise LaneCompatError(
-                "one-to-one stream configs run on the reference's tiered "
-                "stream backend (experimental.tpu_stream_tiered: true), which "
-                "is not ported yet; set tpu_stream_tiered: false for the "
-                "untiered path, bit-identical in events"
-            )
+        # the tiered stream backend: one-to-one flows move to their own
+        # [2S]-row tier (the reference's decision; it also needs no
+        # external lanes and no flowtrace, which the port does not run)
+        tiered = one_to_one and bool(cfg.experimental.tpu_stream_tiered)
         # wide stream co-pop is sound only when every possible window ends
         # before RTO_MIN (a DELIVERY pop then inserts nothing same-window);
         # the dynamic window never exceeds the largest link latency
@@ -245,6 +275,9 @@ class GpuEngine:
             stream_one_to_one=one_to_one,
             stream_clients=tuple(int(c) for c in client_ids),
             stream_wide_pop=stream_wide_pop,
+            stream_tiered=tiered,
+            stream_pops=cfg.experimental.tpu_stream_events_per_round,
+            stream_capacity=cfg.experimental.tpu_stream_queue_capacity,
         )
 
         up = np.array([bucket_params(int(b)) for b in bw_up], dtype=np.int64)
@@ -328,6 +361,11 @@ class GpuEngine:
             flow_shape = [np.zeros(2, dtype=np.int32)] * 4
         # lane -> endpoint rows, for kernel A's thread per lane
         ep_start, ep_rows = bridge.lane_endpoints(el, n, s_flows)
+        # tiered: the endpoint lanes' down buckets, and which lanes are
+        # endpoints (empty otherwise, where the reference holds ())
+        el_t = el if tiered else np.zeros(0, dtype=np.int64)
+        lane_stream = np.isin(np.arange(n), el_t) if tiered else np.zeros(
+            0, dtype=bool)
 
         self.tables = lanes.LaneTables(
             node_of=t32(node_idx), lat=t32(lat),
@@ -350,42 +388,28 @@ class GpuEngine:
             flow_last=t32(flow_shape[2]), flow_cc=t32(flow_shape[3]),
             flow_up_rate=t32(up[el, 0]), flow_up_burst=t32(up[el, 1]),
             flow_up_kfull=t32(up_kfull[el]), flow_up_kfi=t32(up_kfi[el]),
+            flow_dn_rate=t32(dn[el_t, 0]), flow_dn_burst=t32(dn[el_t, 1]),
+            flow_dn_kfull=t32(dn_kfull[el_t]), flow_dn_kfi=t32(dn_kfi[el_t]),
+            lane_stream=torch.as_tensor(lane_stream, device=self.device),
             lane_ep_start=t32(ep_start), lane_ep_rows=t32(ep_rows),
         )
         self._up_burst = up[:, 1]
         self._dn_burst = dn[:, 1]
+        self._el = el  # [2S] endpoint lanes (tiered: their tier rows)
 
     # -- state construction ------------------------------------------------
 
     def initial_state(self) -> lanes.LaneState:
         p = self.params
         n, c = p.n_lanes, p.capacity
-        q_time = np.full((n, c), NEVER, dtype=np.int64)
-        q_auxh = np.zeros((n, c), dtype=np.int32)
-        q_auxl = np.zeros((n, c), dtype=np.int32)
-        q_size = np.zeros((n, c), dtype=np.int32)
-        ev_lane, ev_t, ev_kind, ev_src, ev_seq, ev_size = self._init_cols
-        if ev_lane.size:
-            # slot each event into its per-lane cumcount position
-            order = np.argsort(ev_lane, kind="stable")
-            l_s = ev_lane[order]
-            counts = np.bincount(l_s, minlength=n)
-            starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-            pos = np.arange(l_s.size) - np.repeat(starts, counts)
-            q_time[l_s, pos] = ev_t[order]
-            q_auxh[l_s, pos] = (ev_kind[order] << lanes.AUX_KIND_SHIFT) | (
-                ev_src[order] << lanes.AUX_SRC_SHIFT
-            )
-            q_auxl[l_s, pos] = ev_seq[order]
-            q_size[l_s, pos] = ev_size[order]
-        # rows sorted by the 4-word key (np.lexsort: primary key last)
-        order = np.lexsort((q_auxl, q_auxh, q_time), axis=1)
-        q_time = np.take_along_axis(q_time, order, axis=1)
-        q_auxh = np.take_along_axis(q_auxh, order, axis=1)
-        q_auxl = np.take_along_axis(q_auxl, order, axis=1)
-        q_size = np.take_along_axis(q_size, order, axis=1)
-        q_thi, q_tlo = lanes.t_split(torch.from_numpy(q_time))
-
+        cols = self._init_cols
+        if p.stream_tiered:
+            # the stream endpoints' events go to their tier rows
+            on_tier = np.isin(cols[0], self._el)
+            t_cols = [a[on_tier] for a in cols]
+            cols = [a[~on_tier] for a in cols]
+        q_thi, q_tlo, q_auxh, q_auxl, q_size = _event_rows(cols[0], n, c,
+                                                           *cols[1:])
         dev = self.device
 
         def t32(a):
@@ -398,8 +422,15 @@ class GpuEngine:
             return torch.tensor(v, dtype=torch.int32, device=dev)
 
         def pay():  # payload words only where stream events ride the queues
-            shape = (n, c) if p.stream_present else (0,)
+            shape = (n, c) if p.lane.stream_present else (0,)
             return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        if p.stream_tiered:
+            stream = self._initial_tier(t_cols)
+        elif p.stream_present:
+            stream = lstr.init_stream_state(p.s_flows, dev)
+        else:
+            stream = torch.zeros(0, dtype=torch.int32, device=dev)
 
         # bucket state: next_refill one interval in (grid-aligned),
         # last_depart 0; CoDel first_above at the UNSET sentinel
@@ -425,12 +456,30 @@ class GpuEngine:
             log=torch.zeros((max(p.log_capacity, 1), 6), dtype=torch.int64,
                             device=dev),
             log_count=scalar(0), log_lost=scalar(0),
-            stream=(lstr.init_stream_state(p.s_flows, dev) if p.stream_present
-                    else torch.zeros(0, dtype=torch.int32, device=dev)),
+            stream=stream,
             rounds=scalar(0), iters=scalar(0),
             now_we_hi=scalar(0), now_we_lo=scalar(0),
             min_used_lat=scalar(lanes.NEVER32),
         )
+
+    def _initial_tier(self, cols) -> lstr.TierState:
+        """The tier's start state: each endpoint's events (``cols``, the
+        initial-event columns of endpoint lanes) in its row, rows sorted by
+        the key; the endpoint lanes' bucket bursts; the local sequence
+        counters of the lanes."""
+        p, dev = self.params, self.device
+        el = self._el
+        row_of = {int(x): r for r, x in enumerate(el)}
+        rows = np.array([row_of[int(x)] for x in cols[0]], dtype=np.int64)
+        words = _event_rows(rows, 2 * p.s_flows, p.stream_capacity, *cols[1:])
+        tier = lstr.init_tier_state(
+            p.s_flows, p.stream_capacity, dn_tokens=self._dn_burst[el],
+            up_tokens=self._up_burst[el], interval=p.bucket_interval,
+            device=dev)
+        tier.q[:5] = torch.from_numpy(np.stack(words))
+        tier.v[lstr.TV_LOCAL_SEQ] = torch.as_tensor(
+            self._local_seq0[el].astype(np.int32), device=dev)
+        return tier
 
     def current_runahead(self) -> int:
         """The live window width: the static runahead, or with dynamic
@@ -486,7 +535,19 @@ class GpuEngine:
                     f"lane counter {fname} wrapped past 2**31; this run "
                     "exceeds the lane backend's int32 counter range"
                 )
-        n_queue_drops = int(s.n_queue.sum())
+        # tiered: the tier owns the stream endpoints' network accounting;
+        # its compact counters fold into the lane totals
+        tv = s.stream.v if self.params.stream_tiered else None
+        if tv is not None and int(tv[lstr.TV_SEND_SEQ].min()) < 0:
+            raise RuntimeError(
+                "tier counter send_seq wrapped past 2**31; this run "
+                "exceeds the lane backend's int32 counter range"
+            )
+
+        def tier_sum(row: int) -> int:
+            return int(tv[row].sum()) if tv is not None else 0
+
+        n_queue_drops = int(s.n_queue.sum()) + tier_sum(lstr.TV_N_QUEUE)
         if n_queue_drops and self.strict_capacity:
             raise RuntimeError(
                 f"{n_queue_drops} events dropped on lane-queue overflow; raise "
@@ -513,13 +574,16 @@ class GpuEngine:
         add("tgen_recv_bytes", int(s.recv_bytes[tgen].sum()))
         add("phold_hops", int(s.n_hops[model == lanes.M_PHOLD].sum()))
         add("lane_iters", int(s.iters))
-        add("lane_delivered", int(s.n_delivered.sum()))
-        add("lane_drop_loss", int(s.n_loss.sum()))
-        add("lane_drop_codel", int(s.n_codel.sum()))
+        add("lane_delivered", int(s.n_delivered.sum())
+            + tier_sum(lstr.TV_N_DEL))
+        add("lane_drop_loss", int(s.n_loss.sum()) + tier_sum(lstr.TV_N_LOSS))
+        add("lane_drop_codel", int(s.n_codel.sum())
+            + tier_sum(lstr.TV_N_CODEL))
         add("lane_drop_queue", n_queue_drops)
-        add("lane_sends", int(s.n_sends.sum()))
+        add("lane_sends", int(s.n_sends.sum()) + tier_sum(lstr.TV_N_SENDS))
         if self.params.stream_present:
-            cl_m, sv_m = s.stream[0], s.stream[1]
+            flows = s.stream.flows if tv is not None else s.stream
+            cl_m, sv_m = flows[0], flows[1]
             done = cl_m[:, lstr.C_COMPLETED] != 0
             if bool(done.any()):
                 # totals at completion, like the CPU oracle (zero-valued

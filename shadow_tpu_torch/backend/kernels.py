@@ -1,6 +1,6 @@
 """The lane engine's CUDA kernels: build, binding and wrappers.
 
-``csrc/lanes.cu`` holds the five lane kernels for Hopper (``sm_90a``) and the
+``csrc/lanes.cu`` holds the seven lane kernels for Hopper (``sm_90a``) and the
 threefry launcher behind a plain C interface.  At first use on the card it is compiled with ``nvcc`` into
 ``build/shadow_tpu_torch/`` at the root of the checkout, keyed by a hash of
 the source, and loaded with ``ctypes``.  Nothing is built or loaded when
@@ -44,16 +44,19 @@ NVCC_FLAGS = (
 # the merge kernel keeps its row in static-limit shared memory
 MERGE_SMEM_LIMIT = 48 * 1024
 
-# LaneBufs (csrc/lanes.cu): every pointer field, in this order, then the sizes
+# LaneBufs (csrc/lanes.cu): every pointer field, in this order, then the
+# sizes.  ``stream`` points at the flows ([2, S, F]); on a tiered run
+# ``tier_q`` and ``tier_v`` at the TierState's queues and vectors.
 _PTR_FIELDS = (
     lanes.LaneState._fields + lanes.LaneTables._fields
-    + lanes.Workspace._fields
+    + lanes.Workspace._fields + ("tier_q", "tier_v")
 )
 _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "interval", "seed_lo", "seed_hi", "bootstrap_end", "has_loss",
                "all_passive", "dyn_runahead", "runahead_floor", "words",
                "s_flows", "wide_pop", "one_to_one", "n_x", "rec_slots",
-               "rec_srec", "rec_brec", "n_rec")
+               "rec_srec", "rec_brec", "n_rec", "tier_s", "ks", "c2",
+               "tier_wide", "tier_n", "rec_tier")
 
 
 class LaneBufs(ctypes.Structure):
@@ -108,7 +111,7 @@ def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
     for name in ("lane_slots", "exchange_merge", "stream_rows_merge",
-                 "append_log"):
+                 "stream_tier", "tier_merge", "append_log"):
         fn = getattr(lib, name)
         fn.argtypes = [vp, vp]
         fn.restype = ctypes.c_int
@@ -137,23 +140,33 @@ def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
 
 class LaneArgs:
     """One run's state, tables and workspace, checked for the kernels,
-    with their device pointers packed into the ``LaneBufs`` block."""
+    with their device pointers packed into the ``LaneBufs`` block.  The
+    [N] lanes' sizes are those of ``p.lane`` (on a tiered run, the lanes
+    without the stream models); the tier's are ``tier_s`` (S, 0 when not
+    tiered), ``ks``, ``c2``, ``tier_n`` (the tier block's width) and
+    ``rec_tier`` (where its record groups start)."""
 
     def __init__(self, p: lanes.LaneParams, tb: lanes.LaneTables,
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
         self.p, self.tb, self.s, self.ws = p, tb, s, ws
+        pl = p.lane
         dev = s.q_thi.device
         n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
         g = int(tb.lat.shape[0])
         i32, i64 = torch.int32, torch.int64
         n_rec = p.n_records if p.log_capacity else 1
         sp, sf = p.stream_present, p.s_flows
+        tiered = p.stream_tiered
         n_ep = 2 * sf if sp else 2
+        tier_n = p.tier_layout[-1]
         shapes = {
             **{f: (n, c) for f in ("q_thi", "q_tlo", "q_auxh", "q_auxl",
                                    "q_size")},
-            **{f: (n, c) if sp else (0,) for f in ("q_phi", "q_plo")},
+            **{f: (n, c) if pl.stream_present else (0,)
+               for f in ("q_phi", "q_plo")},
             "stream": (2, sf, lanes.lstr.N_COLS) if sp else (0,),
+            "tier_q": (7, 2 * sf, p.stream_capacity) if tiered else (0,),
+            "tier_v": (lanes.lstr.TV_COUNT, 2 * sf) if tiered else (0,),
             **{f: (n,) for f in lanes._SLOT_FIELDS + ("n_queue",)},
             **{f: () for f in ("log_count", "log_lost", "rounds", "iters",
                                "now_we_hi", "now_we_lo", "min_used_lat")},
@@ -161,26 +174,43 @@ class LaneArgs:
             **{f: (n,) for f in lanes.LaneTables._fields},
             **{f: (n_ep,) for f in lanes.LaneTables._fields
                if f.startswith("flow_")},
+            **{f: (2 * sf,) if tiered else (0,)
+               for f in ("flow_dn_rate", "flow_dn_burst", "flow_dn_kfull",
+                         "flow_dn_kfi")},
+            "lane_stream": (n,) if tiered else (0,),
             "lane_ep_start": (n + 1,), "lane_ep_rows": (n_ep,),
             "lat": (g, g), "thresh": (g, g), "codel_div": (1025,),
-            "ctl": (4,), "self_blk": (p.words, n, p.self_width),
-            "out_blk": (6, k, n), "sx_blk": (8, max(p.stream_entries, 1)),
+            "ctl": (4,), "self_blk": (pl.words, n, pl.self_width),
+            "out_blk": (6, k, n), "sx_blk": (8, max(pl.stream_entries, 1)),
             "recs": (n_rec, 6), "rec_valid": (n_rec,),
             "x_cnt": (n,), "x_start": (n,), "x_fill": (n,),
-            "x_order": (p.exchange_entries,),
+            "x_order": (pl.exchange_entries,),
+            "tier_blk": (7, max(tier_n, 1)),
         }
         dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
-                  "thresh": i64, "flow_thresh": i64}
+                  "thresh": i64, "flow_thresh": i64,
+                  "lane_stream": torch.bool}
         tensors = {**s._asdict(), **tb._asdict(), **ws._asdict()}
+        if tiered:
+            tensors["stream"] = s.stream.flows
+            tensors["tier_q"], tensors["tier_v"] = s.stream.q, s.stream.v
+        else:
+            # a tiered run's fields, unused: empty
+            tensors["tier_q"] = tensors["tier_v"] = torch.zeros(
+                0, dtype=i32, device=dev)
         for f in _PTR_FIELDS:
             _check(f, tensors[f], dev, dtypes.get(f, i32), shapes[f])
         self.on_cuda = dev.type == "cuda"
         if self.on_cuda:
-            rows = {"merge": (p.merge_width, 4 * cx)}
+            # the merges keep their rows in shared memory: entries, words
+            # an entry, extra bytes
+            rows = {"merge": (pl.merge_width, pl.words, 4 * cx)}
             if p.split:
-                rows["stream merge"] = (c + p.stream_row_width, 0)
-            for what, (width, extra) in rows.items():
-                smem = 4 * p.words * width + extra
+                rows["stream merge"] = (c + p.stream_row_width, 7, 0)
+            if tiered:
+                rows["tier merge"] = (p.stream_capacity + p.tier_width, 7, 0)
+            for what, (width, words, extra) in rows.items():
+                smem = 4 * words * width + extra
                 if smem > MERGE_SMEM_LIMIT:
                     raise ValueError(
                         f"{what} row of {width} entries needs {smem} B of "
@@ -192,17 +222,20 @@ class LaneArgs:
         _tail, rec_slots, rec_srec, rec_brec, rec_end = p.rec_offsets
         self.bufs = LaneBufs(
             **{f: tensors[f].data_ptr() for f in _PTR_FIELDS},
-            n=n, c=c, k=k, cx=cx, sw=p.self_width, g=g,
+            n=n, c=c, k=k, cx=cx, sw=pl.self_width, g=g,
             log_cap=p.log_capacity, stop=p.stop_time, runahead=p.runahead,
             interval=p.bucket_interval, seed_lo=seed_lo, seed_hi=seed_hi,
             bootstrap_end=p.bootstrap_end, has_loss=int(p.has_loss),
-            all_passive=int(p.all_passive),
+            all_passive=int(pl.all_passive),
             dyn_runahead=int(p.dynamic_runahead),
-            runahead_floor=max(p.runahead_floor, 1), words=p.words,
-            s_flows=sf, wide_pop=int(sp and p.stream_wide_pop),
-            one_to_one=int(p.stream_one_to_one), n_x=p.exchange_entries,
+            runahead_floor=max(p.runahead_floor, 1), words=pl.words,
+            s_flows=pl.s_flows,
+            wide_pop=int(pl.stream_present and p.stream_wide_pop),
+            one_to_one=int(p.stream_one_to_one), n_x=pl.exchange_entries,
             rec_slots=rec_slots, rec_srec=rec_srec, rec_brec=rec_brec,
-            n_rec=rec_end,
+            n_rec=rec_end, tier_s=sf if tiered else 0, ks=p.stream_pops,
+            c2=p.stream_capacity, tier_wide=int(p.stream_wide_pop),
+            tier_n=tier_n, rec_tier=p.tier_rec_offsets[0],
         )
 
 
@@ -260,9 +293,12 @@ def exchange_merge(args: LaneArgs) -> None:
     block's shared memory (5 words an entry, 7 with the stream payload), so
     the row is read from device memory once.  The chain of dependent
     launches and the one-block scan keep it well above its bound
-    (PERF.md)."""
+    (PERF.md).  On a tiered run the merge block of a stream-endpoint lane
+    also copies its cross entries to the tier block, where kernel G reads
+    them, and gives them the NEVER time in the lane's own merge (the
+    divert, ``lanes.py:1818-1835``)."""
     if not args.on_cuda:
-        return lanes.exchange_merge_plain(args.p, args.s, args.ws)
+        return lanes.exchange_merge_plain(args.p, args.tb, args.s, args.ws)
     _launch("exchange_merge", args)
     exchange_merge.launches += 1
 
@@ -282,6 +318,51 @@ def stream_rows_merge(args: LaneArgs) -> None:
     stream_rows_merge.launches += 1
 
 
+def stream_tier(args: LaneArgs) -> None:
+    """Kernel F: the tier's pop and slot walk.
+
+    Replaces ``shadow_tpu/backend/lanes.py:2300`` ``_stream_tier_iter`` up
+    to its merge (``:2328-2680``), on the state of
+    ``shadow_tpu/backend/lanes_stream.py:907`` ``TierState``.  One thread
+    per endpoint row owns the row's flow, its tier vector column and its
+    queue head, and walks its K_s popped columns in order in registers:
+    the pop-prefix rule, the down bucket and CoDel, the delivery-elision
+    gate, the lane-TCP law of kernel A (``__device__``), the control send
+    with its loss draw, the RTO arm and, on client rows, the burst chain.
+    It writes every candidate entry of its row (empty ones canonical) and,
+    when logging, every record slot of its row.  It never touches the
+    peer row: the merge, which reads the peer's control sends, is G.
+    Bound by bytes (the popped columns, the flow rows, the tier vectors and
+    the candidate block written once), but its time is the longest row's
+    serial walk: 2S threads of up to K_s law steps and K_s*B burst units
+    each (PERF.md)."""
+    if not args.on_cuda:
+        return lanes.stream_tier_plain(args.p, args.tb, args.s, args.ws)
+    _launch("stream_tier", args)
+    stream_tier.launches += 1
+
+
+def tier_merge(args: LaneArgs) -> None:
+    """Kernel G: the tier merge.
+
+    Replaces ``shadow_tpu/backend/lanes.py:2682-2786`` (the merge and the
+    overflow records of ``_stream_tier_iter``).  One block per endpoint
+    row gathers its ``C2 + W_t`` entries (queue, DELIVERY fallbacks, RTO
+    arms, the peer's control sends, the client's bursts, the diverted
+    cross entries), compacts the valid ones into shared memory with a
+    block prefix sum in index order, ranks only those by (key, index), and
+    writes the first C2 with canonical empties after them; the rest are
+    counted into ``TV_N_QUEUE`` and recorded as DROP_QUEUE.  Most of a
+    row's candidates are empty (a client row's burst block always), so
+    ranking only the valid ones keeps the compares far below a rank of the
+    whole row.  Bound by bytes: the queue rows and the candidate block
+    read once, the rows written once."""
+    if not args.on_cuda:
+        return lanes.tier_merge_plain(args.p, args.tb, args.s, args.ws)
+    _launch("tier_merge", args)
+    tier_merge.launches += 1
+
+
 def queue_min_window(args: LaneArgs, advance: bool) -> None:
     """Kernel C: earliest head, window law, ``live`` flag.
 
@@ -292,7 +373,8 @@ def queue_min_window(args: LaneArgs, advance: bool) -> None:
     (N head pairs, 80 KB at 10k lanes) bound it at tens of nanoseconds, so
     launch and one block's latency set its time.  One block reduces and
     applies the window law, so the flag stays on the device and the host
-    reads it only when it chooses to."""
+    reads it only when it chooses to.  On a tiered run the heads of the
+    tier's endpoint rows count too (``lanes.py:2264-2270``)."""
     if not args.on_cuda:
         return lanes.queue_min_window_plain(args.p, args.s, args.ws, advance)
     _launch("queue_min_window", args, int(bool(advance)))
@@ -352,8 +434,8 @@ def rand_u32(seed: int, stream: torch.Tensor,
     return out
 
 
-WRAPPERS = (lane_slots, exchange_merge, stream_rows_merge, queue_min_window,
-            append_log, rand_u32)
+WRAPPERS = (lane_slots, exchange_merge, stream_rows_merge, stream_tier,
+            tier_merge, queue_min_window, append_log, rand_u32)
 
 
 def reset_launches() -> None:

@@ -1,14 +1,14 @@
 """Lane backend of the port: state, laws, and the plain versions of the lane
 kernels, plus the two drivers (round by round, and the device loop).
 
-Counterpart of the JAX package's ``backend/lanes.py`` for its untiered
-lane path: hosts run ``tgen-mesh``, ``tgen-client``, ``tgen-server``,
-``phold``, ``ping``, ``stream-client``, ``stream-server`` or nothing, over
-graphs with or without loss, with a static or dynamic runahead.  One
-**lane per simulated host**; per-host state lives in ``[N]`` or ``[N, C]``
-tensors, stream flows on ``[2S]`` endpoint rows (``lanes_stream.py``), and
-one iteration of the window loop is four or five kernels (``kernels.py``
-binds their CUDA versions):
+Counterpart of the JAX package's ``backend/lanes.py`` for its lane path
+and tiered stream pass: hosts run ``tgen-mesh``, ``tgen-client``,
+``tgen-server``, ``phold``, ``ping``, ``stream-client``, ``stream-server``
+or nothing, over graphs with or without loss, with a static or dynamic
+runahead.  One **lane per simulated host**; per-host state lives in
+``[N]`` or ``[N, C]`` tensors, stream flows on ``[2S]`` endpoint rows
+(``lanes_stream.py``), and one iteration of the window loop is four to
+six kernels (``kernels.py`` binds their CUDA versions):
 
 - A ``lane_slots``: pop up to K events inside the window under the co-pop
   rule, run the slot law on each (down bucket, CoDel, inline delivery or a
@@ -24,9 +24,17 @@ binds their CUDA versions):
   passive, else ``[N, 2K]``: DELIVERY inserts, then re-arms).  Star stream
   configs send their stream entries through this exchange too; stream
   events carry two payload words (``q_phi``, ``q_plo``);
-- E ``stream_rows_merge`` (one-to-one stream configs only): the split
-  exchange — each endpoint row's stream entries come from static
+- E ``stream_rows_merge`` (untiered one-to-one stream configs): the
+  split exchange — each endpoint row's stream entries come from static
   positions of the stream block and merge into its lane's queue row;
+- F ``stream_tier`` and G ``tier_merge`` (tiered one-to-one stream
+  configs, the default): the stream endpoints keep their own ``[2S, C2]``
+  queues and compact network state (``lanes_stream.TierState``); the
+  ``[N]`` lanes run without the stream models, B diverts the cross
+  entries of stream lanes to the tier, F pops and runs each endpoint
+  row's events (down bucket, CoDel, the lane-TCP law with delivery
+  elision, sends, RTO arms, bursts) and G merges its candidates into the
+  rows;
 - C ``queue_min_window``: the global earliest head, the window law (static
   or dynamic runahead) and the ``live`` flag;
 - D ``append_log``: compaction of the iteration's records into the log.
@@ -50,6 +58,7 @@ only every few steps).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -198,7 +207,9 @@ class LaneState(NamedTuple):
     log_count: torch.Tensor  # int32 scalar
     log_lost: torch.Tensor  # int32 scalar: records dropped on log overflow
     # stream flows [2, S, F] int32 (lanes_stream): client endpoints, then
-    # their servers — the reference's StreamState(cl, sv) stacked
+    # their servers — the reference's StreamState(cl, sv) stacked; on a
+    # tiered run a lanes_stream.TierState(flows, q, v), the flows in the
+    # same form
     stream: torch.Tensor
     # round bookkeeping (int32 scalars)
     rounds: torch.Tensor
@@ -245,10 +256,30 @@ class LaneParams:
     # every possible window ends before RTO_MIN: stream lanes co-pop wider
     # prefixes (see _pop_mask)
     stream_wide_pop: bool = False
+    # the TIERED stream backend (one-to-one configs): stream endpoints own
+    # a [2S, C2] queue block and compact network state (lanes_stream
+    # .TierState in ``LaneState.stream``); the [N] lanes run without the
+    # stream models (``lane``), and kernels F and G run the tier
+    stream_tiered: bool = False
+    stream_pops: int = 8  # K_s: tier pop columns per iteration
+    stream_capacity: int = 64  # C2: tier queue width
 
     @property
     def cross_cap(self) -> int:
         return min(self.cross_capacity, self.capacity) or self.capacity
+
+    @functools.cached_property
+    def lane(self) -> "LaneParams":
+        """The parameters the [N] lanes run under (the reference's
+        ``p_lane``): these, or on a tiered run the same without the stream
+        models — no stream arm in A, 5-word queue entries, no stream
+        exchange."""
+        if not self.stream_tiered:
+            return self
+        return dataclasses.replace(
+            self, models_present=tuple(m for m in self.models_present
+                                       if m not in STREAM_MODELS),
+            stream_tiered=False, stream_clients=())
 
     @property
     def stream_present(self) -> bool:
@@ -261,7 +292,8 @@ class LaneParams:
     @property
     def split(self) -> bool:
         """Stream entries take the split exchange (kernel E)."""
-        return self.stream_present and self.stream_one_to_one
+        return (self.stream_present and self.stream_one_to_one
+                and not self.stream_tiered)
 
     @property
     def words(self) -> int:
@@ -314,19 +346,64 @@ class LaneParams:
         return self.capacity + self.self_width + self.cross_cap
 
     @property
+    def tier_width(self) -> int:
+        """W_t = 3K_s + K_s*B + Cx: the tier merge's candidates per
+        endpoint row (DELIVERY fallbacks, RTO arms, the peer's control
+        sends, the client's bursts on server rows, the diverted cross
+        entries)."""
+        ks = self.stream_pops
+        return 3 * ks + ks * PUMP_BURST + self.cross_cap
+
+    @property
+    def tier_layout(self) -> tuple:
+        """Where the tier block's channels start (``Workspace.tier_blk``):
+        DELIVERY fallbacks [K_s, 2S] at 0, RTO arms [K_s, 2S], control
+        sends [K_s, 2S] (emitter rows), bursts [K_s, B, S], the diverted
+        cross entries [2S, Cx], and the block's end."""
+        if not self.stream_tiered:
+            return 0, 0, 0, 0, 0
+        ks, s = self.stream_pops, self.s_flows
+        sa = ks * 2 * s
+        se = 2 * sa
+        bo = 3 * sa
+        cx = bo + ks * PUMP_BURST * s
+        return sa, se, bo, cx, cx + 2 * s * self.cross_cap
+
+    @property
+    def tier_rec_offsets(self) -> tuple:
+        """The tier's record groups (logging): the popped packets'
+        outcomes [K_s, 2S], the control sends' losses [K_s, 2S], the
+        bursts' losses [K_s, B, S] and the tier merge's tail [2S, W_t],
+        after the [N] merge tail; and their end."""
+        tail = self.rec_offsets[0]
+        if not self.stream_tiered:
+            return tail, tail, tail, tail, tail
+        ks, s = self.stream_pops, self.s_flows
+        srec = tail + ks * 2 * s
+        brec = srec + ks * 2 * s
+        ttail = brec + ks * PUMP_BURST * s
+        return tail, srec, brec, ttail, ttail + 2 * s * self.tier_width
+
+    @property
     def rec_offsets(self) -> tuple:
         """The record groups of the workspace's record block, in the
         reference's append order: the merge tail [N, self + Cx] from 0,
-        then the starts of the split exchange's tail [2S, W_s], the popped
-        slots [K, N], the stream control sends' losses [K, 2S] and the
-        bursts' losses [K, B, S], and the block's end."""
+        then the starts of the split exchange's tail [2S, W_s] (or, tiered,
+        of the tier's groups, ``tier_rec_offsets``), the popped slots
+        [K, N], the stream control sends' losses [K, 2S] and the bursts'
+        losses [K, B, S], and the block's end."""
+        pl = self.lane
         n, k, s = self.n_lanes, self.pops_per_iter, self.s_flows
-        tail = n * (self.self_width + self.cross_cap)
+        tail = n * (pl.self_width + pl.cross_cap)
         split = 2 * s * self.stream_row_width if self.split else 0
+        if self.stream_tiered:
+            ks = self.stream_pops
+            split = (4 * ks * s + ks * PUMP_BURST * s
+                     + 2 * s * self.tier_width)
         slots = tail + split
         srec = slots + k * n
-        brec = srec + (2 * k * s if self.stream_present else 0)
-        end = brec + (k * PUMP_BURST * s if self.stream_present else 0)
+        brec = srec + (2 * k * s if pl.stream_present else 0)
+        end = brec + (k * PUMP_BURST * s if pl.stream_present else 0)
         return tail, slots, srec, brec, end
 
     @property
@@ -349,6 +426,15 @@ class LaneParams:
         if self.stream_present != bool(self.stream_clients):
             raise ValueError("stream models need their client lanes (and "
                              "stream_clients needs stream models)")
+        if self.stream_tiered and not (
+                self.stream_present and self.stream_one_to_one):
+            raise ValueError("the tiered stream backend needs one-to-one "
+                             "stream pairing")
+        if self.stream_tiered and not (
+                1 <= self.stream_pops <= self.stream_capacity):
+            raise ValueError(
+                f"stream_pops={self.stream_pops} must be in [1, "
+                f"stream_capacity={self.stream_capacity}]")
 
 
 class LaneTables(NamedTuple):
@@ -397,6 +483,14 @@ class LaneTables(NamedTuple):
     flow_up_burst: torch.Tensor
     flow_up_kfull: torch.Tensor
     flow_up_kfi: torch.Tensor
+    # tiered only (empty otherwise, where the reference holds ()): the
+    # endpoint lane's down bucket [2S], and which lanes are stream
+    # endpoints [N] bool (their cross entries divert into the tier)
+    flow_dn_rate: torch.Tensor
+    flow_dn_burst: torch.Tensor
+    flow_dn_kfull: torch.Tensor
+    flow_dn_kfi: torch.Tensor
+    lane_stream: torch.Tensor
     # lane -> its endpoint rows (the port's own, for kernel A's one thread
     # per lane): rows lane_ep_rows[lane_ep_start[l]:lane_ep_start[l + 1]]
     lane_ep_start: torch.Tensor  # [N + 1]
@@ -436,9 +530,17 @@ class Workspace(NamedTuple):
     x_start: torch.Tensor
     x_fill: torch.Tensor
     x_order: torch.Tensor
+    # [7, T] int32, tiered runs ([7, 1] otherwise): the tier merge's
+    # candidates by LaneParams.tier_layout — kernel F's DELIVERY
+    # fallbacks, RTO arms, control sends and bursts, and the cross entries
+    # that kernel B diverts to stream endpoints; words thi, tlo, auxh,
+    # auxl, size, phi, plo, empty entries canonical (the NEVER time pair,
+    # zero words)
+    tier_blk: torch.Tensor
 
 
 def make_workspace(p: LaneParams, device) -> Workspace:
+    pl = p.lane
     n, k = p.n_lanes, p.pops_per_iter
     n_rec = p.n_records if p.log_capacity else 1
 
@@ -446,10 +548,11 @@ def make_workspace(p: LaneParams, device) -> Workspace:
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return Workspace(
-        ctl=z(4), self_blk=z(p.words, n, p.self_width), out_blk=z(6, k, n),
-        sx_blk=z(8, max(p.stream_entries, 1)),
+        ctl=z(4), self_blk=z(pl.words, n, pl.self_width), out_blk=z(6, k, n),
+        sx_blk=z(8, max(pl.stream_entries, 1)),
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
-        x_cnt=z(n), x_start=z(n), x_fill=z(n), x_order=z(p.exchange_entries),
+        x_cnt=z(n), x_start=z(n), x_fill=z(n), x_order=z(pl.exchange_entries),
+        tier_blk=z(7, max(p.tier_layout[-1], 1)),
     )
 
 
@@ -843,21 +946,148 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     return ins, arm, out, rec, rec_valid
 
 
+class StreamSends(NamedTuple):
+    """One stimulus's control send and RTO arm per endpoint row, as
+    ``_stream_stimulus`` hands them to its caller (the burst goes to the
+    caller's sink unit by unit)."""
+    send: torch.Tensor  # the control send was made
+    lost: torch.Tensor  # ... and lost at its draw
+    thi: torch.Tensor  # its arrival (after the window end)
+    tlo: torch.Tensor
+    seq: torch.Tensor  # its send sequence number
+    size: torch.Tensor
+    phi: torch.Tensor  # its payload words
+    plo: torch.Tensor
+    arm: torch.Tensor  # an RTO arm was made
+    arm_thi: torch.Tensor
+    arm_tlo: torch.Tensor
+    lseq: torch.Tensor  # the arm's local sequence number
+
+
+def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
+                     phi, plo, size, ctr: dict, we_hi, we_lo, burst_out):
+    """The lane-TCP law and the sends of one stimulus on the ``[2S]``
+    endpoint rows, shared by A's stream arm (``_stream_slot``) and F's walk
+    (``stream_tier_plain``).  ``stims`` = (open, RTO, segment) masks: a
+    start marker opens a client flow, an owned RTO local fires its timer, a
+    segment runs ``on_segment``, at the stimulus times (``sh``, ``sl``) on
+    the event's payload words and size; every stimulus ends with the pump
+    burst.  The control send and, on the client half, the burst charge the
+    rows' up bucket in order (the burst after its first unit by the chained
+    law), each drawing its loss at counter = its send sequence number; an
+    RTO arm takes the local sequence.  ``ctr`` holds the rows' ``up``
+    bucket (five tensors), ``send_seq``, ``local_seq``, ``n_sends``,
+    ``n_loss`` and ``min_lat`` (a scalar), rebound here.  Burst unit ``u``
+    goes to ``burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo)``
+    over the client half.  Returns the flows and the :class:`StreamSends`."""
+    stim_open, stim_rto, stim_seg = stims
+    stim = stim_open | stim_rto | stim_seg
+    s2 = stim.shape[0]
+    sf = s2 // 2
+    cl = slice(0, sf)
+    flags_in, sseq_in, sack_in = lstr.unpack_pay(phi, plo)
+    sem = lstr._empty_emit(s2, stim.device)
+    for mask, handler in (
+            (stim_open, lambda f_: lstr.open_flow_vec(f_, sh, sl, stim_open)),
+            (stim_rto, lambda f_: lstr.on_rto_vec(f_, sh, sl, stim_rto)),
+            (stim_seg, lambda f_: lstr.on_segment_vec(
+                f_, sh, sl, stim_seg, flags_in, sseq_in, sack_in, size))):
+        if bool(mask.any()):
+            f1, em1 = handler(f)
+            f = lstr.merge_cols(f, f1, mask)
+            sem = lstr.merge_emit(sem, em1, mask)
+    # completion latches (counted once, like the CPU oracle)
+    f = f._replace(completed=f.completed | (sem.completed_now & stim))
+    f, sem, burst = lstr.pump_epilogue_vec(f, sh, sl, stim, sem)
+    st_send = sem.send_valid & stim
+    st_rto = sem.rto_valid & stim
+    interval = p.bucket_interval
+    past_bs = pair_ge(sh, sl, p.bootstrap_end >> 31, p.bootstrap_end & MASK31)
+
+    def draw_lost(rows, seq, m):
+        if not p.has_loss:
+            return torch.zeros_like(m)
+        u = rand_u32_lane(p.seed, tb.flow_lanes[rows].to(i64)
+                          | rng_mod.LOSS_STREAM, seq)
+        return m & (u < tb.flow_thresh[rows])
+
+    def lat_min(m, lat):
+        if p.dynamic_runahead:
+            ctr["min_lat"] = torch.minimum(
+                ctr["min_lat"], torch.where(m, lat, NEVER32).min())
+
+    # the control send: up bucket, loss draw, arrival
+    *up, dep_hi, dep_lo, _waited = bucket_charge_vec(
+        *ctr["up"], tb.flow_up_rate, tb.flow_up_burst, tb.flow_up_kfull,
+        tb.flow_up_kfi, sh, sl, (sem.send_size + FRAME_OVERHEAD_BYTES) * 8,
+        st_send, interval)
+    se_seq = ctr["send_seq"]
+    se_lost = draw_lost(slice(None), se_seq, st_send & past_bs)
+    lat_min(st_send, tb.flow_lat)
+    se_thi, se_tlo = pair_max(*pair_add32(dep_hi, dep_lo, tb.flow_lat),
+                              we_hi, we_lo)
+    lseq = ctr["local_seq"]
+    ctr["local_seq"] = lseq + st_rto
+
+    # the burst, on the client half (the law's role gate empties the server
+    # rows' bursts): unit 1 by the full bucket law, the rest by the chained
+    # one
+    valid_b, flags_b, units_b, acks_b, sizes_b, _retx = burst
+    up_c = [t[cl] for t in up]
+    nloss = ctr["n_loss"] + se_lost
+    nloss_c = nloss[cl]
+    sent = st_send[cl].to(i32)
+    sent0 = sent
+    lat_c = tb.flow_lat[cl]
+    for u in range(PUMP_BURST):
+        bm = valid_b[u, cl]
+        if not bool(bm.any()):
+            break  # the burst is a prefix: no later unit is valid
+        bsize = sizes_b[u, cl]
+        bbits = (bsize + FRAME_OVERHEAD_BYTES) * 8
+        if u == 0:
+            *up_c, bdh, bdl, _waited = bucket_charge_vec(
+                *up_c, tb.flow_up_rate[cl], tb.flow_up_burst[cl],
+                tb.flow_up_kfull[cl], tb.flow_up_kfi[cl], sh[cl], sl[cl],
+                bbits, bm, interval)
+        else:
+            *up_c, bdh, bdl, _waited = bucket_charge_chained_vec(
+                *up_c, tb.flow_up_rate[cl], tb.flow_up_burst[cl], bbits, bm,
+                interval, sh[cl], sl[cl])
+        bseq = se_seq[cl] + sent
+        blost = draw_lost(cl, bseq, bm & past_bs[cl])
+        nloss_c = nloss_c + blost
+        lat_min(bm, lat_c)
+        bthi, btlo = pair_max(*pair_add32(bdh, bdl, lat_c), we_hi, we_lo)
+        burst_out(u, bm & ~blost, blost, bthi, btlo, bseq, bsize,
+                  *lstr.pack_pay(flags_b[u, cl], units_b[u, cl],
+                                 acks_b[u, cl]))
+        sent = sent + bm
+    ctr["up"] = [torch.cat([c, t[sf:]]) for c, t in zip(up_c, up)]
+    ctr["n_loss"] = torch.cat([nloss_c, nloss[sf:]])
+    sends = st_send.to(i32) + torch.cat([sent - sent0, torch.zeros_like(sent)])
+    ctr["send_seq"] = ctr["send_seq"] + sends
+    ctr["n_sends"] = ctr["n_sends"] + sends
+    return f, StreamSends(
+        st_send, se_lost, se_thi, se_tlo, se_seq, sem.send_size,
+        *lstr.pack_pay(sem.send_flags, sem.send_seq, sem.send_ack),
+        st_rto, sem.rto_thi, sem.rto_tlo, lseq)
+
+
+_UP_FIELDS = ("up_tokens", "up_nr_hi", "up_nr_lo", "up_ld_hi", "up_ld_lo")
+_SEND_FIELDS = ("send_seq", "local_seq", "n_sends", "n_loss")
+
+
 def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
                  we_hi, we_lo, ws: Workspace, j: int) -> None:
     """The stream arm of the slot law on popped column ``j`` (the
     reference's ``_process_slot`` stream tier and compacted send/arm
-    channels): each endpoint row sees its lane's popped event; a start
-    marker opens a client flow, an RTO local owned by the row's flow fires
-    its timer, a stream segment (non-zero payload; at a server row only
-    from its own client) runs ``on_segment``; every stimulus ends with the
-    pump burst.  The slot-0 control send and the burst's data segments
-    charge the endpoint lane's up bucket in order (the burst after its
-    first unit by the chained law), each drawing its loss at counter =
-    its send sequence number; RTO arms take the lane's local sequence.
-    Writes the stream block's entries of slot ``j`` and the stream loss
-    records into ``ws``; lane counters and flow rows change in ``v``.
-    Rows with no stimulus change nothing and emit nothing."""
+    channels): each endpoint row sees its lane's popped event and runs
+    ``_stream_stimulus`` on the endpoint lane's up bucket and counters (a
+    segment stimulates a server row only from its own client).  Writes the
+    stream block's entries of slot ``j`` and the stream loss records into
+    ``ws``; lane counters and flow rows change in ``v``.  Rows with no
+    stimulus change nothing and emit nothing."""
     el = tb.flow_lanes.long()
     s2 = el.shape[0]
     sf = s2 // 2
@@ -866,7 +1096,6 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     ephi, eplo = col["phi"][el], col["plo"][el]
     eact = col["act"][el]
     is_cl = torch.arange(s2, device=el.device) < sf
-    flags_in, sseq_in, sack_in = lstr.unpack_pay(ephi, eplo)
     e_loc = eact & (ekind == LOCAL)
     stim_open = e_loc & (esize == -1) & is_cl
     # RTO locals carry the flow's client lane: that also picks which flow
@@ -882,153 +1111,70 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
         return
     f = lstr.endpoint_cols(v["stream"], tb.flow_segs, tb.flow_mss,
                            tb.flow_last, tb.flow_cc)
-    sem = lstr._empty_emit(s2, el.device)
-    for mask, handler in (
-            (stim_open, lambda f_: lstr.open_flow_vec(f_, ethi, etlo,
-                                                      stim_open)),
-            (stim_rto, lambda f_: lstr.on_rto_vec(f_, ethi, etlo, stim_rto)),
-            (stim_seg, lambda f_: lstr.on_segment_vec(
-                f_, ethi, etlo, stim_seg, flags_in, sseq_in, sack_in,
-                esize))):
-        if bool(mask.any()):
-            f1, em1 = handler(f)
-            f = lstr.merge_cols(f, f1, mask)
-            sem = lstr.merge_emit(sem, em1, mask)
-    # completion latches (counted once, like the CPU oracle)
-    f = f._replace(completed=f.completed | (sem.completed_now & stim))
-    f, sem, burst = lstr.pump_epilogue_vec(f, ethi, etlo, stim, sem)
-    v["stream"] = lstr.endpoint_split(f)
-    st_send = sem.send_valid & stim
-    st_rto = sem.rto_valid & stim
-
     # the endpoint lanes' send bookkeeping, gathered (at most one endpoint
     # of a lane is stimulated per slot, so the write-back is unique)
-    g = {f_: v[f_][el] for f_ in ("up_tokens", "up_nr_hi", "up_nr_lo",
-                                  "up_ld_hi", "up_ld_lo", "send_seq",
-                                  "local_seq", "n_sends", "n_loss")}
-    interval = p.bucket_interval
-    bs_hi, bs_lo = p.bootstrap_end >> 31, p.bootstrap_end & MASK31
-    e_past_bs = pair_ge(ethi, etlo, bs_hi, bs_lo)
-
-    def draw_lost(lanes_, seq, m, thresh):
-        if not p.has_loss:
-            return torch.zeros_like(m)
-        u = rand_u32_lane(p.seed, lanes_.to(i64) | rng_mod.LOSS_STREAM, seq)
-        return m & (u < thresh)
-
-    # slot-0 control send
-    se_size = sem.send_size
-    (g["up_tokens"], g["up_nr_hi"], g["up_nr_lo"], g["up_ld_hi"],
-     g["up_ld_lo"], dep_hi, dep_lo, _waited) = bucket_charge_vec(
-        g["up_tokens"], g["up_nr_hi"], g["up_nr_lo"], g["up_ld_hi"],
-        g["up_ld_lo"], tb.flow_up_rate, tb.flow_up_burst, tb.flow_up_kfull,
-        tb.flow_up_kfi, ethi, etlo, (se_size + FRAME_OVERHEAD_BYTES) * 8,
-        st_send, interval)
-    se_seq = g["send_seq"]
-    g["send_seq"] = g["send_seq"] + st_send
-    g["n_sends"] = g["n_sends"] + st_send
-    se_lost = draw_lost(el, se_seq, st_send & e_past_bs, tb.flow_thresh)
-    g["n_loss"] = g["n_loss"] + se_lost
-    if p.dynamic_runahead:
-        v["min_used_lat"] = torch.minimum(v["min_used_lat"], torch.where(
-            st_send, tb.flow_lat, NEVER32).min())
-    se_thi, se_tlo = pair_max(*pair_add32(dep_hi, dep_lo, tb.flow_lat),
-                              we_hi, we_lo)
-    se_valid = st_send & ~se_lost
-    se_phi, se_plo = lstr.pack_pay(sem.send_flags, sem.send_seq, sem.send_ack)
-    pkt_auxh = pack_aux_hi(PACKET, tb.flow_lanes)
+    ctr = {f_: v[f_][el] for f_ in _SEND_FIELDS}
+    ctr["up"] = [v[f_][el] for f_ in _UP_FIELDS]
+    ctr["min_lat"] = v["min_used_lat"]
     sx = ws.sx_blk
     k = p.pops_per_iter
-
-    def put(base, valid, dst, thi_, tlo_, auxh, auxl, size, phi, plo):
-        cols = torch.nonzero(valid).flatten()
-        if cols.numel() == 0:
-            return
-        words = (dst, thi_, tlo_, auxh, auxl, size, phi, plo)
-        for w_, word in enumerate(words):
-            word = torch.as_tensor(word, dtype=i32, device=el.device)
-            sx[w_, base + cols] = word.expand(valid.shape)[cols]
-
-    put(j * s2, se_valid, tb.flow_peers, se_thi, se_tlo, pkt_auxh, se_seq,
-        se_size, se_phi, se_plo)
-
-    # RTO arms: LOCAL self-inserts at the endpoint lane
-    put(k * s2 + j * s2, st_rto, tb.flow_lanes, sem.rto_thi, sem.rto_tlo,
-        pack_aux_hi(LOCAL, tb.flow_lanes), g["local_seq"], lstr.SZ_RTO, 0,
-        tb.flow_clid)
-    g["local_seq"] = g["local_seq"] + st_rto
-
-    # the burst, on the client half (the law's role gate empties server
-    # rows' bursts): unit 1 takes the full bucket law, later units the
-    # chained one
-    valid_b, flags_b, units_b, acks_b, sizes_b, _retx = burst
-    cl = slice(0, sf)
-    tok, nrh, nrl = g["up_tokens"][cl], g["up_nr_hi"][cl], g["up_nr_lo"][cl]
-    ldh, ldl = g["up_ld_hi"][cl], g["up_ld_lo"][cl]
-    nloss = g["n_loss"][cl]
-    cthi, ctlo = ethi[cl], etlo[cl]
-    sent = st_send[cl].to(i32)
-    sent0 = sent
-    lat_c = tb.flow_lat[cl]
     t64 = t_join(ethi, etlo)
-    for u in range(PUMP_BURST):
-        bm = valid_b[u, cl]
-        if not bool(bm.any()):
-            break  # the burst is a prefix: no later unit is valid
-        bsize = sizes_b[u, cl]
-        bbits = (bsize + FRAME_OVERHEAD_BYTES) * 8
-        if u == 0:
-            tok, nrh, nrl, ldh, ldl, bdh, bdl, _waited = bucket_charge_vec(
-                tok, nrh, nrl, ldh, ldl, tb.flow_up_rate[cl],
-                tb.flow_up_burst[cl], tb.flow_up_kfull[cl], tb.flow_up_kfi[cl],
-                cthi, ctlo, bbits, bm, interval)
-        else:
-            tok, nrh, nrl, ldh, ldl, bdh, bdl, _waited = bucket_charge_chained_vec(
-                tok, nrh, nrl, ldh, ldl, tb.flow_up_rate[cl],
-                tb.flow_up_burst[cl], bbits, bm, interval, cthi, ctlo)
-        bseq = se_seq[cl] + sent
-        blost = draw_lost(el[cl], bseq, bm & e_past_bs[cl], tb.flow_thresh[cl])
-        nloss = nloss + blost
-        if p.dynamic_runahead:
-            v["min_used_lat"] = torch.minimum(v["min_used_lat"], torch.where(
-                bm, lat_c, NEVER32).min())
-        bthi, btlo = pair_max(*pair_add32(bdh, bdl, lat_c), we_hi, we_lo)
-        bphi, bplo = lstr.pack_pay(flags_b[u, cl], units_b[u, cl],
-                                   acks_b[u, cl])
-        base = 4 * k * sf + (j * PUMP_BURST + u) * sf
-        put(base, bm & ~blost, tb.flow_peers[cl], bthi, btlo, pkt_auxh[cl],
-            bseq, bsize, bphi, bplo)
+    pkt_auxh = pack_aux_hi(PACKET, tb.flow_lanes)
+    cl = slice(0, sf)
+
+    def burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo):
+        slot = j * PUMP_BURST + u
+        _put_entries(sx, 4 * k * sf + slot * sf, valid, tb.flow_peers[cl],
+                     thi, tlo, pkt_auxh[cl], seq, size, phi, plo)
         if p.log_capacity:
-            r0 = p.rec_offsets[3] + (j * PUMP_BURST + u) * sf
-            _put_loss_recs(ws, r0, blost, t64[cl], tb.flow_lanes[cl],
-                           tb.flow_peers[cl], bseq, bsize)
-        sent = sent + bm
-    burst_total = sent - sent0
-    g["up_tokens"][cl], g["up_nr_hi"][cl], g["up_nr_lo"][cl] = tok, nrh, nrl
-    g["up_ld_hi"][cl], g["up_ld_lo"][cl], g["n_loss"][cl] = ldh, ldl, nloss
-    g["send_seq"][cl] += burst_total
-    g["n_sends"][cl] += burst_total
+            _put_recs(ws, p.rec_offsets[3] + slot * sf, lost, t64[cl],
+                      tb.flow_lanes[cl], tb.flow_peers[cl], seq, size,
+                      DROP_LOSS)
+
+    f, se = _stream_stimulus(p, tb, f, (stim_open, stim_rto, stim_seg),
+                             ethi, etlo, ephi, eplo, esize, ctr, we_hi,
+                             we_lo, burst_out)
+    v["stream"] = lstr.endpoint_split(f)
+    v["min_used_lat"] = ctr["min_lat"]
+    _put_entries(sx, j * s2, se.send & ~se.lost, tb.flow_peers, se.thi,
+                 se.tlo, pkt_auxh, se.seq, se.size, se.phi, se.plo)
+    # RTO arms: LOCAL self-inserts at the endpoint lane
+    _put_entries(sx, k * s2 + j * s2, se.arm, tb.flow_lanes, se.arm_thi,
+                 se.arm_tlo, pack_aux_hi(LOCAL, tb.flow_lanes), se.lseq,
+                 lstr.SZ_RTO, 0, tb.flow_clid)
     if p.log_capacity:
-        _put_loss_recs(ws, p.rec_offsets[2] + j * s2, se_lost, t64,
-                       tb.flow_lanes, tb.flow_peers, se_seq, se_size)
+        _put_recs(ws, p.rec_offsets[2] + j * s2, se.lost, t64, tb.flow_lanes,
+                  tb.flow_peers, se.seq, se.size, DROP_LOSS)
     # write-back, at the stimulated rows' lanes
     rows = torch.nonzero(stim).flatten()
-    for f_, t in g.items():
+    for f_, t in (*zip(_UP_FIELDS, ctr["up"]),
+                  *((f_, ctr[f_]) for f_ in _SEND_FIELDS)):
         v[f_] = v[f_].clone()
         v[f_][el[rows]] = t[rows]
 
 
-def _put_loss_recs(ws: Workspace, r0: int, lost, t64, src, dst, seq,
-                   size) -> None:
-    """DROP_LOSS records of stream sends lost at their send instant."""
-    cols = torch.nonzero(lost).flatten()
-    if cols.numel() == 0:
+def _put_entries(blk, base: int, valid, *words) -> None:
+    """Write the valid entries of one channel (``valid`` and each word a
+    tensor over its rows, or a scalar) into a block of entries (the stream
+    block, the tier block) at ``base + row``."""
+    rows = torch.nonzero(valid).flatten()
+    if rows.numel() == 0:
         return
-    rec = torch.stack([t64[cols], src[cols].to(i64), dst[cols].to(i64),
-                       seq[cols].to(i64), size[cols].to(i64),
-                       torch.full_like(t64[cols], DROP_LOSS)], dim=1)
-    ws.recs[r0 + cols] = rec
-    ws.rec_valid[r0 + cols] = 1
+    for w, word in enumerate(words):
+        word = torch.as_tensor(word, dtype=i32, device=blk.device)
+        blk[w, base + rows] = word.expand(valid.shape)[rows]
+
+
+def _put_recs(ws: Workspace, r0: int, valid, *cols) -> None:
+    """Log records of the valid rows at ``r0 + row``: columns time, src,
+    dst, seq, size, outcome (tensors over the rows, or scalars)."""
+    rows = torch.nonzero(valid).flatten()
+    if rows.numel() == 0:
+        return
+    rec = torch.stack([torch.as_tensor(c, dtype=i64, device=valid.device)
+                       .expand(valid.shape)[rows] for c in cols], dim=1)
+    ws.recs[r0 + rows] = rec
+    ws.rec_valid[r0 + rows] = 1
 
 
 def _empty_entries(n: int):
@@ -1041,9 +1187,12 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     """Kernel A, plain: pop up to K events per lane inside the window under
     the co-pop rule and run the slot law on each, in slot order.  Consumed
     slots become NEVER in place; the state vectors are updated in place;
-    the self, outbound, stream and record blocks go to ``ws``."""
+    the self, outbound, stream and record blocks go to ``ws``.  On a
+    tiered run the lanes run without the stream models."""
     if not int(ws.ctl[0]):
         return
+    _tail, rec_slots, rec_srec, _brec, rec_end = p.rec_offsets
+    p = p.lane
     n, k = p.n_lanes, p.pops_per_iter
     arm0 = 0 if p.all_passive else k  # first re-arm column of the self block
     lanes = torch.arange(n, dtype=i32, device=s.q_thi.device)
@@ -1060,7 +1209,6 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     # the slot law rebinds v's entries to new tensors; the state's own
     # tensors are written once, at the end
     v = {f: getattr(s, f) for f in _SLOT_FIELDS + ("min_used_lat",)}
-    _tail, rec_slots, rec_srec, _brec, rec_end = p.rec_offsets
     if p.stream_present:
         v["stream"] = s.stream
         for w, val in enumerate(_empty_entries(n)):
@@ -1159,7 +1307,8 @@ def _merge_rows(p: LaneParams, q_rows, cand, ws: Workspace, rec_base: int,
     return [m[:, :c] for m in merged], tail_valid.sum(dim=1, dtype=i32)
 
 
-def exchange_merge_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
+def exchange_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
+                         ws: Workspace) -> None:
     """Kernel B, plain: the cross-lane exchange and the keyed row merge.
 
     Exchanged entries — the outbound packets, then in star stream configs
@@ -1169,9 +1318,18 @@ def exchange_merge_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
     each row of ``[queue C | self S | cross Cx]`` is sorted by the event
     key, ties in index order, and the first C kept; real events past column
     C are queue overflow (``n_queue``, and DROP_QUEUE records when
-    logging).  Stream configs carry the payload words through it all."""
+    logging).  Stream configs carry the payload words through it all.
+
+    On a tiered run (the lanes without the stream models) the cross
+    entries of stream-endpoint lanes divert into the tier: each endpoint
+    row's cross block goes to the tier block's cross channel, and in the
+    lane's own merge those entries take the NEVER time (the reference's
+    ``_merge_append(divert=True)``)."""
     if not int(ws.ctl[0]):
         return
+    tiered = p.stream_tiered
+    cx0 = p.tier_layout[3]
+    p = p.lane
     n, k, cx = p.n_lanes, p.pops_per_iter, p.cross_cap
     dev = s.q_thi.device
     out = ws.out_blk.reshape(6, k * n)
@@ -1191,6 +1349,15 @@ def exchange_merge_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
         for w in range(1, 1 + p.words)
     ]
     lost_pre = torch.clamp(cnt - cx, min=0).to(i32)
+    if tiered:
+        el = tb.flow_lanes.long()
+        blk = ws.tier_blk[:, cx0:].view(7, el.shape[0], cx)
+        for w in range(5):
+            blk[w] = cross[w][el]
+        blk[5:] = 0
+        keep = ~tb.lane_stream[:, None]
+        cross[0] = torch.where(keep, cross[0], NEVER32)
+        cross[1] = torch.where(keep, cross[1], NEVER32)
 
     q = _queue_words(p, s)
     cand = [torch.cat([ws.self_blk[w], cross[w]], dim=1)
@@ -1245,6 +1412,228 @@ def stream_rows_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     s.n_queue[el] += n_tail
 
 
+# --------------------------------------------------------------------------
+# the tiered stream pass: kernels F and G, plain
+# --------------------------------------------------------------------------
+
+
+def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
+                      ws: Workspace) -> None:
+    """Kernel F, plain: the tier's pop and slot walk (the reference's
+    ``_stream_tier_iter`` up to its merge).  Each endpoint row pops a
+    prefix of its first K_s queue columns inside the window — any prefix
+    free of LOCAL events under ``stream_wide_pop``, else a same-instant
+    prefix of PACKETs, or column 0 alone — and runs each popped event in
+    slot order on its compact state: a PACKET takes the down bucket and
+    CoDel and, delivered inside the window (wide pop only), applies the
+    lane-TCP law at once, else becomes a DELIVERY fallback; a start marker
+    opens a client flow, an owned RTO local fires the timer, a segment
+    (at a server row only from its own client) runs ``on_segment``; every
+    stimulus ends with the pump burst.  The control send and, on client
+    rows, the burst charge the up bucket (the burst after its first unit by
+    the chained law), each with its loss draw at its send sequence number;
+    RTO arms take the row's local sequence.  The candidates go to the tier
+    block (``tier_layout``), the records to the tier's record groups; the
+    flows, the tier vectors and the popped queue slots change in place."""
+    if not int(ws.ctl[0]):
+        return
+    ts = s.stream
+    q, v = ts.q, ts.v
+    ks, sf = p.stream_pops, p.s_flows
+    s2 = 2 * sf
+    dev = q.device
+    we_hi, we_lo = s.now_we_hi, s.now_we_lo
+    el, peers, clid = tb.flow_lanes, tb.flow_peers, tb.flow_clid
+    is_cl = torch.arange(s2, device=dev) < sf
+    cl = slice(0, sf)
+    sa0, se0, bo0, cx0, _end = p.tier_layout
+    blk = ws.tier_blk
+    blk[:2, :cx0] = NEVER32
+    blk[2:, :cx0] = 0
+    trec, tsrec, tbrec, ttail, _rend = p.tier_rec_offsets
+    log_on = bool(p.log_capacity)
+    if log_on:
+        ws.recs[trec:ttail] = 0
+        ws.rec_valid[trec:ttail] = 0
+
+    # the pop prefix (rows are sorted, so each rule gives a row prefix)
+    cols = [q[w, :, :ks].clone() for w in range(7)]
+    thi_b, tlo_b = cols[lstr.TQ_THI], cols[lstr.TQ_TLO]
+    kind_b = cols[lstr.TQ_AUXH] >> AUX_KIND_SHIFT
+    if p.stream_wide_pop:
+        prefix = torch.cumprod((kind_b != LOCAL).to(i32), dim=1).bool()
+    else:
+        same_t = (thi_b == thi_b[:, :1]) & (tlo_b == tlo_b[:, :1])
+        prefix = same_t & torch.cumprod((kind_b == PACKET).to(i32),
+                                        dim=1).bool()
+    prefix[:, 0] = True
+    act_b = prefix & pair_lt(thi_b, tlo_b, we_hi, we_lo)
+    q[lstr.TQ_THI, :, :ks] = torch.where(act_b, NEVER32, thi_b)
+    q[lstr.TQ_TLO, :, :ks] = torch.where(act_b, NEVER32, tlo_b)
+
+    f = lstr.endpoint_cols(ts.flows, tb.flow_segs, tb.flow_mss,
+                           tb.flow_last, tb.flow_cc)
+    vr = list(v.clone())  # the TV_* rows, rebound by the laws below
+    mul = s.min_used_lat.clone()
+    interval = p.bucket_interval
+    loc_auxh = pack_aux_hi(LOCAL, el)
+    pkt_auxh = pack_aux_hi(PACKET, el)
+
+    n_live = int(act_b.sum(dim=1).max()) if s2 else 0
+    for j in range(n_live):
+        thi, tlo = thi_b[:, j], tlo_b[:, j]
+        auxh, auxl, size = (cols[w][:, j] for w in (2, 3, 4))
+        phi, plo = cols[lstr.TQ_PHI][:, j], cols[lstr.TQ_PLO][:, j]
+        act = act_b[:, j]
+        kind, src = unpack_aux_hi(auxh)
+
+        # PACKET: down bucket and CoDel on the compact rows
+        is_pkt = act & (kind == PACKET)
+        (vr[lstr.TV_DN_TOK], vr[lstr.TV_DN_NRH], vr[lstr.TV_DN_NRL],
+         vr[lstr.TV_DN_LDH], vr[lstr.TV_DN_LDL], td_hi, td_lo,
+         _waited) = bucket_charge_vec(
+            vr[lstr.TV_DN_TOK], vr[lstr.TV_DN_NRH], vr[lstr.TV_DN_NRL],
+            vr[lstr.TV_DN_LDH], vr[lstr.TV_DN_LDL], tb.flow_dn_rate,
+            tb.flow_dn_burst, tb.flow_dn_kfull, tb.flow_dn_kfi, thi, tlo,
+            (size + FRAME_OVERHEAD_BYTES) * 8, is_pkt, interval)
+        sojourn = pair_sub_clamp(td_hi, td_lo, thi, tlo, NEVER32)
+        (vr[lstr.TV_CD_FATH], vr[lstr.TV_CD_FATL], vr[lstr.TV_CD_DNH],
+         vr[lstr.TV_CD_DNL], vr[lstr.TV_CD_CNT], dropping,
+         codel_drop) = codel_offer_arrays(
+            vr[lstr.TV_CD_FATH], vr[lstr.TV_CD_FATL], vr[lstr.TV_CD_DNH],
+            vr[lstr.TV_CD_DNL], vr[lstr.TV_CD_CNT],
+            vr[lstr.TV_CD_DROP].bool(), td_hi, td_lo, sojourn, is_pkt,
+            tb.codel_div)
+        vr[lstr.TV_CD_DROP] = dropping.to(i32)
+        deliver = is_pkt & ~codel_drop
+        vr[lstr.TV_N_DEL] = vr[lstr.TV_N_DEL] + deliver
+        vr[lstr.TV_N_CODEL] = vr[lstr.TV_N_CODEL] + (is_pkt & codel_drop)
+        if log_on:
+            _put_recs(ws, trec + j * s2, is_pkt, t_join(td_hi, td_lo), src,
+                      el, auxl, size,
+                      torch.where(codel_drop, DROP_CODEL, DELIVERED))
+
+        # delivery elision: a delivery inside the window applies the law at
+        # once (wide pop only), else a DELIVERY fallback is inserted
+        if p.stream_wide_pop:
+            del_now = deliver & pair_lt(td_hi, td_lo, we_hi, we_lo)
+        else:
+            del_now = torch.zeros_like(deliver)
+        _put_entries(blk, j * s2, deliver & ~del_now, td_hi, td_lo,
+                     pack_aux_hi(DELIVERY, src), auxl, size, phi, plo)
+
+        # the stimuli, at the delivery time either way
+        sh = torch.where(del_now, td_hi, thi)
+        sl = torch.where(del_now, td_lo, tlo)
+        is_loc = act & (kind == LOCAL)
+        stim_open = is_loc & (size == -1) & is_cl
+        stim_rto = is_loc & (size == lstr.SZ_RTO) & (plo == clid)
+        stim_seg = ((del_now | (act & (kind == DELIVERY)))
+                    & ((phi | plo) != 0) & (is_cl | (src == clid)))
+        stim = stim_open | stim_rto | stim_seg
+        if not bool(stim.any()):
+            continue
+        ctr = {"up": vr[lstr.TV_UP_TOK:lstr.TV_UP_LDL + 1],
+               "send_seq": vr[lstr.TV_SEND_SEQ],
+               "local_seq": vr[lstr.TV_LOCAL_SEQ],
+               "n_sends": vr[lstr.TV_N_SENDS], "n_loss": vr[lstr.TV_N_LOSS],
+               "min_lat": mul}
+        st64 = t_join(sh, sl)
+
+        def burst_out(u, valid, lost, bthi, btlo, seq, bsize, bphi, bplo):
+            slot = j * PUMP_BURST + u
+            _put_entries(blk, bo0 + slot * sf, valid, bthi, btlo,
+                         pkt_auxh[cl], seq, bsize, bphi, bplo)
+            if log_on:
+                _put_recs(ws, tbrec + slot * sf, lost, st64[cl], el[cl],
+                          peers[cl], seq, bsize, DROP_LOSS)
+
+        f, se = _stream_stimulus(p, tb, f, (stim_open, stim_rto, stim_seg),
+                                 sh, sl, phi, plo, size, ctr, we_hi, we_lo,
+                                 burst_out)
+        vr[lstr.TV_UP_TOK:lstr.TV_UP_LDL + 1] = ctr["up"]
+        for r, key in ((lstr.TV_SEND_SEQ, "send_seq"),
+                       (lstr.TV_LOCAL_SEQ, "local_seq"),
+                       (lstr.TV_N_SENDS, "n_sends"),
+                       (lstr.TV_N_LOSS, "n_loss")):
+            vr[r] = ctr[key]
+        mul = ctr["min_lat"]
+        _put_entries(blk, se0 + j * s2, se.send & ~se.lost, se.thi, se.tlo,
+                     pkt_auxh, se.seq, se.size, se.phi, se.plo)
+        if log_on:
+            _put_recs(ws, tsrec + j * s2, se.lost, st64, el, peers, se.seq,
+                      se.size, DROP_LOSS)
+        # the RTO arm: a LOCAL self-insert at the own row
+        _put_entries(blk, sa0 + j * s2, se.arm, se.arm_thi, se.arm_tlo,
+                     loc_auxh, se.lseq, lstr.SZ_RTO, 0, clid)
+    ts.flows.copy_(lstr.endpoint_split(f))
+    v.copy_(torch.stack(vr))
+    s.min_used_lat.copy_(mul)
+
+
+def _tier_candidates(p: LaneParams, ws: Workspace) -> torch.Tensor:
+    """The tier merge's ``[7, 2S, W_t]`` candidates per endpoint row, in
+    the reference's order: its DELIVERY fallbacks [K_s], its RTO arms
+    [K_s], its peer's control sends [K_s], on server rows its client's
+    bursts [K_s*B] (slot-major; empty on client rows), and its diverted
+    cross entries [Cx]."""
+    ks, sf = p.stream_pops, p.s_flows
+    s2 = 2 * sf
+    sa0, se0, bo0, cx0, end = p.tier_layout
+    blk = ws.tier_blk
+
+    def rows(lo, hi):  # [K_s, 2S] channel -> [7, 2S, K_s]
+        return blk[:, lo:hi].reshape(7, ks, s2).transpose(1, 2)
+
+    se = rows(se0, bo0)
+    bo = blk[:, bo0:cx0].reshape(7, ks * PUMP_BURST, sf).transpose(1, 2)
+    pad = torch.zeros_like(bo)
+    pad[:2] = NEVER32
+    return torch.cat([
+        rows(0, sa0), rows(sa0, se0),
+        torch.cat([se[:, sf:], se[:, :sf]], dim=1),  # emitter -> receiver
+        torch.cat([pad, bo], dim=1),
+        blk[:, cx0:end].reshape(7, s2, p.cross_cap),
+    ], dim=2)
+
+
+def tier_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
+                     ws: Workspace) -> None:
+    """Kernel G, plain: the tier merge.  Each endpoint row's queue ``[C2]``
+    and its ``W_t`` candidates (``_tier_candidates``) are merged by the
+    event key, ties in index order; the first C2 valid entries are kept,
+    then empty slots in canonical form (the NEVER time pair, zero words) —
+    the popped holes' old words are not carried.  Valid entries past C2
+    are queue overflow: counted into ``TV_N_QUEUE`` and, when logging,
+    recorded as DROP_QUEUE in the tier's tail group [2S, W_t]."""
+    if not int(ws.ctl[0]):
+        return
+    ts = s.stream
+    c2 = p.stream_capacity
+    merged = torch.cat([ts.q, _tier_candidates(p, ws)], dim=2)
+    valid = merged[0] != NEVER32
+    empty = torch.tensor([NEVER32, NEVER32, 0, 0, 0, 0, 0], dtype=i32,
+                         device=merged.device)[:, None, None]
+    merged = torch.where(valid[None], merged, empty)
+    perm = _key_order(*merged[:4])
+    merged = torch.gather(merged, 2, perm[None].expand_as(merged))
+    tail = merged[:, :, c2:]
+    tail_valid = tail[0] != NEVER32
+    ts.v[lstr.TV_N_QUEUE] += tail_valid.sum(dim=1, dtype=i32)
+    if p.log_capacity:
+        _kind, t_src = unpack_aux_hi(tail[2])
+        dst = tb.flow_lanes.to(i64)[:, None].expand_as(t_src)
+        rec = torch.stack([
+            t_join(tail[0], tail[1]), t_src.to(i64), dst, tail[3].to(i64),
+            tail[4].to(i64), torch.full_like(dst, DROP_QUEUE),
+        ], dim=2)
+        rec = torch.where(tail_valid[:, :, None], rec, 0)
+        r0, r1 = p.tier_rec_offsets[3:]
+        ws.recs[r0:r1] = rec.reshape(-1, 6)
+        ws.rec_valid[r0:r1] = tail_valid.reshape(-1).to(i32)
+    ts.q.copy_(merged[:, :, :c2])
+
+
 def effective_runahead(p: LaneParams, min_used_lat):
     """The window width (the reference's ``_effective_runahead``): the
     static runahead, or with dynamic runahead the smallest latency sent
@@ -1262,9 +1651,16 @@ def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
     law.  With ``advance``, a live step whose head lies at or past the
     window end opens the next window ``[head, min(head + runahead,
     stop))`` and counts a round; the runahead is dynamic where the
-    parameters say so.  Writes ``ctl = (live, in_window, head_hi,
+    parameters say so.  On a tiered run the heads of the tier's endpoint
+    rows count too.  Writes ``ctl = (live, in_window, head_hi,
     head_lo)``."""
     mh, ml = _pairs.pair_min_lanes(s.q_thi[:, 0], s.q_tlo[:, 0])
+    if p.stream_tiered:
+        tq = s.stream.q
+        th, tl = _pairs.pair_min_lanes(tq[lstr.TQ_THI, :, 0],
+                                       tq[lstr.TQ_TLO, :, 0])
+        sel = pair_lt(th, tl, mh, ml)
+        mh, ml = torch.where(sel, th, mh), torch.where(sel, tl, ml)
     stop_hi, stop_lo = p.stop_time >> 31, p.stop_time & MASK31
     live = pair_lt(mh, ml, stop_hi, stop_lo)
     if advance:
@@ -1300,12 +1696,14 @@ def append_log_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
 
 
 def _build_iteration(p: LaneParams, tb: LaneTables, s: LaneState):
-    """One iteration of the window loop (kernels A, B, E in one-to-one
-    stream configs and, when logging, D) and the step that precedes it
-    (kernel C), bound to this run's state."""
+    """One iteration of the window loop (kernels A, B, then E in
+    untiered one-to-one stream configs or F and G on a tiered run, and,
+    when logging, D) and the step that precedes it (kernel C), bound to
+    this run's state."""
     from . import kernels
 
     args = kernels.LaneArgs(p, tb, s, make_workspace(p, s.q_thi.device))
+    split, tiered, logging = p.split, p.stream_tiered, bool(p.log_capacity)
 
     def window(advance: bool) -> None:
         kernels.queue_min_window(args, advance)
@@ -1313,9 +1711,12 @@ def _build_iteration(p: LaneParams, tb: LaneTables, s: LaneState):
     def iteration() -> None:
         kernels.lane_slots(args)
         kernels.exchange_merge(args)
-        if p.split:
+        if split:
             kernels.stream_rows_merge(args)
-        if p.log_capacity:
+        if tiered:
+            kernels.stream_tier(args)
+            kernels.tier_merge(args)
+        if logging:
             kernels.append_log(args)
 
     return args.ws, window, iteration

@@ -1,12 +1,13 @@
 """Vectorized lane-TCP: the stream law on ``[2S]`` endpoint rows, in int32.
 
-The PyTorch twin of the JAX package's ``backend/lanes_stream.py`` (up to
-its tiered backend), and the plain version of the ``__device__`` law in
-kernel A (``csrc/lanes.cu``).  One flow per stream-client lane; the flow
-state of its two endpoints lives in ``LaneState.stream``, an int32
-``[2, S, F]`` tensor: ``stream[0]`` the S client endpoints, ``stream[1]``
-their servers, in flow order (ascending client lane).  Viewed flat it is
-the ``[2S, F]`` endpoint-row matrix the law runs on.
+The PyTorch twin of the JAX package's ``backend/lanes_stream.py``, and the
+plain version of the ``__device__`` law in kernels A and F
+(``csrc/lanes.cu``); the tiered backend's state, ``TierState``, is at the
+end.  One flow per stream-client lane; the flow state of its two endpoints
+lives in ``LaneState.stream`` (in ``TierState.flows`` on a tiered run), an
+int32 ``[2, S, F]`` tensor: ``[0]`` the S client endpoints, ``[1]`` their
+servers, in flow order (ascending client lane).  Viewed flat it is the
+``[2S, F]`` endpoint-row matrix the law runs on.
 
 **Representation.**  Every column is int32, as in the reference: sequence
 state, congestion control and counters are plain int32, and the six
@@ -672,3 +673,59 @@ def endpoint_split(f: FlowCols) -> torch.Tensor:
         cols[col] = getattr(f, name).to(i32)
     rows = torch.stack(cols, dim=1)
     return rows.reshape(2, rows.shape[0] // 2, N_COLS)
+
+
+# --------------------------------------------------------------------------
+# the TIERED stream backend (one-to-one configs, the reference's
+# ``TierState``): stream endpoints own a [2S, C2] event queue and compact
+# per-endpoint network state, so the [N] lanes carry no stream work.  Sound
+# only in one-to-one mode: each endpoint lane hosts exactly one flow, so its
+# buckets, CoDel state and counters are in bijection with endpoint rows.
+# --------------------------------------------------------------------------
+
+# rows of the [TV_COUNT, 2S] int32 tier vector matrix: down bucket, CoDel,
+# up bucket, sequence counters, stats, and the netobs rows (allocated as in
+# the reference; the port has no netobs plane, so they stay zero)
+(TV_DN_TOK, TV_DN_NRH, TV_DN_NRL, TV_DN_LDH, TV_DN_LDL,
+ TV_CD_FATH, TV_CD_FATL, TV_CD_DNH, TV_CD_DNL, TV_CD_CNT, TV_CD_DROP,
+ TV_UP_TOK, TV_UP_NRH, TV_UP_NRL, TV_UP_LDH, TV_UP_LDL,
+ TV_SEND_SEQ, TV_LOCAL_SEQ, TV_N_SENDS, TV_N_LOSS, TV_N_DEL, TV_N_CODEL,
+ TV_N_QUEUE, TV_NB_TXB, TV_NB_RXB, TV_NB_THR) = range(26)
+TV_COUNT = 26
+
+# planes of the [7, 2S, C2] tier queue: the 4-word key, the size and the
+# two payload words; each row sorted by the key like the [N] queues
+(TQ_THI, TQ_TLO, TQ_AUXH, TQ_AUXL, TQ_SIZE, TQ_PHI, TQ_PLO) = range(7)
+
+# CoDel "first_above" unset sentinel (lanes.CD_UNSET; this module does not
+# import lanes)
+_CD_UNSET = -(1 << 31) + 1
+
+
+class TierState(NamedTuple):
+    """State of the tiered stream backend (``LaneState.stream`` when
+    tiered): ``flows`` the ``[2, S, F]`` endpoint matrices (as untiered),
+    ``q`` the ``[7, 2S, C2]`` endpoint event queues (TQ_* planes), ``v``
+    the ``[TV_COUNT, 2S]`` buckets, CoDel and counters (TV_* rows)."""
+
+    flows: torch.Tensor
+    q: torch.Tensor
+    v: torch.Tensor
+
+
+def init_tier_state(s_flows: int, capacity: int, dn_tokens, up_tokens,
+                    interval: int, device="cpu") -> TierState:
+    """Fresh tier state: empty queues, buckets full (``dn_tokens``,
+    ``up_tokens``: the endpoint lanes' bursts), next refill one interval
+    in, CoDel's first_above unset."""
+    s2 = 2 * s_flows
+    q = torch.zeros((7, s2, capacity), dtype=i32, device=device)
+    q[TQ_THI] = NEVER32
+    q[TQ_TLO] = NEVER32
+    v = torch.zeros((TV_COUNT, s2), dtype=i32, device=device)
+    v[TV_DN_TOK] = torch.as_tensor(dn_tokens, dtype=i32, device=device)
+    v[TV_UP_TOK] = torch.as_tensor(up_tokens, dtype=i32, device=device)
+    v[TV_DN_NRL] = interval
+    v[TV_UP_NRL] = interval
+    v[TV_CD_FATH] = _CD_UNSET
+    return TierState(flows=init_stream_state(s_flows, device), q=q, v=v)

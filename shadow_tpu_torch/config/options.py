@@ -80,9 +80,9 @@ class ExperimentalOptions:
     # cross-lane receive block width per iteration (0 = queue capacity);
     # overflow is counted and strict mode raises, like queue overflow
     tpu_cross_capacity: int = 0
-    # the reference's TIERED stream backend for one-to-one stream configs
-    # (a dedicated [2S]-row tier); the port runs the untiered path and
-    # refuses a one-to-one stream config while this is true
+    # the TIERED stream backend for one-to-one stream configs (a dedicated
+    # [2S]-row tier: kernels F and G); false runs them untiered (kernel E),
+    # bit-identical in events
     tpu_stream_tiered: bool = True
     tpu_stream_events_per_round: int = 8  # tier pops per iteration (K_s)
     tpu_stream_queue_capacity: int = 64  # tier queue width (C2)

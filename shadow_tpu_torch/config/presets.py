@@ -140,9 +140,8 @@ def mixed_flagship_config(
     """The mixed TCP/UDP mesh at the JAX package's north-star tuning: one
     stream pair per 100 hosts streaming 2 MB across the datagram mesh,
     queue capacity 16, 2 pops per iteration, cross capacity 8, and the
-    tiered stream backend's 16 pops per iteration.  (The port runs this
-    one-to-one config untiered: callers set ``tpu_stream_tiered`` to false
-    and give the [N] queues the untiered shape.)"""
+    tiered stream backend's 16 pops per iteration (the tier's queue width
+    C2 is ``tpu_stream_queue_capacity``'s default, 64)."""
     cfg = flagship_mesh_config(
         n_hosts, sim_seconds=sim_seconds, queue_capacity=16,
         pops_per_round=2, stream_pairs=max(n_hosts // 100, 1),

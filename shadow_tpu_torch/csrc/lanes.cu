@@ -1,4 +1,4 @@
-// The lane engine's five kernels for Hopper (sm_90a), the threefry draw and
+// The lane engine's seven kernels for Hopper (sm_90a), the threefry draw and
 // the lane-TCP stream law they share.
 //
 // Plain C interface, bound from shadow_tpu_torch/backend/kernels.py with
@@ -76,12 +76,16 @@ struct LaneBufs {
   int32_t *flow_lanes, *flow_peers, *flow_clid, *flow_lat;
   int64_t *flow_thresh;
   int32_t *flow_segs, *flow_mss, *flow_last, *flow_cc, *flow_up_rate,
-      *flow_up_burst, *flow_up_kfull, *flow_up_kfi, *lane_ep_start,
-      *lane_ep_rows;
+      *flow_up_burst, *flow_up_kfull, *flow_up_kfi, *flow_dn_rate,
+      *flow_dn_burst, *flow_dn_kfull, *flow_dn_kfi;
+  uint8_t *lane_stream;
+  int32_t *lane_ep_start, *lane_ep_rows;
   // Workspace
   int32_t *ctl, *self_blk, *out_blk, *sx_blk;
   int64_t *recs;
-  int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order;
+  int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order, *tier_blk;
+  // the tier's queues [7, 2S, C2] and vectors [TV_COUNT, 2S] (tiered runs)
+  int32_t *tier_q, *tier_v;
   // sizes (sw: self block width, K or 2K; words: 5, or 7 with the stream
   // payload words) and run constants
   int64_t n, c, k, cx, sw, g, log_cap, stop, runahead, interval;
@@ -91,6 +95,10 @@ struct LaneBufs {
   // exchanged entries, and where the record groups start
   int64_t s_flows, wide_pop, one_to_one, n_x, rec_slots, rec_srec, rec_brec,
       n_rec;
+  // the tiered stream pass (tier_s = S, 0 when not tiered; on a tiered run
+  // the lanes' s_flows above is 0): K_s pops, C2 queue width, its wide pop
+  // rule, the tier block's width and where the tier's record groups start
+  int64_t tier_s, ks, c2, tier_wide, tier_n, rec_tier;
 };
 
 namespace {
@@ -726,51 +734,174 @@ __device__ int64_t bucket_charge_chained(Bucket& b, int32_t rate, int32_t burst,
   return dep;
 }
 
-// The stream arm of slot j for lane i (the reference's _process_slot stream
-// tier and compacted channels): the lane's endpoint row that this popped
-// event stimulates — a start marker opens a client flow, an RTO local owned
-// by the row's flow fires its timer, a stream segment (non-zero payload; at
-// a server row only from its own client) runs on_segment — runs the law and
-// the pump epilogue; its control send and data burst charge the lane's up
-// bucket in order (the burst after its first unit by the chained law), each
-// drawing its loss at counter = its send sequence number; its RTO arm takes
-// the lane's local sequence.  Every entry of the stream block and every
-// stream loss record of the lane's rows for slot j is written, valid or not.
+// the up bucket and the counters a stimulus charges: the lane's in A, the
+// endpoint row's in F
 struct StreamLane {
   Bucket& up;
   int32_t &send_seq, &local_seq, &n_sends, &n_loss, &min_lat;
 };
 
+// one entry's seven words (time pair, aux pair, size, payload pair), words
+// `stride` apart: the entry if valid, else the canonical empty entry
+__device__ __forceinline__ void put_words(int32_t* x, int64_t stride,
+                                          bool valid, int64_t t, int32_t auxh,
+                                          int32_t auxl, int32_t size,
+                                          int32_t phi, int32_t plo) {
+  int32_t hi = NEVER32, lo = NEVER32;
+  if (valid) split(t, &hi, &lo);
+  x[0] = hi;
+  x[stride] = lo;
+  x[2 * stride] = valid ? auxh : 0;
+  x[3 * stride] = valid ? auxl : 0;
+  x[4 * stride] = valid ? size : 0;
+  x[5 * stride] = valid ? phi : 0;
+  x[6 * stride] = valid ? plo : 0;
+}
+
+// a stream block entry: its destination (N when empty), then its words
 __device__ void put_entry(const LaneBufs& b, int64_t n_ent, int64_t idx,
                           bool valid, int32_t dst, int64_t t, int32_t auxh,
                           int32_t auxl, int32_t size, int32_t phi,
                           int32_t plo) {
   int32_t* x = b.sx_blk + idx;
-  int32_t hi = NEVER32, lo = NEVER32;
-  if (valid) split(t, &hi, &lo);
-  x[0 * n_ent] = valid ? dst : static_cast<int32_t>(b.n);
-  x[1 * n_ent] = hi;
-  x[2 * n_ent] = lo;
-  x[3 * n_ent] = valid ? auxh : 0;
-  x[4 * n_ent] = valid ? auxl : 0;
-  x[5 * n_ent] = valid ? size : 0;
-  x[6 * n_ent] = valid ? phi : 0;
-  x[7 * n_ent] = valid ? plo : 0;
+  x[0] = valid ? dst : static_cast<int32_t>(b.n);
+  put_words(x + n_ent, n_ent, valid, t, auxh, auxl, size, phi, plo);
 }
 
-__device__ void put_loss(const LaneBufs& b, int64_t r, bool lost, int64_t t,
-                         int32_t src, int32_t dst, int32_t seq, int32_t size) {
+// record slot r of the iteration's records: the record if valid, else zeros
+__device__ void put_rec(const LaneBufs& b, int64_t r, bool valid, int64_t t,
+                        int32_t src, int32_t dst, int32_t seq, int32_t size,
+                        int64_t outcome) {
   if (b.log_cap <= 0) return;
   int64_t* row = b.recs + r * 6;
-  row[0] = lost ? t : 0;
-  row[1] = lost ? src : 0;
-  row[2] = lost ? dst : 0;
-  row[3] = lost ? seq : 0;
-  row[4] = lost ? size : 0;
-  row[5] = lost ? DROP_LOSS : 0;
-  b.rec_valid[r] = lost ? 1 : 0;
+  row[0] = valid ? t : 0;
+  row[1] = valid ? src : 0;
+  row[2] = valid ? dst : 0;
+  row[3] = valid ? seq : 0;
+  row[4] = valid ? size : 0;
+  row[5] = valid ? outcome : 0;
+  b.rec_valid[r] = valid ? 1 : 0;
 }
 
+__device__ __forceinline__ void put_loss(const LaneBufs& b, int64_t r,
+                                         bool lost, int64_t t, int32_t src,
+                                         int32_t dst, int32_t seq,
+                                         int32_t size) {
+  put_rec(b, r, lost, t, src, dst, seq, size, DROP_LOSS);
+}
+
+// a row's up-bucket and send tables, read once: the walk's stores would
+// keep the compiler from hoisting the reads out of the slot and burst loops
+struct UpRow {
+  int32_t rate, burst, kfull, kfi, lat, lane;
+  int64_t thresh;
+};
+
+__device__ __forceinline__ UpRow up_row(const LaneBufs& b, int64_t e) {
+  return UpRow{b.flow_up_rate[e],  b.flow_up_burst[e], b.flow_up_kfull[e],
+               b.flow_up_kfi[e],   b.flow_lat[e],      b.flow_lanes[e],
+               b.flow_thresh[e]};
+}
+
+// one stimulus's control send and RTO arm, as stream_stimulus hands them on
+struct Sends {
+  Emit em{};
+  int32_t cnt = 0;   // burst units sent
+  int32_t seq = 0;   // the control send's sequence number
+  int32_t lseq = 0;  // the RTO arm's local sequence number
+  bool lost = false;
+  int64_t arr = 0;   // the control send's arrival
+};
+
+// The law and the sends of one stimulus at an endpoint row, shared by A's
+// stream arm and F's walk: stim 1 opens a client flow, 2 fires the RTO, 3
+// runs on_segment on the event's payload words, at `now` (= t); the pump
+// burst follows.  The control send and the burst charge `sl.up` in order
+// (the burst after its first unit by the chained law), each drawing its
+// loss at counter = its send sequence number; the RTO arm takes the local
+// sequence.  Burst unit u goes to burst(u, valid, lost, arr, seq, size, phi,
+// plo); the control send and the arm are returned.
+template <class BurstSink>
+__device__ __forceinline__ Sends stream_stimulus(
+    const LaneBufs& b, Flow& f, int stim, Pair now, int64_t t, int32_t phi,
+    int32_t plo, int32_t size, int64_t we, const UpRow& r, StreamLane sl,
+    BurstSink burst) {
+  Sends s;
+  if (stim == 1) {
+    open_flow(f, now, s.em);
+  } else if (stim == 2) {
+    on_rto(f, now, s.em);
+  } else {
+    on_segment(f, now, phi >> PAY_SEQ_BITS, phi & PAY_SEQ_MASK, plo, size,
+               s.em);
+  }
+  if (s.em.completed_now) f.completed = 1;  // latched once
+  const int32_t u0 = f.snd_nxt;
+  s.cnt = pump_epilogue(f, now, s.em);
+
+  const int32_t interval = static_cast<int32_t>(b.interval);
+  const bool draw = b.has_loss && t >= b.bootstrap_end;
+  const uint32_t seed_lo = static_cast<uint32_t>(b.seed_lo);
+  const uint32_t seed_hi = static_cast<uint32_t>(b.seed_hi);
+  const uint32_t stream = static_cast<uint32_t>(r.lane) | LOSS_STREAM;
+  // the control send: up bucket, loss draw, arrival
+  s.seq = sl.send_seq;
+  if (s.em.send_valid) {
+    const int64_t dep =
+        bucket_charge(sl.up, r.rate, r.burst, r.kfull, r.kfi, t,
+                      (s.em.send_size + FRAME_OVERHEAD_BYTES) * 8, true,
+                      interval);
+    if (draw) {
+      const uint32_t u = lane_draw(seed_lo, seed_hi, stream,
+                                   static_cast<uint32_t>(s.seq));
+      s.lost = static_cast<int64_t>(u) < r.thresh;
+    }
+    if (s.lost) sl.n_loss = wadd(sl.n_loss, 1);
+    if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, r.lat);
+    s.arr = dep + r.lat;
+    if (s.arr < we) s.arr = we;
+  }
+  s.lseq = sl.local_seq;
+  if (s.em.rto_valid) sl.local_seq = wadd(sl.local_seq, 1);
+
+  // the burst (client rows: the law's role gate empties server bursts)
+  const int32_t sent0 = s.em.send_valid ? 1 : 0;
+  for (int32_t u = 0; u < s.cnt; ++u) {
+    const int32_t unit = wadd(u0, u);
+    const int32_t bsize = seg_wire_size(f, unit);
+    const int32_t bits = (bsize + FRAME_OVERHEAD_BYTES) * 8;
+    const int64_t dep =
+        u == 0 ? bucket_charge(sl.up, r.rate, r.burst, r.kfull, r.kfi, t,
+                               bits, true, interval)
+               : bucket_charge_chained(sl.up, r.rate, r.burst, t, bits,
+                                       interval);
+    const int32_t bseq = wadd(s.seq, sent0 + u);
+    bool lost = false;
+    if (draw) {
+      const uint32_t d = lane_draw(seed_lo, seed_hi, stream,
+                                   static_cast<uint32_t>(bseq));
+      lost = static_cast<int64_t>(d) < r.thresh;
+    }
+    if (lost) sl.n_loss = wadd(sl.n_loss, 1);
+    if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, r.lat);
+    int64_t arr = dep + r.lat;
+    if (arr < we) arr = we;
+    burst(u, !lost, lost, arr, bseq, bsize,
+          wshl(seg_flags(f, unit), PAY_SEQ_BITS) | unit, f.rcv_nxt);
+  }
+  sl.send_seq = wadd(sl.send_seq, wadd(sent0, s.cnt));
+  sl.n_sends = wadd(sl.n_sends, wadd(sent0, s.cnt));
+  return s;
+}
+
+// The stream arm of slot j for lane i (the reference's _process_slot stream
+// tier and compacted channels): the lane's endpoint row that this popped
+// event stimulates — a start marker opens a client flow, an RTO local owned
+// by the row's flow fires its timer, a stream segment (non-zero payload; at
+// a server row only from its own client) runs on_segment — takes
+// stream_stimulus on the lane's up bucket and counters.  Every entry of the
+// stream block and every stream loss record of the lane's rows for slot j
+// is written, valid or not.
 __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
                             int32_t kind, int32_t src, int32_t size,
                             int32_t phi, int32_t plo, int32_t thi,
@@ -797,98 +928,32 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     }
   }
 
-  Emit em{};
-  Flow f;
-  int32_t cnt = 0, u0 = 0, se_seq = 0, lseq_arm = 0;
-  bool se_lost = false;
-  int64_t se_arr = 0;
+  Sends sd;
   if (e >= 0) {
     int32_t* frow = b.stream + static_cast<int64_t>(e) * N_COLS;
+    Flow f;
     flow_load(f, frow);
     f.role = e < sf ? SENDER : RECEIVER;
     f.segs = b.flow_segs[e];
     f.mss = b.flow_mss[e];
     f.last_bytes = b.flow_last[e];
     f.cc = b.flow_cc[e];
-    const Pair now{thi, tlo};
-    if (stim == 1) {
-      open_flow(f, now, em);
-    } else if (stim == 2) {
-      on_rto(f, now, em);
-    } else {
-      on_segment(f, now, phi >> PAY_SEQ_BITS, phi & PAY_SEQ_MASK, plo, size,
-                 em);
-    }
-    if (em.completed_now) f.completed = 1;  // latched once
-    u0 = f.snd_nxt;
-    cnt = pump_epilogue(f, now, em);
-    flow_store(f, frow);
-
-    const int32_t interval = static_cast<int32_t>(b.interval);
-    const bool past_bs = t >= b.bootstrap_end;
-    const int32_t lat = b.flow_lat[e];
-    const uint32_t stream = static_cast<uint32_t>(lane) | LOSS_STREAM;
-    // slot-0 control send
-    se_seq = sl.send_seq;
-    if (em.send_valid) {
-      const int64_t dep = bucket_charge(
-          sl.up, b.flow_up_rate[e], b.flow_up_burst[e], b.flow_up_kfull[e],
-          b.flow_up_kfi[e], t, (em.send_size + FRAME_OVERHEAD_BYTES) * 8, true,
-          interval);
-      sl.send_seq = wadd(sl.send_seq, 1);
-      sl.n_sends = wadd(sl.n_sends, 1);
-      if (b.has_loss && past_bs) {
-        const uint32_t u = lane_draw(static_cast<uint32_t>(b.seed_lo),
-                                     static_cast<uint32_t>(b.seed_hi), stream,
-                                     static_cast<uint32_t>(se_seq));
-        se_lost = static_cast<int64_t>(u) < b.flow_thresh[e];
-      }
-      if (se_lost) sl.n_loss = wadd(sl.n_loss, 1);
-      if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, lat);
-      se_arr = dep + lat;
-      if (se_arr < we) se_arr = we;
-    }
-    lseq_arm = sl.local_seq;
-    if (em.rto_valid) sl.local_seq = wadd(sl.local_seq, 1);
-
-    // the burst (client rows: the law's role gate empties server bursts)
-    int32_t sent = em.send_valid ? 1 : 0;
-    const int64_t peer = b.flow_peers[e];
+    const int32_t peer = b.flow_peers[e];
     const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-    for (int32_t u = 0; u < cnt; ++u) {
-      const int32_t unit = wadd(u0, u);
-      const int32_t bsize = seg_wire_size(f, unit);
-      const int32_t bits = (bsize + FRAME_OVERHEAD_BYTES) * 8;
-      const int64_t dep =
-          u == 0 ? bucket_charge(sl.up, b.flow_up_rate[e], b.flow_up_burst[e],
-                                 b.flow_up_kfull[e], b.flow_up_kfi[e], t, bits,
-                                 true, interval)
-                 : bucket_charge_chained(sl.up, b.flow_up_rate[e],
-                                         b.flow_up_burst[e], t, bits,
-                                         interval);
-      const int32_t bseq = wadd(se_seq, sent);
-      bool lost = false;
-      if (b.has_loss && past_bs) {
-        const uint32_t d = lane_draw(static_cast<uint32_t>(b.seed_lo),
-                                     static_cast<uint32_t>(b.seed_hi), stream,
-                                     static_cast<uint32_t>(bseq));
-        lost = static_cast<int64_t>(d) < b.flow_thresh[e];
-      }
-      if (lost) sl.n_loss = wadd(sl.n_loss, 1);
-      if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, lat);
-      int64_t arr = dep + lat;
-      if (arr < we) arr = we;
-      const int64_t slot = j * PUMP_BURST + u;
-      put_entry(b, n_ent, 4 * k * sf + slot * sf + e, !lost,
-                static_cast<int32_t>(peer), arr, pkt_auxh, bseq, bsize,
-                wshl(seg_flags(f, unit), PAY_SEQ_BITS) | unit, f.rcv_nxt);
-      put_loss(b, b.rec_brec + slot * sf + e, lost, t, lane,
-               static_cast<int32_t>(peer), bseq, bsize);
-      sent += 1;
-    }
-    sl.send_seq = wadd(sl.send_seq, cnt);
-    sl.n_sends = wadd(sl.n_sends, cnt);
+    sd = stream_stimulus(
+        b, f, stim, Pair{thi, tlo}, t, phi, plo, size, we, up_row(b, e), sl,
+        [&](int32_t u, bool valid, bool lost, int64_t arr, int32_t bseq,
+            int32_t bsize, int32_t bphi, int32_t bplo) {
+          const int64_t slot = j * PUMP_BURST + u;
+          put_entry(b, n_ent, 4 * k * sf + slot * sf + e, valid, peer, arr,
+                    pkt_auxh, bseq, bsize, bphi, bplo);
+          put_loss(b, b.rec_brec + slot * sf + e, lost, t, lane, peer, bseq,
+                   bsize);
+        });
+    flow_store(f, frow);
   }
+  const Emit& em = sd.em;
+  const int32_t cnt = sd.cnt;
 
   // the lane's rows: control sends, RTO arms, the rest of the bursts, and
   // the control sends' loss records
@@ -899,14 +964,14 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     const int32_t auxh_pkt = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
     const int32_t auxh_loc = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
     const bool se_v = me && em.send_valid;
-    put_entry(b, n_ent, j * s2 + row, se_v && !se_lost, peer, se_arr,
-              auxh_pkt, se_seq, em.send_size,
+    put_entry(b, n_ent, j * s2 + row, se_v && !sd.lost, peer, sd.arr,
+              auxh_pkt, sd.seq, em.send_size,
               wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
-    put_loss(b, b.rec_srec + j * s2 + row, se_v && se_lost, t, lane, peer,
-             se_seq, em.send_size);
+    put_loss(b, b.rec_srec + j * s2 + row, se_v && sd.lost, t, lane, peer,
+             sd.seq, em.send_size);
     const bool sa_v = me && em.rto_valid;
     put_entry(b, n_ent, k * s2 + j * s2 + row, sa_v, lane,
-              join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, lseq_arm, SZ_RTO,
+              join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, sd.lseq, SZ_RTO,
               0, b.flow_clid[row]);
     if (row < sf) {
       for (int32_t u = me ? cnt : 0; u < PUMP_BURST; ++u) {
@@ -1213,7 +1278,21 @@ __global__ void lane_slots_kernel(LaneBufs b) {
 // block — then one block per lane merges [queue C | self S | cross Cx] by the
 // event key in shared memory and keeps the first C (S = sw: K re-arms, or K
 // DELIVERY inserts then K re-arms).  Entries are `words` words: the key,
-// the size and, when streams run, the two payload words.
+// the size and, when streams run, the two payload words.  On a tiered run
+// the block of a stream-endpoint lane diverts its cross entries: it copies
+// them to its endpoint row of the tier block's cross channel (G merges
+// them) and gives them the NEVER time in its own merge.
+
+// where the tier block's channels start (lanes.py LaneParams.tier_layout):
+// DELIVERY fallbacks [K_s, 2S] at 0, RTO arms, control sends (emitter
+// rows), bursts [K_s, B, S], the diverted cross entries [2S, Cx]
+struct TierLayout {
+  int64_t sa, se, bo, cx;
+};
+__device__ __forceinline__ TierLayout tier_layout(const LaneBufs& b) {
+  const int64_t sa = b.ks * 2 * b.tier_s;
+  return {sa, 2 * sa, 3 * sa, 3 * sa + b.ks * PUMP_BURST * b.tier_s};
+}
 
 __device__ __forceinline__ int64_t stream_entries(const LaneBufs& b) {
   return 4 * b.k * b.s_flows + b.k * PUMP_BURST * b.s_flows;
@@ -1285,11 +1364,33 @@ __device__ __forceinline__ void load_queue_row(const LaneBufs& b, int32_t* e,
   }
 }
 
+// The rank of entry x among the n entries of W words at e, by the event
+// key, ties by index: a permutation, stable for equal keys.  The entry's
+// key stays in registers; an entry ranks below it when its key is smaller,
+// or equal at a smaller index.
+template <int W>
+__device__ __forceinline__ int64_t key_rank(const int32_t* e, int64_t n,
+                                            int64_t x) {
+  const int32_t* ex = e + W * x;
+  const int32_t k0 = ex[0], k1 = ex[1], k2 = ex[2], k3 = ex[3];
+  int64_t rank = 0;
+  for (int64_t y = 0; y < n; ++y) {
+    const int32_t* ey = e + W * y;
+    const int32_t a0 = ey[0], a1 = ey[1], a2 = ey[2], a3 = ey[3];
+    const bool less = a0 != k0   ? a0 < k0
+                      : a1 != k1 ? a1 < k1
+                      : a2 != k2 ? a2 < k2
+                                 : a3 < k3;
+    const bool same = a0 == k0 && a1 == k1 && a2 == k2 && a3 == k3;
+    if (less || (same && y < x)) ++rank;
+  }
+  return rank;
+}
+
 // The keyed row merge, shared by kernels B and E: rank each of the w_all
-// entries in shared memory by (key, index) — a permutation, stable for
-// equal keys — write the first C to the queue row of `lane`, count the real
-// events past C into *n_tail and, when logging, record them as DROP_QUEUE
-// at recs[rec_base + rank - C].
+// entries in shared memory (key_rank), write the first C to the queue row
+// of `lane`, count the real events past C into *n_tail and, when logging,
+// record them as DROP_QUEUE at recs[rec_base + rank - C].
 template <int W>
 __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
                                           int64_t w_all, int64_t lane,
@@ -1300,20 +1401,7 @@ __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
   int32_t local_tail = 0;
   for (int64_t x = threadIdx.x; x < w_all; x += blockDim.x) {
     const int32_t* ex = e + W * x;
-    // this entry's key in registers; an entry ranks below it when its key
-    // is smaller, or equal at a smaller index
-    const int32_t k0 = ex[0], k1 = ex[1], k2 = ex[2], k3 = ex[3];
-    int64_t rank = 0;
-    for (int64_t y = 0; y < w_all; ++y) {
-      const int32_t* ey = e + W * y;
-      const int32_t a0 = ey[0], a1 = ey[1], a2 = ey[2], a3 = ey[3];
-      const bool less = a0 != k0   ? a0 < k0
-                        : a1 != k1 ? a1 < k1
-                        : a2 != k2 ? a2 < k2
-                                   : a3 < k3;
-      const bool same = a0 == k0 && a1 == k1 && a2 == k2 && a3 == k3;
-      if (less || (same && y < x)) ++rank;
-    }
+    const int64_t rank = key_rank<W>(e, w_all, x);
     if (rank < c) {
 #pragma unroll
       for (int w = 0; w < W; ++w) q[w][lane * c + rank] = ex[w];
@@ -1357,6 +1445,10 @@ __global__ void merge_kernel(LaneBufs b) {
   const int32_t cnt = b.x_cnt[i];
   const int32_t take = cnt < cx ? cnt : static_cast<int32_t>(cx);
   const int32_t* seg = b.x_order + b.x_start[i];
+  // tiered: the endpoint row this lane's cross entries divert to
+  int64_t tier_row = -1;
+  if (b.tier_s > 0 && b.lane_stream[i])
+    tier_row = b.lane_ep_rows[b.lane_ep_start[i]];
   if (threadIdx.x == 0) {
     n_tail = 0;
     if (cnt <= cx) {
@@ -1364,6 +1456,16 @@ __global__ void merge_kernel(LaneBufs b) {
       // the merged row (valid entries have distinct keys; empty ones are
       // identical)
       for (int32_t r = 0; r < cnt; ++r) sel[r] = seg[r];
+      if (tier_row >= 0) {
+        // but the divert hands the block on as it is: index order, as the
+        // plain version's (the atomic placement's order is arbitrary)
+        for (int32_t r = 1; r < cnt; ++r) {
+          const int32_t m = sel[r];
+          int32_t q = r;
+          for (; q > 0 && sel[q - 1] > m; --q) sel[q] = sel[q - 1];
+          sel[q] = m;
+        }
+      }
     } else {
       // overflow: keep the Cx earliest in index order
       int32_t prev = -1;
@@ -1406,6 +1508,15 @@ __global__ void merge_kernel(LaneBufs b) {
         ex[1] = NEVER32;
 #pragma unroll
         for (int w = 2; w < W; ++w) ex[w] = 0;
+      }
+      if (tier_row >= 0) {  // the divert
+        int32_t* t = b.tier_blk + tier_layout(b).cx + tier_row * cx + r;
+#pragma unroll
+        for (int w = 0; w < 5; ++w) t[w * b.tier_n] = ex[w];
+        t[5 * b.tier_n] = 0;
+        t[6 * b.tier_n] = 0;
+        ex[0] = NEVER32;
+        ex[1] = NEVER32;
       }
     }
   }
@@ -1467,16 +1578,325 @@ __global__ void stream_rows_kernel(LaneBufs b) {
   if (threadIdx.x == 0) b.n_queue[lane] += n_tail;  // lanes are distinct
 }
 
+// ---- kernel F: stream_tier -------------------------------------------------
+// The tier's pop and slot walk (the reference's _stream_tier_iter up to its
+// merge).  One thread per endpoint row e owns the row's flow, its column of
+// the tier vectors and its queue head, and walks its first K_s queue columns
+// in order: the pop-prefix rule (a prefix free of LOCALs under the wide rule,
+// else a same-instant prefix of PACKETs, or column 0 alone, inside the
+// window); a PACKET takes the down bucket and CoDel and, delivered inside
+// the window (wide rule only), stimulates the law at once, else becomes a
+// DELIVERY fallback; a start marker opens a client flow, an owned RTO local
+// fires the timer, a segment (at a server row only from its own client)
+// runs on_segment; every stimulus ends with the pump burst.  The control
+// send and, on client rows, the burst charge the up bucket (the burst after
+// its first unit by the chained law), each with its loss draw at its send
+// sequence number; RTO arms take the row's local sequence.  Every candidate
+// entry of the row and, when logging, every record slot of the row is
+// written, valid or not; the peer's row is never touched (G reads the
+// control sends across the pair).
+
+// the tier vector rows (lanes_stream.py TV_*)
+constexpr int TV_DN_TOK = 0, TV_DN_NRH = 1, TV_DN_NRL = 2, TV_DN_LDH = 3,
+              TV_DN_LDL = 4, TV_CD_FATH = 5, TV_CD_FATL = 6, TV_CD_DNH = 7,
+              TV_CD_DNL = 8, TV_CD_CNT = 9, TV_CD_DROP = 10, TV_UP_TOK = 11,
+              TV_UP_NRH = 12, TV_UP_NRL = 13, TV_UP_LDH = 14, TV_UP_LDL = 15,
+              TV_SEND_SEQ = 16, TV_LOCAL_SEQ = 17, TV_N_SENDS = 18,
+              TV_N_LOSS = 19, TV_N_DEL = 20, TV_N_CODEL = 21, TV_N_QUEUE = 22;
+
+// one candidate entry of the tier block at idx: valid, or canonical empty
+__device__ __forceinline__ void tier_put(const LaneBufs& b, int64_t idx,
+                                         bool valid, int64_t t, int32_t auxh,
+                                         int32_t auxl, int32_t size,
+                                         int32_t phi, int32_t plo) {
+  put_words(b.tier_blk + idx, b.tier_n, valid, t, auxh, auxl, size, phi, plo);
+}
+
+__global__ void stream_tier_kernel(LaneBufs b) {
+  if (b.ctl[0] == 0) return;
+  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int64_t sf = b.tier_s, s2 = 2 * sf;
+  if (e >= s2) return;
+  const int64_t ks = b.ks, c2 = b.c2;
+  const int32_t interval = static_cast<int32_t>(b.interval);
+  const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
+  const bool client = e < sf;
+  const bool wide = b.tier_wide != 0;
+  const int32_t lane = b.flow_lanes[e], peer = b.flow_peers[e];
+  const int32_t clid = b.flow_clid[e];
+  // the row's bucket tables, read once (as up_row does for the up bucket)
+  const int32_t dn_rate = b.flow_dn_rate[e], dn_burst = b.flow_dn_burst[e],
+                dn_kfull = b.flow_dn_kfull[e], dn_kfi = b.flow_dn_kfi[e];
+  const UpRow ur = up_row(b, e);
+  const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+  const int32_t loc_auxh = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+  const TierLayout lay = tier_layout(b);
+  const int64_t trec = b.rec_tier, tsrec = trec + ks * s2,
+                tbrec = tsrec + ks * s2;
+
+  // the row's queue planes, and its column of the tier vectors
+  int32_t* q[7];
+#pragma unroll
+  for (int w = 0; w < 7; ++w) q[w] = b.tier_q + w * s2 * c2 + e * c2;
+  int32_t* const tv = b.tier_v + e;
+  Bucket dn{tv[TV_DN_TOK * s2],
+            join_raw(tv[TV_DN_NRH * s2], tv[TV_DN_NRL * s2]),
+            join_raw(tv[TV_DN_LDH * s2], tv[TV_DN_LDL * s2])};
+  Bucket up{tv[TV_UP_TOK * s2],
+            join_raw(tv[TV_UP_NRH * s2], tv[TV_UP_NRL * s2]),
+            join_raw(tv[TV_UP_LDH * s2], tv[TV_UP_LDL * s2])};
+  int32_t fat_hi = tv[TV_CD_FATH * s2], fat_lo = tv[TV_CD_FATL * s2];
+  int64_t cd_dn = join_raw(tv[TV_CD_DNH * s2], tv[TV_CD_DNL * s2]);
+  int32_t dcount = tv[TV_CD_CNT * s2];
+  uint8_t dropping = tv[TV_CD_DROP * s2] != 0 ? 1 : 0;
+  int32_t send_seq = tv[TV_SEND_SEQ * s2], local_seq = tv[TV_LOCAL_SEQ * s2];
+  int32_t n_sends = tv[TV_N_SENDS * s2], n_loss = tv[TV_N_LOSS * s2];
+  int32_t n_del = tv[TV_N_DEL * s2], n_codel = tv[TV_N_CODEL * s2];
+  int32_t min_lat = NEVER32;
+  const StreamLane sl{up, send_seq, local_seq, n_sends, n_loss, min_lat};
+
+  Flow f;
+  int32_t* frow = b.stream + e * N_COLS;
+  flow_load(f, frow);
+  f.role = client ? SENDER : RECEIVER;
+  f.segs = b.flow_segs[e];
+  f.mss = b.flow_mss[e];
+  f.last_bytes = b.flow_last[e];
+  f.cc = b.flow_cc[e];
+
+  const int32_t head_hi = q[0][0], head_lo = q[1][0];
+  bool prefix = true;
+  for (int64_t j = 0; j < ks; ++j) {
+    const int32_t thi = q[0][j], tlo = q[1][j], auxh = q[2][j];
+    const int32_t auxl = q[3][j], size = q[4][j], phi = q[5][j], plo = q[6][j];
+    const int32_t kind = auxh >> AUX_KIND_SHIFT;
+    const int32_t src = (auxh >> AUX_SRC_SHIFT) & SRC_MASK;
+    prefix = prefix && (wide ? kind != LOCAL
+                             : (thi == head_hi && tlo == head_lo &&
+                                kind == PACKET));
+    const int64_t t = join_t(thi, tlo);
+    const bool act = (prefix || j == 0) && t < we;
+    if (act) {
+      q[0][j] = NEVER32;
+      q[1][j] = NEVER32;
+    }
+
+    // PACKET: the down bucket and CoDel on the compact rows
+    const bool is_pkt = act && kind == PACKET;
+    const int64_t td = bucket_charge(dn, dn_rate, dn_burst, dn_kfull, dn_kfi,
+                                     t, (size + FRAME_OVERHEAD_BYTES) * 8,
+                                     is_pkt, interval);
+    int64_t sojourn = 0;
+    if (is_pkt) {
+      sojourn = td - t;
+      if (sojourn > NEVER32) sojourn = NEVER32;
+    }
+    const bool drop = codel_offer(fat_hi, fat_lo, cd_dn, dcount, dropping, td,
+                                  sojourn, is_pkt, b.codel_div);
+    const bool deliver = is_pkt && !drop;
+    if (deliver) n_del += 1;
+    if (is_pkt && drop) n_codel += 1;
+    put_rec(b, trec + j * s2 + e, is_pkt, td, src, lane, auxl, size,
+            drop ? DROP_CODEL : DELIVERED);
+
+    // delivery elision: inside the window (wide rule only) the law runs at
+    // once, at the delivery time; else a DELIVERY fallback is inserted
+    const bool del_now = wide && deliver && td < we;
+    tier_put(b, j * s2 + e, deliver && !del_now, td,
+             (DELIVERY << AUX_KIND_SHIFT) | (src << AUX_SRC_SHIFT), auxl, size,
+             phi, plo);
+    const int64_t st = del_now ? td : t;
+
+    int stim = 0;  // 1 open, 2 RTO, 3 segment
+    if (act && kind == LOCAL && size == -1 && client) {
+      stim = 1;
+    } else if (act && kind == LOCAL && size == SZ_RTO && plo == clid) {
+      stim = 2;
+    } else if ((del_now || (act && kind == DELIVERY)) && (phi | plo) != 0 &&
+               (client || src == clid)) {
+      stim = 3;
+    }
+    Sends sd;
+    if (stim) {
+      Pair now;
+      split(st, &now.hi, &now.lo);
+      sd = stream_stimulus(
+          b, f, stim, now, st, phi, plo, size, we, ur, sl,
+          [&](int32_t u, bool valid, bool lost, int64_t arr, int32_t bseq,
+              int32_t bsize, int32_t bphi, int32_t bplo) {
+            const int64_t slot = j * PUMP_BURST + u;
+            tier_put(b, lay.bo + slot * sf + e, valid, arr, pkt_auxh, bseq,
+                     bsize, bphi, bplo);
+            put_rec(b, tbrec + slot * sf + e, lost, st, lane, peer, bseq,
+                    bsize, DROP_LOSS);
+          });
+    }
+    const Emit& em = sd.em;
+    tier_put(b, lay.se + j * s2 + e, em.send_valid && !sd.lost, sd.arr,
+             pkt_auxh, sd.seq, em.send_size,
+             wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
+    put_rec(b, tsrec + j * s2 + e, sd.lost, st, lane, peer, sd.seq,
+            em.send_size, DROP_LOSS);
+    // the RTO arm: a LOCAL self-insert at the own row
+    tier_put(b, lay.sa + j * s2 + e, em.rto_valid,
+             join_raw(em.rto_t.hi, em.rto_t.lo), loc_auxh, sd.lseq, SZ_RTO, 0,
+             clid);
+    // the rest of the burst block (client rows), empty
+    for (int32_t u = sd.cnt; client && u < PUMP_BURST; ++u) {
+      const int64_t slot = j * PUMP_BURST + u;
+      tier_put(b, lay.bo + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
+      put_rec(b, tbrec + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
+    }
+  }
+
+  flow_store(f, frow);
+  tv[TV_DN_TOK * s2] = dn.tokens;
+  split(dn.nr, &tv[TV_DN_NRH * s2], &tv[TV_DN_NRL * s2]);
+  split(dn.ld, &tv[TV_DN_LDH * s2], &tv[TV_DN_LDL * s2]);
+  tv[TV_UP_TOK * s2] = up.tokens;
+  split(up.nr, &tv[TV_UP_NRH * s2], &tv[TV_UP_NRL * s2]);
+  split(up.ld, &tv[TV_UP_LDH * s2], &tv[TV_UP_LDL * s2]);
+  tv[TV_CD_FATH * s2] = fat_hi;
+  tv[TV_CD_FATL * s2] = fat_lo;
+  split(cd_dn, &tv[TV_CD_DNH * s2], &tv[TV_CD_DNL * s2]);
+  tv[TV_CD_CNT * s2] = dcount;
+  tv[TV_CD_DROP * s2] = dropping;
+  tv[TV_SEND_SEQ * s2] = send_seq;
+  tv[TV_LOCAL_SEQ * s2] = local_seq;
+  tv[TV_N_SENDS * s2] = n_sends;
+  tv[TV_N_LOSS * s2] = n_loss;
+  tv[TV_N_DEL * s2] = n_del;
+  tv[TV_N_CODEL * s2] = n_codel;
+  if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
+}
+
+// ---- kernel G: tier_merge --------------------------------------------------
+// The tier merge (the reference's _stream_tier_iter merge): one block per
+// endpoint row r merges its queue [C2] with its W_t = 3K_s + K_s*B + Cx
+// candidates — its DELIVERY fallbacks [K_s], its RTO arms [K_s], its peer's
+// control sends [K_s], on server rows its client's bursts [K_s*B]
+// (slot-major; a client row's are empty), its diverted cross entries [Cx].
+// Most entries are empty, so the valid ones (time word != NEVER32) are first
+// compacted into shared memory in index order (per-thread counts over
+// contiguous chunks, a block scan), then only those are ranked by (key,
+// index).  The first C2 go to the row, canonical empties after them; the rest
+// are counted into TV_N_QUEUE and recorded as DROP_QUEUE in the tier's tail
+// group [2S, W_t] at their rank past C2.
+constexpr int TIER_THREADS = 128;
+
+// entry x of row r's [queue C2 | W_t candidates]: its first word and the
+// stride between its words, or nullptr for a client row's (empty) burst
+// entries
+__device__ __forceinline__ const int32_t* tier_entry(const LaneBufs& b,
+                                                     int64_t r, int64_t x,
+                                                     int64_t& stride) {
+  const int64_t sf = b.tier_s, s2 = 2 * sf, ks = b.ks, c2 = b.c2;
+  if (x < c2) {
+    stride = s2 * c2;
+    return b.tier_q + r * c2 + x;
+  }
+  stride = b.tier_n;
+  const TierLayout lay = tier_layout(b);
+  x -= c2;
+  if (x < ks) return b.tier_blk + x * s2 + r;
+  if (x < 2 * ks) return b.tier_blk + lay.sa + (x - ks) * s2 + r;
+  if (x < 3 * ks)  // the control sends, across the pair
+    return b.tier_blk + lay.se + (x - 2 * ks) * s2 + (r < sf ? r + sf : r - sf);
+  x -= 3 * ks;
+  if (x < ks * PUMP_BURST)
+    return r < sf ? nullptr : b.tier_blk + lay.bo + x * sf + (r - sf);
+  return b.tier_blk + lay.cx + r * b.cx + (x - ks * PUMP_BURST);
+}
+
+__global__ void tier_merge_kernel(LaneBufs b) {
+  if (b.ctl[0] == 0) return;
+  extern __shared__ int32_t sm[];  // the valid entries, [n_valid][7]
+  __shared__ int32_t part[TIER_THREADS];
+  const int64_t r = blockIdx.x;
+  const int64_t s2 = 2 * b.tier_s, c2 = b.c2;
+  const int64_t wt = 3 * b.ks + b.ks * PUMP_BURST + b.cx, total = c2 + wt;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int64_t chunk = (total + nt - 1) / nt;
+  const int64_t lo = tid * chunk;
+  const int64_t hi = lo + chunk < total ? lo + chunk : total;
+
+  // compaction: count, scan, copy in index order
+  int32_t cnt = 0;
+  for (int64_t x = lo; x < hi; ++x) {
+    int64_t stride;
+    const int32_t* p = tier_entry(b, r, x, stride);
+    if (p && p[0] != NEVER32) ++cnt;
+  }
+  part[tid] = cnt;
+  __syncthreads();
+  for (int s = 1; s < nt; s <<= 1) {  // Hillis-Steele
+    const int32_t v = tid >= s ? part[tid - s] : 0;
+    __syncthreads();
+    part[tid] += v;
+    __syncthreads();
+  }
+  const int64_t n_valid = part[nt - 1];
+  int64_t pos = part[tid] - cnt;
+  for (int64_t x = lo; x < hi; ++x) {
+    int64_t stride;
+    const int32_t* p = tier_entry(b, r, x, stride);
+    if (p && p[0] != NEVER32) {
+#pragma unroll
+      for (int w = 0; w < 7; ++w) sm[7 * pos + w] = p[w * stride];
+      ++pos;
+    }
+  }
+  __syncthreads();
+
+  // rank the valid entries by (key, index); the row takes the first C2
+  int32_t* q[7];
+#pragma unroll
+  for (int w = 0; w < 7; ++w) q[w] = b.tier_q + w * s2 * c2 + r * c2;
+  const int64_t ttail = b.rec_tier + 4 * b.ks * b.tier_s +
+                        b.ks * PUMP_BURST * b.tier_s + r * wt;
+  const int32_t lane = b.flow_lanes[r];
+  for (int64_t y = tid; y < n_valid; y += nt) {
+    const int32_t* ey = sm + 7 * y;
+    const int64_t rank = key_rank<7>(sm, n_valid, y);
+    if (rank < c2) {
+#pragma unroll
+      for (int w = 0; w < 7; ++w) q[w][rank] = ey[w];
+    } else {
+      put_rec(b, ttail + (rank - c2), true, join_raw(ey[0], ey[1]),
+              (ey[2] >> AUX_SRC_SHIFT) & SRC_MASK, lane, ey[3], ey[4],
+              DROP_QUEUE);
+    }
+  }
+  for (int64_t x = n_valid + tid; x < c2; x += nt) {  // canonical empties
+    q[0][x] = NEVER32;
+    q[1][x] = NEVER32;
+#pragma unroll
+    for (int w = 2; w < 7; ++w) q[w][x] = 0;
+  }
+  const int64_t over = n_valid > c2 ? n_valid - c2 : 0;
+  for (int64_t p = over + tid; p < wt; p += nt)  // tail slots left empty
+    put_rec(b, ttail + p, false, 0, 0, 0, 0, 0, 0);
+  if (tid == 0 && over)
+    b.tier_v[TV_N_QUEUE * s2 + r] += static_cast<int32_t>(over);
+}
+
 // ---- kernel C: queue_min_window ---------------------------------------------
 // One block: the lexicographic minimum of the queue heads (column 0 of every
-// sorted row), then the window law and the live flag.  With dynamic runahead
-// the window is the smallest latency sent over so far, never below the
-// floor (the static runahead until the first send).
+// sorted row, the tier's rows too), then the window law and the live flag.
+// With dynamic runahead the window is the smallest latency sent over so
+// far, never below the floor (the static runahead until the first send).
 __global__ void queue_min_kernel(LaneBufs b, int advance) {
   __shared__ int64_t warp_min[32];
   int64_t m = NEVER64;
   for (int64_t i = threadIdx.x; i < b.n; i += blockDim.x) {
     const int64_t t = join_t(b.q_thi[i * b.c], b.q_tlo[i * b.c]);
+    m = t < m ? t : m;
+  }
+  // tiered: the heads of the tier's endpoint rows
+  const int64_t tier_plane = 2 * b.tier_s * b.c2;
+  for (int64_t r = threadIdx.x; r < 2 * b.tier_s; r += blockDim.x) {
+    const int64_t t =
+        join_t(b.tier_q[r * b.c2], b.tier_q[tier_plane + r * b.c2]);
     m = t < m ? t : m;
   }
   for (int s = 16; s > 0; s >>= 1) {
@@ -1624,6 +2044,23 @@ int stream_rows_merge(const LaneBufs* b, cudaStream_t stream) {
   const int smem = static_cast<int>(7 * w_all * sizeof(int32_t));
   stream_rows_kernel<<<static_cast<unsigned>(2 * b->s_flows),
                        merge_threads(w_all), smem, stream>>>(*b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int stream_tier(const LaneBufs* b, cudaStream_t stream) {
+  // one warp per block: the rows' serial walks spread over the SMs
+  const int64_t rows = 2 * b->tier_s;
+  if (rows > 0)
+    stream_tier_kernel<<<blocks_for(rows, 32), 32, 0, stream>>>(*b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int tier_merge(const LaneBufs* b, cudaStream_t stream) {
+  const int64_t total = b->c2 + 3 * b->ks + b->ks * PUMP_BURST + b->cx;
+  const int smem = static_cast<int>(7 * total * sizeof(int32_t));
+  if (b->tier_s > 0)
+    tier_merge_kernel<<<static_cast<unsigned>(2 * b->tier_s), TIER_THREADS,
+                        smem, stream>>>(*b);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -92,7 +92,12 @@ _PORT_ONLY = ("thresh", "flow_thresh", "lane_ep_start", "lane_ep_rows")
 
 
 def _ref_tables(tb, s_flows):
-    d = _numpy(tb, [f for f in LaneTables._fields if f not in _PORT_ONLY])
+    # the tiered backend's tables are () off the tier: the port's empty
+    # tensors of the field's own dtype
+    d = {f: (np.zeros(0, bool if f == "lane_stream" else np.int32)
+             if isinstance(getattr(tb, f), tuple) and not getattr(tb, f)
+             else np.asarray(getattr(tb, f)))
+         for f in LaneTables._fields if f not in _PORT_ONLY}
     d["thresh"] = bridge.thresh_from_split(tb.thresh_u32, tb.thresh_all)
     d["flow_thresh"] = bridge.thresh_from_split(tb.flow_thresh_u32,
                                                 tb.flow_thresh_all)
@@ -196,14 +201,9 @@ hosts:
     ("hosts:", "experimental: {tpu_round_unroll: 2}\nhosts:"),
     ("m: {count: 4,", "m: {count: 4, pcap_enabled: true,"),
     ("{path: tgen-mesh}", "{path: phold}, {path: phold}"),
-    # a one-to-one pair on the reference's tiered stream backend (the
-    # default), which is not ported yet
-    ("processes: [{path: tgen-mesh}]}", "processes: [{path: tgen-mesh}]}\n"
-     "  c: {processes: [{path: stream-client, args: [--server, s]}]}\n"
-     "  s: {processes: [{path: stream-server}]}"),
     ("path: tgen-mesh", "path: tgen-tcp-server"),
 ], ids=["faults", "netobs", "flowtrace", "unroll", "pcap",
-        "multi_process_phold", "stream_client", "tgen_tcp_server"])
+        "multi_process_phold", "tgen_tcp_server"])
 def test_unported_configs_raise(edit):
     from shadow_tpu_torch.config.options import ConfigOptions, LaneCompatError
 
@@ -221,7 +221,13 @@ def test_unported_configs_raise(edit):
      "experimental: {tpu_stream_tiered: false}\nhosts:\n"
      "  c: {processes: [{path: stream-client, args: [--server, s]}]}\n"
      "  s: {processes: [{path: stream-server}]}\n  m: {count: 2,"),
-], ids=["dynamic_runahead", "phold", "lossy_edge", "stream_pair_untiered"])
+    # the same pair on the tiered stream backend (the default)
+    ("hosts:\n  m: {count: 4,",
+     "hosts:\n"
+     "  c: {processes: [{path: stream-client, args: [--server, s]}]}\n"
+     "  s: {processes: [{path: stream-server}]}\n  m: {count: 2,"),
+], ids=["dynamic_runahead", "phold", "lossy_edge", "stream_pair_untiered",
+        "stream_pair_tiered"])
 def test_ported_configs_build(edit):
     """What the earlier slices refused and this one runs."""
     from shadow_tpu_torch.config.options import ConfigOptions

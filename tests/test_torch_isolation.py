@@ -71,7 +71,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
         kernels.append_log(args)
         lanes.queue_min_window_plain(p, s_p, ws_p, True)
         lanes.lane_slots_plain(p, tb, s_p, ws_p)
-        lanes.exchange_merge_plain(p, s_p, ws_p)
+        lanes.exchange_merge_plain(p, tb, s_p, ws_p)
         lanes.append_log_plain(p, s_p, ws_p)
     assert all(fn.launches == 0 for fn in kernels.WRAPPERS)
     for f in lanes.LaneState._fields:

@@ -389,24 +389,36 @@ def test_rounds_match_reference_field_by_field(name, rounds):
 
 
 @pytest.mark.parametrize("edit", [
-    ("tpu_stream_tiered: false, ", ""),
     ("--size, 200kB", "--size, 67108864, --mss, 1"),
     ("--size, 200kB", f"--size, {1 << 31}, --mss, 60000"),
     ("experimental: {", "experimental: {flowtrace: true, "),
     ("experimental: {", "experimental: {netobs: true, "),
     ("c: {network_node_id: 0,", "c: {network_node_id: 0, pcap_enabled: true,"),
-], ids=["tiered_one_to_one", "segments_past_26_bits", "size_2_31",
-        "flowtrace", "netobs", "pcap"])
+], ids=["segments_past_26_bits", "size_2_31", "flowtrace", "netobs", "pcap"])
 def test_unported_stream_configs_raise(edit):
-    """What the port refuses with streams: the reference's tiered path,
-    flows beyond the lane law's 26-bit sequence space or its int32 byte
-    counter, and the observation planes it has not ported."""
+    """What the port refuses with streams: flows beyond the lane law's
+    26-bit sequence space or its int32 byte counter, and the observation
+    planes it has not ported."""
     yaml = STREAM_PAIR.replace(*edit)
     assert yaml != STREAM_PAIR
-    with pytest.raises(LaneCompatError) as err:
+    with pytest.raises(LaneCompatError):
         GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
-    if edit[0] == "tpu_stream_tiered: false, ":
-        assert "tpu_stream_tiered" in str(err.value)
+
+
+@pytest.mark.parametrize("edit", [
+    ("tpu_stream_tiered: false, ", ""),
+], ids=["tiered_one_to_one"])
+def test_ported_stream_configs_run(edit):
+    """What an earlier slice refused and a later one runs: the pair on the
+    reference's tiered stream backend, its default (tests/test_torch_tier.py
+    holds it to the reference)."""
+    yaml = STREAM_PAIR.replace(*edit)
+    assert yaml != STREAM_PAIR
+    eng = GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
+    assert eng.params.stream_tiered
+    res = eng.run(mode="device")
+    assert res.counters["stream_complete"] == 1
+    assert res.counters["stream_rx_bytes"] == 200_000
 
 
 def test_stream_server_without_a_client_raises():
@@ -429,9 +441,6 @@ def test_example_docs_match_the_yaml(name, builder):
 
     text = (Path(__file__).resolve().parents[1] / "examples" / name).read_text()
     doc = builder()
-    if name.startswith("cubic"):  # the port runs the pairs untiered
-        text = text.replace("general:", "experimental: {tpu_stream_tiered: false}\ngeneral:")
-        doc["experimental"] = {"tpu_stream_tiered": False}
     a = GpuEngine(ConfigOptions.from_yaml(text), device="cpu")
     b = GpuEngine(ConfigOptions.from_dict(doc), device="cpu")
     assert a.params == b.params
