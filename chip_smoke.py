@@ -32,7 +32,13 @@ Phases, in order (any failure exits nonzero and prints no result line):
    after: the mixed TCP/UDP mesh (``mixed_flagship_config(10000)``:
    9,800 tgen-mesh hosts and 100 one-to-one stream pairs of 2 MB, strict)
    on the tiered stream pass at the preset's tuning (C=16, K=2, Cx=8,
-   K_s=16, C2=64), then untiered at C=48, K=4, 5 sim s each;
+   K_s=16, C2=64), 5 sim s; the same with netobs on, 5 sim s (the
+   snapshot held to the run's counters, the mesh's 1428 bytes a send, no
+   drop cause, one histogram count per window with a packet); the same
+   with netobs and pcap on the 200 stream endpoints and the first 100
+   mesh hosts, logging, 1 sim s (each capturing host's file holds exactly
+   its PCAP_TX and DELIVERED rows, no other host has a file; the writer
+   timed); the mesh untiered at C=48, K=4, 5 sim s;
    ``examples/cubic-vs-reno.yaml`` (tiered), 60 sim s;
    ``flagship_mesh_config(10000)`` with the bench tuning (C=16,
    K=2, Cx=8, strict), 1 sim s with logging and 10 sim s without;
@@ -48,13 +54,23 @@ segments and foreign datagrams, losses on both sides of the bootstrap end,
 throttled bursts; the star's stream entries in B's exchange; E's rows
 overflowing), then kernels F and G, B's divert, C's tier minimum and D's
 tier record groups on seeded tier states at the tiered mixed mesh's
-shapes (both pop rules, with and without a log); between 7 and 8,
+shapes (both pop rules, with and without a log), then A, B, C, D, F and G
+with the pcap and netobs planes on (the tiered mixed mesh's shapes, A
+also at the PHOLD shapes and on the untiered stream lanes: throttled
+buckets on both sides, CoDel drops, cross sheds, window flushes of 0 and
+past 2**23 packets, capturing lanes and rows beside others); between 7 and
+8,
 card/CPU parity on five untiered stream configs (the pair, the lossy
 pair, the star, ``examples/cubic-vs-reno.yaml`` and a small mixed mesh)
 and six tiered ones (the pair, lossy, CUBIC, the small mixed mesh, a
 250 ms link, dynamic runahead), tiered = untiered, and
 ``examples/stream-tcp.yaml`` for 60 sim s, its first 1.5 sim s card
-against CPU.
+against CPU; between 8 and 9, the planes card against CPU (step and
+device mode) on ``tests/test_torch_obs.py``'s six configurations and on
+the 10k tiered mixed mesh for 100 sim ms with netobs and 300 capturing
+hosts — equal logs, states, netobs snapshots and capture files.  Phase 6
+also times the tiered mixed mesh with netobs, with a log, and with netobs,
+pcap and a log.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -65,10 +81,13 @@ from __future__ import annotations
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1128,10 +1147,10 @@ def check_tier_kernels():
                             lanes.append_log_plain(p_, s, ws))
                     check("append_log", f"tiered {tag} start={start}", kern,
                           plain)
-                trec, _s, _b, ttail, tend = p.tier_rec_offsets
+                tg = p.tier_rec_offsets
                 groups = [int(ws1.rec_valid[a:b].sum()) for a, b in (
-                    (0, trec), (trec, ttail), (ttail, tend),
-                    (tend, p.n_records))]
+                    (0, tg.rec), (tg.rec, tg.tail), (tg.tail, tg.end),
+                    (tg.end, p.n_records))]
                 log(f"append_log tiered {tag}: equal; valid records by group "
                     f"([N] tail, tier slots, tier tail, [N] slots) {groups}")
                 if not all(groups[1:]):
@@ -1178,6 +1197,366 @@ def check_tier_kernels():
 
 
 
+# ---- the observation planes: pcap and netobs ---------------------------------
+
+# where the planes' runs write their capture files (a temporary directory,
+# removed at the end)
+DATA = tempfile.mkdtemp(prefix="chip_smoke_")
+HIST_TOP = 1 << 23  # a window count in the histogram's last bucket
+
+
+def planes(cfg, tag: str, mesh_hosts: int = 100):
+    """``cfg`` with netobs on and pcap on every stream endpoint and the first
+    ``mesh_hosts`` tgen-mesh hosts, writing under ``DATA/tag``.  The files
+    keep each packet's first 128 bytes (``pcap_capture_size``, as
+    ``tcpdump -s 128`` would): the full-width 1 s run writes several
+    hundred thousand records."""
+    cfg.experimental.netobs = True
+    cfg.general.data_directory = f"{DATA}/{tag}"
+    for h in cfg.hosts:
+        path = h.processes[0].path if h.processes else ""
+        h.pcap_enabled = path.startswith("stream-") or (
+            path == "tgen-mesh" and mesh_hosts > 0)
+        h.pcap_capture_size = 128
+        mesh_hosts -= path == "tgen-mesh"
+    return cfg
+
+
+def pcap_files(data) -> dict:
+    return {p.parent.name: p.read_bytes()
+            for p in sorted(Path(data).glob("hosts/*/eth0.pcap"))}
+
+
+def pcap_records(blob: bytes) -> int:
+    """Records of a capture file (24-byte header, 16-byte record headers)."""
+    off, count = 24, 0
+    while off < len(blob):
+        off += 16 + int.from_bytes(blob[off + 8:off + 12], "big")
+        count += 1
+    return count
+
+
+def seed_planes(p, tb, s, rng):
+    """Tables and state with the planes seeded: about half the lanes and
+    endpoint rows capture; the nb_* counters, the histogram and the tier's
+    TV_NB_* rows hold random counts."""
+    n, el = p.n_lanes, tb.flow_lanes.long().cpu()
+    lane_pcap = torch.as_tensor(rng.random(n) < 0.5)
+    tb = tb._replace(lane_pcap=lane_pcap.to(DEV),
+                     flow_pcap=lane_pcap[el].to(DEV))
+    nb = {f: t32(rng.integers(0, 1 << 24, n))
+          for f in ("nb_txb", "nb_rxb", "nb_thr", "nb_shed")}
+    s = s._replace(**nb, nb_hist=t32(rng.integers(0, 100, 24)),
+                   nb_win=t32(rng.integers(0, 1 << 16)).reshape(()))
+    if p.stream_tiered:
+        s.stream.v[lstr.TV_NB_TXB:] = t32(rng.integers(
+            0, 1 << 24, (3, 2 * p.s_flows)))
+    return tb, s
+
+
+def with_log(s, log_cap: int):
+    """``s`` with an empty log of ``log_cap`` rows (one when logging is
+    off), where the engine that made it keeps another."""
+    return s._replace(log=torch.zeros((max(log_cap, 1), 6), dtype=torch.int64,
+                                      device=DEV))
+
+
+def throttling(eng, tb, rng):
+    """``tb`` with random_tables' [N] buckets (2 Mbit to 1 Gbit, waits on
+    both sides)."""
+    r = random_tables(eng, rng)
+    return tb._replace(**{f: getattr(r, f) for f in (
+        "up_rate", "up_burst", "up_kfull", "up_kfi", "dn_rate", "dn_burst",
+        "dn_kfull", "dn_kfi")})
+
+
+def pcap_rows(p, ws, lo: int, hi: int, capture) -> tuple:
+    """(valid PCAP_TX rows in record slots [lo, hi), those from lanes that
+    do not capture)."""
+    valid = ws["rec_valid"][lo:hi].bool()
+    rows = ws["recs"][lo:hi][valid]
+    if rows.numel() and not bool((rows[:, 5] == 4).all()):
+        raise AssertionError("a pcap record slot holds another outcome")
+    return int(valid.sum()), int((~capture[rows[:, 1].long().cpu()]).sum())
+
+
+@phase("kernels A, B, C, D, F vs plain with the pcap and netobs planes on "
+       "(tolerance: exact, integer)")
+def check_plane_kernels():
+    rng = np.random.default_rng(SEED + 4)
+    seen = dict.fromkeys(("nb_thr_lanes", "codel", "nb_rxb", "nb_txb", "nb_shed",
+                          "pc_rows", "pc_not_capturing_senders",
+                          "tier_thr", "tier_rxb", "tier_txb", "tier_pc_rows",
+                          "stream_pc_rows", "phold_pc_rows", "win_popped"), 0)
+    # the tiered mixed mesh's shapes: A on its [N] lanes, B with sheds, F,
+    # G, C's window flush, D on every record group
+    eng = GpuEngine(planes(mixed_tiered(1), "check"), log_capacity=200_000)
+    for wide in (True, False):
+        for log_cap in (0, 200_000):
+            p, tb, s0 = tier_case(eng, rng, wide, log_cap)
+            tb = throttling(eng, tb, rng)
+            tb, s0 = seed_planes(p, tb, with_log(s0, log_cap), rng)
+            ws0 = lanes.make_workspace(p, DEV)
+            ws0.ctl[0] = 1
+            tag = f"planes wide={wide} L={log_cap}"
+            kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots,
+                                   lanes.lane_slots_plain)
+            check("lane_slots", tag, kern, plain)
+            seen["nb_thr_lanes"] += int((plain["nb_thr"] != s0.nb_thr).sum())
+            seen["codel"] += int((plain["n_codel"] - s0.n_codel).sum())
+            seen["nb_rxb"] += int((plain["nb_rxb"] - s0.nb_rxb).sum())
+            seen["nb_txb"] += int((plain["nb_txb"] - s0.nb_txb).sum())
+            seen["win_popped"] += int(plain["nb_win"] - s0.nb_win)
+            if log_cap:
+                rg = p.rec_offsets
+                rows, foreign = pcap_rows(p, plain, rg.pc, rg.spc,
+                                          tb.lane_pcap.cpu())
+                if foreign:
+                    raise AssertionError("a lane that does not capture did")
+                sent = (plain["out_blk"][0] != p.n_lanes).reshape(-1)
+                cap = tb.lane_pcap.repeat(p.pops_per_iter)
+                seen["pc_rows"] += rows
+                seen["pc_not_capturing_senders"] += int((sent & ~cap).sum())
+
+            s1, ws1 = clone(s0), clone(ws0)
+            lanes.lane_slots_plain(p, tb, s1, ws1)
+            random_exchange(p.lane, ws1, rng)
+            kern, plain = run_pair(p, tb, s1, ws1, kernels.exchange_merge,
+                                   lanes.exchange_merge_plain)
+            check("exchange_merge", tag, kern, plain)
+            seen["nb_shed"] += int((plain["nb_shed"] - s1.nb_shed).sum())
+
+            lanes.exchange_merge_plain(p, tb, s1, ws1)
+            kern, plain = run_pair(p, tb, s1, ws1, kernels.stream_tier,
+                                   lanes.stream_tier_plain)
+            check("stream_tier", tag, kern, plain)
+            v0, v1 = s1.stream.v, plain["stream.v"]
+            seen["tier_thr"] += int((v1[lstr.TV_NB_THR] - v0[lstr.TV_NB_THR]).sum())
+            seen["tier_rxb"] += int((v1[lstr.TV_NB_RXB] - v0[lstr.TV_NB_RXB]).sum())
+            seen["tier_txb"] += int((v1[lstr.TV_NB_TXB] - v0[lstr.TV_NB_TXB]).sum())
+            seen["win_popped"] += int(plain["nb_win"] - s1.nb_win)
+            if log_cap:
+                tg = p.tier_rec_offsets
+                rows, foreign = pcap_rows(p, plain, tg.spc, tg.tail,
+                                          tb.lane_pcap.cpu())
+                if foreign:
+                    raise AssertionError("a tier row that does not capture did")
+                seen["tier_pc_rows"] += rows
+
+            lanes.stream_tier_plain(p, tb, s1, ws1)
+            kern, plain = run_pair(p, tb, s1, ws1, kernels.tier_merge,
+                                   lanes.tier_merge_plain)
+            check("tier_merge", tag, kern, plain)
+            if log_cap:
+                lanes.tier_merge_plain(p, tb, s1, ws1)
+                for start in (0, log_cap - 7):
+                    s1.log_count.fill_(start)
+                    kern, plain = run_pair(
+                        p, tb, s1, ws1, kernels.append_log,
+                        lambda p_, tb_, s, ws: lanes.append_log_plain(p_, s, ws))
+                    check("append_log", f"{tag} start={start}", kern, plain)
+            log(f"{tag}: A, B, F, G{', D' if log_cap else ''} equal; {seen}")
+
+            # C: a window advance folds the count, 0 and past 2**23 included
+            # (a stop past the states' times, so the run is live)
+            pc = dataclasses.replace(p, stop_time=2 * T0)
+            for count in (0, 1, 12_345, HIST_TOP + 5, (1 << 30) + 1):
+                for advance in (False, True):
+                    s2 = clone(s0)
+                    s2.nb_win.fill_(count)
+                    we = T0 - 10_000_000  # every head lies past the window
+                    s2.now_we_hi.fill_(we >> 31)
+                    s2.now_we_lo.fill_(we & lanes.MASK31)
+                    kern, plain = run_pair(
+                        pc, tb, s2, ws0,
+                        lambda a, adv=advance: kernels.queue_min_window(a, adv),
+                        lambda p_, tb_, s, ws, adv=advance:
+                            lanes.queue_min_window_plain(p_, s, ws, adv))
+                    check("queue_min_window", f"{tag} count={count} "
+                          f"adv={advance}", kern, plain)
+                    moved = (plain["nb_hist"] - s2.nb_hist).nonzero().flatten()
+                    want = ([] if not (advance and count) else
+                            [min(count.bit_length() - 1, 23)])
+                    if moved.tolist() != want or (
+                            int(plain["nb_win"]) != (0 if want else count)):
+                        raise AssertionError(
+                            f"window flush of {count}: buckets {moved.tolist()}")
+    # A at the PHOLD shapes: active lanes beside passive ones, the loss draw
+    eng_p = GpuEngine(every_other(phold_doc(stop_time="1s")),
+                      log_capacity=1_000_000)
+    for log_cap in (0, 1_000_000):
+        for dyn in (False, True):
+            p = dataclasses.replace(active_params(eng_p, dyn), log_capacity=log_cap)
+            tb = active_tables(eng_p, rng)
+            s0 = active_state(eng_p, tb, rng)
+            tb, s0 = seed_planes(p, tb, with_log(s0, log_cap), rng)
+            ws0 = lanes.make_workspace(p, DEV)
+            ws0.ctl[0] = 1
+            kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots,
+                                   lanes.lane_slots_plain)
+            check("lane_slots", f"planes phold L={log_cap} dyn={dyn}", kern, plain)
+            if log_cap:
+                rg = p.rec_offsets
+                rows, foreign = pcap_rows(p, plain, rg.pc, rg.spc,
+                                          tb.lane_pcap.cpu())
+                if foreign:
+                    raise AssertionError("a phold lane that does not capture did")
+                seen["phold_pc_rows"] += rows
+    # A's stream arm on the untiered mixed mesh's lanes
+    eng_u = GpuEngine(planes(mixed_mesh(1), "check-untiered"),
+                      log_capacity=1_000_000)
+    for log_cap in (0, 1_000_000):
+        p, tb, s0 = stream_case(eng_u, rng)
+        p = dataclasses.replace(p, log_capacity=log_cap)
+        tb, s0 = seed_planes(p, tb, with_log(s0, log_cap), rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots,
+                               lanes.lane_slots_plain)
+        check("lane_slots", f"planes stream L={log_cap}", kern, plain)
+        if log_cap:
+            rg = p.rec_offsets
+            rows, foreign = pcap_rows(p, plain, rg.spc, rg.srec,
+                                      tb.lane_pcap.cpu())
+            if foreign:
+                raise AssertionError("an endpoint that does not capture did")
+            seen["stream_pc_rows"] += rows
+    log(f"planes: every kernel equal; {seen}")
+    if not all(seen.values()):
+        raise AssertionError(f"the planes' inputs missed a case: {seen}")
+
+
+
+def every_other(doc: dict, capture=None) -> ConfigOptions:
+    """The config with netobs on and pcap at the hosts named in
+    ``capture``, or at every other host."""
+    cfg = ConfigOptions.from_dict(doc)
+    cfg.experimental.netobs = True
+    for i, h in enumerate(cfg.hosts):
+        h.pcap_enabled = (h.hostname in capture if capture else i % 2 == 0)
+    return cfg
+
+
+# tests/test_torch_obs.py's configurations (test_telemetry.py's and
+# test_pcap.py's), with both planes on: name -> config builder
+PLANE_PARITY = {
+    # the drop-heavy mesh at Cx = 64 (the package's default Cx = C = 2048
+    # makes a merge row too wide for shared memory; no lane receives more
+    # than 48 entries an iteration, so nothing changes)
+    "drop_heavy": lambda: every_other({
+        "general": {"stop_time": "1500ms", "seed": 11},
+        "experimental": {"tpu_lane_queue_capacity": 2048,
+                         "tpu_cross_capacity": 64},
+        "network": _switch("2 Mbit", "1 Mbit", "10 ms", 0.05),
+        "hosts": {
+            "srv": {"network_node_id": 0, "processes": [{"path": "tgen-server"}]},
+            "cli": {"count": 6, "network_node_id": 0, "processes": [{
+                "path": "tgen-client",
+                "args": "--server srv --interval 5ms --size 1400"}]},
+        }}),
+    "lossy_stream": lambda: every_other({
+        **_stream_pair_doc(loss=0.02, tiered=True, latency="10 ms",
+                           size="400000"),
+        "general": {"stop_time": "6s", "seed": 5, "bootstrap_end_time": "100ms"},
+    }, ("c", "s")),
+    "phold": lambda: every_other({
+        "general": {"stop_time": "1s", "seed": 3},
+        "hosts": {"n": {"count": 8, "processes": [
+            {"path": "phold", "args": "--messages 3 --size 600"}]}}}),
+    "mixed_tiered": lambda: planes(presets.mixed_flagship_config(40, 1),
+                                   "mixed40", mesh_hosts=3),
+    "pcap_tgen": lambda: every_other({
+        "general": {"stop_time": "300ms", "seed": 6},
+        "network": _switch("50 Mbit", "50 Mbit", "4 ms"),
+        "hosts": {
+            "capt": {"network_node_id": 0, "processes": [{
+                "path": "tgen-client",
+                "args": "--server sink --interval 9ms --size 600"}]},
+            "other": {"network_node_id": 0, "processes": [{
+                "path": "tgen-mesh", "args": "--interval 11ms --size 300"}]},
+            "sink": {"network_node_id": 0, "processes": [{"path": "tgen-server"}]},
+        }}, ("capt", "sink")),
+    "pcap_stream": lambda: every_other({
+        "general": {"stop_time": "4s", "seed": 9},
+        "experimental": {"tpu_lane_queue_capacity": 48},
+        "network": _switch("40 Mbit", "40 Mbit", "6 ms"),
+        "hosts": {
+            "capc": {"network_node_id": 0, "processes": [{
+                "path": "stream-client", "args": "--server caps --size 200000"}]},
+            "caps": {"network_node_id": 0, "processes": [
+                {"path": "stream-server"}]},
+            "other": {"network_node_id": 0, "processes": [{
+                "path": "tgen-mesh", "args": "--interval 9ms --size 400"}]},
+        }}, ("capc", "caps")),
+}
+
+
+def plane_run(cfg_fn, dev: str, mode: str, tag: str, log_cap=None):
+    """One run with the planes on, writing under its own directory: the
+    result, the final state, the snapshot and the capture files."""
+    cfg = cfg_fn()
+    cfg.general.data_directory = f"{DATA}/{tag}-{dev}-{mode}"
+    eng = GpuEngine(cfg, device=dev, log_capacity=log_cap)
+    res, st = run_engine(eng, mode)
+    return res, st, eng.netobs_snapshot(), pcap_files(cfg.general.data_directory)
+
+
+def assert_planes_equal(tag: str, a, b) -> None:
+    """Two plane runs equal: logs, counters, final states, the snapshot's
+    arrays and histogram, the capture files byte for byte."""
+    (res_a, st_a, snap_a, files_a), (res_b, st_b, snap_b, files_b) = a, b
+    if res_a.log_tuples() != res_b.log_tuples():
+        raise AssertionError(f"{tag}: event log differs")
+    if res_a.counters != res_b.counters or res_a.rounds != res_b.rounds:
+        raise AssertionError(f"{tag}: counters differ")
+    assert_equal(f"{tag} final state", st_a, st_b)
+    for k, v in snap_a["arrays"].items():
+        if not np.array_equal(v, snap_b["arrays"][k]):
+            raise AssertionError(f"{tag}: netobs {k} differs")
+    if not np.array_equal(snap_a["window_hist"], snap_b["window_hist"]):
+        raise AssertionError(f"{tag}: window histogram differs")
+    if files_a != files_b:
+        raise AssertionError(f"{tag}: capture files differ "
+                             f"({sorted(files_a)} against {sorted(files_b)})")
+
+
+@phase("the planes: card (step and device) against the CPU on six configs "
+       "and the 10k tiered mixed mesh for 100 sim ms")
+def plane_parity():
+    for name, cfg_fn in PLANE_PARITY.items():
+        t0 = time.perf_counter()
+        ref = plane_run(cfg_fn, "cpu", "device", name)
+        res, _st, snap, files = ref
+        tot = {k: int(v.sum()) for k, v in snap["arrays"].items()}
+        if not (files and tot["sent"] and snap["window_hist"].sum()):
+            raise AssertionError(f"{name}: the planes saw nothing")
+        for mode in ("step", "device"):
+            assert_planes_equal(f"{name} cuda/{mode}",
+                                plane_run(cfg_fn, "cuda", mode, name), ref)
+        log(f"{name}: card = CPU; {len(res.event_log)} records, {len(files)} "
+            f"capture files, netobs totals {tot}, windows "
+            f"{int(snap['window_hist'].sum())} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    def mixed_100ms():
+        cfg = planes(mixed_tiered(1), "mixed10k-100ms")
+        cfg.general.stop_time = 100_000_000
+        return cfg
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = plane_run(mixed_100ms, dev, "device", "mixed10k",
+                              log_cap=400_000)
+        log(f"mixed mesh tiered 100 ms, planes on, {dev}: "
+            f"{len(runs[dev][0].event_log)} records, {len(runs[dev][3])} "
+            f"capture files ({time.perf_counter() - t0:.1f} s)")
+    assert_planes_equal("mixed mesh tiered 100 ms, planes on", runs["cuda"],
+                        runs["cpu"])
+    if len(runs["cpu"][3]) != 300:
+        raise AssertionError("want 300 capture files")
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -1196,88 +1575,123 @@ def _event_ms(fn, restore, reps: int) -> float:
     return total / reps
 
 
-def kernel_bytes(p: lanes.LaneParams, tb, ws, tier: dict) -> dict:
+def kernel_bytes(p: lanes.LaneParams, tb, ws, cnt: dict) -> dict:
     """Bytes each kernel must move at these inputs (``ws`` after one A, one
     B and, in untiered one-to-one stream configs, one E, or on a tiered run
-    one F and one G): every input read once, every output written once.  A
-    logging run writes every record slot's valid flag but only the valid
-    rows: B the merge tail's, E the split tail's, A those of its popped
-    slots and stream sends, F its tier records', G the tier tail's.  A
-    tier entry (7 words) is read or written whole only when valid: an
-    empty one needs its time word alone.  ``tier``: the counts of this
-    iteration's tier entries — ``popped`` (the events F popped),
-    ``cross`` (the valid entries of B's diverted block), ``cand`` (F's
-    valid candidates), ``merged`` (the valid entries G merged: queue and
-    candidates) and ``kept`` (the valid entries of G's rows)."""
+    one F and one G): every input read once, every output written once.  An
+    entry (a queue slot, a self, outbound, stream or tier block entry) is
+    read or written whole only when valid: an empty one needs its time word
+    alone.  A logging run writes every record slot's valid flag but only
+    the valid rows (48 bytes each): B the merge tail's, E the split tail's,
+    A those of its popped slots, its PCAP_TX captures and stream sends, F
+    its tier records' (its captures included), G the tier tail's.  With
+    netobs, each ``nb_*`` word a kernel touches is read and written once.
+    ``cnt``: this iteration's counts — ``head`` (valid entries of the [N]
+    head columns A reads), ``popped`` (those A popped), ``self``,
+    ``out``, ``sx`` (valid entries of A's self, outbound and stream
+    blocks), ``b_in``/``b_out`` (valid [N] queue entries before and after
+    B), ``e_in``/``e_out`` (valid entries of the endpoint lanes' rows
+    before and after E), and on a tiered run ``tier_popped`` (the events F
+    popped), ``cross`` (the valid entries of B's diverted block), ``cand``
+    (F's valid candidates), ``merged`` (the valid entries G merged: queue
+    and candidates) and ``kept`` (the valid entries of G's rows)."""
     pl = p.lane
     n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
     sw, words = pl.self_width, pl.words
     g = int(tb.lat.shape[0])
-    tail, slots, _srec, _brec, end = p.rec_offsets
+    rg = p.rec_offsets
     n_rec = ws.rec_valid.numel() if p.log_capacity else 0
-    tail_rows = int(ws.rec_valid[:tail].sum()) if n_rec else 0
-    split_rows = int(ws.rec_valid[tail:slots].sum()) if n_rec else 0
-    a_rows = int(ws.rec_valid[slots:].sum()) if n_rec else 0
+    tail_rows = int(ws.rec_valid[:rg.split].sum()) if n_rec else 0
+    split_rows = int(ws.rec_valid[rg.split:rg.slots].sum()) if n_rec else 0
+    a_rows = int(ws.rec_valid[rg.slots:].sum()) if n_rec else 0
+
+    def entries(valid: int, total: int, width: int) -> int:
+        return valid * width * 4 + (total - valid) * 4
+
     state_vec = (len(lanes._SLOT_FIELDS) - 1) * 4 + 1  # [N] words (+ the bool)
     tables = 17 * 4  # [N] table words read per lane
-    a_in = (n * (k * words * 4 + state_vec + tables) + g * g * (4 + 8)
-            + 1025 * 4 + 4 * 4)
-    a_out = n * (k * 2 * 4 + state_vec) + (words * sw + 6 * k) * n * 4 + 4
+    a_in = (entries(cnt["head"], n * k, words) + n * (state_vec + tables)
+            + g * g * (4 + 8) + 1025 * 4 + 4 * 4)
+    a_out = (cnt["popped"] * 2 * 4 + n * state_vec
+             + entries(cnt["self"], n * sw, words)
+             + entries(cnt["out"], n * k, 6) + 4)
     n_ent = pl.stream_entries
     if pl.stream_present:
         # the flow rows read and written, the [2S] flow tables (14 int32, the
         # int64 threshold), the lane -> row table, the stream block written
         s2 = 2 * p.s_flows
         a_in += s2 * lstr.N_COLS * 4 + s2 * (14 * 4 + 8) + (n + 1 + s2) * 4
-        a_out += s2 * lstr.N_COLS * 4 + n_ent * 8 * 4
+        a_out += s2 * lstr.N_COLS * 4 + entries(cnt["sx"], n_ent, 8)
     if p.log_capacity:
-        a_out += (end - slots) * 4 + a_rows * 6 * 8
+        a_out += (rg.end - rg.slots) * 4 + a_rows * 6 * 8
+    if p.pcap_any and p.log_capacity:
+        a_in += n + (2 * p.s_flows if pl.stream_pcap else 0)  # bool tables
+    if p.netobs:
+        a_in += n * 3 * 4 + 4  # nb_txb, nb_rxb, nb_thr; nb_win
+        a_out += n * 3 * 4 + 4
     x_ent = k * n + (0 if p.split else n_ent)
-    b_in = n * c * words * 4 + words * n * sw * 4 + x_ent * 4 + n * 4
+    b_in = (entries(cnt["b_in"], n * c, words)
+            + entries(cnt["self"], n * sw, words) + x_ent * 4 + n * 4)
     # the selected cross entries (stream entries carry two more words)
     b_in += int(ws.x_cnt.clamp(max=cx).sum()) * words * 4
-    b_out = n * c * words * 4 + n * 4
+    b_out = entries(cnt["b_out"], n * c, words) + n * 4
     if p.log_capacity:
-        b_out += tail * 4 + tail_rows * 6 * 8
+        b_out += rg.split * 4 + tail_rows * 6 * 8
+    if p.netobs:  # nb_shed
+        b_in += n * 4
+        b_out += n * 4
     f_io = g_io = 0
     if p.stream_tiered:
         s2, ks, c2 = 2 * p.s_flows, p.stream_pops, p.stream_capacity
         sa0, _se0, _bo0, cx0, t_end = p.tier_layout
         # B: the lane -> row table and the diverted cross block written
         b_in += n + n * 4
-        b_out += (t_end - cx0) * 4 + tier["cross"] * 6 * 4
+        b_out += (t_end - cx0) * 4 + cnt["cross"] * 6 * 4
         # F: its K_s columns (7 words) read and the popped time words
-        # written, the flow rows and the 22 tier vector rows read and
-        # written, its [2S] tables (16 int32, the int64 threshold), the
-        # candidate channels written; records: every slot's flag, the valid
-        # rows
-        f_io = (s2 * ks * 7 * 4 + tier["popped"] * 2 * 4
-                + 2 * s2 * (lstr.N_COLS + 22) * 4 + s2 * (16 * 4 + 8)
-                + 1025 * 4 + cx0 * 4 + tier["cand"] * 6 * 4)
-        trec, _s, _b, ttail, tend = p.tier_rec_offsets
+        # written, the flow rows and the 22 tier vector rows (25 with
+        # netobs) read and written, its [2S] tables (16 int32, the int64
+        # threshold, with pcap the bool), the candidate channels written;
+        # records: every slot's flag, the valid rows
+        rows = 22 + (3 if p.netobs else 0)
+        f_io = (s2 * ks * 7 * 4 + cnt["tier_popped"] * 2 * 4
+                + 2 * s2 * (lstr.N_COLS + rows) * 4 + s2 * (16 * 4 + 8)
+                + 1025 * 4 + cx0 * 4 + cnt["cand"] * 6 * 4)
+        if p.netobs:
+            f_io += 2 * 4  # nb_win
+        tg = p.tier_rec_offsets
         if p.log_capacity:
-            f_io += ((ttail - trec) * 4
-                     + int(ws.rec_valid[trec:ttail].sum()) * 6 * 8)
+            f_io += ((tg.tail - tg.rec) * 4
+                     + int(ws.rec_valid[tg.rec:tg.tail].sum()) * 6 * 8)
+            if p.stream_pcap:
+                f_io += s2
         # G: the time word of every entry it can hold (a client row has no
         # burst block), the other six of each valid one; the rows written
         # the same way; the overflow counter; records: every tail flag, the
         # valid rows
         g_in = s2 * (c2 + p.tier_width) - p.s_flows * ks * lanes.PUMP_BURST
-        g_io = (g_in * 4 + tier["merged"] * 6 * 4 + s2 * c2 * 4
-                + tier["kept"] * 6 * 4 + s2 * 8 + s2 * 4)
+        g_io = (g_in * 4 + cnt["merged"] * 6 * 4 + s2 * c2 * 4
+                + cnt["kept"] * 6 * 4 + s2 * 8 + s2 * 4)
         if p.log_capacity:
-            g_io += ((tend - ttail) * 4
-                     + int(ws.rec_valid[ttail:tend].sum()) * 6 * 8)
+            g_io += ((tg.end - tg.tail) * 4
+                     + int(ws.rec_valid[tg.tail:tg.end].sum()) * 6 * 8)
     e_io = 0
     if p.split:
         s2 = 2 * p.s_flows
-        e_io = (2 * s2 * c * words * 4 + n_ent * 7 * 4 + 2 * s2 * 4
-                + s2 * 4)
+        # the endpoint lanes' rows read and written; of the stream block,
+        # the entries the static layout gives a row (control sends and RTO
+        # arms [K] each, a server row's client bursts [K*B]), every valid
+        # one of which lies there; the lane and counter words
+        e_read = s2 * 2 * k + p.s_flows * k * lanes.PUMP_BURST
+        e_io = (entries(cnt["e_in"], s2 * c, words)
+                + entries(cnt["e_out"], s2 * c, words)
+                + entries(cnt["sx"], e_read, 7) + 2 * s2 * 4 + s2 * 4)
         if p.log_capacity:
-            e_io += (slots - tail) * 4 + split_rows * 6 * 8
+            e_io += (rg.slots - rg.split) * 4 + split_rows * 6 * 8
     c_io = n * 8 + 4 * 4 + 6 * 4 + 4
     if p.stream_tiered:
         c_io += 2 * p.s_flows * 8  # the tier rows' heads
+    if p.netobs:
+        c_io += 2 * 2 * 4  # nb_win and one histogram word
     valid = int(ws.rec_valid.sum()) if n_rec else 0
     d_in = n_rec * 4 + valid * 6 * 8
     d_out = valid * 6 * 8 + 8
@@ -1400,28 +1814,42 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         copy_into(s, snap[0])
         copy_into(ws_, snap[1])
 
-    # inputs of B, E, F, G and D are A's outputs (and B's): stage them once
+    # inputs of B, E, F, G and D are A's outputs (and B's): stage them once,
+    # counting the valid entries each kernel moves (kernel_bytes)
+    never = lanes.NEVER32
+    k = p.pops_per_iter
+    cnt = {"head": int((s.q_thi[:, :k] != never).sum())}
     kernels.lane_slots(args)
+    cnt["popped"] = int(((snap_s.q_thi[:, :k] != never)
+                         & (s.q_thi[:, :k] == never)).sum())
+    cnt["self"] = int((ws_.self_blk[0] != never).sum())
+    cnt["out"] = int((ws_.out_blk[1] != never).sum())
+    cnt["sx"] = (int((ws_.sx_blk[1] != never).sum())
+                 if p.lane.stream_present else 0)
+    cnt["b_in"] = int((s.q_thi != never).sum())
     kernels.exchange_merge(args)
+    cnt["b_out"] = int((s.q_thi != never).sum())
     if p.split:
+        el = tb.flow_lanes.long()
+        cnt["e_in"] = int((s.q_thi[el] != never).sum())
         kernels.stream_rows_merge(args)
-    tier = {}
+        cnt["e_out"] = int((s.q_thi[el] != never).sum())
     if p.stream_tiered:
         cx0 = p.tier_layout[3]
-        tier["cross"] = int((ws_.tier_blk[0, cx0:] != lanes.NEVER32).sum())
+        cnt["cross"] = int((ws_.tier_blk[0, cx0:] != never).sum())
         before = s.stream.q[0, :, :p.stream_pops].clone()
         kernels.stream_tier(args)
-        tier["popped"] = int((before != s.stream.q[0, :, :p.stream_pops])
-                             .sum())
-        tier["cand"] = int((ws_.tier_blk[0, :cx0] != lanes.NEVER32).sum())
-        tier["merged"] = (int((s.stream.q[0] != lanes.NEVER32).sum())
-                          + tier["cand"] + tier["cross"])
+        cnt["tier_popped"] = int((before != s.stream.q[0, :, :p.stream_pops])
+                                 .sum())
+        cnt["cand"] = int((ws_.tier_blk[0, :cx0] != never).sum())
+        cnt["merged"] = (int((s.stream.q[0] != never).sum())
+                         + cnt["cand"] + cnt["cross"])
         kernels.tier_merge(args)
-        tier["kept"] = int((s.stream.q[0] != lanes.NEVER32).sum())
-        log(f"{label}: tier entries in the timed iteration: {tier}")
+        cnt["kept"] = int((s.stream.q[0] != never).sum())
+    log(f"{label}: valid entries in the timed iteration: {cnt}")
     torch.cuda.synchronize()
     snap_mid = (clone(s), clone(ws_))
-    nbytes = kernel_bytes(p, tb, ws_, tier)
+    nbytes = kernel_bytes(p, tb, ws_, cnt)
 
     reps = 50
     plan = {
@@ -1503,11 +1931,19 @@ def time_all() -> dict:
         # the untiered mixed mesh (kernel E): 40 steps in, the flows are in
         # slow start
         "mixed": time_kernels("mixed mesh, untiered", mixed_mesh(2), 0, 40),
-        # this slice's main path, the tiered mixed mesh (kernels F and G):
-        # 20 steps in (the tier pops up to 16 events a row per step), the
-        # flows are in slow start
+        # the tiered mixed mesh (kernels F and G): 20 steps in (the tier
+        # pops up to 16 events a row per step), the flows are in slow start
         "mixed_tiered": time_kernels("mixed mesh, tiered", mixed_tiered(2), 0,
                                      20),
+        # ... with the planes: netobs alone, then a log without and with
+        # netobs and pcap (pcap rides the log), on the same states
+        "mixed_tiered_netobs": time_kernels(
+            "mixed mesh, tiered, netobs", netobs_only(mixed_tiered(2)), 0, 20),
+        "mixed_tiered_log": time_kernels(
+            "mixed mesh, tiered, logging", mixed_tiered(2), 2_000_000, 20),
+        "mixed_tiered_pcap": time_kernels(
+            "mixed mesh, tiered, netobs + pcap, logging",
+            planes(mixed_tiered(2), "timing"), 2_000_000, 20),
     }
     # rand_u32 alone: one draw per lane and slot of a PHOLD iteration
     m = N_FLAG * K_PHOLD
@@ -1914,7 +2350,7 @@ def full_width_parity():
             raise AssertionError("mixed mesh 100 ms: no stream data yet")
 
 
-def check_flagship(res, sim_s: int, log_cap: int) -> None:
+def check_flagship(res, sim_s: int, log_cap: int, _eng=None) -> None:
     exp = expected_mesh(N_FLAG, sim_s)
     got = {k: res.counters.get(k, 0) for k in exp}
     if got != exp:
@@ -1927,7 +2363,7 @@ def check_flagship(res, sim_s: int, log_cap: int) -> None:
             raise AssertionError("log times outside the run")
 
 
-def check_phold(res, _sim_s: int, _log_cap: int) -> None:
+def check_phold(res, _sim_s: int, _log_cap: int, _eng=None) -> None:
     """Message conservation: each of the 40,000 messages is sent once at
     the start and once per hop; nothing is lost or dropped."""
     c = res.counters
@@ -1943,7 +2379,7 @@ def check_phold(res, _sim_s: int, _log_cap: int) -> None:
         raise AssertionError("want sends >= delivered >= hops > 0")
 
 
-def check_lossy(res, _sim_s: int, _log_cap: int) -> None:
+def check_lossy(res, _sim_s: int, _log_cap: int, _eng=None) -> None:
     """Every tick sends; 1% of the sends are lost, within 5 sigma (98,327
     to 101,473 of 9,990,000); what is neither delivered nor lost was sent
     in the last tick."""
@@ -1989,7 +2425,7 @@ def check_mixed(res, _sim_s: int, _log_cap: int, tiered: bool) -> None:
         raise AssertionError(f"drops {drops}")
 
 
-def check_cubic_vs_reno(res, _sim_s: int, _log_cap: int) -> None:
+def check_cubic_vs_reno(res, _sim_s: int, _log_cap: int, _eng=None) -> None:
     """Both flows (CUBIC and NewReno) complete with their 2,000,000 bytes
     across the 1% loss, with retransmissions; no queue drop."""
     c = res.counters
@@ -2005,16 +2441,93 @@ def check_cubic_vs_reno(res, _sim_s: int, _log_cap: int) -> None:
 
 
 # the main paths: name -> (config, log capacity, check, sim seconds)
+def netobs_only(cfg):
+    cfg.experimental.netobs = True
+    return cfg
+
+
+def planes_log_capacity() -> int:
+    """The 1 s planes run's log, sized from its counts: every mesh delivery
+    of the closed form, a PCAP_TX row per send of the 100 capturing mesh
+    hosts, and per stream pair at most 4 rows per segment each way (a
+    capture at the sender, a delivery at the receiver; the data segments,
+    SYN and FIN, and as many ACKs)."""
+    mesh = N_FLAG - 200
+    segs = -(-2_000_000 // 1448)  # the stream-client's default MSS
+    return (expected_mesh(mesh, 1)["lane_delivered"] + 100 * 99
+            + 100 * 4 * (segs + 3))
+
+
+def check_netobs(res, sim_s: int, log_cap: int, eng) -> None:
+    """The netobs run: the flows' closed form as without it; the snapshot's
+    packets equal the run's counters, the mesh's bytes 1428 a send, every
+    drop cause 0 (the mesh is loss-free), and the histogram counts each
+    window with a packet once: every window but the first, which holds
+    only the start events (the first packets, the SYNs sent at 0, arrive
+    at 10 ms, the first window's end)."""
+    check_mixed(res, sim_s, log_cap, True)
+    snap = eng.netobs_snapshot()
+    a, c = snap["arrays"], res.counters
+    tot = {k: int(v.sum()) for k, v in a.items()}
+    mesh = (eng.tables.model == lanes.M_TGEN_MESH).cpu().numpy()
+    hist = snap["window_hist"]
+    log(f"netobs: totals {tot}; window histogram {hist.tolist()} "
+        f"({int(hist.sum())} windows of {res.rounds})")
+    if tot["sent"] != c["lane_sends"] or tot["delivered"] != c["lane_delivered"]:
+        raise AssertionError("netobs packets differ from the run's counters")
+    if int(a["tx_bytes"][mesh].sum()) != 1428 * int(a["sent"][mesh].sum()):
+        raise AssertionError("the mesh's tx_bytes are not 1428 a send")
+    drops = {k: tot[k] for k in ("drop_loss", "drop_codel", "drop_queue",
+                                 "drop_cross_shed", "retry_giveup")}
+    if any(drops.values()):
+        raise AssertionError(f"drops on a loss-free mesh: {drops}")
+    if int(hist.sum()) != res.rounds - 1 or res.rounds > 500:
+        raise AssertionError("the window histogram does not count the windows")
+
+
+def check_pcap(res, _sim_s: int, log_cap: int, eng) -> None:
+    """The planes run with pcap: each capturing host's file holds exactly
+    its PCAP_TX rows (one per send: the mesh is loss-free) and its
+    DELIVERED rows, and no other host has a file or a PCAP_TX row."""
+    s = eng._live_state
+    rows = s.log[: int(s.log_count)].cpu().numpy()
+    n = eng.params.n_lanes
+    tx = np.bincount(rows[rows[:, 5] == 4, 1], minlength=n)
+    rx = np.bincount(rows[rows[:, 5] == 0, 2], minlength=n)
+    files = pcap_files(eng.cfg.general.data_directory)
+    capture = np.array([h.pcap_enabled for h in eng.cfg.hosts])
+    sent = eng.netobs_snapshot()["arrays"]["sent"]
+    log(f"pcap: {len(rows)} log rows of {log_cap}, {int(tx.sum())} PCAP_TX, "
+        f"{len(files)} capture files of {sum(len(b) for b in files.values())} "
+        f"bytes, written in {eng.pcap_write_s:.3f} s")
+    if set(files) != {h.hostname for h in eng.cfg.hosts if h.pcap_enabled}:
+        raise AssertionError("capture files are not the capturing hosts'")
+    if int(tx[~capture].sum()) or not np.array_equal(tx[capture],
+                                                     sent[capture]):
+        raise AssertionError("PCAP_TX rows are not the capturing hosts' sends")
+    for hid, h in enumerate(eng.cfg.hosts):
+        if h.pcap_enabled and pcap_records(files[h.hostname]) != tx[hid] + rx[hid]:
+            raise AssertionError(f"{h.hostname}: capture file records differ "
+                                 "from its log rows")
+
+
 MAIN_PATHS = {
-    # this slice's: the mixed TCP/UDP mesh at 10,000 hosts, tiered at the
-    # preset's own tuning
+    # the mixed TCP/UDP mesh at 10,000 hosts, tiered at the preset's own
+    # tuning
     "mixed mesh 10k, tiered, 5 s": (
         lambda: mixed_tiered(5), 0,
-        lambda r, s_, l_: check_mixed(r, s_, l_, True), 5),
+        lambda r, s_, l_, _e: check_mixed(r, s_, l_, True), 5),
+    # this slice's: the same with netobs on, and with netobs and pcap (the
+    # 200 stream endpoints and 100 mesh hosts) and a log, 1 s
+    "mixed mesh 10k, tiered, netobs, 5 s": (
+        lambda: netobs_only(mixed_tiered(5)), 0, check_netobs, 5),
+    "mixed mesh 10k, tiered, netobs + pcap, logging, 1 s": (
+        lambda: planes(mixed_tiered(1), "main"), planes_log_capacity(),
+        check_pcap, 1),
     # the same mesh untiered (kernel E), at the pre-tier queue shape
     "mixed mesh 10k, untiered, 5 s": (
         lambda: mixed_mesh(5), 0,
-        lambda r, s_, l_: check_mixed(r, s_, l_, False), 5),
+        lambda r, s_, l_, _e: check_mixed(r, s_, l_, False), 5),
     # examples/cubic-vs-reno.yaml as it stands: tiered, CUBIC in the tier
     "cubic-vs-reno.yaml, 60 s": (
         lambda: ConfigOptions.from_dict(presets.cubic_vs_reno_example_doc()),
@@ -2039,6 +2552,12 @@ def main_path():
     drawing = 0  # launches of A on paths whose A runs the threefry draw
     for name, (cfg_fn, log_cap, check_fn, sim_s) in MAIN_PATHS.items():
         eng = GpuEngine(cfg_fn(), log_capacity=log_cap)
+        if eng.params.pcap_any:  # the capture files' writer, timed
+            def timed(*a, write=eng._write_pcaps, eng=eng):
+                t0 = time.perf_counter()
+                write(*a)
+                eng.pcap_write_s = time.perf_counter() - t0
+            eng._write_pcaps = timed
         kernels.reset_launches()
         t0 = time.perf_counter()
         res = eng.run(mode="device")
@@ -2049,7 +2568,7 @@ def main_path():
             f"{res.wall_seconds:.3f} s, with set-up and collect {total:.3f} "
             f"s); launches {counts}; nvidia-smi: {smi_line()}")
         rates[name] = res.sim_seconds_per_wall_second
-        check_fn(res, sim_s, log_cap)
+        check_fn(res, sim_s, log_cap, eng)
         for k in path_kernels(eng.params):
             if counts[k] <= 0:
                 raise AssertionError(f"{name}: {k} was not launched")
@@ -2087,11 +2606,13 @@ def main() -> int:
     check_active_kernels()
     check_stream_kernels()
     check_tier_kernels()
+    check_plane_kernels()
     times = time_all()
     parity()
     stream_parity()
     stream_tcp_example()
     full_width_parity()
+    plane_parity()
     main_out = main_path()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
@@ -2102,7 +2623,8 @@ def main() -> int:
         log(f"ptxas: {line}")
     for name, rate in rates.items():
         log(f"sim-s/wall-s, {name}: {rate:.3f} ({smi})")
-    for cfg_name in ("mixed_tiered", "mixed", "flagship", "flagship_log",
+    for cfg_name in ("mixed_tiered", "mixed_tiered_netobs", "mixed_tiered_log",
+                     "mixed_tiered_pcap", "mixed", "flagship", "flagship_log",
                      "phold", "lossy"):
         for name, t in times[cfg_name].items():
             if name == "loop":
@@ -2152,6 +2674,17 @@ def main() -> int:
             # the tier's state, and the same lane-TCP law (device functions
             # shared with A)
             row["state"] = "shadow_tpu/backend/lanes_stream.py:907"
+        # the same kernel with the observation planes on and off, on the
+        # tiered mixed mesh's states in one call: without a log (netobs
+        # alone), and with one (off, then netobs and pcap)
+        row["planes"] = {
+            plane: {"ms": times[key][name]["ms"],
+                    "bound_ms": times[key][name]["bound_ms"]}
+            for plane, key in (("off", "mixed_tiered"),
+                               ("netobs", "mixed_tiered_netobs"),
+                               ("log", "mixed_tiered_log"),
+                               ("log_netobs_pcap", "mixed_tiered_pcap"))
+            if name in times[key]}
         if name == "rand_u32":
             # the launcher runs on no main path: its own launches in the
             # phase that timed it
@@ -2167,4 +2700,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        shutil.rmtree(DATA, ignore_errors=True)
+    sys.exit(code)

@@ -7,7 +7,8 @@ the port, and compares the two field by field; the port itself never
 touches JAX.  Fields the port does not carry are ignored.
 
 Every field must arrive in the dtype the port keeps — int32, the int64
-log and loss thresholds, the bool ``cd_dropping`` — and any other dtype
+log and loss thresholds, the bool ``cd_dropping``, ``lane_stream``,
+``lane_pcap`` and ``flow_pcap`` — and any other dtype
 raises, with these mappings made explicit:
 
 - the reference keeps its loss thresholds as ``thresh_u32`` (uint32, the
@@ -16,9 +17,10 @@ raises, with these mappings made explicit:
   keeps one int64 ``thresh``/``flow_thresh`` in
   ``core.rng.loss_threshold``'s u64 domain, since PyTorch cannot compare
   uint32.  ``thresh = 2**32`` where ``thresh_all``, else ``thresh_u32``;
-- the reference's ``()`` placeholder of a stream field in a run without
-  streams (``q_phi``, ``q_plo``, ``stream`` — ``np.asarray(())`` is an
-  empty float64 array) is the port's empty int32 tensor;
+- the reference's ``()`` placeholder of a field its run does not use (the
+  stream fields ``q_phi``, ``q_plo``, ``stream`` without streams, the
+  ``nb_*`` counters without netobs — ``np.asarray(())`` is an empty
+  float64 array) is the port's empty int32 tensor;
 - the reference's ``StreamState(cl, sv)`` arrives stacked, ``[2, S, F]``
   (what ``np.asarray`` makes of it), which is the port's ``stream``;
 - on a tiered run ``stream`` arrives as the three arrays of the
@@ -40,7 +42,8 @@ from .lanes_stream import TierState
 
 _DTYPES = {"cd_dropping": torch.bool, "log": torch.int64,
            "thresh": torch.int64, "flow_thresh": torch.int64,
-           "lane_stream": torch.bool}
+           "lane_stream": torch.bool, "lane_pcap": torch.bool,
+           "flow_pcap": torch.bool}
 _NP = {torch.int32: np.int32, torch.int64: np.int64, torch.bool: np.bool_}
 
 

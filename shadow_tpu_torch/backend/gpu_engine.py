@@ -2,17 +2,20 @@
 
 The counterpart of the JAX package's ``TpuEngine`` for its lane path (tgen,
 phold, ping, lane-TCP streams, untiered or on the tiered stream pass;
-loss, bootstrap, dynamic runahead): it builds the same tables and initial
-state from a config (same host ordering, routing, runahead, bucket
-parameters, loss thresholds, flow tables and int32 guards), runs the
-window loop with the lane kernels on one device, and reads the result
-back into a :class:`SimResult` that compares directly with the
-reference's.
+loss, bootstrap, dynamic runahead; pcap capture and the netobs plane): it
+builds the same tables and initial state from a config (same host
+ordering, routing, runahead, bucket parameters, loss thresholds, flow
+tables and int32 guards), runs the window loop with the lane kernels on
+one device, and reads the result back into a :class:`SimResult` that
+compares directly with the reference's — with pcap, the capture files of
+``<data_directory>/hosts/<name>/eth0.pcap`` byte for byte, and with
+netobs, ``netobs_snapshot()`` counter for counter.
 """
 
 from __future__ import annotations
 
 import time as wall_time
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -28,9 +31,11 @@ from ..models.tgen import Ping, TgenClient, TgenMesh, TgenServer
 from ..net import codel as codel_mod
 from ..net import ltcp
 from ..net.token_bucket import bucket_params
+from ..obs import netobs as nom
+from ..utils.pcap import PcapWriter
 from . import bridge, lanes
 from . import lanes_stream as lstr
-from .results import LogRecord, SimResult
+from .results import DELIVERED, PCAP_TX, LogRecord, SimResult
 from .setup import build_world
 
 NEVER = stime.NEVER
@@ -86,8 +91,10 @@ class GpuEngine:
         self.cfg = cfg
         self.strict_capacity = strict_capacity
         n = len(cfg.hosts)
-        _graph, _ips, self.dns, self.routing, bw_up, bw_dn, runahead = (
+        _graph, self.ips, self.dns, self.routing, bw_up, bw_dn, runahead = (
             build_world(cfg))
+        # the netobs snapshot of the last collected run
+        self._netobs_data = None
 
         # --- per-lane model tables and initial events ---------------------
         model = np.zeros(n, dtype=np.int32)
@@ -257,6 +264,16 @@ class GpuEngine:
         # the dynamic window never exceeds the largest link latency
         max_lat = int(np.max(np.asarray(lat), initial=0))
         stream_wide_pop = max(runahead, max_lat) < ltcp.RTO_MIN
+        # pcap rides the device log: a capturing host's sends become
+        # PCAP_TX records, its deliveries are the DELIVERED records
+        lane_pcap = np.array([h.pcap_enabled for h in cfg.hosts], dtype=bool)
+        pcap_any = bool(lane_pcap.any())
+        if pcap_any and log_capacity == 0:
+            raise LaneCompatError(
+                "pcap capture on the lane backend rides the device event "
+                "log; log_capacity=0 disables it — enable logging"
+            )
+        ends = np.concatenate([client_ids, p_peer[client_ids]]).astype(np.int64)
 
         self.params = lanes.LaneParams(
             n_lanes=n,
@@ -278,6 +295,9 @@ class GpuEngine:
             stream_tiered=tiered,
             stream_pops=cfg.experimental.tpu_stream_events_per_round,
             stream_capacity=cfg.experimental.tpu_stream_queue_capacity,
+            pcap_any=pcap_any,
+            stream_pcap=bool(lane_pcap[ends].any()),
+            netobs=bool(cfg.experimental.netobs),
         )
 
         up = np.array([bucket_params(int(b)) for b in bw_up], dtype=np.int64)
@@ -392,6 +412,8 @@ class GpuEngine:
             flow_dn_kfull=t32(dn_kfull[el_t]), flow_dn_kfi=t32(dn_kfi[el_t]),
             lane_stream=torch.as_tensor(lane_stream, device=self.device),
             lane_ep_start=t32(ep_start), lane_ep_rows=t32(ep_rows),
+            lane_pcap=torch.as_tensor(lane_pcap, device=self.device),
+            flow_pcap=torch.as_tensor(lane_pcap[el], device=self.device),
         )
         self._up_burst = up[:, 1]
         self._dn_burst = dn[:, 1]
@@ -424,6 +446,10 @@ class GpuEngine:
         def pay():  # payload words only where stream events ride the queues
             shape = (n, c) if p.lane.stream_present else (0,)
             return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        def nb(*shape):  # the netobs block, empty when it is off
+            return torch.zeros(shape if p.netobs else (0,),
+                               dtype=torch.int32, device=dev)
 
         if p.stream_tiered:
             stream = self._initial_tier(t_cols)
@@ -460,6 +486,8 @@ class GpuEngine:
             rounds=scalar(0), iters=scalar(0),
             now_we_hi=scalar(0), now_we_lo=scalar(0),
             min_used_lat=scalar(lanes.NEVER32),
+            nb_txb=nb(n), nb_rxb=nb(n), nb_thr=nb(n), nb_shed=nb(n),
+            nb_hist=nb(lanes.NB_HIST_BUCKETS), nb_win=nb(),
         )
 
     def _initial_tier(self, cols) -> lstr.TierState:
@@ -528,8 +556,11 @@ class GpuEngine:
     def collect(self, s: lanes.LaneState, wall: float) -> SimResult:
         # every per-lane counter is monotone, so an int32 wrap shows as a
         # negative value: raise instead of reporting garbage
-        for fname in ("send_seq", "local_seq", "app_draws", "n_delivered",
-                      "n_sends", "n_hops", "recv_bytes", "m_peer_offset"):
+        wrap_check = ["send_seq", "local_seq", "app_draws", "n_delivered",
+                      "n_sends", "n_hops", "recv_bytes", "m_peer_offset"]
+        if self.params.netobs:
+            wrap_check += ["nb_txb", "nb_rxb", "nb_thr"]
+        for fname in wrap_check:
             if int(getattr(s, fname).min()) < 0:
                 raise RuntimeError(
                     f"lane counter {fname} wrapped past 2**31; this run "
@@ -561,7 +592,12 @@ class GpuEngine:
                 "raise log_capacity or disable logging"
             )
         log_count = min(int(s.log_count), self.params.log_capacity)
-        event_log = [LogRecord(*row) for row in s.log[:log_count].tolist()]
+        rows = s.log[:log_count].cpu().numpy()
+        if self.params.pcap_any:
+            pcap_rows = rows[rows[:, 5] == PCAP_TX]
+            rows = rows[rows[:, 5] != PCAP_TX]
+            self._write_pcaps(rows, pcap_rows)
+        event_log = [LogRecord(*row) for row in rows.tolist()]
         model = self.tables.model
         tgen = ((model == lanes.M_TGEN_MESH) | (model == lanes.M_TGEN_CLIENT)
                 | (model == lanes.M_TGEN_SERVER))
@@ -595,6 +631,8 @@ class GpuEngine:
             add("stream_rx_bytes", int(sv_m[:, lstr.C_RX_BYTES].sum()))
             add("stream_rx_segs", int(sv_m[:, lstr.C_RX_SEGS].sum()))
             add("stream_flows_done", int((sv_m[:, lstr.C_COMPLETED] != 0).sum()))
+        if self.params.netobs:
+            self._netobs_data = self._netobs_collect(s)
         return SimResult(
             sim_time_ns=self.params.stop_time,
             wall_seconds=wall,
@@ -602,3 +640,78 @@ class GpuEngine:
             event_log=event_log,
             counters=counters,
         )
+
+    def _write_pcaps(self, event_rows: np.ndarray,
+                     pcap_rows: np.ndarray) -> None:
+        """The capture files of the capturing hosts, from the device log:
+        outbound = the PCAP_TX records (at bucket departure), inbound = the
+        DELIVERED records (at delivery) — the reference's two capture
+        points, written in ``(time, direction, src, dst, seq)`` order, so
+        the files are byte-identical to its own."""
+        # one sort per array, then each host's rows as a slice
+        out_sorted = pcap_rows[np.argsort(pcap_rows[:, 1], kind="stable")]
+        delivered = event_rows[event_rows[:, 5] == DELIVERED]
+        in_sorted = delivered[np.argsort(delivered[:, 2], kind="stable")]
+        root = Path(self.cfg.general.data_directory) / "hosts"
+        for hid, hopt in enumerate(self.cfg.hosts):
+            if not hopt.pcap_enabled:
+                continue
+            w = PcapWriter(root / hopt.hostname / "eth0.pcap",
+                           snaplen=hopt.pcap_capture_size)
+            for rows, col, dirn in ((out_sorted, 1, 1), (in_sorted, 2, 0)):
+                lo, hi = np.searchsorted(rows[:, col], [hid, hid + 1])
+                for t, src, dst, seq, size, _o in rows[lo:hi].tolist():
+                    w.capture(stime.sim_to_emu(t), self.ips.by_host[src],
+                              self.ips.by_host[dst], size,
+                              key=(dirn, src, dst, seq))
+            w.close()
+
+    def _netobs_collect(self, s: lanes.LaneState) -> dict:
+        """The netobs snapshot in ``obs.netobs``'s per-host schema (the
+        reference's ``_netobs_collect``): the lanes' counters, with the
+        tier's rows added to their endpoint lanes; ``drop_queue`` without
+        the cross-block sheds, which count apart; retransmits of completed
+        flows at their client lane; and the trailing window, which no
+        window advance followed, folded into the histogram here."""
+        p = self.params
+        tv = s.stream.v.cpu().numpy() if p.stream_tiered else None
+
+        def fold(lane_arr, tv_row=None):
+            out = lane_arr.cpu().numpy().astype(np.int64)
+            if tv is not None and tv_row is not None:
+                np.add.at(out, self._el, tv[tv_row].astype(np.int64))
+            return out
+
+        shed = fold(s.nb_shed)
+        arrays = {
+            "sent": fold(s.n_sends, lstr.TV_N_SENDS),
+            "delivered": fold(s.n_delivered, lstr.TV_N_DEL),
+            "tx_bytes": fold(s.nb_txb, lstr.TV_NB_TXB),
+            "rx_bytes": fold(s.nb_rxb, lstr.TV_NB_RXB),
+            "drop_loss": fold(s.n_loss, lstr.TV_N_LOSS),
+            "drop_codel": fold(s.n_codel, lstr.TV_N_CODEL),
+            "drop_queue": fold(s.n_queue, lstr.TV_N_QUEUE) - shed,
+            "drop_cross_shed": shed,
+            "throttled": fold(s.nb_thr, lstr.TV_NB_THR),
+            "retransmits": np.zeros(p.n_lanes, dtype=np.int64),
+            "retry_giveup": np.zeros(p.n_lanes, dtype=np.int64),
+        }
+        if p.stream_present:
+            flows = s.stream.flows if tv is not None else s.stream
+            cl_m = flows[0].cpu().numpy()
+            done = cl_m[:, lstr.C_COMPLETED] != 0
+            np.add.at(arrays["retransmits"],
+                      np.asarray(p.stream_clients, dtype=np.int64),
+                      np.where(done, cl_m[:, lstr.C_RETRANS], 0).astype(
+                          np.int64))
+        hist = s.nb_hist.cpu().numpy().astype(np.int64)
+        tail = int(s.nb_win)
+        if tail > 0:
+            hist[nom.hist_bucket(tail)] += 1
+        return {"arrays": arrays, "window_hist": hist, "log_lost": 0}
+
+    def netobs_snapshot(self) -> Optional[dict]:
+        """The netobs snapshot of the last collected run: ``arrays`` (the
+        per-host counters of ``obs.netobs.COUNTERS``) and ``window_hist``;
+        None when netobs is off or no run has been collected."""
+        return self._netobs_data

@@ -56,7 +56,9 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "all_passive", "dyn_runahead", "runahead_floor", "words",
                "s_flows", "wide_pop", "one_to_one", "n_x", "rec_slots",
                "rec_srec", "rec_brec", "n_rec", "tier_s", "ks", "c2",
-               "tier_wide", "tier_n", "rec_tier")
+               "tier_wide", "tier_n", "rec_tier", "netobs", "pcap",
+               "stream_pcap", "tier_pcap", "rec_pc", "rec_spc", "rec_bpc",
+               "rec_tspc", "rec_tbpc", "rec_ttail")
 
 
 class LaneBufs(ctypes.Structure):
@@ -144,7 +146,11 @@ class LaneArgs:
     [N] lanes' sizes are those of ``p.lane`` (on a tiered run, the lanes
     without the stream models); the tier's are ``tier_s`` (S, 0 when not
     tiered), ``ks``, ``c2``, ``tier_n`` (the tier block's width) and
-    ``rec_tier`` (where its record groups start)."""
+    ``rec_tier`` (where its record groups start).  The observation planes
+    are flags: ``netobs`` (the ``nb_*`` counters), ``pcap`` (the lanes'
+    PCAP_TX records), ``stream_pcap`` and ``tier_pcap`` (the stream
+    endpoints' captures, on the [N] lanes or on the tier), beside their
+    record groups' starts."""
 
     def __init__(self, p: lanes.LaneParams, tb: lanes.LaneTables,
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
@@ -159,6 +165,7 @@ class LaneArgs:
         tiered = p.stream_tiered
         n_ep = 2 * sf if sp else 2
         tier_n = p.tier_layout[-1]
+        nb = p.netobs
         shapes = {
             **{f: (n, c) for f in ("q_thi", "q_tlo", "q_auxh", "q_auxl",
                                    "q_size")},
@@ -170,6 +177,10 @@ class LaneArgs:
             **{f: (n,) for f in lanes._SLOT_FIELDS + ("n_queue",)},
             **{f: () for f in ("log_count", "log_lost", "rounds", "iters",
                                "now_we_hi", "now_we_lo", "min_used_lat")},
+            **{f: (n,) if nb else (0,)
+               for f in ("nb_txb", "nb_rxb", "nb_thr", "nb_shed")},
+            "nb_hist": (lanes.NB_HIST_BUCKETS,) if nb else (0,),
+            "nb_win": () if nb else (0,),
             "log": (max(p.log_capacity, 1), 6),
             **{f: (n,) for f in lanes.LaneTables._fields},
             **{f: (n_ep,) for f in lanes.LaneTables._fields
@@ -189,7 +200,8 @@ class LaneArgs:
         }
         dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
                   "thresh": i64, "flow_thresh": i64,
-                  "lane_stream": torch.bool}
+                  "lane_stream": torch.bool, "lane_pcap": torch.bool,
+                  "flow_pcap": torch.bool}
         tensors = {**s._asdict(), **tb._asdict(), **ws._asdict()}
         if tiered:
             tensors["stream"] = s.stream.flows
@@ -219,7 +231,8 @@ class LaneArgs:
                     )
             _lib()  # build and load before the run starts
         seed_lo, seed_hi = rng_mod.split_seed(p.seed)
-        _tail, rec_slots, rec_srec, rec_brec, rec_end = p.rec_offsets
+        rg, tg = p.rec_offsets, p.tier_rec_offsets
+        logging = bool(p.log_capacity)
         self.bufs = LaneBufs(
             **{f: tensors[f].data_ptr() for f in _PTR_FIELDS},
             n=n, c=c, k=k, cx=cx, sw=pl.self_width, g=g,
@@ -232,10 +245,15 @@ class LaneArgs:
             s_flows=pl.s_flows,
             wide_pop=int(pl.stream_present and p.stream_wide_pop),
             one_to_one=int(p.stream_one_to_one), n_x=pl.exchange_entries,
-            rec_slots=rec_slots, rec_srec=rec_srec, rec_brec=rec_brec,
-            n_rec=rec_end, tier_s=sf if tiered else 0, ks=p.stream_pops,
+            rec_slots=rg.slots, rec_srec=rg.srec, rec_brec=rg.brec,
+            n_rec=rg.end, tier_s=sf if tiered else 0, ks=p.stream_pops,
             c2=p.stream_capacity, tier_wide=int(p.stream_wide_pop),
-            tier_n=tier_n, rec_tier=p.tier_rec_offsets[0],
+            tier_n=tier_n, rec_tier=tg.rec, netobs=int(nb),
+            pcap=int(logging and p.pcap_any),
+            stream_pcap=int(logging and pl.stream_present and pl.stream_pcap),
+            tier_pcap=int(logging and tiered and p.stream_pcap),
+            rec_pc=rg.pc, rec_spc=rg.spc, rec_bpc=rg.bpc, rec_tspc=tg.spc,
+            rec_tbpc=tg.bpc, rec_ttail=tg.tail,
         )
 
 

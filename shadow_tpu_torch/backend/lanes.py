@@ -39,6 +39,13 @@ six kernels (``kernels.py`` binds their CUDA versions):
   or dynamic runahead) and the ``live`` flag;
 - D ``append_log``: compaction of the iteration's records into the log.
 
+Two observation planes ride these kernels, both static and both free when
+off: pcap (a capturing host's sends become PCAP_TX records in the log, at
+their departure; ``GpuEngine`` writes the capture files from the log) and
+netobs (the ``nb_*`` counters: bytes, throttles and sheds per lane, the
+tier's ``TV_NB_*`` rows, and a histogram of windows by their popped
+packets, which kernel C folds at each window advance).
+
 The layout is the reference's: the event key ``(time, kind, src, seq)`` is
 four int32 words ``(t_hi, t_lo, aux_hi, aux_lo)``, times are (hi, lo) int32
 pairs, counters are int32 — so the bridge and the parity tests compare
@@ -70,7 +77,7 @@ from ..net.ltcp import PUMP_BURST
 from ..net.token_bucket import DEFAULT_INTERVAL_NS, FRAME_OVERHEAD_BYTES
 from . import lanes_pairs as _pairs
 from . import lanes_stream as lstr
-from .results import DELIVERED, DROP_CODEL, DROP_LOSS, DROP_QUEUE
+from .results import DELIVERED, DROP_CODEL, DROP_LOSS, DROP_QUEUE, PCAP_TX
 
 i32 = torch.int32
 i64 = torch.int64
@@ -89,6 +96,10 @@ NEVER = stime.NEVER
  M_PING_SERVER, M_STREAM_CLIENT, M_STREAM_SERVER) = range(9)
 PASSIVE_MODELS = frozenset({M_NONE, M_TGEN_MESH, M_TGEN_CLIENT, M_TGEN_SERVER})
 STREAM_MODELS = frozenset({M_STREAM_CLIENT, M_STREAM_SERVER})
+
+# netobs: buckets of the per-window packet-arrival histogram (must match
+# obs.netobs.HIST_BUCKETS)
+NB_HIST_BUCKETS = 24
 
 # LOCAL size marker: a non-driving process's start event on a multi-process
 # host — anchors the window like any start, drives nothing (the driver's
@@ -218,6 +229,41 @@ class LaneState(NamedTuple):
     now_we_lo: torch.Tensor
     # smallest latency sent over so far (NEVER32 = none): dynamic runahead
     min_used_lat: torch.Tensor  # int32 scalar
+    # the netobs telemetry block (LaneParams.netobs; empty [0] tensors when
+    # off, where the reference holds ()): per-lane int32 counters, the
+    # histogram of windows by floor(log2) of their popped PACKETs, and the
+    # current window's count
+    nb_txb: torch.Tensor  # [N] bytes offered to the up bucket (sends)
+    nb_rxb: torch.Tensor  # [N] bytes delivered (after CoDel)
+    nb_thr: torch.Tensor  # [N] token-bucket charges that waited (up + down)
+    nb_shed: torch.Tensor  # [N] cross-block sheds (a part of n_queue)
+    nb_hist: torch.Tensor  # [NB_HIST_BUCKETS]
+    nb_win: torch.Tensor  # int32 scalar: PACKETs popped in this window
+
+
+class RecGroups(NamedTuple):
+    """The start of each record group of the iteration's record block
+    (``LaneParams.rec_offsets``); the [N] merge tail starts at 0."""
+    split: int  # the split exchange's tail, or the tier's groups
+    slots: int  # the popped slots' records [K, N]
+    pc: int  # the lanes' PCAP_TX captures [K, N]
+    spc: int  # the stream control sends' captures [K, 2S]
+    bpc: int  # the stream bursts' captures [K, B, S]
+    srec: int  # the stream control sends' losses [K, 2S]
+    brec: int  # the stream bursts' losses [K, B, S]
+    end: int
+
+
+class TierRecGroups(NamedTuple):
+    """The start of each of the tier's record groups
+    (``LaneParams.tier_rec_offsets``)."""
+    rec: int  # the popped packets' outcomes [K_s, 2S]
+    srec: int  # the control sends' losses [K_s, 2S]
+    brec: int  # the bursts' losses [K_s, B, S]
+    spc: int  # the control sends' captures [K_s, 2S]
+    bpc: int  # the bursts' captures [K_s, B, S]
+    tail: int  # the tier merge's DROP_QUEUE tail [2S, W_t]
+    end: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -263,6 +309,14 @@ class LaneParams:
     stream_tiered: bool = False
     stream_pops: int = 8  # K_s: tier pop columns per iteration
     stream_capacity: int = 64  # C2: tier queue width
+    # the observation planes, both static: a lane that captures pcap makes
+    # PCAP_TX records at each send's departure (``pcap_any``; stream
+    # endpoints' captures ride their own record groups, ``stream_pcap``);
+    # ``netobs`` keeps the nb_* counters.  Off, no record group and no
+    # counter exists
+    pcap_any: bool = False
+    stream_pcap: bool = False
+    netobs: bool = False
 
     @property
     def cross_cap(self) -> int:
@@ -279,7 +333,7 @@ class LaneParams:
         return dataclasses.replace(
             self, models_present=tuple(m for m in self.models_present
                                        if m not in STREAM_MODELS),
-            stream_tiered=False, stream_clients=())
+            stream_tiered=False, stream_clients=(), stream_pcap=False)
 
     @property
     def stream_present(self) -> bool:
@@ -370,45 +424,55 @@ class LaneParams:
         return sa, se, bo, cx, cx + 2 * s * self.cross_cap
 
     @property
-    def tier_rec_offsets(self) -> tuple:
-        """The tier's record groups (logging): the popped packets'
-        outcomes [K_s, 2S], the control sends' losses [K_s, 2S], the
-        bursts' losses [K_s, B, S] and the tier merge's tail [2S, W_t],
-        after the [N] merge tail; and their end."""
-        tail = self.rec_offsets[0]
+    def tier_rec_offsets(self) -> "TierRecGroups":
+        """Where the tier's record groups start (logging), after the [N]
+        merge tail: the popped packets' outcomes [K_s, 2S], the control
+        sends' losses [K_s, 2S], the bursts' losses [K_s, B, S], with
+        ``stream_pcap`` the control sends' and the bursts' captures, then
+        the tier merge's tail [2S, W_t]; and their end."""
+        pl = self.lane
+        tail = self.n_lanes * (pl.self_width + pl.cross_cap)
         if not self.stream_tiered:
-            return tail, tail, tail, tail, tail
+            return TierRecGroups(*(tail,) * 7)
         ks, s = self.stream_pops, self.s_flows
         srec = tail + ks * 2 * s
         brec = srec + ks * 2 * s
-        ttail = brec + ks * PUMP_BURST * s
-        return tail, srec, brec, ttail, ttail + 2 * s * self.tier_width
+        spc = brec + ks * PUMP_BURST * s
+        bpc = spc + (ks * 2 * s if self.stream_pcap else 0)
+        ttail = bpc + (ks * PUMP_BURST * s if self.stream_pcap else 0)
+        return TierRecGroups(tail, srec, brec, spc, bpc, ttail,
+                             ttail + 2 * s * self.tier_width)
 
     @property
-    def rec_offsets(self) -> tuple:
-        """The record groups of the workspace's record block, in the
-        reference's append order: the merge tail [N, self + Cx] from 0,
-        then the starts of the split exchange's tail [2S, W_s] (or, tiered,
-        of the tier's groups, ``tier_rec_offsets``), the popped slots
-        [K, N], the stream control sends' losses [K, 2S] and the bursts'
-        losses [K, B, S], and the block's end."""
+    def rec_offsets(self) -> "RecGroups":
+        """Where the record groups of the workspace's record block start,
+        in the reference's append order: the merge tail [N, self + Cx]
+        from 0, then the split exchange's tail [2S, W_s] (or, tiered, the
+        tier's groups, ``tier_rec_offsets``), the popped slots [K, N], with
+        ``pcap_any`` the lanes' captures [K, N], with streams on the [N]
+        lanes and ``stream_pcap`` the control sends' [K, 2S] and the
+        bursts' captures [K, B, S], then the stream control sends' losses
+        [K, 2S] and the bursts' losses [K, B, S]; and the block's end."""
         pl = self.lane
         n, k, s = self.n_lanes, self.pops_per_iter, self.s_flows
-        tail = n * (pl.self_width + pl.cross_cap)
-        split = 2 * s * self.stream_row_width if self.split else 0
+        split = n * (pl.self_width + pl.cross_cap)
         if self.stream_tiered:
-            ks = self.stream_pops
-            split = (4 * ks * s + ks * PUMP_BURST * s
-                     + 2 * s * self.tier_width)
-        slots = tail + split
-        srec = slots + k * n
+            slots = self.tier_rec_offsets.end
+        else:
+            slots = split + (2 * s * self.stream_row_width if self.split
+                             else 0)
+        pc = slots + k * n
+        spc = pc + (k * n if self.pcap_any else 0)
+        stream_pc = pl.stream_present and pl.stream_pcap
+        bpc = spc + (2 * k * s if stream_pc else 0)
+        srec = bpc + (k * PUMP_BURST * s if stream_pc else 0)
         brec = srec + (2 * k * s if pl.stream_present else 0)
         end = brec + (k * PUMP_BURST * s if pl.stream_present else 0)
-        return tail, slots, srec, brec, end
+        return RecGroups(split, slots, pc, spc, bpc, srec, brec, end)
 
     @property
     def n_records(self) -> int:
-        return self.rec_offsets[-1]
+        return self.rec_offsets.end
 
     def __post_init__(self) -> None:
         if self.n_lanes > MAX_LANES:
@@ -495,6 +559,10 @@ class LaneTables(NamedTuple):
     # per lane): rows lane_ep_rows[lane_ep_start[l]:lane_ep_start[l + 1]]
     lane_ep_start: torch.Tensor  # [N + 1]
     lane_ep_rows: torch.Tensor  # [max(2S, 2)]
+    # pcap: which hosts capture [N] bool, and which endpoint rows ([2S]
+    # bool, the placeholders' lanes when no stream model is present)
+    lane_pcap: torch.Tensor
+    flow_pcap: torch.Tensor
 
 
 class Workspace(NamedTuple):
@@ -518,9 +586,10 @@ class Workspace(NamedTuple):
     sx_blk: torch.Tensor
     # [R, 6] int64 log records + [R] int32 valid flags (LaneParams
     # .rec_offsets): the merge tail (DROP_QUEUE, lane-major [N, S+Cx]), the
-    # split exchange's tail, the slot records (slot-major [K, N]), then the
-    # stream losses — the reference's append order.  [1, 6] / [1]
-    # placeholders when logging is off.
+    # split exchange's tail or the tier's groups, the slot records
+    # (slot-major [K, N]), the pcap captures, then the stream losses — the
+    # reference's append order.  [1, 6] / [1] placeholders when logging is
+    # off.
     recs: torch.Tensor
     rec_valid: torch.Tensor
     # exchange scratch: per-destination counts, starts and fill cursors [N],
@@ -721,6 +790,8 @@ _SLOT_FIELDS = (
     "cd_dropping", "m_sent", "m_peer_offset",
     "n_delivered", "n_loss", "n_codel", "recv_bytes", "n_sends", "n_hops",
 )
+# ... and with netobs, its counters
+_NB_FIELDS = ("nb_txb", "nb_rxb", "nb_thr")
 
 
 def rand_u32_lane(seed: int, stream, counter32):
@@ -773,12 +844,15 @@ def _pop_mask(p: LaneParams, tb: LaneTables, passive, thi, tlo, kind,
 def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
                   we_hi, we_lo, lanes, lw: dict):
     """The slot law on one popped column (all lanes, masked by kind and
-    model); ``v`` holds the [N] state vectors and ``min_used_lat``, and the
-    law rebinds its entries to new tensors (it never writes into them).
-    ``lw`` holds per-lane constants of the iteration (``passive``, the
-    lanes' PACKET and LOCAL key words).  Returns the column's
-    DELIVERY-insert, re-arm, outbound and record channels.  Mirrors the
-    reference's ``_process_slot`` for the ported models."""
+    model); ``v`` holds the [N] state vectors (the netobs counters too,
+    when on) and ``min_used_lat``, and the law rebinds its entries to new
+    tensors (it never writes into them).  ``lw`` holds per-lane constants
+    of the iteration (``passive``, the lanes' PACKET and LOCAL key words).
+    Returns the column's DELIVERY-insert, re-arm, outbound and record
+    channels, and its pcap channel, valid flags and records (``None``
+    unless a lane captures and the log is on: a PCAP_TX record per
+    capturing lane's send, at its departure, before the loss draw).
+    Mirrors the reference's ``_process_slot`` for the ported models."""
     n = p.n_lanes
     thi, tlo = col["thi"], col["tlo"]
     kind, src, seq, size = col["kind"], col["src"], col["seq"], col["size"]
@@ -796,11 +870,13 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     if bool(is_pkt.any()):
         bits = (size + FRAME_OVERHEAD_BYTES) * 8
         (v["dn_tokens"], v["dn_nr_hi"], v["dn_nr_lo"], v["dn_ld_hi"],
-         v["dn_ld_lo"], td_hi, td_lo, _dn_wait) = bucket_charge_vec(
+         v["dn_ld_lo"], td_hi, td_lo, dn_wait) = bucket_charge_vec(
             v["dn_tokens"], v["dn_nr_hi"], v["dn_nr_lo"], v["dn_ld_hi"],
             v["dn_ld_lo"], tb.dn_rate, tb.dn_burst, tb.dn_kfull, tb.dn_kfi,
             thi, tlo, bits, is_pkt, interval,
         )
+        if p.netobs:
+            v["nb_thr"] = v["nb_thr"] + dn_wait
         sojourn = pair_sub_clamp(td_hi, td_lo, thi, tlo, NEVER32)
         (v["cd_fat_hi"], v["cd_fat_lo"], v["cd_dnext_hi"], v["cd_dnext_lo"],
          v["cd_drop_count"], v["cd_dropping"], codel_drop) = codel_offer_arrays(
@@ -811,6 +887,8 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     deliver = is_pkt & ~codel_drop
     v["n_codel"] = v["n_codel"] + (is_pkt & codel_drop)
     v["n_delivered"] = v["n_delivered"] + deliver
+    if p.netobs:
+        v["nb_rxb"] = v["nb_rxb"] + torch.where(deliver, size, 0)
     # passive lanes consume the delivery inline: each counting app on the
     # host adds the size (recv_mult apps; 0 on empty hosts).  Active lanes
     # get a DELIVERY self-insert keyed by the packet's (src, seq)
@@ -878,11 +956,14 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     if any_send:
         out_bits = (out_size + FRAME_OVERHEAD_BYTES) * 8
         (v["up_tokens"], v["up_nr_hi"], v["up_nr_lo"], v["up_ld_hi"],
-         v["up_ld_lo"], dep_hi, dep_lo, _up_wait) = bucket_charge_vec(
+         v["up_ld_lo"], dep_hi, dep_lo, up_wait) = bucket_charge_vec(
             v["up_tokens"], v["up_nr_hi"], v["up_nr_lo"], v["up_ld_hi"],
             v["up_ld_lo"], tb.up_rate, tb.up_burst, tb.up_kfull, tb.up_kfi,
             thi, tlo, out_bits, do_send, interval,
         )
+        if p.netobs:
+            v["nb_thr"] = v["nb_thr"] + up_wait
+            v["nb_txb"] = v["nb_txb"] + torch.where(do_send, out_size, 0)
     my_node = tb.node_of.long()
     dst_node = tb.node_of[dst.long()].long()
     lat = tb.lat[my_node, dst_node]
@@ -943,7 +1024,12 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     ], dim=1)
     rec_valid = is_pkt | lost
     rec = torch.where(rec_valid[:, None], rec, 0)
-    return ins, arm, out, rec, rec_valid
+    pc = None
+    if p.pcap_any and p.log_capacity:
+        pc_valid = do_send & tb.lane_pcap
+        pc = pc_valid, _rec_rows(pc_valid, t_join(dep_hi, dep_lo), lanes, dst,
+                                 snd_seq, out_size, PCAP_TX)
+    return ins, arm, out, rec, rec_valid, pc
 
 
 class StreamSends(NamedTuple):
@@ -958,6 +1044,7 @@ class StreamSends(NamedTuple):
     size: torch.Tensor
     phi: torch.Tensor  # its payload words
     plo: torch.Tensor
+    dep: torch.Tensor  # its departure (int64), where pcap captures it
     arm: torch.Tensor  # an RTO arm was made
     arm_thi: torch.Tensor
     arm_tlo: torch.Tensor
@@ -977,9 +1064,11 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
     law), each drawing its loss at counter = its send sequence number; an
     RTO arm takes the local sequence.  ``ctr`` holds the rows' ``up``
     bucket (five tensors), ``send_seq``, ``local_seq``, ``n_sends``,
-    ``n_loss`` and ``min_lat`` (a scalar), rebound here.  Burst unit ``u``
-    goes to ``burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo)``
-    over the client half.  Returns the flows and the :class:`StreamSends`."""
+    ``n_loss``, ``min_lat`` (a scalar) and with netobs ``txb`` and ``thr``
+    (bytes sent, charges that waited), rebound here.  Burst unit ``u``
+    goes to ``burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo,
+    dep)`` over the client half (``dep``: its departure, int64).  Returns
+    the flows and the :class:`StreamSends`."""
     stim_open, stim_rto, stim_seg = stims
     stim = stim_open | stim_rto | stim_seg
     s2 = stim.shape[0]
@@ -1017,10 +1106,13 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
                 ctr["min_lat"], torch.where(m, lat, NEVER32).min())
 
     # the control send: up bucket, loss draw, arrival
-    *up, dep_hi, dep_lo, _waited = bucket_charge_vec(
+    *up, dep_hi, dep_lo, waited = bucket_charge_vec(
         *ctr["up"], tb.flow_up_rate, tb.flow_up_burst, tb.flow_up_kfull,
         tb.flow_up_kfi, sh, sl, (sem.send_size + FRAME_OVERHEAD_BYTES) * 8,
         st_send, interval)
+    if p.netobs:
+        ctr["thr"] = ctr["thr"] + waited
+        ctr["txb"] = ctr["txb"] + torch.where(st_send, sem.send_size, 0)
     se_seq = ctr["send_seq"]
     se_lost = draw_lost(slice(None), se_seq, st_send & past_bs)
     lat_min(st_send, tb.flow_lat)
@@ -1039,6 +1131,8 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
     sent = st_send[cl].to(i32)
     sent0 = sent
     lat_c = tb.flow_lat[cl]
+    if p.netobs:
+        thr_c, txb_c = ctr["thr"][cl], ctr["txb"][cl]
     for u in range(PUMP_BURST):
         bm = valid_b[u, cl]
         if not bool(bm.any()):
@@ -1046,14 +1140,17 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
         bsize = sizes_b[u, cl]
         bbits = (bsize + FRAME_OVERHEAD_BYTES) * 8
         if u == 0:
-            *up_c, bdh, bdl, _waited = bucket_charge_vec(
+            *up_c, bdh, bdl, bwaited = bucket_charge_vec(
                 *up_c, tb.flow_up_rate[cl], tb.flow_up_burst[cl],
                 tb.flow_up_kfull[cl], tb.flow_up_kfi[cl], sh[cl], sl[cl],
                 bbits, bm, interval)
         else:
-            *up_c, bdh, bdl, _waited = bucket_charge_chained_vec(
+            *up_c, bdh, bdl, bwaited = bucket_charge_chained_vec(
                 *up_c, tb.flow_up_rate[cl], tb.flow_up_burst[cl], bbits, bm,
                 interval, sh[cl], sl[cl])
+        if p.netobs:
+            thr_c = thr_c + bwaited
+            txb_c = txb_c + torch.where(bm, bsize, 0)
         bseq = se_seq[cl] + sent
         blost = draw_lost(cl, bseq, bm & past_bs[cl])
         nloss_c = nloss_c + blost
@@ -1061,17 +1158,20 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
         bthi, btlo = pair_max(*pair_add32(bdh, bdl, lat_c), we_hi, we_lo)
         burst_out(u, bm & ~blost, blost, bthi, btlo, bseq, bsize,
                   *lstr.pack_pay(flags_b[u, cl], units_b[u, cl],
-                                 acks_b[u, cl]))
+                                 acks_b[u, cl]), t_join(bdh, bdl))
         sent = sent + bm
     ctr["up"] = [torch.cat([c, t[sf:]]) for c, t in zip(up_c, up)]
     ctr["n_loss"] = torch.cat([nloss_c, nloss[sf:]])
+    if p.netobs:
+        ctr["thr"] = torch.cat([thr_c, ctr["thr"][sf:]])
+        ctr["txb"] = torch.cat([txb_c, ctr["txb"][sf:]])
     sends = st_send.to(i32) + torch.cat([sent - sent0, torch.zeros_like(sent)])
     ctr["send_seq"] = ctr["send_seq"] + sends
     ctr["n_sends"] = ctr["n_sends"] + sends
     return f, StreamSends(
         st_send, se_lost, se_thi, se_tlo, se_seq, sem.send_size,
         *lstr.pack_pay(sem.send_flags, sem.send_seq, sem.send_ack),
-        st_rto, sem.rto_thi, sem.rto_tlo, lseq)
+        t_join(dep_hi, dep_lo), st_rto, sem.rto_thi, sem.rto_tlo, lseq)
 
 
 _UP_FIELDS = ("up_tokens", "up_nr_hi", "up_nr_lo", "up_ld_hi", "up_ld_lo")
@@ -1085,9 +1185,10 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     channels): each endpoint row sees its lane's popped event and runs
     ``_stream_stimulus`` on the endpoint lane's up bucket and counters (a
     segment stimulates a server row only from its own client).  Writes the
-    stream block's entries of slot ``j`` and the stream loss records into
-    ``ws``; lane counters and flow rows change in ``v``.  Rows with no
-    stimulus change nothing and emit nothing."""
+    stream block's entries of slot ``j``, the stream loss records and,
+    with ``stream_pcap``, the capturing rows' PCAP_TX records into ``ws``;
+    lane counters (the netobs ones too) and flow rows change in ``v``.
+    Rows with no stimulus change nothing and emit nothing."""
     el = tb.flow_lanes.long()
     s2 = el.shape[0]
     sf = s2 // 2
@@ -1116,20 +1217,28 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     ctr = {f_: v[f_][el] for f_ in _SEND_FIELDS}
     ctr["up"] = [v[f_][el] for f_ in _UP_FIELDS]
     ctr["min_lat"] = v["min_used_lat"]
+    if p.netobs:
+        ctr["txb"], ctr["thr"] = v["nb_txb"][el], v["nb_thr"][el]
     sx = ws.sx_blk
     k = p.pops_per_iter
     t64 = t_join(ethi, etlo)
     pkt_auxh = pack_aux_hi(PACKET, tb.flow_lanes)
     cl = slice(0, sf)
+    rg = p.rec_offsets
+    log_pc = p.log_capacity and p.stream_pcap
 
-    def burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo):
+    def burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo, dep):
         slot = j * PUMP_BURST + u
         _put_entries(sx, 4 * k * sf + slot * sf, valid, tb.flow_peers[cl],
                      thi, tlo, pkt_auxh[cl], seq, size, phi, plo)
         if p.log_capacity:
-            _put_recs(ws, p.rec_offsets[3] + slot * sf, lost, t64[cl],
+            _put_recs(ws, rg.brec + slot * sf, lost, t64[cl],
                       tb.flow_lanes[cl], tb.flow_peers[cl], seq, size,
                       DROP_LOSS)
+        if log_pc:  # captured at departure, before the loss draw
+            _put_recs(ws, rg.bpc + slot * sf, (valid | lost) & tb.flow_pcap[cl],
+                      dep, tb.flow_lanes[cl], tb.flow_peers[cl], seq, size,
+                      PCAP_TX)
 
     f, se = _stream_stimulus(p, tb, f, (stim_open, stim_rto, stim_seg),
                              ethi, etlo, ephi, eplo, esize, ctr, we_hi,
@@ -1143,12 +1252,16 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
                  se.arm_tlo, pack_aux_hi(LOCAL, tb.flow_lanes), se.lseq,
                  lstr.SZ_RTO, 0, tb.flow_clid)
     if p.log_capacity:
-        _put_recs(ws, p.rec_offsets[2] + j * s2, se.lost, t64, tb.flow_lanes,
+        _put_recs(ws, rg.srec + j * s2, se.lost, t64, tb.flow_lanes,
                   tb.flow_peers, se.seq, se.size, DROP_LOSS)
+    if log_pc:
+        _put_recs(ws, rg.spc + j * s2, se.send & tb.flow_pcap, se.dep,
+                  tb.flow_lanes, tb.flow_peers, se.seq, se.size, PCAP_TX)
     # write-back, at the stimulated rows' lanes
     rows = torch.nonzero(stim).flatten()
+    nb = (("nb_txb", ctr["txb"]), ("nb_thr", ctr["thr"])) if p.netobs else ()
     for f_, t in (*zip(_UP_FIELDS, ctr["up"]),
-                  *((f_, ctr[f_]) for f_ in _SEND_FIELDS)):
+                  *((f_, ctr[f_]) for f_ in _SEND_FIELDS), *nb):
         v[f_] = v[f_].clone()
         v[f_][el[rows]] = t[rows]
 
@@ -1163,6 +1276,15 @@ def _put_entries(blk, base: int, valid, *words) -> None:
     for w, word in enumerate(words):
         word = torch.as_tensor(word, dtype=i32, device=blk.device)
         blk[w, base + rows] = word.expand(valid.shape)[rows]
+
+
+def _rec_rows(valid, *cols):
+    """[R, 6] int64 log records (columns time, src, dst, seq, size,
+    outcome: tensors over the R rows, or scalars), zero where not
+    valid."""
+    rec = torch.stack([torch.as_tensor(c, dtype=i64, device=valid.device)
+                       .expand(valid.shape) for c in cols], dim=1)
+    return torch.where(valid[:, None], rec, 0)
 
 
 def _put_recs(ws: Workspace, r0: int, valid, *cols) -> None:
@@ -1187,11 +1309,12 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     """Kernel A, plain: pop up to K events per lane inside the window under
     the co-pop rule and run the slot law on each, in slot order.  Consumed
     slots become NEVER in place; the state vectors are updated in place;
-    the self, outbound, stream and record blocks go to ``ws``.  On a
-    tiered run the lanes run without the stream models."""
+    the self, outbound, stream and record blocks go to ``ws``.  With
+    netobs, the popped PACKETs join the window's count.  On a tiered run
+    the lanes run without the stream models."""
     if not int(ws.ctl[0]):
         return
-    _tail, rec_slots, rec_srec, _brec, rec_end = p.rec_offsets
+    rg = p.rec_offsets
     p = p.lane
     n, k = p.n_lanes, p.pops_per_iter
     arm0 = 0 if p.all_passive else k  # first re-arm column of the self block
@@ -1206,16 +1329,19 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
                     s.now_we_lo)
     s.q_thi[:, :k] = torch.where(act, NEVER32, thi)
     s.q_tlo[:, :k] = torch.where(act, NEVER32, tlo)
+    if p.netobs:
+        s.nb_win.add_((act & (kind == PACKET)).sum(dtype=i32))
     # the slot law rebinds v's entries to new tensors; the state's own
     # tensors are written once, at the end
-    v = {f: getattr(s, f) for f in _SLOT_FIELDS + ("min_used_lat",)}
+    v = {f: getattr(s, f) for f in _SLOT_FIELDS + ("min_used_lat",)
+         + (_NB_FIELDS if p.netobs else ())}
     if p.stream_present:
         v["stream"] = s.stream
         for w, val in enumerate(_empty_entries(n)):
             ws.sx_blk[w] = val
         if p.log_capacity:
-            ws.recs[rec_srec:rec_end] = 0
-            ws.rec_valid[rec_srec:rec_end] = 0
+            ws.recs[rg.spc:rg.end] = 0
+            ws.rec_valid[rg.spc:rg.end] = 0
     # pops are row prefixes: past the longest one no lane is active, the
     # state cannot change, and every emit is empty
     n_live = int(act.sum(dim=1).max()) if n else 0
@@ -1229,9 +1355,9 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         ws.out_blk[:, j] = torch.tensor(
             _empty_entries(n)[:6], dtype=i32, device=lanes.device)[:, None]
         if p.log_capacity:
-            rows = slice(rec_slots + j * n, rec_slots + (j + 1) * n)
-            ws.recs[rows] = 0
-            ws.rec_valid[rows] = 0
+            for r0 in (rg.slots, rg.pc)[:2 if p.pcap_any else 1]:
+                ws.recs[r0 + j * n: r0 + (j + 1) * n] = 0
+                ws.rec_valid[r0 + j * n: r0 + (j + 1) * n] = 0
     for j in range(n_live):
         col = {
             "thi": thi[:, j], "tlo": tlo[:, j], "kind": kind[:, j],
@@ -1240,7 +1366,7 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         }
         if p.stream_present:
             col["phi"], col["plo"] = s.q_phi[:, j], s.q_plo[:, j]
-        ins, arm, out, rec, rec_valid = _process_slot(
+        ins, arm, out, rec, rec_valid, pc = _process_slot(
             p, tb, v, col, s.now_we_hi, s.now_we_lo, lanes, lw)
         for w in range(p.words):
             if not p.all_passive:
@@ -1249,9 +1375,13 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         for w in range(6):
             ws.out_blk[w, j] = out[w]
         if p.log_capacity:
-            rows = slice(rec_slots + j * n, rec_slots + (j + 1) * n)
+            rows = slice(rg.slots + j * n, rg.slots + (j + 1) * n)
             ws.recs[rows] = rec
             ws.rec_valid[rows] = rec_valid.to(i32)
+        if pc is not None:
+            rows = slice(rg.pc + j * n, rg.pc + (j + 1) * n)
+            ws.rec_valid[rows] = pc[0].to(i32)
+            ws.recs[rows] = pc[1]
         if p.stream_present:
             _stream_slot(p, tb, v, col, s.now_we_hi, s.now_we_lo, ws, j)
     for j in range(n_live, k):
@@ -1319,6 +1449,8 @@ def exchange_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     key, ties in index order, and the first C kept; real events past column
     C are queue overflow (``n_queue``, and DROP_QUEUE records when
     logging).  Stream configs carry the payload words through it all.
+    With netobs, the cross-block sheds are also counted apart
+    (``nb_shed``).
 
     On a tiered run (the lanes without the stream models) the cross
     entries of stream-endpoint lanes divert into the tier: each endpoint
@@ -1367,6 +1499,8 @@ def exchange_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     for w in range(p.words):
         q[w].copy_(rows[w])
     s.n_queue.add_(n_tail + lost_pre)
+    if p.netobs:
+        s.nb_shed.add_(lost_pre)
     s.iters.add_(1)
 
 
@@ -1433,8 +1567,11 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     rows, the burst charge the up bucket (the burst after its first unit by
     the chained law), each with its loss draw at its send sequence number;
     RTO arms take the row's local sequence.  The candidates go to the tier
-    block (``tier_layout``), the records to the tier's record groups; the
-    flows, the tier vectors and the popped queue slots change in place."""
+    block (``tier_layout``), the records to the tier's record groups (with
+    ``stream_pcap``, the capturing rows' sends as PCAP_TX records at their
+    departure); the flows, the tier vectors (the TV_NB_* rows with netobs)
+    and the popped queue slots change in place, and with netobs the popped
+    PACKETs join the window's count."""
     if not int(ws.ctl[0]):
         return
     ts = s.stream
@@ -1450,11 +1587,12 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     blk = ws.tier_blk
     blk[:2, :cx0] = NEVER32
     blk[2:, :cx0] = 0
-    trec, tsrec, tbrec, ttail, _rend = p.tier_rec_offsets
+    tg = p.tier_rec_offsets
     log_on = bool(p.log_capacity)
+    log_pc = log_on and p.stream_pcap
     if log_on:
-        ws.recs[trec:ttail] = 0
-        ws.rec_valid[trec:ttail] = 0
+        ws.recs[tg.rec:tg.tail] = 0
+        ws.rec_valid[tg.rec:tg.tail] = 0
 
     # the pop prefix (rows are sorted, so each rule gives a row prefix)
     cols = [q[w, :, :ks].clone() for w in range(7)]
@@ -1468,6 +1606,8 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
                                         dim=1).bool()
     prefix[:, 0] = True
     act_b = prefix & pair_lt(thi_b, tlo_b, we_hi, we_lo)
+    if p.netobs:
+        s.nb_win.add_((act_b & (kind_b == PACKET)).sum(dtype=i32))
     q[lstr.TQ_THI, :, :ks] = torch.where(act_b, NEVER32, thi_b)
     q[lstr.TQ_TLO, :, :ks] = torch.where(act_b, NEVER32, tlo_b)
 
@@ -1491,7 +1631,7 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         is_pkt = act & (kind == PACKET)
         (vr[lstr.TV_DN_TOK], vr[lstr.TV_DN_NRH], vr[lstr.TV_DN_NRL],
          vr[lstr.TV_DN_LDH], vr[lstr.TV_DN_LDL], td_hi, td_lo,
-         _waited) = bucket_charge_vec(
+         dn_wait) = bucket_charge_vec(
             vr[lstr.TV_DN_TOK], vr[lstr.TV_DN_NRH], vr[lstr.TV_DN_NRL],
             vr[lstr.TV_DN_LDH], vr[lstr.TV_DN_LDL], tb.flow_dn_rate,
             tb.flow_dn_burst, tb.flow_dn_kfull, tb.flow_dn_kfi, thi, tlo,
@@ -1508,8 +1648,12 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         deliver = is_pkt & ~codel_drop
         vr[lstr.TV_N_DEL] = vr[lstr.TV_N_DEL] + deliver
         vr[lstr.TV_N_CODEL] = vr[lstr.TV_N_CODEL] + (is_pkt & codel_drop)
+        if p.netobs:
+            vr[lstr.TV_NB_RXB] = vr[lstr.TV_NB_RXB] + torch.where(
+                deliver, size, 0)
+            vr[lstr.TV_NB_THR] = vr[lstr.TV_NB_THR] + dn_wait
         if log_on:
-            _put_recs(ws, trec + j * s2, is_pkt, t_join(td_hi, td_lo), src,
+            _put_recs(ws, tg.rec + j * s2, is_pkt, t_join(td_hi, td_lo), src,
                       el, auxl, size,
                       torch.where(codel_drop, DROP_CODEL, DELIVERED))
 
@@ -1537,16 +1681,22 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
                "send_seq": vr[lstr.TV_SEND_SEQ],
                "local_seq": vr[lstr.TV_LOCAL_SEQ],
                "n_sends": vr[lstr.TV_N_SENDS], "n_loss": vr[lstr.TV_N_LOSS],
-               "min_lat": mul}
+               "min_lat": mul, "txb": vr[lstr.TV_NB_TXB],
+               "thr": vr[lstr.TV_NB_THR]}
         st64 = t_join(sh, sl)
 
-        def burst_out(u, valid, lost, bthi, btlo, seq, bsize, bphi, bplo):
+        def burst_out(u, valid, lost, bthi, btlo, seq, bsize, bphi, bplo,
+                      dep):
             slot = j * PUMP_BURST + u
             _put_entries(blk, bo0 + slot * sf, valid, bthi, btlo,
                          pkt_auxh[cl], seq, bsize, bphi, bplo)
             if log_on:
-                _put_recs(ws, tbrec + slot * sf, lost, st64[cl], el[cl],
+                _put_recs(ws, tg.brec + slot * sf, lost, st64[cl], el[cl],
                           peers[cl], seq, bsize, DROP_LOSS)
+            if log_pc:  # captured at departure, before the loss draw
+                _put_recs(ws, tg.bpc + slot * sf,
+                          (valid | lost) & tb.flow_pcap[cl], dep, el[cl],
+                          peers[cl], seq, bsize, PCAP_TX)
 
         f, se = _stream_stimulus(p, tb, f, (stim_open, stim_rto, stim_seg),
                                  sh, sl, phi, plo, size, ctr, we_hi, we_lo,
@@ -1555,14 +1705,18 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         for r, key in ((lstr.TV_SEND_SEQ, "send_seq"),
                        (lstr.TV_LOCAL_SEQ, "local_seq"),
                        (lstr.TV_N_SENDS, "n_sends"),
-                       (lstr.TV_N_LOSS, "n_loss")):
+                       (lstr.TV_N_LOSS, "n_loss"),
+                       (lstr.TV_NB_TXB, "txb"), (lstr.TV_NB_THR, "thr")):
             vr[r] = ctr[key]
         mul = ctr["min_lat"]
         _put_entries(blk, se0 + j * s2, se.send & ~se.lost, se.thi, se.tlo,
                      pkt_auxh, se.seq, se.size, se.phi, se.plo)
         if log_on:
-            _put_recs(ws, tsrec + j * s2, se.lost, st64, el, peers, se.seq,
+            _put_recs(ws, tg.srec + j * s2, se.lost, st64, el, peers, se.seq,
                       se.size, DROP_LOSS)
+        if log_pc:
+            _put_recs(ws, tg.spc + j * s2, se.send & tb.flow_pcap, se.dep, el,
+                      peers, se.seq, se.size, PCAP_TX)
         # the RTO arm: a LOCAL self-insert at the own row
         _put_entries(blk, sa0 + j * s2, se.arm, se.arm_thi, se.arm_tlo,
                      loc_auxh, se.lseq, lstr.SZ_RTO, 0, clid)
@@ -1628,7 +1782,8 @@ def tier_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
             tail[4].to(i64), torch.full_like(dst, DROP_QUEUE),
         ], dim=2)
         rec = torch.where(tail_valid[:, :, None], rec, 0)
-        r0, r1 = p.tier_rec_offsets[3:]
+        tg = p.tier_rec_offsets
+        r0, r1 = tg.tail, tg.end
         ws.recs[r0:r1] = rec.reshape(-1, 6)
         ws.rec_valid[r0:r1] = tail_valid.reshape(-1).to(i32)
     ts.q.copy_(merged[:, :, :c2])
@@ -1645,15 +1800,38 @@ def effective_runahead(p: LaneParams, min_used_lat):
         torch.clamp(min_used_lat, min=max(p.runahead_floor, 1)))
 
 
+def ilog2_i32(x):
+    """floor(log2(x)) of an int32 tensor x >= 1, branch-free (0 for x <=
+    1): the reference's ``ilog2_i32``."""
+    r = torch.zeros_like(x)
+    for shift in (16, 8, 4, 2, 1):
+        ge = x >= (1 << shift)
+        x = torch.where(ge, x >> shift, x)
+        r = r + torch.where(ge, shift, 0)
+    return r
+
+
+def flush_hist(s: LaneState, enable) -> None:
+    """Fold the finished window's packet count into the netobs histogram
+    (bucket floor(log2), the last bucket open-ended) and reset it, where
+    ``enable`` and the count is positive: packet-free windows are skipped,
+    as in the reference's ``_flush_hist``.  In place."""
+    do = enable & (s.nb_win > 0)
+    bucket = torch.clamp(ilog2_i32(s.nb_win), max=NB_HIST_BUCKETS - 1)
+    s.nb_hist.index_add_(0, bucket.long().reshape(1), do.to(i32).reshape(1))
+    s.nb_win.copy_(torch.where(do, 0, s.nb_win))
+
+
 def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
                            advance: bool) -> None:
     """Kernel C, plain: the earliest head over all queues, then the window
     law.  With ``advance``, a live step whose head lies at or past the
     window end opens the next window ``[head, min(head + runahead,
     stop))`` and counts a round; the runahead is dynamic where the
-    parameters say so.  On a tiered run the heads of the tier's endpoint
-    rows count too.  Writes ``ctl = (live, in_window, head_hi,
-    head_lo)``."""
+    parameters say so; with netobs the finished window's packet count goes
+    into the histogram first (``flush_hist``).  On a tiered run the heads
+    of the tier's endpoint rows count too.  Writes ``ctl = (live,
+    in_window, head_hi, head_lo)``."""
     mh, ml = _pairs.pair_min_lanes(s.q_thi[:, 0], s.q_tlo[:, 0])
     if p.stream_tiered:
         tq = s.stream.q
@@ -1665,6 +1843,8 @@ def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
     live = pair_lt(mh, ml, stop_hi, stop_lo)
     if advance:
         fresh = live & pair_ge(mh, ml, s.now_we_hi, s.now_we_lo)
+        if p.netobs:
+            flush_hist(s, fresh)
         c_hi, c_lo = pair_add32(mh, ml, effective_runahead(p, s.min_used_lat))
         stop_t = torch.tensor([stop_hi, stop_lo], dtype=i32, device=mh.device)
         c_hi, c_lo = pair_sel(pair_lt(c_hi, c_lo, stop_hi, stop_lo),

@@ -11,6 +11,9 @@ import dataclasses
 
 # event outcomes (the log's last column)
 DELIVERED, DROP_LOSS, DROP_CODEL, DROP_QUEUE = 0, 1, 2, 3
+# a device-log record class that is not an event outcome: an outbound pcap
+# capture at bucket departure; collect writes these to the capture files
+PCAP_TX = 4
 
 
 @dataclasses.dataclass

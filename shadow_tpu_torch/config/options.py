@@ -1,23 +1,25 @@
 """Simulation configuration: the YAML document shape of the JAX package,
 trimmed to what the ported lane path reads.
 
-    general:      { stop_time, seed, bootstrap_end_time }
+    general:      { stop_time, seed, bootstrap_end_time, data_directory }
     network:      { graph: { type: gml|1_gbit_switch, file|inline }, ... }
     experimental: { runahead, use_dynamic_runahead, network_backend,
                     tpu_lane_queue_capacity, tpu_events_per_round,
                     tpu_cross_capacity, tpu_stream_tiered,
-                    tpu_stream_events_per_round, tpu_stream_queue_capacity }
+                    tpu_stream_events_per_round, tpu_stream_queue_capacity,
+                    netobs }
     hosts:
       <hostname>:
         network_node_id: 0
         congestion: reno | cubic
+        pcap_enabled: false
+        pcap_capture_size: 65535
         processes: [ { path, args, start_time } ]
 
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
-accepts but the port cannot run yet (fault schedules, pcap capture,
-netobs, flowtrace, device-loop unrolling) raise
-:class:`LaneCompatError`, which names the JAX package as the way to run
-them.  ``network_backend: tpu`` selects the lane backend, as there.
+accepts but the port cannot run yet (fault schedules, flowtrace,
+device-loop unrolling) raise :class:`LaneCompatError`, which names the JAX
+package as the way to run them.  ``network_backend: tpu`` selects the lane backend, as there.
 
 PyYAML is imported only by :meth:`ConfigOptions.from_yaml`; the presets
 build their configs through :meth:`ConfigOptions.from_dict`.
@@ -45,6 +47,8 @@ class GeneralOptions:
     stop_time: int = 0  # ns; required > 0
     seed: int = 1
     bootstrap_end_time: int = 0  # ns; loss-free warm-up window (worker.rs:335)
+    # where per-host output (pcap captures) is written
+    data_directory: str = "shadow.data"
 
 
 @dataclasses.dataclass
@@ -62,7 +66,6 @@ class NetworkOptions:
 
 # experimental options this slice cannot run: name -> the value it can
 _UNPORTED_EXPERIMENTAL = {
-    "netobs": False,
     "flowtrace": False,
     "tpu_round_unroll": 1,
 }
@@ -86,6 +89,9 @@ class ExperimentalOptions:
     tpu_stream_tiered: bool = True
     tpu_stream_events_per_round: int = 8  # tier pops per iteration (K_s)
     tpu_stream_queue_capacity: int = 64  # tier queue width (C2)
+    # the netobs telemetry plane: per-host byte, throttle and shed counters
+    # and the per-window packet-arrival histogram (GpuEngine.netobs_snapshot)
+    netobs: bool = False
 
 
 @dataclasses.dataclass
@@ -105,6 +111,9 @@ class HostOptions:
     processes: list[ProcessOptions] = dataclasses.field(default_factory=list)
     # congestion control of the host's stream flows (the data sender's)
     congestion: str = "reno"  # "reno" | "cubic"
+    # capture the host's packets to <data_directory>/hosts/<name>/eth0.pcap
+    pcap_enabled: bool = False
+    pcap_capture_size: int = 65535  # snap length, bytes
 
 
 @dataclasses.dataclass
@@ -142,6 +151,7 @@ class ConfigOptions:
             stop_time=units.parse_time(gen_doc.pop("stop_time")),
             seed=int(gen_doc.pop("seed", 1)),
             bootstrap_end_time=units.parse_time(gen_doc.pop("bootstrap_end_time", 0)),
+            data_directory=str(gen_doc.pop("data_directory", "shadow.data")),
         )
         if gen_doc:
             raise ConfigError(f"unknown general options: {sorted(gen_doc)}")
@@ -247,11 +257,6 @@ class ConfigOptions:
 
 def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:
     doc = dict(doc)
-    if doc.pop("pcap_enabled", False):
-        raise LaneCompatError(
-            f"host {name!r}: pcap capture is not ported yet (use the "
-            "shadow_tpu package)"
-        )
     procs = []
     for p in doc.pop("processes", []):
         p = dict(p)
@@ -277,6 +282,8 @@ def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:
         bandwidth_up=units.parse_bandwidth(bw_up) if bw_up is not None else None,
         processes=procs,
         congestion=str(doc.pop("congestion", "reno")),
+        pcap_enabled=bool(doc.pop("pcap_enabled", False)),
+        pcap_capture_size=units.parse_bytes(doc.pop("pcap_capture_size", 65535)),
     )
     if doc:
         raise ConfigError(f"unknown host options on {name!r}: {sorted(doc)}")

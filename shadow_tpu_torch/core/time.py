@@ -23,3 +23,15 @@ def from_secs(s: float | int) -> int:
     if isinstance(s, int):
         return s * NANOS_PER_SEC
     return round(s * NANOS_PER_SEC)
+
+
+#: 2000-01-01T00:00:00Z, where the emulated wall clock starts (the
+#: reference's ``EMUTIME_SIMULATION_START``).
+SIM_START_EMU: int = 946_684_800 * NANOS_PER_SEC
+
+
+def sim_to_emu(sim_ns: int) -> int:
+    """Simulation-relative time -> the emulated wall clock."""
+    if sim_ns == NEVER:
+        return NEVER
+    return SIM_START_EMU + sim_ns

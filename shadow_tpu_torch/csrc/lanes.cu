@@ -19,6 +19,13 @@
 //
 // Every kernel that changes state is gated on ctl[0] (the `live` flag that
 // queue_min_window writes), so steps after the end of the run are no-ops.
+//
+// Two observation planes ride the kernels, each behind a flag of LaneBufs
+// that is uniform over a launch: pcap (a capturing lane's sends become
+// PCAP_TX records, at their departure, before the loss draw) and netobs (the
+// nb_* counters, the tier's TV_NB_* rows, and the window histogram that C
+// folds at each window advance).  Off, the record groups and the counters
+// do not exist and nothing is written for them.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -43,7 +50,8 @@ constexpr int32_t DIV_LAST = 1024;            // codel_div has 1025 entries
 constexpr int32_t FRAME_OVERHEAD_BYTES = 24;
 
 constexpr int64_t DELIVERED = 0, DROP_LOSS = 1, DROP_CODEL = 2,
-                  DROP_QUEUE = 3;
+                  DROP_QUEUE = 3, PCAP_TX = 4;
+constexpr int32_t NB_HIST_BUCKETS = 24;  // netobs window histogram
 
 // threefry stream ids (core/rng.py)
 constexpr uint32_t LOSS_STREAM = 1u << 30, APP_STREAM = 2u << 30;
@@ -66,6 +74,8 @@ struct LaneBufs {
   int64_t *log;
   int32_t *log_count, *log_lost, *stream, *rounds, *iters, *now_we_hi,
       *now_we_lo, *min_used_lat;
+  // the netobs block (empty when netobs is off)
+  int32_t *nb_txb, *nb_rxb, *nb_thr, *nb_shed, *nb_hist, *nb_win;
   // LaneTables
   int32_t *node_of, *lat;
   int64_t *thresh;
@@ -80,6 +90,7 @@ struct LaneBufs {
       *flow_dn_burst, *flow_dn_kfull, *flow_dn_kfi;
   uint8_t *lane_stream;
   int32_t *lane_ep_start, *lane_ep_rows;
+  uint8_t *lane_pcap, *flow_pcap;
   // Workspace
   int32_t *ctl, *self_blk, *out_blk, *sx_blk;
   int64_t *recs;
@@ -99,6 +110,11 @@ struct LaneBufs {
   // the lanes' s_flows above is 0): K_s pops, C2 queue width, its wide pop
   // rule, the tier block's width and where the tier's record groups start
   int64_t tier_s, ks, c2, tier_wide, tier_n, rec_tier;
+  // the observation planes: netobs; pcap records of the lanes' sends, of
+  // the [N] lanes' stream endpoints and of the tier's; where their record
+  // groups start, and where the tier merge's tail starts after them
+  int64_t netobs, pcap, stream_pcap, tier_pcap, rec_pc, rec_spc, rec_bpc,
+      rec_tspc, rec_tbpc, rec_ttail;
 };
 
 namespace {
@@ -165,11 +181,14 @@ struct Bucket {
 };
 
 // The token-bucket charge (the reference's bucket_charge_vec); returns the
-// departure time.  Refill by elapsed intervals, exact within the k_full
-// horizon and saturated + grid-realigned beyond it; FIFO charge clock.
+// departure time and counts a charge that had to wait for tokens into
+// `waits` (netobs' throttle count).  Refill by elapsed intervals, exact
+// within the k_full horizon and saturated + grid-realigned beyond it; FIFO
+// charge clock.
 __device__ int64_t bucket_charge(Bucket& b, int32_t rate, int32_t burst,
                                  int32_t k_full, int32_t kfi, int64_t t,
-                                 int32_t bits, bool active, int32_t interval) {
+                                 int32_t bits, bool active, int32_t interval,
+                                 int32_t& waits) {
   const bool act = active && rate != 0;
   const int64_t te = t > b.ld ? t : b.ld;
   const bool do_refill = act && te >= b.nr;
@@ -209,7 +228,10 @@ __device__ int64_t bucket_charge(Bucket& b, int32_t rate, int32_t burst,
     }
     b.ld = dep;
   }
-  if (wait) b.nr += static_cast<int64_t>(w * interval);
+  if (wait) {
+    b.nr += static_cast<int64_t>(w * interval);
+    waits += 1;
+  }
   return dep;
 }
 
@@ -708,7 +730,7 @@ __device__ int32_t pump_epilogue(Flow& f, Pair now, Emit& em) {
 // (the reference's bucket_charge_chained_vec): the wait machinery only
 __device__ int64_t bucket_charge_chained(Bucket& b, int32_t rate, int32_t burst,
                                          int64_t t, int32_t bits,
-                                         int32_t interval) {
+                                         int32_t interval, int32_t& waits) {
   const bool act = rate != 0;
   const bool have = b.tokens >= bits;
   const bool wait = act && !have;
@@ -730,15 +752,19 @@ __device__ int64_t bucket_charge_chained(Bucket& b, int32_t rate, int32_t burst,
     }
     b.ld = dep;
   }
-  if (wait) b.nr += static_cast<int64_t>(w * interval);
+  if (wait) {
+    b.nr += static_cast<int64_t>(w * interval);
+    waits += 1;
+  }
   return dep;
 }
 
 // the up bucket and the counters a stimulus charges: the lane's in A, the
-// endpoint row's in F
+// endpoint row's in F (nb_txb, nb_thr: netobs' bytes sent and waits)
 struct StreamLane {
   Bucket& up;
-  int32_t &send_seq, &local_seq, &n_sends, &n_loss, &min_lat;
+  int32_t &send_seq, &local_seq, &n_sends, &n_loss, &min_lat, &nb_txb,
+      &nb_thr;
 };
 
 // one entry's seven words (time pair, aux pair, size, payload pair), words
@@ -810,6 +836,7 @@ struct Sends {
   int32_t seq = 0;   // the control send's sequence number
   int32_t lseq = 0;  // the RTO arm's local sequence number
   bool lost = false;
+  int64_t dep = 0;   // the control send's departure (its pcap time)
   int64_t arr = 0;   // the control send's arrival
 };
 
@@ -819,8 +846,9 @@ struct Sends {
 // burst follows.  The control send and the burst charge `sl.up` in order
 // (the burst after its first unit by the chained law), each drawing its
 // loss at counter = its send sequence number; the RTO arm takes the local
-// sequence.  Burst unit u goes to burst(u, valid, lost, arr, seq, size, phi,
-// plo); the control send and the arm are returned.
+// sequence.  Burst unit u goes to burst(u, valid, lost, dep, arr, seq, size,
+// phi, plo); the control send and the arm are returned.  Every charge and
+// every byte sent is counted into sl.nb_thr and sl.nb_txb.
 template <class BurstSink>
 __device__ __forceinline__ Sends stream_stimulus(
     const LaneBufs& b, Flow& f, int stim, Pair now, int64_t t, int32_t phi,
@@ -850,7 +878,9 @@ __device__ __forceinline__ Sends stream_stimulus(
     const int64_t dep =
         bucket_charge(sl.up, r.rate, r.burst, r.kfull, r.kfi, t,
                       (s.em.send_size + FRAME_OVERHEAD_BYTES) * 8, true,
-                      interval);
+                      interval, sl.nb_thr);
+    sl.nb_txb = wadd(sl.nb_txb, s.em.send_size);
+    s.dep = dep;
     if (draw) {
       const uint32_t u = lane_draw(seed_lo, seed_hi, stream,
                                    static_cast<uint32_t>(s.seq));
@@ -872,9 +902,10 @@ __device__ __forceinline__ Sends stream_stimulus(
     const int32_t bits = (bsize + FRAME_OVERHEAD_BYTES) * 8;
     const int64_t dep =
         u == 0 ? bucket_charge(sl.up, r.rate, r.burst, r.kfull, r.kfi, t,
-                               bits, true, interval)
+                               bits, true, interval, sl.nb_thr)
                : bucket_charge_chained(sl.up, r.rate, r.burst, t, bits,
-                                       interval);
+                                       interval, sl.nb_thr);
+    sl.nb_txb = wadd(sl.nb_txb, bsize);
     const int32_t bseq = wadd(s.seq, sent0 + u);
     bool lost = false;
     if (draw) {
@@ -886,7 +917,7 @@ __device__ __forceinline__ Sends stream_stimulus(
     if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, r.lat);
     int64_t arr = dep + r.lat;
     if (arr < we) arr = we;
-    burst(u, !lost, lost, arr, bseq, bsize,
+    burst(u, !lost, lost, dep, arr, bseq, bsize,
           wshl(seg_flags(f, unit), PAY_SEQ_BITS) | unit, f.rcv_nxt);
   }
   sl.send_seq = wadd(sl.send_seq, wadd(sent0, s.cnt));
@@ -900,8 +931,8 @@ __device__ __forceinline__ Sends stream_stimulus(
 // by the row's flow fires its timer, a stream segment (non-zero payload; at
 // a server row only from its own client) runs on_segment — takes
 // stream_stimulus on the lane's up bucket and counters.  Every entry of the
-// stream block and every stream loss record of the lane's rows for slot j
-// is written, valid or not.
+// stream block and every stream loss record (and with stream_pcap every
+// capture record) of the lane's rows for slot j is written, valid or not.
 __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
                             int32_t kind, int32_t src, int32_t size,
                             int32_t phi, int32_t plo, int32_t thi,
@@ -940,15 +971,19 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     f.cc = b.flow_cc[e];
     const int32_t peer = b.flow_peers[e];
     const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+    const bool capture = b.flow_pcap[e] != 0;
     sd = stream_stimulus(
         b, f, stim, Pair{thi, tlo}, t, phi, plo, size, we, up_row(b, e), sl,
-        [&](int32_t u, bool valid, bool lost, int64_t arr, int32_t bseq,
-            int32_t bsize, int32_t bphi, int32_t bplo) {
+        [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
+            int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo) {
           const int64_t slot = j * PUMP_BURST + u;
           put_entry(b, n_ent, 4 * k * sf + slot * sf + e, valid, peer, arr,
                     pkt_auxh, bseq, bsize, bphi, bplo);
           put_loss(b, b.rec_brec + slot * sf + e, lost, t, lane, peer, bseq,
                    bsize);
+          if (b.stream_pcap)
+            put_rec(b, b.rec_bpc + slot * sf + e, capture, dep, lane, peer,
+                    bseq, bsize, PCAP_TX);
         });
     flow_store(f, frow);
   }
@@ -969,6 +1004,9 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
               wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
     put_loss(b, b.rec_srec + j * s2 + row, se_v && sd.lost, t, lane, peer,
              sd.seq, em.send_size);
+    if (b.stream_pcap)
+      put_rec(b, b.rec_spc + j * s2 + row, se_v && b.flow_pcap[row] != 0,
+              sd.dep, lane, peer, sd.seq, em.send_size, PCAP_TX);
     const bool sa_v = me && em.rto_valid;
     put_entry(b, n_ent, k * s2 + j * s2 + row, sa_v, lane,
               join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, sd.lseq, SZ_RTO,
@@ -979,8 +1017,25 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
         put_entry(b, n_ent, 4 * k * sf + slot * sf + row, false, 0, 0, 0, 0,
                   0, 0, 0);
         put_loss(b, b.rec_brec + slot * sf + row, false, 0, 0, 0, 0, 0);
+        if (b.stream_pcap)
+          put_rec(b, b.rec_bpc + slot * sf + row, false, 0, 0, 0, 0, 0, 0);
       }
     }
+  }
+}
+
+// the sum of v over the block, added to *dst by one atomic (an integer sum:
+// the order of the blocks does not matter); every thread of the block calls
+// it
+__device__ __forceinline__ void block_add(int32_t v, int32_t* dst) {
+  __shared__ int32_t part[32];
+  v = __reduce_add_sync(0xFFFFFFFFu, v);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int32_t sum = 0;
+    for (unsigned w = 0; w < (blockDim.x + 31) / 32; ++w) sum += part[w];
+    if (sum != 0) atomicAdd(dst, sum);
   }
 }
 
@@ -990,13 +1045,14 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
 // CoDel for PACKET pops, delivered inline on passive lanes or as a DELIVERY
 // self-insert on active ones; the app sends (tgen ticks, phold hops to a
 // threefry peer, ping requests and echoes) with the up bucket, the latency
-// gather and the threefry loss draw; the timer re-arms; and on stream lanes
-// the stream arm (stream_slot), whose endpoint rows the thread owns.
-__global__ void lane_slots_kernel(LaneBufs b) {
-  if (b.ctl[0] == 0) return;
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+// gather and the threefry loss draw, and with pcap a capturing lane's
+// PCAP_TX record at the send's departure; the timer re-arms; and on stream
+// lanes the stream arm (stream_slot), whose endpoint rows the thread owns.
+// With netobs the lane's byte and throttle counters follow every charge, and
+// the block's popped PACKETs join the window's count (one atomic a block).
+// Returns the lane's popped PACKETs.
+__device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
   const int64_t n = b.n;
-  if (i >= n) return;
   const int64_t c = b.c, k = b.k, sw = b.sw;
   const bool streams = b.s_flows > 0;
   const int32_t interval = static_cast<int32_t>(b.interval);
@@ -1023,6 +1079,13 @@ __global__ void lane_slots_kernel(LaneBufs b) {
   int32_t n_loss = b.n_loss[i], n_hops = b.n_hops[i];
   int32_t recv = b.recv_bytes[i], n_sends = b.n_sends[i];
   int32_t min_lat = NEVER32;
+  int32_t nb_txb = 0, nb_rxb = 0, nb_thr = 0, pkts = 0;
+  if (b.netobs) {
+    nb_txb = b.nb_txb[i];
+    nb_rxb = b.nb_rxb[i];
+    nb_thr = b.nb_thr[i];
+  }
+  const bool capture = b.pcap && b.lane_pcap[i] != 0;
 
   const int32_t model = b.model[i];
   const bool passive = model == M_NONE || model == M_TGEN_MESH ||
@@ -1079,7 +1142,8 @@ __global__ void lane_slots_kernel(LaneBufs b) {
     const int64_t td = bucket_charge(dn, b.dn_rate[i], b.dn_burst[i],
                                      b.dn_kfull[i], b.dn_kfi[i], t,
                                      (size + FRAME_OVERHEAD_BYTES) * 8, is_pkt,
-                                     interval);
+                                     interval, nb_thr);
+    if (is_pkt) pkts += 1;
     int64_t sojourn = 0;
     if (is_pkt) {
       sojourn = td - t;
@@ -1089,7 +1153,10 @@ __global__ void lane_slots_kernel(LaneBufs b) {
                                   sojourn, is_pkt, b.codel_div);
     const bool deliver = is_pkt && !drop;
     if (is_pkt && drop) n_codel += 1;
-    if (deliver) n_del += 1;
+    if (deliver) {
+      n_del += 1;
+      nb_rxb = wadd(nb_rxb, size);
+    }
     // passive lanes count inline; active lanes get a DELIVERY self-insert
     // keyed by the packet's (src, seq)
     if (deliver && passive) recv += size * recv_mult;
@@ -1161,7 +1228,8 @@ __global__ void lane_slots_kernel(LaneBufs b) {
     const int64_t dep = bucket_charge(up, b.up_rate[i], b.up_burst[i],
                                       b.up_kfull[i], b.up_kfi[i], t,
                                       (out_size + FRAME_OVERHEAD_BYTES) * 8,
-                                      do_send, interval);
+                                      do_send, interval, nb_thr);
+    if (do_send) nb_txb = wadd(nb_txb, out_size);
 
     // timer re-arm
     const bool rearm = (is_start && (mesh || client || ping_cl)) || mesh_tick ||
@@ -1238,12 +1306,16 @@ __global__ void lane_slots_kernel(LaneBufs b) {
       }
       b.rec_valid[r] = (is_pkt || lost) ? 1 : 0;
     }
+    // the send's capture, at its departure and before the loss draw
+    if (b.pcap)
+      put_rec(b, b.rec_pc + oi, do_send && capture, dep, lane, dst, snd_seq,
+              out_size, PCAP_TX);
 
     if (streams)
       stream_slot(b, i, j, act, kind, src, size,
                   act ? b.q_phi[qi] : 0, act ? b.q_plo[qi] : 0, thi, tlo, we,
                   StreamLane{up, send_seq, local_seq, n_sends, n_loss,
-                             min_lat});
+                             min_lat, nb_txb, nb_thr});
   }
 
   b.dn_tokens[i] = dn.tokens;
@@ -1268,8 +1340,21 @@ __global__ void lane_slots_kernel(LaneBufs b) {
   b.app_draws[i] = app_draws;
   b.n_loss[i] = n_loss;
   b.n_hops[i] = n_hops;
+  if (b.netobs) {
+    b.nb_txb[i] = nb_txb;
+    b.nb_rxb[i] = nb_rxb;
+    b.nb_thr[i] = nb_thr;
+  }
   // the smallest latency sent over (exact: min is order-free)
   if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
+  return pkts;
+}
+
+__global__ void lane_slots_kernel(LaneBufs b) {
+  if (b.ctl[0] == 0) return;
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int32_t pkts = i < b.n ? lane_slots_lane(b, i) : 0;
+  if (b.netobs) block_add(pkts, b.nb_win);
 }
 
 // ---- kernel B: exchange_merge -----------------------------------------------
@@ -1526,6 +1611,7 @@ __global__ void merge_kernel(LaneBufs b) {
   if (threadIdx.x == 0) {
     const int32_t lost_pre = cnt > cx ? cnt - static_cast<int32_t>(cx) : 0;
     b.n_queue[i] += n_tail + lost_pre;
+    if (b.netobs) b.nb_shed[i] += lost_pre;  // the cross sheds, apart
     if (i == 0) *b.iters += 1;
   }
 }
@@ -1593,8 +1679,10 @@ __global__ void stream_rows_kernel(LaneBufs b) {
 // its first unit by the chained law), each with its loss draw at its send
 // sequence number; RTO arms take the row's local sequence.  Every candidate
 // entry of the row and, when logging, every record slot of the row is
-// written, valid or not; the peer's row is never touched (G reads the
-// control sends across the pair).
+// written, valid or not (with tier_pcap, the capture records of the row's
+// sends too); the peer's row is never touched (G reads the control sends
+// across the pair).  With netobs the row's TV_NB_* counters follow every
+// charge, and the popped PACKETs join the window's count.
 
 // the tier vector rows (lanes_stream.py TV_*)
 constexpr int TV_DN_TOK = 0, TV_DN_NRH = 1, TV_DN_NRL = 2, TV_DN_LDH = 3,
@@ -1602,7 +1690,8 @@ constexpr int TV_DN_TOK = 0, TV_DN_NRH = 1, TV_DN_NRL = 2, TV_DN_LDH = 3,
               TV_CD_DNL = 8, TV_CD_CNT = 9, TV_CD_DROP = 10, TV_UP_TOK = 11,
               TV_UP_NRH = 12, TV_UP_NRL = 13, TV_UP_LDH = 14, TV_UP_LDL = 15,
               TV_SEND_SEQ = 16, TV_LOCAL_SEQ = 17, TV_N_SENDS = 18,
-              TV_N_LOSS = 19, TV_N_DEL = 20, TV_N_CODEL = 21, TV_N_QUEUE = 22;
+              TV_N_LOSS = 19, TV_N_DEL = 20, TV_N_CODEL = 21, TV_N_QUEUE = 22,
+              TV_NB_TXB = 23, TV_NB_RXB = 24, TV_NB_THR = 25;
 
 // one candidate entry of the tier block at idx: valid, or canonical empty
 __device__ __forceinline__ void tier_put(const LaneBufs& b, int64_t idx,
@@ -1612,11 +1701,9 @@ __device__ __forceinline__ void tier_put(const LaneBufs& b, int64_t idx,
   put_words(b.tier_blk + idx, b.tier_n, valid, t, auxh, auxl, size, phi, plo);
 }
 
-__global__ void stream_tier_kernel(LaneBufs b) {
-  if (b.ctl[0] == 0) return;
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+// row e's walk; returns its popped PACKETs
+__device__ int32_t stream_tier_row(const LaneBufs& b, int64_t e) {
   const int64_t sf = b.tier_s, s2 = 2 * sf;
-  if (e >= s2) return;
   const int64_t ks = b.ks, c2 = b.c2;
   const int32_t interval = static_cast<int32_t>(b.interval);
   const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
@@ -1633,6 +1720,7 @@ __global__ void stream_tier_kernel(LaneBufs b) {
   const TierLayout lay = tier_layout(b);
   const int64_t trec = b.rec_tier, tsrec = trec + ks * s2,
                 tbrec = tsrec + ks * s2;
+  const bool capture = b.tier_pcap && b.flow_pcap[e] != 0;
 
   // the row's queue planes, and its column of the tier vectors
   int32_t* q[7];
@@ -1652,8 +1740,15 @@ __global__ void stream_tier_kernel(LaneBufs b) {
   int32_t send_seq = tv[TV_SEND_SEQ * s2], local_seq = tv[TV_LOCAL_SEQ * s2];
   int32_t n_sends = tv[TV_N_SENDS * s2], n_loss = tv[TV_N_LOSS * s2];
   int32_t n_del = tv[TV_N_DEL * s2], n_codel = tv[TV_N_CODEL * s2];
-  int32_t min_lat = NEVER32;
-  const StreamLane sl{up, send_seq, local_seq, n_sends, n_loss, min_lat};
+  int32_t nb_txb = 0, nb_rxb = 0, nb_thr = 0;
+  if (b.netobs) {
+    nb_txb = tv[TV_NB_TXB * s2];
+    nb_rxb = tv[TV_NB_RXB * s2];
+    nb_thr = tv[TV_NB_THR * s2];
+  }
+  int32_t min_lat = NEVER32, pkts = 0;
+  const StreamLane sl{up,     send_seq, local_seq, n_sends,
+                      n_loss, min_lat,  nb_txb,    nb_thr};
 
   Flow f;
   int32_t* frow = b.stream + e * N_COLS;
@@ -1685,7 +1780,8 @@ __global__ void stream_tier_kernel(LaneBufs b) {
     const bool is_pkt = act && kind == PACKET;
     const int64_t td = bucket_charge(dn, dn_rate, dn_burst, dn_kfull, dn_kfi,
                                      t, (size + FRAME_OVERHEAD_BYTES) * 8,
-                                     is_pkt, interval);
+                                     is_pkt, interval, nb_thr);
+    if (is_pkt) pkts += 1;
     int64_t sojourn = 0;
     if (is_pkt) {
       sojourn = td - t;
@@ -1694,7 +1790,10 @@ __global__ void stream_tier_kernel(LaneBufs b) {
     const bool drop = codel_offer(fat_hi, fat_lo, cd_dn, dcount, dropping, td,
                                   sojourn, is_pkt, b.codel_div);
     const bool deliver = is_pkt && !drop;
-    if (deliver) n_del += 1;
+    if (deliver) {
+      n_del += 1;
+      nb_rxb = wadd(nb_rxb, size);
+    }
     if (is_pkt && drop) n_codel += 1;
     put_rec(b, trec + j * s2 + e, is_pkt, td, src, lane, auxl, size,
             drop ? DROP_CODEL : DELIVERED);
@@ -1722,13 +1821,16 @@ __global__ void stream_tier_kernel(LaneBufs b) {
       split(st, &now.hi, &now.lo);
       sd = stream_stimulus(
           b, f, stim, now, st, phi, plo, size, we, ur, sl,
-          [&](int32_t u, bool valid, bool lost, int64_t arr, int32_t bseq,
-              int32_t bsize, int32_t bphi, int32_t bplo) {
+          [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
+              int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo) {
             const int64_t slot = j * PUMP_BURST + u;
             tier_put(b, lay.bo + slot * sf + e, valid, arr, pkt_auxh, bseq,
                      bsize, bphi, bplo);
             put_rec(b, tbrec + slot * sf + e, lost, st, lane, peer, bseq,
                     bsize, DROP_LOSS);
+            if (b.tier_pcap)
+              put_rec(b, b.rec_tbpc + slot * sf + e, capture, dep, lane, peer,
+                      bseq, bsize, PCAP_TX);
           });
     }
     const Emit& em = sd.em;
@@ -1737,6 +1839,9 @@ __global__ void stream_tier_kernel(LaneBufs b) {
              wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
     put_rec(b, tsrec + j * s2 + e, sd.lost, st, lane, peer, sd.seq,
             em.send_size, DROP_LOSS);
+    if (b.tier_pcap)
+      put_rec(b, b.rec_tspc + j * s2 + e, em.send_valid && capture, sd.dep,
+              lane, peer, sd.seq, em.send_size, PCAP_TX);
     // the RTO arm: a LOCAL self-insert at the own row
     tier_put(b, lay.sa + j * s2 + e, em.rto_valid,
              join_raw(em.rto_t.hi, em.rto_t.lo), loc_auxh, sd.lseq, SZ_RTO, 0,
@@ -1746,6 +1851,8 @@ __global__ void stream_tier_kernel(LaneBufs b) {
       const int64_t slot = j * PUMP_BURST + u;
       tier_put(b, lay.bo + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
       put_rec(b, tbrec + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
+      if (b.tier_pcap)
+        put_rec(b, b.rec_tbpc + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
     }
   }
 
@@ -1767,7 +1874,20 @@ __global__ void stream_tier_kernel(LaneBufs b) {
   tv[TV_N_LOSS * s2] = n_loss;
   tv[TV_N_DEL * s2] = n_del;
   tv[TV_N_CODEL * s2] = n_codel;
+  if (b.netobs) {
+    tv[TV_NB_TXB * s2] = nb_txb;
+    tv[TV_NB_RXB * s2] = nb_rxb;
+    tv[TV_NB_THR * s2] = nb_thr;
+  }
   if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
+  return pkts;
+}
+
+__global__ void stream_tier_kernel(LaneBufs b) {
+  if (b.ctl[0] == 0) return;
+  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int32_t pkts = e < 2 * b.tier_s ? stream_tier_row(b, e) : 0;
+  if (b.netobs) block_add(pkts, b.nb_win);
 }
 
 // ---- kernel G: tier_merge --------------------------------------------------
@@ -1852,8 +1972,7 @@ __global__ void tier_merge_kernel(LaneBufs b) {
   int32_t* q[7];
 #pragma unroll
   for (int w = 0; w < 7; ++w) q[w] = b.tier_q + w * s2 * c2 + r * c2;
-  const int64_t ttail = b.rec_tier + 4 * b.ks * b.tier_s +
-                        b.ks * PUMP_BURST * b.tier_s + r * wt;
+  const int64_t ttail = b.rec_ttail + r * wt;
   const int32_t lane = b.flow_lanes[r];
   for (int64_t y = tid; y < n_valid; y += nt) {
     const int32_t* ey = sm + 7 * y;
@@ -1885,6 +2004,8 @@ __global__ void tier_merge_kernel(LaneBufs b) {
 // sorted row, the tier's rows too), then the window law and the live flag.
 // With dynamic runahead the window is the smallest latency sent over so
 // far, never below the floor (the static runahead until the first send).
+// A window advance first folds the finished window into the netobs
+// histogram (one thread: a scalar step).
 __global__ void queue_min_kernel(LaneBufs b, int advance) {
   __shared__ int64_t warp_min[32];
   int64_t m = NEVER64;
@@ -1912,6 +2033,14 @@ __global__ void queue_min_kernel(LaneBufs b, int advance) {
   const bool live = m < b.stop;
   int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
   if (advance && live && m >= we) {
+    // netobs: the finished window's PACKET count into the histogram, at
+    // bucket floor(log2) (the last bucket open-ended); windows without a
+    // packet are skipped
+    if (b.netobs && *b.nb_win > 0) {
+      const int32_t bucket = 31 - __clz(*b.nb_win);
+      b.nb_hist[bucket < NB_HIST_BUCKETS ? bucket : NB_HIST_BUCKETS - 1] += 1;
+      *b.nb_win = 0;
+    }
     int64_t runahead = b.runahead;
     if (b.dyn_runahead) {
       const int32_t used = *b.min_used_lat;

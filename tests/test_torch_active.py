@@ -165,8 +165,20 @@ def test_dynamic_runahead_narrows_the_window():
     ("path: phold, args: [--messages, \"2\"]", "path: stream-server"),
 ], ids=["multi_process_phold", "pcap", "netobs", "stream_model"])
 def test_unported_active_configs_raise(edit):
+    """What the port refuses on the active path.  pcap and netobs are
+    ported now: pcap is refused only without the device log it rides, and
+    netobs not at all."""
     yaml = lp_cfg.PHOLD_SMALL.replace(*edit)
     assert yaml != lp_cfg.PHOLD_SMALL
+    if "pcap_enabled" in edit[1]:
+        assert GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
+        with pytest.raises(LaneCompatError, match="pcap"):
+            GpuEngine(ConfigOptions.from_yaml(yaml), log_capacity=0,
+                      device="cpu")
+        return
+    if "netobs" in edit[1]:
+        assert GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu").params.netobs
+        return
     with pytest.raises(LaneCompatError) as err:
         GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
     if edit[1].endswith("{path: phold}]}"):

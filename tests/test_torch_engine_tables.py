@@ -205,11 +205,24 @@ hosts:
 ], ids=["faults", "netobs", "flowtrace", "unroll", "pcap",
         "multi_process_phold", "tgen_tcp_server"])
 def test_unported_configs_raise(edit):
+    """What the port refuses.  pcap and netobs are ported now: pcap is
+    refused only without the device log it rides, and netobs not at
+    all."""
     from shadow_tpu_torch.config.options import ConfigOptions, LaneCompatError
 
     assert GpuEngine(ConfigOptions.from_yaml(_MESH), device="cpu")
+    yaml = _MESH.replace(*edit)
+    if "pcap_enabled" in edit[1]:
+        cfg = ConfigOptions.from_yaml(yaml)
+        assert GpuEngine(cfg, device="cpu").params.pcap_any
+        with pytest.raises(LaneCompatError, match="pcap"):
+            GpuEngine(cfg, log_capacity=0, device="cpu")
+        return
+    if "netobs" in edit[1]:
+        assert GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu").params.netobs
+        return
     with pytest.raises(LaneCompatError):
-        GpuEngine(ConfigOptions.from_yaml(_MESH.replace(*edit)), device="cpu")
+        GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
 
 
 @pytest.mark.parametrize("edit", [

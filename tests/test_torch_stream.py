@@ -397,10 +397,22 @@ def test_rounds_match_reference_field_by_field(name, rounds):
 ], ids=["segments_past_26_bits", "size_2_31", "flowtrace", "netobs", "pcap"])
 def test_unported_stream_configs_raise(edit):
     """What the port refuses with streams: flows beyond the lane law's
-    26-bit sequence space or its int32 byte counter, and the observation
-    planes it has not ported."""
+    26-bit sequence space or its int32 byte counter, and flowtrace.  pcap
+    and netobs are ported now: pcap is refused only without the device log
+    it rides, and netobs not at all (tests/test_torch_obs.py holds both to
+    the reference)."""
     yaml = STREAM_PAIR.replace(*edit)
     assert yaml != STREAM_PAIR
+    if "pcap_enabled" in edit[1]:
+        assert GpuEngine(ConfigOptions.from_yaml(yaml),
+                         device="cpu").params.stream_pcap
+        with pytest.raises(LaneCompatError, match="pcap"):
+            GpuEngine(ConfigOptions.from_yaml(yaml), log_capacity=0,
+                      device="cpu")
+        return
+    if "netobs" in edit[1]:
+        assert GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu").params.netobs
+        return
     with pytest.raises(LaneCompatError):
         GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
 
