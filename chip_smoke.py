@@ -41,7 +41,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
    timed); the mesh untiered at C=48, K=4, 5 sim s;
    ``examples/cubic-vs-reno.yaml`` (tiered), 60 sim s;
    ``flagship_mesh_config(10000)`` with the bench tuning (C=16,
-   K=2, Cx=8, strict), 1 sim s with logging and 10 sim s without;
+   K=2, Cx=8, strict), 1 sim s with logging and 10 sim s without; the
+   untiered mesh with every flow traced (``experimental.flowtrace``, an
+   8,388,608-row ring), 1 sim s: the ring kept every event, its SEND and
+   RETRANSMIT rows are the run's sends, its DELIVERY rows the deliveries,
+   no DROP, the decode timed;
    PHOLD at 10,000 hosts (``examples/phold.yaml`` with ``count: 10000``,
    default capacities), 10 sim s; the flagship with 1% loss on its edge,
    10 sim s — all in device mode; counters held to the flows' byte
@@ -66,11 +70,22 @@ and six tiered ones (the pair, lossy, CUBIC, the small mixed mesh, a
 250 ms link, dynamic runahead), tiered = untiered, and
 ``examples/stream-tcp.yaml`` for 60 sim s, its first 1.5 sim s card
 against CPU; between 8 and 9, the planes card against CPU (step and
-device mode) on ``tests/test_torch_obs.py``'s six configurations and on
-the 10k tiered mixed mesh for 100 sim ms with netobs and 300 capturing
-hosts — equal logs, states, netobs snapshots and capture files.  Phase 6
-also times the tiered mixed mesh with netobs, with a log, and with netobs,
-pcap and a log.
+device mode) on ``tests/test_torch_obs.py``'s six configurations (the
+drop-heavy mesh at its own C = Cx = 2048: merge rows in opted-in shared
+memory) and on the 10k tiered mixed mesh for 100 sim ms with netobs and
+300 capturing hosts — equal logs, states, netobs snapshots and capture
+files; then flowtrace card against CPU (step and device mode) on
+``tests/test_torch_flowtrace.py``'s configurations and the 40-host mixed
+mesh at C = Cx = 4096 (B's rows in global memory), and on the 10k
+untiered mixed mesh for 100 sim ms — equal logs, states, rings and
+snapshots; then the stream pair with its queues past the opt-in limit
+(untiered at C = 8,400: B's and E's rows in global memory; tiered at C2 =
+8,400: G's), card = CPU.  Between the plane checks and 6, kernels A, B, D and E with
+flowtrace on at samples 1, 0.5 and 0 (waits, losses, CoDel drops, stream
+retransmits, B's and E's queue sheds, a ring that overflows mid-iteration,
+D's two instances in one launch).  Phase 6 also times the tiered mixed
+mesh with netobs, with a log, and with netobs, pcap and a log, and the
+untiered one with flowtrace on.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -105,6 +120,7 @@ from shadow_tpu_torch.config.presets import flagship_mesh_config  # noqa: E402
 from shadow_tpu_torch.core import rng as rng_mod  # noqa: E402
 from shadow_tpu_torch.net import ltcp  # noqa: E402
 from shadow_tpu_torch.net.token_bucket import bucket_params  # noqa: E402
+from shadow_tpu_torch.obs import flowtrace as ftr  # noqa: E402
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -121,6 +137,10 @@ N_FLAG, C_FLAG, K_FLAG, CX_FLAG = 10_000, 16, 2, 8
 C_PHOLD, K_PHOLD = 64, 8
 # the mixed TCP/UDP mesh, untiered, at the reference's pre-tier queue shape
 C_MIX, K_MIX = 48, 4
+# the flowtrace main path's ring: 8,388,608 rows (320 MiB), for the 3-5M
+# events of the untiered mixed mesh's first sim second (about 1.03M sends,
+# three to five events each)
+FLOW_RING = 1 << 23
 SEED = 20261017
 FAILED: list[str] = []
 
@@ -396,9 +416,11 @@ def run_pair(p, tb, s0, ws0, call, plain):
         else:
             plain(p, tb, s, ws)
         torch.cuda.synchronize()
-        # the exchange scratch (x_*) is the kernel's own working memory
+        # the exchange scratch (x_*) and the merges' global rows
+        # (m_scratch) are the kernels' own working memory
         out.append({**fields(s), **{f: t for f, t in ws._asdict().items()
-                                    if not f.startswith("x_")}})
+                                    if not f.startswith("x_")
+                                    and f != "m_scratch"}})
     return out
 
 
@@ -1427,6 +1449,162 @@ def check_plane_kernels():
 
 
 
+# ---- flowtrace: A's, B's and E's flow records, D's ring -------------------------
+
+FLOW_SAMPLES = (1.0, 0.5, 0.0)
+
+
+def traced(p: lanes.LaneParams, sample: float, cap: int = 1 << 16):
+    """``p`` with flowtrace on at ``sample`` (the engines' sampling law,
+    seeded) and a ring of ``cap`` rows."""
+    thresh, every = ftr.sample_thresh(sample)
+    return dataclasses.replace(p, flowtrace=True, flow_capacity=cap,
+                               flow_thresh=thresh, flow_all=every,
+                               flow_seed=SEED)
+
+
+def with_ring(s, cap: int):
+    """``s`` with an empty flowtrace ring of ``cap`` rows."""
+    return s._replace(
+        fl_buf=torch.zeros((cap, ftr.FT_COLS), dtype=torch.int32, device=DEV),
+        fl_count=t32(0).reshape(()), fl_lost=t32(0).reshape(()))
+
+
+def flow_seen(p, ws: dict) -> dict:
+    """The valid flow records of a workspace by group and kind: B's and E's
+    queue sheds, A's sends, waits, losses, CoDel drops, deliveries and
+    retransmits."""
+    fg = p.flow_offsets
+    valid = ws["fl_valid"].bool()
+    recs = ws["fl_recs"]
+    kind, aux = recs[:, 2], recs[:, 7]
+    a = valid.clone()
+    a[:fg.slots] = False
+
+    def n(m):
+        return int(m.sum())
+
+    return {"b_sheds": n(valid[:fg.split]), "e_sheds": n(valid[fg.split:fg.slots]),
+            "sends": n(a & (kind == ftr.FT_SEND)),
+            "retransmits": n(a & (kind == ftr.FT_RETRANSMIT)),
+            "up_waits": n(a & (kind == ftr.FT_TB_WAIT) & (aux == ftr.TB_UP)),
+            "dn_waits": n(a & (kind == ftr.FT_TB_WAIT) & (aux == ftr.TB_DN)),
+            "losses": n(a & (kind == ftr.FT_DROP) & (aux == ftr.CAUSE_LOSS)),
+            "codel": n(a & (kind == ftr.FT_DROP) & (aux == ftr.CAUSE_CODEL)),
+            "deliveries": n(a & (kind == ftr.FT_DELIVERY)),
+            "queue_enters": n(a & (kind == ftr.FT_QUEUE_ENTER))}
+
+
+@phase("kernels A, B, D, E vs plain with flowtrace on, samples 1, 0.5 and 0 "
+       "(tolerance: exact, integer)")
+def check_flow_kernels():
+    rng = np.random.default_rng(SEED + 5)
+    seen = {}
+    eng_f = GpuEngine(flagship(), log_capacity=0)
+    eng_a = GpuEngine(phold(stop_time="1s"), log_capacity=0)
+    eng_s = GpuEngine(mixed_mesh(1), log_capacity=0)
+
+    def note(tag: str, p, plain: dict, s0=None) -> None:
+        got = flow_seen(p, plain)
+        if s0 is not None:  # the sends A made, traced or not
+            got["made"] = int((plain["n_sends"] - s0.n_sends).sum())
+        for k, v in got.items():
+            seen[(k, sample)] = seen.get((k, sample), 0) + v
+        log(f"flows {tag}: equal; {got}")
+
+    for sample in FLOW_SAMPLES:
+        # A at the flagship shapes (bucket waits on both sides, CoDel
+        # drops), then B on exchange blocks past C and past Cx
+        p = traced(eng_f.params, sample)
+        tb = random_tables(eng_f, rng)
+        s0 = with_ring(random_state(eng_f, tb, rng), p.flow_capacity)
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots,
+                               lanes.lane_slots_plain)
+        check("lane_slots", f"flows flagship sample={sample}", kern, plain)
+        note(f"A flagship sample={sample}", p, plain, s0)
+        random_exchange(p, ws0, rng)
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.exchange_merge,
+                               lanes.exchange_merge_plain)
+        check("exchange_merge", f"flows sample={sample}", kern, plain)
+        note(f"B flagship sample={sample}", p, plain)
+        # A on active lanes: phold and ping sends, losses at the draw
+        pa = traced(active_params(eng_a, False), sample)
+        tba = active_tables(eng_a, rng)
+        sa = with_ring(active_state(eng_a, tba, rng), pa.flow_capacity)
+        wsa = lanes.make_workspace(pa, DEV)
+        wsa.ctl[0] = 1
+        kern, plain = run_pair(pa, tba, sa, wsa, kernels.lane_slots,
+                               lanes.lane_slots_plain)
+        check("lane_slots", f"flows active sample={sample}", kern, plain)
+        note(f"A active sample={sample}", pa, plain, sa)
+        # A's stream arm (retransmits: pull-backs and re-streamed bursts),
+        # then E on nearly full stream rows
+        ps, tbs, ss = stream_case(eng_s, rng)
+        ps = traced(ps, sample)
+        ss = with_ring(ss, ps.flow_capacity)
+        wss = lanes.make_workspace(ps, DEV)
+        wss.ctl[0] = 1
+        kern, plain = run_pair(ps, tbs, ss, wss, kernels.lane_slots,
+                               lanes.lane_slots_plain)
+        check("lane_slots", f"flows stream sample={sample}", kern, plain)
+        note(f"A stream sample={sample}", ps, plain, ss)
+        se = with_ring(random_state(eng_s, tbs, rng), ps.flow_capacity)
+        random_stream_block(ps, wss, rng, ps.n_lanes)
+        kern, plain = run_pair(ps, tbs, se, wss, kernels.stream_rows_merge,
+                               lanes.stream_rows_merge_plain)
+        check("stream_rows_merge", f"flows sample={sample}", kern, plain)
+        note(f"E sample={sample}", ps, plain)
+    # D: the ring alone, and beside the log in one launch; filling from 0,
+    # and overflowing in the middle of the iteration's rows
+    lost = 0
+    for log_cap in (0, 100_000):
+        p = dataclasses.replace(traced(eng_s.params, 1.0, cap=400_000),
+                                log_capacity=log_cap)
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        n_fl = ws0.fl_valid.numel()
+        ws0.fl_valid.copy_(t32(rng.random(n_fl) < 0.3))
+        ws0.fl_recs.copy_(t32(rng.integers(-(1 << 31), 1 << 31, (n_fl, 8))))
+        if log_cap:
+            n_rec = ws0.rec_valid.numel()
+            ws0.rec_valid.copy_(t32(rng.random(n_rec) < 0.3))
+            ws0.recs.copy_(torch.as_tensor(
+                rng.integers(0, 1 << 40, (n_rec, 6)), device=DEV))
+        s0 = with_log(with_ring(random_state(eng_s, eng_s.tables, rng),
+                                p.flow_capacity), log_cap)
+        for start in (0, p.flow_capacity - 50_000):
+            s1 = clone(s0)
+            s1.fl_count.fill_(start)
+            s1.log_count.fill_(start % max(log_cap, 1))
+            kern, plain = run_pair(
+                p, eng_s.tables, s1, ws0, kernels.append_log,
+                lambda p_, tb_, s, ws: lanes.append_log_plain(p_, s, ws))
+            check("append_log", f"ring L={log_cap} start={start}", kern, plain)
+            lost += int(plain["fl_lost"])
+            log(f"append_log ring L={log_cap} start={start}: equal; kept "
+                f"{min(int(plain['fl_count']), p.flow_capacity) - start}, "
+                f"lost {int(plain['fl_lost'])} of {n_fl} slots")
+    want = ("b_sheds", "e_sheds", "sends", "retransmits", "up_waits",
+            "dn_waits", "losses", "codel", "deliveries", "queue_enters")
+    log(f"flows: every kernel equal; seen {seen}, ring lost {lost}")
+    missed = [k for k in want if not seen[(k, 1.0)]]
+    if missed or not lost:
+        raise AssertionError(f"the flow inputs missed {missed or 'overflow'}")
+    if any(seen[(k, 0.0)] for k in want):
+        raise AssertionError("sample 0 recorded events")
+
+    def traced_sends(x):
+        return seen[("sends", x)] + seen[("retransmits", x)]
+
+    # every send made is traced at sample 1, some at 0.5
+    if traced_sends(1.0) != seen[("made", 1.0)]:
+        raise AssertionError("sample 1 missed sends")
+    if not 0 < traced_sends(0.5) < seen[("made", 0.5)]:
+        raise AssertionError("sample 0.5 did not trace a strict subset")
+
+
 def every_other(doc: dict, capture=None) -> ConfigOptions:
     """The config with netobs on and pcap at the hosts named in
     ``capture``, or at every other host."""
@@ -1440,20 +1618,9 @@ def every_other(doc: dict, capture=None) -> ConfigOptions:
 # tests/test_torch_obs.py's configurations (test_telemetry.py's and
 # test_pcap.py's), with both planes on: name -> config builder
 PLANE_PARITY = {
-    # the drop-heavy mesh at Cx = 64 (the package's default Cx = C = 2048
-    # makes a merge row too wide for shared memory; no lane receives more
-    # than 48 entries an iteration, so nothing changes)
-    "drop_heavy": lambda: every_other({
-        "general": {"stop_time": "1500ms", "seed": 11},
-        "experimental": {"tpu_lane_queue_capacity": 2048,
-                         "tpu_cross_capacity": 64},
-        "network": _switch("2 Mbit", "1 Mbit", "10 ms", 0.05),
-        "hosts": {
-            "srv": {"network_node_id": 0, "processes": [{"path": "tgen-server"}]},
-            "cli": {"count": 6, "network_node_id": 0, "processes": [{
-                "path": "tgen-client",
-                "args": "--server srv --interval 5ms --size 1400"}]},
-        }}),
+    # the drop-heavy mesh at its own C = Cx = 2048: B's rows of 4,104
+    # entries (90 KB) merge in opted-in shared memory
+    "drop_heavy": lambda: every_other(drop_heavy_doc()),
     "lossy_stream": lambda: every_other({
         **_stream_pair_doc(loss=0.02, tiered=True, latency="10 ms",
                            size="400000"),
@@ -1555,6 +1722,163 @@ def plane_parity():
                         runs["cpu"])
     if len(runs["cpu"][3]) != 300:
         raise AssertionError("want 300 capture files")
+
+
+# tests/test_torch_flowtrace.py's configurations (test_flowtrace.py's, the
+# mixed mesh at 200 of its 1,000 sim ms) and the same mesh at C = Cx = 4096,
+# flowtrace on: name -> (config builder, the CPU's driver mode)
+def drop_heavy_doc(seed: int = 11, stop: str = "1500ms") -> dict:
+    """test_flowtrace.py's drop-heavy mesh: six tgen clients into one
+    server over a 2 Mbit up / 1 Mbit down node with 5% loss, C = Cx =
+    2048."""
+    return {
+        "general": {"stop_time": stop, "seed": seed},
+        "experimental": {"tpu_lane_queue_capacity": 2048},
+        "network": _switch("2 Mbit", "1 Mbit", "10 ms", 0.05),
+        "hosts": {
+            "srv": {"network_node_id": 0, "processes": [{"path": "tgen-server"}]},
+            "cli": {"count": 6, "network_node_id": 0, "processes": [{
+                "path": "tgen-client",
+                "args": "--server srv --interval 5ms --size 1400"}]},
+        }}
+
+
+def with_flowtrace(cfg, sample: float = 1.0, cap: int = 65536):
+    cfg.experimental.flowtrace = True
+    cfg.experimental.flowtrace_sample = sample
+    cfg.experimental.flowtrace_capacity = cap
+    return cfg
+
+
+def mixed40(cross: int):
+    """The 40-host mixed mesh at C = 4096 (the tier dropped), 200 sim ms:
+    ``cross`` 8 (the preset's: B's and E's rows opt in to 115 KB of shared
+    memory) or 0 (Cx = C: B's rows of 8,196 entries, 246 KB, merge in
+    global memory)."""
+    cfg = presets.mixed_flagship_config(40, 1)
+    cfg.general.stop_time = 200_000_000
+    cfg.experimental.tpu_lane_queue_capacity = 4096
+    cfg.experimental.tpu_cross_capacity = cross
+    return with_flowtrace(cfg)
+
+
+FLOW_PARITY = {
+    "drop_heavy": (lambda: with_flowtrace(
+        ConfigOptions.from_dict(drop_heavy_doc())), "device"),
+    "drop_heavy_step": (lambda: with_flowtrace(ConfigOptions.from_dict(
+        drop_heavy_doc(seed=12, stop="600ms"))), "step"),
+    "sampled": (lambda: with_flowtrace(
+        ConfigOptions.from_dict(drop_heavy_doc()), sample=0.5), "device"),
+    "lossy_stream": (lambda: with_flowtrace(ConfigOptions.from_dict({
+        **_stream_pair_doc(loss=0.02, tiered=True, latency="10 ms",
+                           size="400000"),
+        "general": {"stop_time": "6s", "seed": 5,
+                    "bootstrap_end_time": "100ms"}})), "device"),
+    "mixed_fallback": (lambda: mixed40(8), "device"),
+    "mixed_wide": (lambda: mixed40(0), "device"),
+    "phold_32": (lambda: with_flowtrace(ConfigOptions.from_dict({
+        "general": {"stop_time": "200ms", "seed": 3},
+        "hosts": {"n": {"count": 8, "processes": [
+            {"path": "phold", "args": "--messages 3 --size 600"}]}}}),
+        cap=32), "device"),
+}
+
+
+def flow_run(cfg_fn, dev: str, mode: str, log_cap=None):
+    """One traced run: the result, the final state and the snapshot."""
+    eng = GpuEngine(cfg_fn(), device=dev, log_capacity=log_cap)
+    res, st = run_engine(eng, mode)
+    return res, st, eng.flowtrace_snapshot(), eng.params
+
+
+def merge_paths(p) -> dict:
+    """Each merge's path on this card: shared memory or global."""
+    optin = kernels.smem_optin(DEV)
+    return {what: ("shared" if lanes.merge_in_shared(e, w, x, optin)
+                   else "global") + f" ({4 * w * e + x} B)"
+            for what, (_r, e, w, x) in lanes.merge_rows(p).items()}
+
+
+def assert_flows_equal(tag: str, a, b) -> None:
+    """Two traced runs equal: logs, counters, final states (the ring
+    included), the snapshots' events and losses."""
+    (res_a, st_a, snap_a, _pa), (res_b, st_b, snap_b, _pb) = a, b
+    if res_a.log_tuples() != res_b.log_tuples():
+        raise AssertionError(f"{tag}: event log differs")
+    if res_a.counters != res_b.counters or res_a.rounds != res_b.rounds:
+        raise AssertionError(f"{tag}: counters differ")
+    assert_equal(f"{tag} final state", st_a, st_b)
+    if snap_a != snap_b:
+        raise AssertionError(f"{tag}: flowtrace snapshots differ")
+
+
+@phase("flowtrace: card (step and device) against the CPU on seven configs, "
+       "the wide rows' opt-in and global merges among them, and the 10k "
+       "untiered mixed mesh for 100 sim ms")
+def flow_parity():
+    for name, (cfg_fn, cpu_mode) in FLOW_PARITY.items():
+        t0 = time.perf_counter()
+        ref = flow_run(cfg_fn, "cpu", cpu_mode)
+        res, _st, snap, p = ref
+        if not snap["raw"]:
+            raise AssertionError(f"{name}: no flow events")
+        for mode in ("step", "device"):
+            assert_flows_equal(f"{name} cuda/{mode}",
+                               flow_run(cfg_fn, "cuda", mode), ref)
+        kinds = np.bincount([e[2] for e in snap["raw"]], minlength=6)
+        log(f"{name}: card = CPU; {len(res.event_log)} records, "
+            f"{len(snap['raw'])} flow events by kind {kinds.tolist()}, ring "
+            f"lost {snap['ring_lost']}; merges {merge_paths(p)} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    wide = GpuEngine(FLOW_PARITY["mixed_wide"][0](), device="cpu").params
+    if not merge_paths(wide)["merge"].startswith("global"):
+        raise AssertionError("the wide rows did not take the global path")
+
+    def mixed_100ms():
+        cfg = with_flowtrace(mixed_mesh(1), cap=1 << 20)
+        cfg.general.stop_time = 100_000_000
+        return cfg
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = flow_run(mixed_100ms, dev, "device", log_cap=0)
+        log(f"mixed mesh untiered 100 ms, flowtrace, {dev}: "
+            f"{len(runs[dev][2]['raw'])} flow events "
+            f"({time.perf_counter() - t0:.1f} s)")
+    assert_flows_equal("mixed mesh untiered 100 ms, flowtrace", runs["cuda"],
+                       runs["cpu"])
+
+
+def wide_pair(tiered: bool):
+    """The stream pair with queues past the opt-in limit: untiered at C =
+    8,400 (B's rows of 16,816 entries and E's of 8,504, 7 words each, in
+    global memory), or tiered with C2 = 8,400 (G's rows of 8,840)."""
+    doc = _stream_pair_doc(tiered=tiered)
+    doc["experimental"]["tpu_stream_queue_capacity" if tiered
+                        else "tpu_lane_queue_capacity"] = 8400
+    return ConfigOptions.from_dict(doc)
+
+
+@phase("wide rows: card = CPU where every merge's rows pass the opt-in limit")
+def wide_rows():
+    for tiered, want in ((False, ("merge", "stream merge")),
+                         (True, ("tier merge",))):
+        runs = {dev: run_engine(GpuEngine(wide_pair(tiered), device=dev),
+                                "device") for dev in ("cuda", "cpu")}
+        p = GpuEngine(wide_pair(tiered), device="cpu").params
+        paths = merge_paths(p)
+        (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
+        log(f"wide pair tiered={tiered}: merges {paths}; {res_c.counters}")
+        if any(not paths[m].startswith("global") for m in want):
+            raise AssertionError(f"wide pair: {want} not all global")
+        if res_c.counters.get("stream_complete") != 1:
+            raise AssertionError("wide pair: the flow did not complete")
+        if (res_g.log_tuples() != res_c.log_tuples()
+                or res_g.counters != res_c.counters):
+            raise AssertionError(f"wide pair tiered={tiered}: card and CPU "
+                                 "differ")
+        assert_equal(f"wide pair tiered={tiered} final state", st_g, st_c)
 
 
 # ---- timing ----------------------------------------------------------------
@@ -1674,6 +1998,9 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws, cnt: dict) -> dict:
         if p.log_capacity:
             g_io += ((tg.end - tg.tail) * 4
                      + int(ws.rec_valid[tg.tail:tg.end].sum()) * 6 * 8)
+    valid = int(ws.rec_valid.sum()) if n_rec else 0
+    d_in = n_rec * 4 + valid * 6 * 8
+    d_out = (valid * 6 * 8 + 8) if n_rec else 0
     e_io = 0
     if p.split:
         s2 = 2 * p.s_flows
@@ -1687,14 +2014,27 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws, cnt: dict) -> dict:
                 + entries(cnt["sx"], e_read, 7) + 2 * s2 * 4 + s2 * 4)
         if p.log_capacity:
             e_io += (rg.slots - rg.split) * 4 + split_rows * 6 * 8
+    if p.flowtrace:
+        # every flow slot's flag written, the 32-byte records of the valid
+        # ones: B's sheds, E's, A's groups; D reads the flags and the valid
+        # records and writes each as a 40-byte ring row
+        fg = p.flow_offsets
+        fv = ws.fl_valid.bool()
+
+        def flows(lo: int, hi: int) -> int:
+            return (hi - lo) * 4 + int(fv[lo:hi].sum()) * 32
+
+        b_out += flows(0, fg.split)
+        e_io += flows(fg.split, fg.slots)
+        a_out += flows(fg.slots, fg.end)
+        n_flow = int(fv.sum())
+        d_in += fg.end * 4 + n_flow * 32 + 4 * 4  # count, lost, window
+        d_out += n_flow * ftr.FT_COLS * 4 + 8
     c_io = n * 8 + 4 * 4 + 6 * 4 + 4
     if p.stream_tiered:
         c_io += 2 * p.s_flows * 8  # the tier rows' heads
     if p.netobs:
         c_io += 2 * 2 * 4  # nb_win and one histogram word
-    valid = int(ws.rec_valid.sum()) if n_rec else 0
-    d_in = n_rec * 4 + valid * 6 * 8
-    d_out = valid * 6 * 8 + 8
     return {
         "lane_slots": a_in + a_out, "exchange_merge": b_in + b_out,
         "stream_rows_merge": e_io, "stream_tier": f_io, "tier_merge": g_io,
@@ -1738,7 +2078,7 @@ def path_kernels(p: lanes.LaneParams) -> list:
         out.append("stream_rows_merge")
     if p.stream_tiered:
         out += ["stream_tier", "tier_merge"]
-    if p.log_capacity:
+    if p.log_capacity or p.flowtrace:
         out.append("append_log")
     return out
 
@@ -1880,7 +2220,7 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
                      kernels.exchange_merge(args), kernels.stream_tier(args)),
             lambda: kernels.tier_merge(args),
             lambda: lanes.tier_merge_plain(p, tb, s, ws_))
-    if log_cap:
+    if log_cap or p.flowtrace:
         plan["append_log"] = (lambda: restore(snap_mid),
                               lambda: kernels.append_log(args),
                               lambda: lanes.append_log_plain(p, s, ws_))
@@ -1931,6 +2271,11 @@ def time_all() -> dict:
         # the untiered mixed mesh (kernel E): 40 steps in, the flows are in
         # slow start
         "mixed": time_kernels("mixed mesh, untiered", mixed_mesh(2), 0, 40),
+        # ... with flowtrace on, every flow traced (this slice's main path's
+        # shapes), on the same states
+        "mixed_flowtrace": time_kernels(
+            "mixed mesh, untiered, flowtrace",
+            with_flowtrace(mixed_mesh(2), cap=FLOW_RING), 0, 40),
         # the tiered mixed mesh (kernels F and G): 20 steps in (the tier
         # pops up to 16 events a row per step), the flows are in slow start
         "mixed_tiered": time_kernels("mixed mesh, tiered", mixed_tiered(2), 0,
@@ -2511,6 +2856,37 @@ def check_pcap(res, _sim_s: int, log_cap: int, eng) -> None:
                                  "from its log rows")
 
 
+FLOW_MAIN = "mixed mesh 10k, untiered, flowtrace, 1 s"
+
+
+def check_flowtrace(res, _sim_s: int, _log_cap: int, eng) -> None:
+    """The traced run: the ring kept every event; its FT_SEND and
+    FT_RETRANSMIT rows are the run's sends, its FT_DELIVERY rows its
+    deliveries, and it holds no FT_DROP (the mesh is loss-free, strict
+    capacity raised nothing, and the netobs run counts no drop cause)."""
+    s = eng._live_state
+    kept, lost = int(s.fl_count), int(s.fl_lost)
+    kinds = torch.bincount(s.fl_buf[:min(kept, FLOW_RING), 4].long(),
+                           minlength=6).tolist()
+    c = res.counters
+    names = ("send", "tb_wait", "queue_enter", "drop", "retransmit",
+             "delivery")
+    log(f"flowtrace: {kept} events of a {FLOW_RING}-row ring, lost {lost}; "
+        f"by kind {dict(zip(names, kinds))}; decoded in "
+        f"{eng.flow_decode_s:.3f} s; sends {c.get('lane_sends')}, delivered "
+        f"{c.get('lane_delivered')}")
+    if lost or len(eng.flowtrace_snapshot()["raw"]) != kept:
+        raise AssertionError("the ring lost events")
+    if kinds[ftr.FT_SEND] + kinds[ftr.FT_RETRANSMIT] != c["lane_sends"]:
+        raise AssertionError("FT_SEND + FT_RETRANSMIT rows != the run's sends")
+    if kinds[ftr.FT_DELIVERY] != c["lane_delivered"]:
+        raise AssertionError("FT_DELIVERY rows != the run's deliveries")
+    drops = {k: c.get(k, 0) for k in
+             ("lane_drop_loss", "lane_drop_codel", "lane_drop_queue")}
+    if kinds[ftr.FT_DROP] or any(drops.values()):
+        raise AssertionError(f"drops on a loss-free mesh: {kinds}, {drops}")
+
+
 MAIN_PATHS = {
     # the mixed TCP/UDP mesh at 10,000 hosts, tiered at the preset's own
     # tuning
@@ -2524,6 +2900,10 @@ MAIN_PATHS = {
     "mixed mesh 10k, tiered, netobs + pcap, logging, 1 s": (
         lambda: planes(mixed_tiered(1), "main"), planes_log_capacity(),
         check_pcap, 1),
+    # this slice's: the mesh untiered with every flow traced, 1 s
+    FLOW_MAIN: (
+        lambda: with_flowtrace(mixed_mesh(1), cap=FLOW_RING), 0,
+        check_flowtrace, 1),
     # the same mesh untiered (kernel E), at the pre-tier queue shape
     "mixed mesh 10k, untiered, 5 s": (
         lambda: mixed_mesh(5), 0,
@@ -2549,6 +2929,7 @@ def launch_counts() -> dict:
 def main_path():
     totals = {}
     rates = {}
+    per_path = {}
     drawing = 0  # launches of A on paths whose A runs the threefry draw
     for name, (cfg_fn, log_cap, check_fn, sim_s) in MAIN_PATHS.items():
         eng = GpuEngine(cfg_fn(), log_capacity=log_cap)
@@ -2558,11 +2939,19 @@ def main_path():
                 write(*a)
                 eng.pcap_write_s = time.perf_counter() - t0
             eng._write_pcaps = timed
+        if eng.params.flowtrace:  # the ring's readback and decode, timed
+            def decode(*a, collect=eng._flowtrace_collect, eng=eng):
+                t0 = time.perf_counter()
+                out = collect(*a)
+                eng.flow_decode_s = time.perf_counter() - t0
+                return out
+            eng._flowtrace_collect = decode
         kernels.reset_launches()
         t0 = time.perf_counter()
         res = eng.run(mode="device")
         total = time.perf_counter() - t0
         counts = launch_counts()
+        per_path[name] = counts
         log(f"{name}: {res.counters}, rounds {res.rounds}, "
             f"{res.sim_seconds_per_wall_second:.3f} sim-s/wall-s (loop "
             f"{res.wall_seconds:.3f} s, with set-up and collect {total:.3f} "
@@ -2578,7 +2967,7 @@ def main_path():
             drawing += counts["lane_slots"]
     log(f"launches over the main paths: {totals}; of A, {drawing} on paths "
         f"that draw")
-    return totals, rates, drawing
+    return totals, rates, drawing, per_path
 
 
 def main() -> int:
@@ -2607,25 +2996,28 @@ def main() -> int:
     check_stream_kernels()
     check_tier_kernels()
     check_plane_kernels()
+    check_flow_kernels()
     times = time_all()
     parity()
     stream_parity()
     stream_tcp_example()
     full_width_parity()
     plane_parity()
+    flow_parity()
+    wide_rows()
     main_out = main_path()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
-    launches, rates, drawing = main_out
+    launches, rates, drawing, per_path = main_out
     smi = smi_line()
     for line in ptxas:  # again here: the start of a long output is cut
         log(f"ptxas: {line}")
     for name, rate in rates.items():
         log(f"sim-s/wall-s, {name}: {rate:.3f} ({smi})")
     for cfg_name in ("mixed_tiered", "mixed_tiered_netobs", "mixed_tiered_log",
-                     "mixed_tiered_pcap", "mixed", "flagship", "flagship_log",
-                     "phold", "lossy"):
+                     "mixed_tiered_pcap", "mixed", "mixed_flowtrace",
+                     "flagship", "flagship_log", "phold", "lossy"):
         for name, t in times[cfg_name].items():
             if name == "loop":
                 log(f"device busy, {cfg_name}: {t['busy']:.4f} of "
@@ -2685,6 +3077,17 @@ def main() -> int:
                                ("log", "mixed_tiered_log"),
                                ("log_netobs_pcap", "mixed_tiered_pcap"))
             if name in times[key]}
+        # flowtrace, on the untiered mixed mesh's states in one call: off,
+        # then every flow traced (D runs there for the ring alone), with
+        # the launches of the traced main path
+        for plane, key in (("untiered", "mixed"),
+                           ("flowtrace", "mixed_flowtrace")):
+            if name in times[key]:
+                row["planes"][plane] = {
+                    "ms": times[key][name]["ms"],
+                    "bound_ms": times[key][name]["bound_ms"]}
+        if "flowtrace" in row["planes"]:
+            row["planes"]["flowtrace"]["launches"] = per_path[FLOW_MAIN][name]
         if name == "rand_u32":
             # the launcher runs on no main path: its own launches in the
             # phase that timed it

@@ -8,8 +8,9 @@ ordering, routing, runahead, bucket parameters, loss thresholds, flow
 tables and int32 guards), runs the window loop with the lane kernels on
 one device, and reads the result back into a :class:`SimResult` that
 compares directly with the reference's — with pcap, the capture files of
-``<data_directory>/hosts/<name>/eth0.pcap`` byte for byte, and with
-netobs, ``netobs_snapshot()`` counter for counter.
+``<data_directory>/hosts/<name>/eth0.pcap`` byte for byte, with netobs,
+``netobs_snapshot()`` counter for counter, and with flowtrace,
+``flowtrace_snapshot()`` event for event.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..models.tgen import Ping, TgenClient, TgenMesh, TgenServer
 from ..net import codel as codel_mod
 from ..net import ltcp
 from ..net.token_bucket import bucket_params
+from ..obs import flowtrace as ftr
 from ..obs import netobs as nom
 from ..utils.pcap import PcapWriter
 from . import bridge, lanes
@@ -93,8 +95,9 @@ class GpuEngine:
         n = len(cfg.hosts)
         _graph, self.ips, self.dns, self.routing, bw_up, bw_dn, runahead = (
             build_world(cfg))
-        # the netobs snapshot of the last collected run
+        # the netobs and flowtrace snapshots of the last collected run
         self._netobs_data = None
+        self._flowtrace_data = None
 
         # --- per-lane model tables and initial events ---------------------
         model = np.zeros(n, dtype=np.int32)
@@ -257,8 +260,12 @@ class GpuEngine:
         ) and all(pid in server_ids for pid in peer_counts)
         # the tiered stream backend: one-to-one flows move to their own
         # [2S]-row tier (the reference's decision; it also needs no
-        # external lanes and no flowtrace, which the port does not run)
-        tiered = one_to_one and bool(cfg.experimental.tpu_stream_tiered)
+        # external lanes, which the port does not run).  Flowtrace rides
+        # the untiered path: a traced run drops the tier, an equivalent
+        # execution with the same events
+        flowtrace = bool(cfg.experimental.flowtrace)
+        tiered = (one_to_one and bool(cfg.experimental.tpu_stream_tiered)
+                  and not flowtrace)
         # wide stream co-pop is sound only when every possible window ends
         # before RTO_MIN (a DELIVERY pop then inserts nothing same-window);
         # the dynamic window never exceeds the largest link latency
@@ -274,6 +281,8 @@ class GpuEngine:
                 "log; log_capacity=0 disables it — enable logging"
             )
         ends = np.concatenate([client_ids, p_peer[client_ids]]).astype(np.int64)
+        flow_thresh, flow_all = ftr.sample_thresh(
+            cfg.experimental.flowtrace_sample)
 
         self.params = lanes.LaneParams(
             n_lanes=n,
@@ -298,6 +307,12 @@ class GpuEngine:
             pcap_any=pcap_any,
             stream_pcap=bool(lane_pcap[ends].any()),
             netobs=bool(cfg.experimental.netobs),
+            flowtrace=flowtrace,
+            flow_capacity=(cfg.experimental.flowtrace_capacity
+                           if flowtrace else 0),
+            flow_thresh=flow_thresh,
+            flow_all=flow_all,
+            flow_seed=cfg.general.seed,
         )
 
         up = np.array([bucket_params(int(b)) for b in bw_up], dtype=np.int64)
@@ -451,6 +466,10 @@ class GpuEngine:
             return torch.zeros(shape if p.netobs else (0,),
                                dtype=torch.int32, device=dev)
 
+        def fl(*shape):  # the flowtrace ring, empty when it is off
+            return torch.zeros(shape if p.flowtrace else (0,),
+                               dtype=torch.int32, device=dev)
+
         if p.stream_tiered:
             stream = self._initial_tier(t_cols)
         elif p.stream_present:
@@ -488,6 +507,8 @@ class GpuEngine:
             min_used_lat=scalar(lanes.NEVER32),
             nb_txb=nb(n), nb_rxb=nb(n), nb_thr=nb(n), nb_shed=nb(n),
             nb_hist=nb(lanes.NB_HIST_BUCKETS), nb_win=nb(),
+            fl_buf=fl(p.flow_capacity, ftr.FT_COLS), fl_count=fl(),
+            fl_lost=fl(),
         )
 
     def _initial_tier(self, cols) -> lstr.TierState:
@@ -560,6 +581,8 @@ class GpuEngine:
                       "n_sends", "n_hops", "recv_bytes", "m_peer_offset"]
         if self.params.netobs:
             wrap_check += ["nb_txb", "nb_rxb", "nb_thr"]
+        if self.params.flowtrace:
+            wrap_check += ["fl_count", "fl_lost"]
         for fname in wrap_check:
             if int(getattr(s, fname).min()) < 0:
                 raise RuntimeError(
@@ -633,6 +656,8 @@ class GpuEngine:
             add("stream_flows_done", int((sv_m[:, lstr.C_COMPLETED] != 0).sum()))
         if self.params.netobs:
             self._netobs_data = self._netobs_collect(s)
+        if self.params.flowtrace:
+            self._flowtrace_data = self._flowtrace_collect(s)
         return SimResult(
             sim_time_ns=self.params.stop_time,
             wall_seconds=wall,
@@ -709,6 +734,21 @@ class GpuEngine:
         if tail > 0:
             hist[nom.hist_bucket(tail)] += 1
         return {"arrays": arrays, "window_hist": hist, "log_lost": 0}
+
+    def _flowtrace_collect(self, s: lanes.LaneState) -> dict:
+        """The flowtrace ring decoded (the reference's
+        ``_flowtrace_collect``): the kept rows are its prefix, since it
+        never wraps; ``ring_lost`` counts the rows past its end."""
+        kept = min(int(s.fl_count), self.params.flow_capacity)
+        return {"raw": ftr.rows_to_events(s.fl_buf[:kept].cpu().numpy()),
+                "ring_lost": int(s.fl_lost)}
+
+    def flowtrace_snapshot(self) -> Optional[dict]:
+        """The flowtrace events of the last collected run: ``raw`` (event
+        tuples in ring order; ``obs.flowtrace.canonical_events`` sorts
+        them) and ``ring_lost``; None when flowtrace is off or no run has
+        been collected."""
+        return self._flowtrace_data
 
     def netobs_snapshot(self) -> Optional[dict]:
         """The netobs snapshot of the last collected run: ``arrays`` (the

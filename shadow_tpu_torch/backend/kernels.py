@@ -1,7 +1,7 @@
 """The lane engine's CUDA kernels: build, binding and wrappers.
 
-``csrc/lanes.cu`` holds the seven lane kernels for Hopper (``sm_90a``) and the
-threefry launcher behind a plain C interface.  At first use on the card it is compiled with ``nvcc`` into
+``csrc/lanes.cu`` holds the seven lane kernels for Hopper (``sm_90a``), the
+threefry launcher and the shared-memory query behind a plain C interface.  At first use on the card it is compiled with ``nvcc`` into
 ``build/shadow_tpu_torch/`` at the root of the checkout, keyed by a hash of
 the source, and loaded with ``ctypes``.  Nothing is built or loaded when
 this module is imported.
@@ -41,8 +41,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# the merge kernel keeps its row in static-limit shared memory
-MERGE_SMEM_LIMIT = 48 * 1024
 
 # LaneBufs (csrc/lanes.cu): every pointer field, in this order, then the
 # sizes.  ``stream`` points at the flows ([2, S, F]); on a tiered run
@@ -58,7 +56,10 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "rec_srec", "rec_brec", "n_rec", "tier_s", "ks", "c2",
                "tier_wide", "tier_n", "rec_tier", "netobs", "pcap",
                "stream_pcap", "tier_pcap", "rec_pc", "rec_spc", "rec_bpc",
-               "rec_tspc", "rec_tbpc", "rec_ttail")
+               "rec_tspc", "rec_tbpc", "rec_ttail", "flowtrace", "ft_cap",
+               "ft_thresh", "ft_all", "ft_seed", "fl_split", "fl_slots",
+               "fl_ss", "fl_bs", "n_fl", "merge_global", "split_global",
+               "tier_global")
 
 
 class LaneBufs(ctypes.Structure):
@@ -119,12 +120,33 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.queue_min_window.argtypes = [vp, ctypes.c_int, vp]
     lib.queue_min_window.restype = ctypes.c_int
+    lib.smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.smem_optin.restype = ctypes.c_int
     u32 = ctypes.c_uint32
     lib.rand_u32.argtypes = [u32, u32, vp, vp, vp, ctypes.c_int64, vp]
     lib.rand_u32.restype = ctypes.c_int
     lib.lanes_error_string.argtypes = [ctypes.c_int]
     lib.lanes_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_optin(index: int) -> int:
+    lib = _lib()
+    out = ctypes.c_int(0)
+    err = lib.smem_optin(index, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"smem_optin: CUDA error {err}: "
+                           f"{lib.lanes_error_string(err).decode()}")
+    return out.value
+
+
+def smem_optin(device) -> int:
+    """The card's ``sharedMemPerBlockOptin`` (bytes): the most dynamic
+    shared memory a block may opt in to (227 KB on an H100), read once."""
+    dev = torch.device(device)
+    return _smem_optin(dev.index if dev.index is not None
+                       else torch.cuda.current_device())
 
 
 def _check(name: str, t: torch.Tensor, device, dtype, shape) -> None:
@@ -150,7 +172,12 @@ class LaneArgs:
     are flags: ``netobs`` (the ``nb_*`` counters), ``pcap`` (the lanes'
     PCAP_TX records), ``stream_pcap`` and ``tier_pcap`` (the stream
     endpoints' captures, on the [N] lanes or on the tier), beside their
-    record groups' starts."""
+    record groups' starts; ``flowtrace`` (the flow records, at the flow
+    groups' starts ``fl_*``, and the ring), with the sampling law's
+    ``ft_thresh``, ``ft_all`` and ``ft_seed`` (mod 2**32, all the hash
+    reads of it).  On the card each merge takes the path
+    ``lanes.merge_in_shared`` gives its rows at the device's opt-in limit:
+    ``*_global`` marks the merges that run in ``m_scratch``."""
 
     def __init__(self, p: lanes.LaneParams, tb: lanes.LaneTables,
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
@@ -161,6 +188,7 @@ class LaneArgs:
         g = int(tb.lat.shape[0])
         i32, i64 = torch.int32, torch.int64
         n_rec = p.n_records if p.log_capacity else 1
+        n_fl = p.flow_offsets.end if p.flowtrace else 1
         sp, sf = p.stream_present, p.s_flows
         tiered = p.stream_tiered
         n_ep = 2 * sf if sp else 2
@@ -197,6 +225,11 @@ class LaneArgs:
             "x_cnt": (n,), "x_start": (n,), "x_fill": (n,),
             "x_order": (pl.exchange_entries,),
             "tier_blk": (7, max(tier_n, 1)),
+            "fl_buf": (p.flow_capacity, lanes.ftr.FT_COLS) if p.flowtrace
+            else (0,),
+            **{f: () if p.flowtrace else (0,)
+               for f in ("fl_count", "fl_lost")},
+            "fl_recs": (n_fl, lanes.FLOW_REC_WORDS), "fl_valid": (n_fl,),
         }
         dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
                   "thresh": i64, "flow_thresh": i64,
@@ -210,28 +243,21 @@ class LaneArgs:
             # a tiered run's fields, unused: empty
             tensors["tier_q"] = tensors["tier_v"] = torch.zeros(
                 0, dtype=i32, device=dev)
+        self.on_cuda = dev.type == "cuda"
+        # each merge's path: shared memory, or rows in m_scratch (the size
+        # rule, decided here once for the run)
+        in_global = {}
+        shapes["m_scratch"] = (0,)
+        if self.on_cuda:
+            optin = smem_optin(dev)  # builds and loads the library
+            in_global = {what: not lanes.merge_in_shared(e, w, x, optin)
+                         for what, (_r, e, w, x)
+                         in lanes.merge_rows(p).items()}
+            shapes["m_scratch"] = (lanes.merge_scratch_words(p, optin),)
         for f in _PTR_FIELDS:
             _check(f, tensors[f], dev, dtypes.get(f, i32), shapes[f])
-        self.on_cuda = dev.type == "cuda"
-        if self.on_cuda:
-            # the merges keep their rows in shared memory: entries, words
-            # an entry, extra bytes
-            rows = {"merge": (pl.merge_width, pl.words, 4 * cx)}
-            if p.split:
-                rows["stream merge"] = (c + p.stream_row_width, 7, 0)
-            if tiered:
-                rows["tier merge"] = (p.stream_capacity + p.tier_width, 7, 0)
-            for what, (width, words, extra) in rows.items():
-                smem = 4 * words * width + extra
-                if smem > MERGE_SMEM_LIMIT:
-                    raise ValueError(
-                        f"{what} row of {width} entries needs {smem} B of "
-                        f"shared memory (limit {MERGE_SMEM_LIMIT}); lower "
-                        "the queue or cross capacity"
-                    )
-            _lib()  # build and load before the run starts
         seed_lo, seed_hi = rng_mod.split_seed(p.seed)
-        rg, tg = p.rec_offsets, p.tier_rec_offsets
+        rg, tg, fg = p.rec_offsets, p.tier_rec_offsets, p.flow_offsets
         logging = bool(p.log_capacity)
         self.bufs = LaneBufs(
             **{f: tensors[f].data_ptr() for f in _PTR_FIELDS},
@@ -253,7 +279,14 @@ class LaneArgs:
             stream_pcap=int(logging and pl.stream_present and pl.stream_pcap),
             tier_pcap=int(logging and tiered and p.stream_pcap),
             rec_pc=rg.pc, rec_spc=rg.spc, rec_bpc=rg.bpc, rec_tspc=tg.spc,
-            rec_tbpc=tg.bpc, rec_ttail=tg.tail,
+            rec_tbpc=tg.bpc, rec_ttail=tg.tail, flowtrace=int(p.flowtrace),
+            ft_cap=p.flow_capacity, ft_thresh=p.flow_thresh,
+            ft_all=int(p.flow_all), ft_seed=p.flow_seed & 0xFFFFFFFF,
+            fl_split=fg.split, fl_slots=fg.slots, fl_ss=fg.ss, fl_bs=fg.bs,
+            n_fl=fg.end if p.flowtrace else 0,
+            merge_global=int(in_global.get("merge", False)),
+            split_global=int(in_global.get("stream merge", False)),
+            tier_global=int(in_global.get("tier merge", False)),
         )
 
 
@@ -290,7 +323,12 @@ def lane_slots(args: LaneArgs) -> None:
     stream block's entries go to fixed positions.  The threefry draw (about
     80 integer operations) is computed in registers where it is needed,
     never stored.  One kernel serves passive, active and stream runs: a
-    passive-only variant saved nothing measurable end to end (PERF.md)."""
+    passive-only variant saved nothing measurable end to end (PERF.md).
+    With flowtrace (``lanes.py:1470-1501`` and the group build of
+    ``iter_body``, ``:3195-3318``) the thread also writes, per slot, the
+    flags of its seven [N] flow groups and its rows' stream groups, and
+    the records of the sampled flows (``flow_hash``, ``:2086``, in
+    registers): stores to fixed slots, coalesced across the lanes."""
     if not args.on_cuda:
         return lanes.lane_slots_plain(args.p, args.tb, args.s, args.ws)
     _launch("lane_slots", args)
@@ -314,7 +352,10 @@ def exchange_merge(args: LaneArgs) -> None:
     (PERF.md).  On a tiered run the merge block of a stream-endpoint lane
     also copies its cross entries to the tier block, where kernel G reads
     them, and gives them the NEVER time in the lane's own merge (the
-    divert, ``lanes.py:1818-1835``)."""
+    divert, ``lanes.py:1818-1835``).  With flowtrace each tail slot gets
+    a flow flag, and the PACKETs of sampled flows shed there an FT_DROP
+    (CAUSE_QUEUE) record (``:1873-1891``).  A row wider than the device's
+    opt-in shared memory ranks in the workspace's ``m_scratch``."""
     if not args.on_cuda:
         return lanes.exchange_merge_plain(args.p, args.tb, args.s, args.ws)
     _launch("exchange_merge", args)
@@ -328,7 +369,8 @@ def stream_rows_merge(args: LaneArgs) -> None:
     One block per endpoint row builds its ``[C + W_s]`` row — its lane's
     queue row and the ``W_s = 2K + K*B`` stream entries that the static
     layout sends it — and merges it with B's keyed-merge device function,
-    so the row is read from device memory once and written once.  Bound by
+    so the row is read from device memory once and written once, and with
+    flowtrace B's FT_DROP records of its tail (``:2024-2036``).  Bound by
     bytes: 2S queue rows and the stream block."""
     if not args.on_cuda:
         return lanes.stream_rows_merge_plain(args.p, args.tb, args.s, args.ws)
@@ -400,13 +442,19 @@ def queue_min_window(args: LaneArgs, advance: bool) -> None:
 
 
 def append_log(args: LaneArgs) -> None:
-    """Kernel D: compaction of the iteration's records into the log.
+    """Kernel D: compaction of the iteration's records into the log, and
+    of its flow records into the flowtrace ring.
 
-    Replaces ``shadow_tpu/backend/lanes.py:2056`` ``_append_log``.  Bound
-    by bytes: the valid flags of every record slot are read once and only
-    the valid rows are copied.  One block scans tile by tile, which keeps
-    the reference's row order with no second pass but runs on one SM — far
-    above its bound, and only on logging runs (PERF.md)."""
+    Replaces ``shadow_tpu/backend/lanes.py:2056`` ``_append_log`` and
+    ``:2117`` ``_append_flow`` (with ``:2160`` ``_flow_group`` and
+    ``:2177`` ``_concat_flow_groups``): one template on the row, two
+    instances, a block each in one launch — the ``[L, 6]`` int64 log and
+    the ``[FL, 10]`` int32 ring, whose rows take the window's end as they
+    go in.  Bound by bytes: the valid flags of every slot are read once
+    and only the valid rows are copied.  One block scans tile by tile,
+    which keeps the reference's row order with no second pass but runs on
+    one SM — far above its bound, and only on logging or tracing runs
+    (PERF.md)."""
     if not args.on_cuda:
         return lanes.append_log_plain(args.p, args.s, args.ws)
     _launch("append_log", args)

@@ -37,14 +37,18 @@ six kernels (``kernels.py`` binds their CUDA versions):
   rows;
 - C ``queue_min_window``: the global earliest head, the window law (static
   or dynamic runahead) and the ``live`` flag;
-- D ``append_log``: compaction of the iteration's records into the log.
+- D ``append_log``: compaction of the iteration's records into the log
+  and, with flowtrace, of its flow records into the ring.
 
-Two observation planes ride these kernels, both static and both free when
+Three observation planes ride these kernels, all static and all free when
 off: pcap (a capturing host's sends become PCAP_TX records in the log, at
-their departure; ``GpuEngine`` writes the capture files from the log) and
+their departure; ``GpuEngine`` writes the capture files from the log),
 netobs (the ``nb_*`` counters: bytes, throttles and sheds per lane, the
 tier's ``TV_NB_*`` rows, and a histogram of windows by their popped
-packets, which kernel C folds at each window advance).
+packets, which kernel C folds at each window advance) and flowtrace (the
+lifecycle events of a seeded sample of the flows: A's sends, arrivals and
+stream sends, B's and E's queue sheds, as flow records that D appends to
+the ``[FL, 10]`` ring; untiered runs only).
 
 The layout is the reference's: the event key ``(time, kind, src, seq)`` is
 four int32 words ``(t_hi, t_lo, aux_hi, aux_lo)``, times are (hi, lo) int32
@@ -75,6 +79,7 @@ from ..core import time as stime
 from ..net import codel as codel_mod
 from ..net.ltcp import PUMP_BURST
 from ..net.token_bucket import DEFAULT_INTERVAL_NS, FRAME_OVERHEAD_BYTES
+from ..obs import flowtrace as ftr
 from . import lanes_pairs as _pairs
 from . import lanes_stream as lstr
 from .results import DELIVERED, DROP_CODEL, DROP_LOSS, DROP_QUEUE, PCAP_TX
@@ -100,6 +105,14 @@ STREAM_MODELS = frozenset({M_STREAM_CLIENT, M_STREAM_SERVER})
 # netobs: buckets of the per-window packet-arrival histogram (must match
 # obs.netobs.HIST_BUCKETS)
 NB_HIST_BUCKETS = 24
+
+# flowtrace: A's [N] groups an iteration (sends: the send, the up bucket's
+# wait, the loss, the queue entry; arrivals: the down bucket's wait, the
+# CoDel drop, the delivery), and the words of a flow record in the
+# workspace (t_hi, t_lo, kind, src, dst, seq, size, aux: D adds the window
+# stamp as the ring row's columns 2 and 3)
+FLOW_SLOT_GROUPS = 7
+FLOW_REC_WORDS = 8
 
 # LOCAL size marker: a non-driving process's start event on a multi-process
 # host — anchors the window like any start, drives nothing (the driver's
@@ -239,6 +252,13 @@ class LaneState(NamedTuple):
     nb_shed: torch.Tensor  # [N] cross-block sheds (a part of n_queue)
     nb_hist: torch.Tensor  # [NB_HIST_BUCKETS]
     nb_win: torch.Tensor  # int32 scalar: PACKETs popped in this window
+    # the flowtrace ring (LaneParams.flowtrace; empty [0] tensors when off,
+    # where the reference holds ()): lifecycle events of the sampled flows
+    # as [FL, flowtrace.FT_COLS] int32 rows in append order.  It never
+    # wraps: rows past its end are counted in fl_lost
+    fl_buf: torch.Tensor
+    fl_count: torch.Tensor  # int32 scalar: rows appended (kept or not)
+    fl_lost: torch.Tensor  # int32 scalar: rows lost on overflow
 
 
 class RecGroups(NamedTuple):
@@ -251,6 +271,17 @@ class RecGroups(NamedTuple):
     bpc: int  # the stream bursts' captures [K, B, S]
     srec: int  # the stream control sends' losses [K, 2S]
     brec: int  # the stream bursts' losses [K, B, S]
+    end: int
+
+
+class FlowGroups(NamedTuple):
+    """The start of each flow-record group of the iteration's flow
+    buffer (``LaneParams.flow_offsets``), in the reference's append order;
+    B's merge tail starts at 0."""
+    split: int  # E's split merge tail [2S, W_s]
+    slots: int  # A's seven [N] groups, [K, N] each (FLOW_SLOT_GROUPS)
+    ss: int  # A's four stream control-send groups, [K, 2S] each
+    bs: int  # A's four stream burst groups, [K, B, S] each
     end: int
 
 
@@ -317,6 +348,15 @@ class LaneParams:
     pcap_any: bool = False
     stream_pcap: bool = False
     netobs: bool = False
+    # the flowtrace plane, static as well: each iteration's lifecycle
+    # events of the sampled flows — a flow (src, dst) records iff
+    # ``flow_all`` or its hash under ``flow_seed`` is below ``flow_thresh``
+    # (u32) — go into the [FL] ring (``flow_capacity`` rows)
+    flowtrace: bool = False
+    flow_capacity: int = 0
+    flow_thresh: int = 0
+    flow_all: bool = False
+    flow_seed: int = 0
 
     @property
     def cross_cap(self) -> int:
@@ -474,6 +514,23 @@ class LaneParams:
     def n_records(self) -> int:
         return self.rec_offsets.end
 
+    @property
+    def flow_offsets(self) -> "FlowGroups":
+        """Where the flow-record groups of the workspace's flow buffer
+        start, in the reference's append order: B's merge tail [N, self +
+        Cx] from 0 (its FT_DROP queue sheds), E's split tail [2S, W_s], A's
+        [N] groups (``FLOW_SLOT_GROUPS``, [K, N] each), with streams its
+        control-send groups [K, 2S] and burst groups [K, B, S] (four each:
+        send or retransmit, the up bucket's wait, the loss, the queue
+        entry); and the buffer's end."""
+        n, k, s = self.n_lanes, self.pops_per_iter, self.s_flows
+        split = n * (self.self_width + self.cross_cap)
+        slots = split + (2 * s * self.stream_row_width if self.split else 0)
+        ss = slots + FLOW_SLOT_GROUPS * k * n
+        bs = ss + (4 * 2 * k * s if self.stream_present else 0)
+        end = bs + (4 * k * PUMP_BURST * s if self.stream_present else 0)
+        return FlowGroups(split, slots, ss, bs, end)
+
     def __post_init__(self) -> None:
         if self.n_lanes > MAX_LANES:
             raise ValueError(
@@ -494,6 +551,14 @@ class LaneParams:
                 self.stream_present and self.stream_one_to_one):
             raise ValueError("the tiered stream backend needs one-to-one "
                              "stream pairing")
+        if self.flowtrace and self.stream_tiered:
+            # the plane rides the untiered path; engines drop the tier (an
+            # equivalent execution) when tracing
+            raise ValueError("flowtrace requires stream_tiered=False")
+        if self.flowtrace and self.flow_capacity <= 0:
+            raise ValueError(
+                f"flowtrace requires flow_capacity > 0 (got {self.flow_capacity})"
+            )
         if self.stream_tiered and not (
                 1 <= self.stream_pops <= self.stream_capacity):
             raise ValueError(
@@ -606,12 +671,68 @@ class Workspace(NamedTuple):
     # auxl, size, phi, plo, empty entries canonical (the NEVER time pair,
     # zero words)
     tier_blk: torch.Tensor
+    # [R_f, FLOW_REC_WORDS] int32 flow records + [R_f] int32 valid flags
+    # (LaneParams.flow_offsets), flowtrace runs ([1, 8] / [1] otherwise):
+    # B's FT_DROP queue sheds, E's, then A's groups — the reference's
+    # append order, which D keeps.  Every flag is written each iteration,
+    # the words of valid records only
+    fl_recs: torch.Tensor
+    fl_valid: torch.Tensor
+    # the merges' rows where one is too wide for a block's shared memory
+    # (merge_scratch_words; [0] when every row fits, and on the CPU)
+    m_scratch: torch.Tensor
+
+
+# bytes of static shared memory the merge kernels keep beside a row
+SMEM_STATIC_RESERVE = 1024
+
+
+def merge_in_shared(entries: int, words: int, extra: int, optin: int) -> bool:
+    """The merges' size rule, fixed before a run starts: a row of
+    ``entries`` entries of ``words`` int32 words, with ``extra`` bytes
+    beside it, is merged in one block's shared memory when it fits the
+    device's opt-in limit per block (``optin`` bytes, the CUDA attribute
+    ``sharedMemPerBlockOptin``) less the static reserve; otherwise in
+    global memory, in the workspace's ``m_scratch``."""
+    return 4 * words * entries + extra <= optin - SMEM_STATIC_RESERVE
+
+
+def merge_rows(p: LaneParams) -> dict:
+    """The run's merges: name -> (rows, entries a row, words an entry,
+    extra bytes a row): B's ``[C | self | Cx]`` rows (with Cx selected
+    indices), E's ``[C | W_s]`` rows, G's ``[C2 | W_t]`` rows."""
+    pl = p.lane
+    out = {"merge": (p.n_lanes, pl.merge_width, pl.words, 4 * pl.cross_cap)}
+    if p.split:
+        out["stream merge"] = (2 * p.s_flows,
+                               p.capacity + p.stream_row_width, 7, 0)
+    if p.stream_tiered:
+        out["tier merge"] = (2 * p.s_flows,
+                             p.stream_capacity + p.tier_width, 7, 0)
+    return out
+
+
+def merge_scratch_words(p: LaneParams, optin: int) -> int:
+    """int32 words of ``m_scratch``: the largest of the merges that do not
+    fit shared memory (rows x a row's words); 0 when all fit.  The merges
+    run one after another, so they share it."""
+    return max([rows * (words * entries + extra // 4)
+                for rows, entries, words, extra in merge_rows(p).values()
+                if not merge_in_shared(entries, words, extra, optin)],
+               default=0)
 
 
 def make_workspace(p: LaneParams, device) -> Workspace:
+    """The run's workspace; on a card, the device's opt-in shared memory
+    sizes the merges' global scratch."""
     pl = p.lane
     n, k = p.n_lanes, p.pops_per_iter
     n_rec = p.n_records if p.log_capacity else 1
+    n_fl = p.flow_offsets.end if p.flowtrace else 1
+    scratch = 0
+    if torch.device(device).type == "cuda":
+        from . import kernels
+        scratch = merge_scratch_words(p, kernels.smem_optin(device))
 
     def z(*shape, dtype=i32):
         return torch.zeros(shape, dtype=dtype, device=device)
@@ -622,6 +743,8 @@ def make_workspace(p: LaneParams, device) -> Workspace:
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
         x_cnt=z(n), x_start=z(n), x_fill=z(n), x_order=z(pl.exchange_entries),
         tier_blk=z(7, max(p.tier_layout[-1], 1)),
+        fl_recs=z(n_fl, FLOW_REC_WORDS), fl_valid=z(n_fl),
+        m_scratch=z(scratch),
     )
 
 
@@ -803,6 +926,74 @@ def rand_u32_lane(seed: int, stream, counter32):
     return rng_mod.rand_u32_words(s_lo, s_hi, stream, counter32)
 
 
+# the flow hash's multipliers (obs.flowtrace.flow_hash)
+_FH_SRC, _FH_DST, _FH_SEED = 2654435761, 2246822519, 668265263
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(h, m: int):
+    """``(h * m) mod 2**32`` for int64 ``h`` in [0, 2**32), by 16-bit
+    halves so that no product leaves int64."""
+    return (((((h >> 16) * m) & 0xFFFF) << 16) + (h & 0xFFFF) * m) & _M32
+
+
+def flow_hash_lane(src, dst, seed: int):
+    """The flow hash of ``(src, dst)`` under ``seed`` (the reference's
+    ``flow_hash_lane``, ``obs.flowtrace.flow_hash`` with fid 0): its u32
+    value in int64, since PyTorch on the CPU has no uint32 ``*``, ``>>`` or
+    ``<``."""
+    h = (torch.as_tensor(src).to(i64) * _FH_SRC
+         + torch.as_tensor(dst).to(i64) * _FH_DST
+         + ((seed * _FH_SEED) & _M32)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def _flow_sampled(p: LaneParams, src, dst):
+    """Bool, the broadcast shape of ``src`` and ``dst``: the flow records
+    its lifecycle events (every flow at sample 1, none at 0 — no hash
+    evaluated in either case)."""
+    shape = torch.broadcast_shapes(src.shape, dst.shape)
+    if p.flow_all or p.flow_thresh == 0:
+        return torch.full(shape, p.flow_all, dtype=torch.bool,
+                          device=src.device)
+    return flow_hash_lane(src, dst, p.flow_seed) < p.flow_thresh
+
+
+def _put_flows(ws, base: int, valid, *cols) -> None:
+    """Flow records of the valid entries at ``base + entry`` (``valid`` and
+    each column flat over the group's entries, or scalars): columns t_hi,
+    t_lo, kind, src, dst, seq, size, aux.  The group's flags must be 0
+    already; only the valid entries are written."""
+    valid = valid.reshape(-1)
+    rows = torch.nonzero(valid).flatten()
+    if rows.numel() == 0:
+        return
+    rec = torch.stack([torch.as_tensor(c, dtype=i32, device=valid.device)
+                       .reshape(-1).expand(valid.shape)[rows] for c in cols],
+                      dim=1)
+    ws.fl_recs[base + rows] = rec
+    ws.fl_valid[base + rows] = 1
+
+
+def _send_flows(smp, t, dep, lost, arr, ends):
+    """A send's four flow groups (the reference's ``iter_body`` group
+    build): the send or retransmit at the stimulus time ``t``, the up
+    bucket's wait at the departure, the loss at ``t``, the queue entry at
+    the arrival; ``smp`` the sent entries of sampled flows, ``t``, ``dep``
+    and ``arr`` (hi, lo) pairs, ``ends`` (kind of the first group, src,
+    dst, seq, size).  Returns the groups as ``_put_flows`` arguments."""
+    kind, *who = ends
+    wait = (dep[0] != t[0]) | (dep[1] != t[1])
+    return [(smp, *t, kind, *who, 0),
+            (smp & wait, *dep, ftr.FT_TB_WAIT, *who, ftr.TB_UP),
+            (smp & lost, *t, ftr.FT_DROP, *who, ftr.CAUSE_LOSS),
+            (smp & ~lost, *arr, ftr.FT_QUEUE_ENTER, *who, 0)]
+
+
 def passive_lanes(model):
     """[N] bool: the lane's model is passive (delivery only counts)."""
     out = torch.zeros_like(model, dtype=torch.bool)
@@ -849,10 +1040,12 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     tensors (it never writes into them).  ``lw`` holds per-lane constants
     of the iteration (``passive``, the lanes' PACKET and LOCAL key words).
     Returns the column's DELIVERY-insert, re-arm, outbound and record
-    channels, and its pcap channel, valid flags and records (``None``
-    unless a lane captures and the log is on: a PCAP_TX record per
-    capturing lane's send, at its departure, before the loss draw).
-    Mirrors the reference's ``_process_slot`` for the ported models."""
+    channels, its pcap channel, valid flags and records (``None`` unless
+    a lane captures and the log is on: a PCAP_TX record per capturing
+    lane's send, at its departure, before the loss draw), and with
+    flowtrace its seven flow groups (``_put_flows`` arguments; ``None``
+    when off).  Mirrors the reference's ``_process_slot`` for the ported
+    models."""
     n = p.n_lanes
     thi, tlo = col["thi"], col["tlo"]
     kind, src, seq, size = col["kind"], col["src"], col["seq"], col["size"]
@@ -1029,7 +1222,21 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
         pc_valid = do_send & tb.lane_pcap
         pc = pc_valid, _rec_rows(pc_valid, t_join(dep_hi, dep_lo), lanes, dst,
                                  snd_seq, out_size, PCAP_TX)
-    return ins, arm, out, rec, rec_valid, pc
+    ft = None
+    if p.flowtrace:
+        # sends (lane -> dst), then packet arrivals (src -> lane): the down
+        # bucket's wait, the CoDel drop or the delivery, at the departure
+        ft = _send_flows(do_send & _flow_sampled(p, lanes, dst), (thi, tlo),
+                         (dep_hi, dep_lo), lost, (arr_hi, arr_lo),
+                         (ftr.FT_SEND, lanes, dst, snd_seq, out_size))
+        ar = is_pkt & _flow_sampled(p, src, lanes)
+        ar_wait = (td_hi != thi) | (td_lo != tlo)
+        arv = (src, lanes, seq, size)
+        ft += [(ar & ar_wait, td_hi, td_lo, ftr.FT_TB_WAIT, *arv, ftr.TB_DN),
+               (ar & codel_drop, td_hi, td_lo, ftr.FT_DROP, *arv,
+                ftr.CAUSE_CODEL),
+               (ar & ~codel_drop, td_hi, td_lo, ftr.FT_DELIVERY, *arv, 0)]
+    return ins, arm, out, rec, rec_valid, pc, ft
 
 
 class StreamSends(NamedTuple):
@@ -1037,6 +1244,7 @@ class StreamSends(NamedTuple):
     ``_stream_stimulus`` hands them to its caller (the burst goes to the
     caller's sink unit by unit)."""
     send: torch.Tensor  # the control send was made
+    retx: torch.Tensor  # ... as a retransmission
     lost: torch.Tensor  # ... and lost at its draw
     thi: torch.Tensor  # its arrival (after the window end)
     tlo: torch.Tensor
@@ -1067,8 +1275,9 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
     ``n_loss``, ``min_lat`` (a scalar) and with netobs ``txb`` and ``thr``
     (bytes sent, charges that waited), rebound here.  Burst unit ``u``
     goes to ``burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo,
-    dep)`` over the client half (``dep``: its departure, int64).  Returns
-    the flows and the :class:`StreamSends`."""
+    dep, retx)`` over the client half (``dep``: its departure, int64;
+    ``retx``: the unit is a retransmission).  Returns the flows and the
+    :class:`StreamSends`."""
     stim_open, stim_rto, stim_seg = stims
     stim = stim_open | stim_rto | stim_seg
     s2 = stim.shape[0]
@@ -1124,7 +1333,7 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
     # the burst, on the client half (the law's role gate empties the server
     # rows' bursts): unit 1 by the full bucket law, the rest by the chained
     # one
-    valid_b, flags_b, units_b, acks_b, sizes_b, _retx = burst
+    valid_b, flags_b, units_b, acks_b, sizes_b, retx_b = burst
     up_c = [t[cl] for t in up]
     nloss = ctr["n_loss"] + se_lost
     nloss_c = nloss[cl]
@@ -1158,7 +1367,8 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
         bthi, btlo = pair_max(*pair_add32(bdh, bdl, lat_c), we_hi, we_lo)
         burst_out(u, bm & ~blost, blost, bthi, btlo, bseq, bsize,
                   *lstr.pack_pay(flags_b[u, cl], units_b[u, cl],
-                                 acks_b[u, cl]), t_join(bdh, bdl))
+                                 acks_b[u, cl]), t_join(bdh, bdl),
+                  retx_b[u, cl])
         sent = sent + bm
     ctr["up"] = [torch.cat([c, t[sf:]]) for c, t in zip(up_c, up)]
     ctr["n_loss"] = torch.cat([nloss_c, nloss[sf:]])
@@ -1169,7 +1379,8 @@ def _stream_stimulus(p: LaneParams, tb: LaneTables, f, stims, sh, sl,
     ctr["send_seq"] = ctr["send_seq"] + sends
     ctr["n_sends"] = ctr["n_sends"] + sends
     return f, StreamSends(
-        st_send, se_lost, se_thi, se_tlo, se_seq, sem.send_size,
+        st_send, sem.send_retx & st_send, se_lost, se_thi, se_tlo, se_seq,
+        sem.send_size,
         *lstr.pack_pay(sem.send_flags, sem.send_seq, sem.send_ack),
         t_join(dep_hi, dep_lo), st_rto, sem.rto_thi, sem.rto_tlo, lseq)
 
@@ -1185,9 +1396,10 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     channels): each endpoint row sees its lane's popped event and runs
     ``_stream_stimulus`` on the endpoint lane's up bucket and counters (a
     segment stimulates a server row only from its own client).  Writes the
-    stream block's entries of slot ``j``, the stream loss records and,
-    with ``stream_pcap``, the capturing rows' PCAP_TX records into ``ws``;
-    lane counters (the netobs ones too) and flow rows change in ``v``.
+    stream block's entries of slot ``j``, the stream loss records, with
+    ``stream_pcap`` the capturing rows' PCAP_TX records and with flowtrace
+    the sampled rows' flow groups into ``ws``; lane counters (the netobs
+    ones too) and flow rows change in ``v``.
     Rows with no stimulus change nothing and emit nothing."""
     el = tb.flow_lanes.long()
     s2 = el.shape[0]
@@ -1226,9 +1438,20 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     cl = slice(0, sf)
     rg = p.rec_offsets
     log_pc = p.log_capacity and p.stream_pcap
+    fg = p.flow_offsets
+    if p.flowtrace:
+        smp = _flow_sampled(p, tb.flow_lanes, tb.flow_peers)
 
-    def burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo, dep):
+    def burst_out(u, valid, lost, thi, tlo, seq, size, phi, plo, dep, retx):
         slot = j * PUMP_BURST + u
+        if p.flowtrace:  # the burst's groups [K, B, S]: slot-major
+            gw = k * PUMP_BURST * sf
+            kind = torch.where(retx, ftr.FT_RETRANSMIT, ftr.FT_SEND)
+            for g, grp in enumerate(_send_flows(
+                    (valid | lost) & smp[cl], (ethi[cl], etlo[cl]),
+                    t_split(dep), lost, (thi, tlo),
+                    (kind, tb.flow_lanes[cl], tb.flow_peers[cl], seq, size))):
+                _put_flows(ws, fg.bs + g * gw + slot * sf, *grp)
         _put_entries(sx, 4 * k * sf + slot * sf, valid, tb.flow_peers[cl],
                      thi, tlo, pkt_auxh[cl], seq, size, phi, plo)
         if p.log_capacity:
@@ -1257,6 +1480,13 @@ def _stream_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     if log_pc:
         _put_recs(ws, rg.spc + j * s2, se.send & tb.flow_pcap, se.dep,
                   tb.flow_lanes, tb.flow_peers, se.seq, se.size, PCAP_TX)
+    if p.flowtrace:  # the control sends' groups [K, 2S]
+        kind = torch.where(se.retx, ftr.FT_RETRANSMIT, ftr.FT_SEND)
+        for g, grp in enumerate(_send_flows(
+                se.send & smp, (ethi, etlo), t_split(se.dep), se.lost,
+                (se.thi, se.tlo),
+                (kind, tb.flow_lanes, tb.flow_peers, se.seq, se.size))):
+            _put_flows(ws, fg.ss + g * k * s2 + j * s2, *grp)
     # write-back, at the stimulated rows' lanes
     rows = torch.nonzero(stim).flatten()
     nb = (("nb_txb", ctr["txb"]), ("nb_thr", ctr["thr"])) if p.netobs else ()
@@ -1309,9 +1539,10 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     """Kernel A, plain: pop up to K events per lane inside the window under
     the co-pop rule and run the slot law on each, in slot order.  Consumed
     slots become NEVER in place; the state vectors are updated in place;
-    the self, outbound, stream and record blocks go to ``ws``.  With
-    netobs, the popped PACKETs join the window's count.  On a tiered run
-    the lanes run without the stream models."""
+    the self, outbound, stream and record blocks go to ``ws``, with
+    flowtrace the flow groups of A's part of the flow buffer.  With netobs,
+    the popped PACKETs join the window's count.  On a tiered run the lanes
+    run without the stream models."""
     if not int(ws.ctl[0]):
         return
     rg = p.rec_offsets
@@ -1342,6 +1573,9 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         if p.log_capacity:
             ws.recs[rg.spc:rg.end] = 0
             ws.rec_valid[rg.spc:rg.end] = 0
+    fg = p.flow_offsets
+    if p.flowtrace:
+        ws.fl_valid[fg.slots:fg.end] = 0
     # pops are row prefixes: past the longest one no lane is active, the
     # state cannot change, and every emit is empty
     n_live = int(act.sum(dim=1).max()) if n else 0
@@ -1366,8 +1600,10 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         }
         if p.stream_present:
             col["phi"], col["plo"] = s.q_phi[:, j], s.q_plo[:, j]
-        ins, arm, out, rec, rec_valid, pc = _process_slot(
+        ins, arm, out, rec, rec_valid, pc, ft = _process_slot(
             p, tb, v, col, s.now_we_hi, s.now_we_lo, lanes, lw)
+        for g, grp in enumerate(ft or ()):  # the [N] groups, [K, N] each
+            _put_flows(ws, fg.slots + (g * k + j) * n, *grp)
         for w in range(p.words):
             if not p.all_passive:
                 ws.self_blk[w, :, j] = ins[w]
@@ -1409,13 +1645,15 @@ def _queue_words(p: LaneParams, s: LaneState):
 
 
 def _merge_rows(p: LaneParams, q_rows, cand, ws: Workspace, rec_base: int,
-                lane_of_row):
+                lane_of_row, fl_base: int):
     """The keyed row merge: each row of ``[q_rows | cand]`` (lists of
     ``p.words`` word tensors) sorted by the event key, ties in index
     order; the first C are returned as the new queue rows, and the real
     events past column C are counted per row and, when logging, recorded
-    as DROP_QUEUE at ``rec_base`` (row-major).  ``lane_of_row`` gives each
-    row's lane for the records."""
+    as DROP_QUEUE at ``rec_base`` (row-major); with flowtrace, the PACKETs
+    among them of sampled flows become FT_DROP (CAUSE_QUEUE) flow records
+    at ``fl_base``, at their pair times.  ``lane_of_row`` gives each row's
+    lane for the records."""
     c = p.capacity
     merged = [torch.cat([q, x], dim=1) for q, x in zip(q_rows, cand)]
     perm = _key_order(*merged[:4])
@@ -1434,6 +1672,13 @@ def _merge_rows(p: LaneParams, q_rows, cand, ws: Workspace, rec_base: int,
         ws.recs[rec_base: rec_base + n_tail] = rec.reshape(-1, 6)
         ws.rec_valid[rec_base: rec_base + n_tail] = \
             tail_valid.reshape(-1).to(i32)
+    if p.flowtrace:
+        kind, t_src = unpack_aux_hi(tail[2])
+        lane = lane_of_row.to(i32)[:, None].expand_as(t_src)
+        shed = tail_valid & (kind == PACKET) & _flow_sampled(p, t_src, lane)
+        ws.fl_valid[fl_base: fl_base + shed.numel()] = 0
+        _put_flows(ws, fl_base, shed, tail[0], tail[1], ftr.FT_DROP, t_src,
+                   lane, tail[3], tail[4], ftr.CAUSE_QUEUE)
     return [m[:, :c] for m in merged], tail_valid.sum(dim=1, dtype=i32)
 
 
@@ -1448,7 +1693,8 @@ def exchange_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     each row of ``[queue C | self S | cross Cx]`` is sorted by the event
     key, ties in index order, and the first C kept; real events past column
     C are queue overflow (``n_queue``, and DROP_QUEUE records when
-    logging).  Stream configs carry the payload words through it all.
+    logging; with flowtrace, FT_DROP flow records of the sampled flows'
+    PACKETs).  Stream configs carry the payload words through it all.
     With netobs, the cross-block sheds are also counted apart
     (``nb_shed``).
 
@@ -1495,7 +1741,7 @@ def exchange_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     cand = [torch.cat([ws.self_blk[w], cross[w]], dim=1)
             for w in range(p.words)]
     lanes_ = torch.arange(n, device=dev)
-    rows, n_tail = _merge_rows(p, q, cand, ws, 0, lanes_)
+    rows, n_tail = _merge_rows(p, q, cand, ws, 0, lanes_, 0)
     for w in range(p.words):
         q[w].copy_(rows[w])
     s.n_queue.add_(n_tail + lost_pre)
@@ -1533,14 +1779,15 @@ def stream_rows_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     row's candidates come from fixed positions of the stream block; its
     lane's queue row (by ``flow_lanes``) is merged with them by the event
     key, the first C kept and scattered back, and real events past column
-    C counted into ``n_queue`` and recorded as DROP_QUEUE."""
+    C counted into ``n_queue`` and recorded as DROP_QUEUE (with flowtrace,
+    the sampled flows' PACKETs as FT_DROP flow records too)."""
     if not int(ws.ctl[0]):
         return
     el = tb.flow_lanes.long()
     q = _queue_words(p, s)
     rows, n_tail = _merge_rows(
         p, [w[el] for w in q], _stream_candidates(p, tb, ws), ws,
-        p.rec_offsets[0], el)
+        p.rec_offsets[0], el, p.flow_offsets.split)
     for w in range(p.words):
         q[w][el] = rows[w]
     s.n_queue[el] += n_tail
@@ -1686,7 +1933,7 @@ def stream_tier_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         st64 = t_join(sh, sl)
 
         def burst_out(u, valid, lost, bthi, btlo, seq, bsize, bphi, bplo,
-                      dep):
+                      dep, _retx):
             slot = j * PUMP_BURST + u
             _put_entries(blk, bo0 + slot * sf, valid, bthi, btlo,
                          pkt_auxh[cl], seq, bsize, bphi, bplo)
@@ -1856,18 +2103,37 @@ def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
     ws.ctl.copy_(torch.stack([live.to(i32), in_window.to(i32), mh, ml]))
 
 
+def _append_rows(valid, rows, buf, count, lost, capacity: int) -> None:
+    """Append ``rows[valid]`` to ``buf`` in order from ``count``, counting
+    the rows past ``capacity`` into ``lost``: the ring never wraps."""
+    pos = count.to(i64) + torch.cumsum(valid.to(i64), 0) - 1
+    ok = valid & (pos < capacity)
+    buf[pos[ok]] = rows[ok]
+    n_valid = valid.sum(dtype=i32)
+    count.add_(n_valid)
+    lost.add_(n_valid - ok.sum(dtype=i32))
+
+
 def append_log_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
-    """Kernel D, plain: append the valid records of ``ws.recs`` to the log
-    in buffer order, counting records past the log's end as lost."""
+    """Kernel D, plain, in its two instances: when logging, the valid
+    records of ``ws.recs`` appended to the log in buffer order (the
+    reference's ``_append_log``); with flowtrace, the valid flow records
+    of ``ws.fl_recs`` to the flowtrace ring, each stamped with the current
+    window's end (the reference's ``_append_flow``).  Rows past the end
+    are counted as lost."""
     if not int(ws.ctl[0]):
         return
-    valid = ws.rec_valid.bool()
-    pos = s.log_count.to(i64) + torch.cumsum(valid.to(i64), 0) - 1
-    ok = valid & (pos < p.log_capacity)
-    s.log[pos[ok]] = ws.recs[ok]
-    n_valid = valid.sum(dtype=i32)
-    s.log_count.add_(n_valid)
-    s.log_lost.add_(n_valid - ok.sum(dtype=i32))
+    if p.log_capacity:
+        _append_rows(ws.rec_valid.bool(), ws.recs, s.log, s.log_count,
+                     s.log_lost, p.log_capacity)
+    if p.flowtrace:
+        valid = ws.fl_valid.bool()
+        recs = ws.fl_recs[valid]
+        we = torch.stack([s.now_we_hi, s.now_we_lo]).expand(recs.shape[0], 2)
+        rows = torch.cat([recs[:, :2], we, recs[:, 2:]], dim=1)
+        _append_rows(torch.ones(rows.shape[0], dtype=torch.bool,
+                                device=rows.device),
+                     rows, s.fl_buf, s.fl_count, s.fl_lost, p.flow_capacity)
 
 
 # --------------------------------------------------------------------------
@@ -1878,12 +2144,13 @@ def append_log_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
 def _build_iteration(p: LaneParams, tb: LaneTables, s: LaneState):
     """One iteration of the window loop (kernels A, B, then E in
     untiered one-to-one stream configs or F and G on a tiered run, and,
-    when logging, D) and the step that precedes it (kernel C), bound to
-    this run's state."""
+    when logging or tracing flows, D) and the step that precedes it
+    (kernel C), bound to this run's state."""
     from . import kernels
 
     args = kernels.LaneArgs(p, tb, s, make_workspace(p, s.q_thi.device))
-    split, tiered, logging = p.split, p.stream_tiered, bool(p.log_capacity)
+    split, tiered = p.split, p.stream_tiered
+    logging = bool(p.log_capacity) or p.flowtrace
 
     def window(advance: bool) -> None:
         kernels.queue_min_window(args, advance)

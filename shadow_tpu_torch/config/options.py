@@ -7,7 +7,7 @@ trimmed to what the ported lane path reads.
                     tpu_lane_queue_capacity, tpu_events_per_round,
                     tpu_cross_capacity, tpu_stream_tiered,
                     tpu_stream_events_per_round, tpu_stream_queue_capacity,
-                    netobs }
+                    netobs, flowtrace, flowtrace_capacity, flowtrace_sample }
     hosts:
       <hostname>:
         network_node_id: 0
@@ -17,8 +17,8 @@ trimmed to what the ported lane path reads.
         processes: [ { path, args, start_time } ]
 
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
-accepts but the port cannot run yet (fault schedules, flowtrace,
-device-loop unrolling) raise :class:`LaneCompatError`, which names the JAX
+accepts but the port cannot run yet (fault schedules, device-loop
+unrolling) raise :class:`LaneCompatError`, which names the JAX
 package as the way to run them.  ``network_backend: tpu`` selects the lane backend, as there.
 
 PyYAML is imported only by :meth:`ConfigOptions.from_yaml`; the presets
@@ -66,7 +66,6 @@ class NetworkOptions:
 
 # experimental options this slice cannot run: name -> the value it can
 _UNPORTED_EXPERIMENTAL = {
-    "flowtrace": False,
     "tpu_round_unroll": 1,
 }
 
@@ -92,6 +91,12 @@ class ExperimentalOptions:
     # the netobs telemetry plane: per-host byte, throttle and shed counters
     # and the per-window packet-arrival histogram (GpuEngine.netobs_snapshot)
     netobs: bool = False
+    # per-flow packet-lifecycle tracing of a seeded sample of the flows
+    # (GpuEngine.flowtrace_snapshot): the device ring's rows (it never
+    # wraps; overflow is counted) and the fraction of flows traced
+    flowtrace: bool = False
+    flowtrace_capacity: int = 65536
+    flowtrace_sample: float = 1.0
 
 
 @dataclasses.dataclass
@@ -244,6 +249,10 @@ class ConfigOptions:
             raise ConfigError("general.stop_time must be > 0")
         if self.experimental.network_backend not in ("cpu", "tpu"):
             raise ConfigError("experimental.network_backend must be cpu|tpu")
+        if self.experimental.flowtrace_capacity < 1:
+            raise ConfigError("experimental.flowtrace_capacity must be >= 1")
+        if not 0.0 <= self.experimental.flowtrace_sample <= 1.0:
+            raise ConfigError("experimental.flowtrace_sample must be in [0, 1]")
         names = [h.hostname for h in self.hosts]
         if len(set(names)) != len(names):
             raise ConfigError("duplicate hostnames")

@@ -20,12 +20,21 @@
 // Every kernel that changes state is gated on ctl[0] (the `live` flag that
 // queue_min_window writes), so steps after the end of the run are no-ops.
 //
-// Two observation planes ride the kernels, each behind a flag of LaneBufs
+// Three observation planes ride the kernels, each behind a flag of LaneBufs
 // that is uniform over a launch: pcap (a capturing lane's sends become
-// PCAP_TX records, at their departure, before the loss draw) and netobs (the
+// PCAP_TX records, at their departure, before the loss draw), netobs (the
 // nb_* counters, the tier's TV_NB_* rows, and the window histogram that C
-// folds at each window advance).  Off, the record groups and the counters
-// do not exist and nothing is written for them.
+// folds at each window advance) and flowtrace (the lifecycle events of the
+// sampled flows: A's sends, arrivals and stream sends, B's and E's queue
+// sheds, as flow records that D appends to the [FL, 10] ring).  Off, the
+// record groups and the counters do not exist and nothing is written for
+// them.
+//
+// The merges (B, E, G) rank a row in one block's shared memory, opted in
+// past 48 KB up to the device's sharedMemPerBlockOptin; a row beyond that
+// (a size rule the wrapper fixes before the run, lanes.merge_in_shared)
+// is ranked in global memory instead, in the workspace's m_scratch, by the
+// same code.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,6 +62,15 @@ constexpr int64_t DELIVERED = 0, DROP_LOSS = 1, DROP_CODEL = 2,
                   DROP_QUEUE = 3, PCAP_TX = 4;
 constexpr int32_t NB_HIST_BUCKETS = 24;  // netobs window histogram
 
+// flowtrace (obs/flowtrace.py): event kinds, drop causes, bucket sides; a
+// flow record's words in the workspace (t_hi, t_lo, kind, src, dst, seq,
+// size, aux) and a ring row's columns (the window stamp after the time)
+constexpr int32_t FT_SEND = 0, FT_TB_WAIT = 1, FT_QUEUE_ENTER = 2,
+                  FT_DROP = 3, FT_RETRANSMIT = 4, FT_DELIVERY = 5;
+constexpr int32_t CAUSE_LOSS = 0, CAUSE_CODEL = 1, CAUSE_QUEUE = 2;
+constexpr int32_t TB_UP = 0, TB_DN = 1;
+constexpr int FL_WORDS = 8, FT_COLS = 10;
+
 // threefry stream ids (core/rng.py)
 constexpr uint32_t LOSS_STREAM = 1u << 30, APP_STREAM = 2u << 30;
 
@@ -76,6 +94,9 @@ struct LaneBufs {
       *now_we_lo, *min_used_lat;
   // the netobs block (empty when netobs is off)
   int32_t *nb_txb, *nb_rxb, *nb_thr, *nb_shed, *nb_hist, *nb_win;
+  // the flowtrace ring [FL, FT_COLS], its count and its losses (empty when
+  // flowtrace is off)
+  int32_t *fl_buf, *fl_count, *fl_lost;
   // LaneTables
   int32_t *node_of, *lat;
   int64_t *thresh;
@@ -95,6 +116,9 @@ struct LaneBufs {
   int32_t *ctl, *self_blk, *out_blk, *sx_blk;
   int64_t *recs;
   int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order, *tier_blk;
+  // the iteration's flow records [R_f, FL_WORDS] and their flags; the
+  // merges' rows where they do not fit shared memory
+  int32_t *fl_recs, *fl_valid, *m_scratch;
   // the tier's queues [7, 2S, C2] and vectors [TV_COUNT, 2S] (tiered runs)
   int32_t *tier_q, *tier_v;
   // sizes (sw: self block width, K or 2K; words: 5, or 7 with the stream
@@ -115,6 +139,14 @@ struct LaneBufs {
   // groups start, and where the tier merge's tail starts after them
   int64_t netobs, pcap, stream_pcap, tier_pcap, rec_pc, rec_spc, rec_bpc,
       rec_tspc, rec_tbpc, rec_ttail;
+  // flowtrace: the flag, the ring's rows, the sampling law (u32 threshold,
+  // all flows, the seed mod 2**32), where the flow groups start (B's at 0:
+  // E's split tail, A's [N] groups, its stream sends' and bursts'), the
+  // buffer's end
+  int64_t flowtrace, ft_cap, ft_thresh, ft_all, ft_seed, fl_split, fl_slots,
+      fl_ss, fl_bs, n_fl;
+  // the merges whose rows run in m_scratch (B, E, G)
+  int64_t merge_global, split_global, tier_global;
 };
 
 namespace {
@@ -331,10 +363,6 @@ struct Pair {
 };
 __device__ __forceinline__ bool p_lt(Pair a, Pair b) {
   return a.hi < b.hi || (a.hi == b.hi && a.lo < b.lo);
-}
-__device__ __forceinline__ Pair p_add32(Pair a, int32_t x) {
-  const int32_t t = wadd(a.lo, x);
-  return {wadd(a.hi, t < 0 ? 1 : 0), t & M31};
 }
 __device__ __forceinline__ Pair p_add(Pair a, Pair b) {
   const int32_t t = wadd(a.lo, b.lo);
@@ -696,8 +724,9 @@ __device__ void on_segment(Flow& f, Pair now, int32_t flags, int32_t seq,
 }
 
 // the transmission-opportunity epilogue, in closed form: up to PUMP_BURST
-// window-permitted units u0 .. u0 + count - 1; returns count
-__device__ int32_t pump_epilogue(Flow& f, Pair now, Emit& em) {
+// window-permitted units u0 .. u0 + count - 1, the first n_re of them
+// retransmissions; returns count
+__device__ int32_t pump_epilogue(Flow& f, Pair now, Emit& em, int32_t& n_re) {
   const int32_t u0 = f.snd_nxt;
   int32_t cnt = 0;
   if (f.role == SENDER && f.state == ESTAB) {
@@ -706,7 +735,7 @@ __device__ int32_t pump_epilogue(Flow& f, Pair now, Emit& em) {
     const int32_t lim_fin = wsub(wadd(f.segs, 2), u0);
     cnt = imax(imin(imin(lim_w, lim_fin), PUMP_BURST), 0);
   }
-  const int32_t n_re = imin(imax(wsub(f.max_sent, u0), 0), cnt);
+  n_re = imin(imax(wsub(f.max_sent, u0), 0), cnt);
   const bool cleared = n_re > 0 && f.rtt_seq >= 0 && u0 <= f.rtt_seq;
   const bool take_ts = cnt > n_re && (f.rtt_seq < 0 || cleared);
   if (take_ts) {
@@ -816,6 +845,70 @@ __device__ __forceinline__ void put_loss(const LaneBufs& b, int64_t r,
   put_rec(b, r, lost, t, src, dst, seq, size, DROP_LOSS);
 }
 
+// ---- flowtrace: the sampling hash and the flow records ----------------------
+
+// murmur3-fmix32 of the flow's (src, dst) under the seed (obs/flowtrace.py
+// flow_hash with fid 0; the reference's lanes.py flow_hash_lane): every
+// step wraps mod 2**32, as uint32 arithmetic does
+__device__ __forceinline__ uint32_t flow_hash(uint32_t src, uint32_t dst,
+                                              uint32_t seed) {
+  uint32_t h = src * 2654435761u + dst * 2246822519u + seed * 668265263u;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// does the flow (src, dst) record its events?  Every flow at sample 1 and
+// none at 0, with no hash evaluated
+__device__ __forceinline__ bool flow_sampled(const LaneBufs& b, int32_t src,
+                                             int32_t dst) {
+  if (b.ft_all) return true;
+  if (b.ft_thresh == 0) return false;
+  return static_cast<int64_t>(flow_hash(static_cast<uint32_t>(src),
+                                        static_cast<uint32_t>(dst),
+                                        static_cast<uint32_t>(b.ft_seed))) <
+         b.ft_thresh;
+}
+
+// flow record slot r: its flag always, its words only when valid (D copies
+// the valid ones alone)
+__device__ __forceinline__ void put_flow(const LaneBufs& b, int64_t r,
+                                         bool valid, int64_t t, int32_t kind,
+                                         int32_t src, int32_t dst,
+                                         int32_t seq, int32_t size,
+                                         int32_t aux) {
+  b.fl_valid[r] = valid ? 1 : 0;
+  if (!valid) return;
+  int32_t* row = b.fl_recs + r * FL_WORDS;
+  split(t, &row[0], &row[1]);
+  row[2] = kind;
+  row[3] = src;
+  row[4] = dst;
+  row[5] = seq;
+  row[6] = size;
+  row[7] = aux;
+}
+
+// a send's four flow groups, slot r of the first and `gw` apart: the send
+// (or retransmit: `kind`) at the stimulus time t, the up bucket's wait at
+// the departure, the loss at t, the queue entry at the arrival; `smp`: the
+// send was made and its flow is sampled
+__device__ void send_flows(const LaneBufs& b, int64_t r, int64_t gw, bool smp,
+                           bool lost, int64_t t, int64_t dep, int64_t arr,
+                           int32_t kind, int32_t src, int32_t dst,
+                           int32_t seq, int32_t size) {
+  put_flow(b, r, smp, t, kind, src, dst, seq, size, 0);
+  put_flow(b, r + gw, smp && dep != t, dep, FT_TB_WAIT, src, dst, seq, size,
+           TB_UP);
+  put_flow(b, r + 2 * gw, smp && lost, t, FT_DROP, src, dst, seq, size,
+           CAUSE_LOSS);
+  put_flow(b, r + 3 * gw, smp && !lost, arr, FT_QUEUE_ENTER, src, dst, seq,
+           size, 0);
+}
+
 // a row's up-bucket and send tables, read once: the walk's stores would
 // keep the compiler from hoisting the reads out of the slot and burst loops
 struct UpRow {
@@ -833,6 +926,7 @@ __device__ __forceinline__ UpRow up_row(const LaneBufs& b, int64_t e) {
 struct Sends {
   Emit em{};
   int32_t cnt = 0;   // burst units sent
+  int32_t n_re = 0;  // ... the first n_re of them retransmissions
   int32_t seq = 0;   // the control send's sequence number
   int32_t lseq = 0;  // the RTO arm's local sequence number
   bool lost = false;
@@ -847,7 +941,7 @@ struct Sends {
 // (the burst after its first unit by the chained law), each drawing its
 // loss at counter = its send sequence number; the RTO arm takes the local
 // sequence.  Burst unit u goes to burst(u, valid, lost, dep, arr, seq, size,
-// phi, plo); the control send and the arm are returned.  Every charge and
+// phi, plo, retx); the control send and the arm are returned.  Every charge and
 // every byte sent is counted into sl.nb_thr and sl.nb_txb.
 template <class BurstSink>
 __device__ __forceinline__ Sends stream_stimulus(
@@ -865,7 +959,7 @@ __device__ __forceinline__ Sends stream_stimulus(
   }
   if (s.em.completed_now) f.completed = 1;  // latched once
   const int32_t u0 = f.snd_nxt;
-  s.cnt = pump_epilogue(f, now, s.em);
+  s.cnt = pump_epilogue(f, now, s.em, s.n_re);
 
   const int32_t interval = static_cast<int32_t>(b.interval);
   const bool draw = b.has_loss && t >= b.bootstrap_end;
@@ -918,7 +1012,8 @@ __device__ __forceinline__ Sends stream_stimulus(
     int64_t arr = dep + r.lat;
     if (arr < we) arr = we;
     burst(u, !lost, lost, dep, arr, bseq, bsize,
-          wshl(seg_flags(f, unit), PAY_SEQ_BITS) | unit, f.rcv_nxt);
+          wshl(seg_flags(f, unit), PAY_SEQ_BITS) | unit, f.rcv_nxt,
+          u < s.n_re);
   }
   sl.send_seq = wadd(sl.send_seq, wadd(sent0, s.cnt));
   sl.n_sends = wadd(sl.n_sends, wadd(sent0, s.cnt));
@@ -932,7 +1027,8 @@ __device__ __forceinline__ Sends stream_stimulus(
 // a server row only from its own client) runs on_segment — takes
 // stream_stimulus on the lane's up bucket and counters.  Every entry of the
 // stream block and every stream loss record (and with stream_pcap every
-// capture record) of the lane's rows for slot j is written, valid or not.
+// capture record, with flowtrace every flow record flag of the control-send
+// and burst groups) of the lane's rows for slot j is written, valid or not.
 __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
                             int32_t kind, int32_t src, int32_t size,
                             int32_t phi, int32_t plo, int32_t thi,
@@ -943,6 +1039,8 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
   const int64_t n_ent = 4 * k * sf + k * PUMP_BURST * sf;
   const int32_t lane = static_cast<int32_t>(i);
   const int64_t t = join_raw(thi, tlo);
+  const bool ft = b.flowtrace != 0;
+  const int64_t gw_s = k * s2, gw_b = k * PUMP_BURST * sf;  // flow groups
 
   // the stimulated row (at most one per lane and slot)
   int32_t e = -1, stim = 0;  // 1 open, 2 RTO, 3 segment
@@ -972,10 +1070,12 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     const int32_t peer = b.flow_peers[e];
     const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
     const bool capture = b.flow_pcap[e] != 0;
+    const bool smp = ft && flow_sampled(b, lane, peer);
     sd = stream_stimulus(
         b, f, stim, Pair{thi, tlo}, t, phi, plo, size, we, up_row(b, e), sl,
         [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
-            int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo) {
+            int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo,
+            bool retx) {
           const int64_t slot = j * PUMP_BURST + u;
           put_entry(b, n_ent, 4 * k * sf + slot * sf + e, valid, peer, arr,
                     pkt_auxh, bseq, bsize, bphi, bplo);
@@ -984,6 +1084,10 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
           if (b.stream_pcap)
             put_rec(b, b.rec_bpc + slot * sf + e, capture, dep, lane, peer,
                     bseq, bsize, PCAP_TX);
+          if (ft)
+            send_flows(b, b.fl_bs + slot * sf + e, gw_b, smp, lost, t, dep,
+                       arr, retx ? FT_RETRANSMIT : FT_SEND, lane, peer, bseq,
+                       bsize);
         });
     flow_store(f, frow);
   }
@@ -1007,6 +1111,11 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     if (b.stream_pcap)
       put_rec(b, b.rec_spc + j * s2 + row, se_v && b.flow_pcap[row] != 0,
               sd.dep, lane, peer, sd.seq, em.send_size, PCAP_TX);
+    if (ft)
+      send_flows(b, b.fl_ss + j * s2 + row, gw_s,
+                 se_v && flow_sampled(b, lane, peer), sd.lost, t, sd.dep,
+                 sd.arr, em.send_retx ? FT_RETRANSMIT : FT_SEND, lane, peer,
+                 sd.seq, em.send_size);
     const bool sa_v = me && em.rto_valid;
     put_entry(b, n_ent, k * s2 + j * s2 + row, sa_v, lane,
               join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, sd.lseq, SZ_RTO,
@@ -1019,6 +1128,9 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
         put_loss(b, b.rec_brec + slot * sf + row, false, 0, 0, 0, 0, 0);
         if (b.stream_pcap)
           put_rec(b, b.rec_bpc + slot * sf + row, false, 0, 0, 0, 0, 0, 0);
+        if (ft)
+          send_flows(b, b.fl_bs + slot * sf + row, gw_b, false, false, 0, 0,
+                     0, 0, 0, 0, 0, 0);
       }
     }
   }
@@ -1050,7 +1162,10 @@ __device__ __forceinline__ void block_add(int32_t v, int32_t* dst) {
 // lanes the stream arm (stream_slot), whose endpoint rows the thread owns.
 // With netobs the lane's byte and throttle counters follow every charge, and
 // the block's popped PACKETs join the window's count (one atomic a block).
-// Returns the lane's popped PACKETs.
+// With flowtrace each slot writes the flags of its seven [N] flow groups —
+// the send, its up-bucket wait, loss and queue entry; the arrival's
+// down-bucket wait, CoDel drop or delivery — and the records of the
+// sampled flows.  Returns the lane's popped PACKETs.
 __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
   const int64_t n = b.n;
   const int64_t c = b.c, k = b.k, sw = b.sw;
@@ -1253,6 +1368,7 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
     // bootstrap_end)
     const int64_t oi = j * n + i;
     bool lost = false;
+    int64_t arr = 0;
     if (do_send) {
       const int64_t pair = static_cast<int64_t>(my_node) * b.g + b.node_of[dst];
       const int32_t lat = b.lat[pair];
@@ -1264,7 +1380,7 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
         lost = static_cast<int64_t>(u) < b.thresh[pair];
       }
       if (lost) n_loss += 1;
-      int64_t arr = dep + lat;
+      arr = dep + lat;
       if (arr < we) arr = we;
       int32_t a_hi, a_lo;
       split(arr, &a_hi, &a_lo);
@@ -1310,6 +1426,20 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
     if (b.pcap)
       put_rec(b, b.rec_pc + oi, do_send && capture, dep, lane, dst, snd_seq,
               out_size, PCAP_TX);
+    // the slot's flow groups: the send (lane -> dst), the arrival (src ->
+    // lane) at the down bucket's departure
+    if (b.flowtrace) {
+      const int64_t r = b.fl_slots + oi;
+      send_flows(b, r, nk, do_send && flow_sampled(b, lane, dst), lost, t,
+                 dep, arr, FT_SEND, lane, dst, snd_seq, out_size);
+      const bool ar = is_pkt && flow_sampled(b, src, lane);
+      put_flow(b, r + 4 * nk, ar && td != t, td, FT_TB_WAIT, src, lane, seq,
+               size, TB_DN);
+      put_flow(b, r + 5 * nk, ar && drop, td, FT_DROP, src, lane, seq, size,
+               CAUSE_CODEL);
+      put_flow(b, r + 6 * nk, ar && !drop, td, FT_DELIVERY, src, lane, seq,
+               size, 0);
+    }
 
     if (streams)
       stream_slot(b, i, j, act, kind, src, size,
@@ -1473,13 +1603,17 @@ __device__ __forceinline__ int64_t key_rank(const int32_t* e, int64_t n,
 }
 
 // The keyed row merge, shared by kernels B and E: rank each of the w_all
-// entries in shared memory (key_rank), write the first C to the queue row
-// of `lane`, count the real events past C into *n_tail and, when logging,
-// record them as DROP_QUEUE at recs[rec_base + rank - C].
+// entries at e — shared memory, or the row's m_scratch (key_rank) — write
+// the first C to the queue row of `lane`, count the real events past C into
+// *n_tail and, when logging, record them as DROP_QUEUE at recs[rec_base +
+// rank - C]; with flowtrace, the flag of every flow slot fl_base + rank - C
+// and, for the PACKETs of sampled flows among them, an FT_DROP
+// (CAUSE_QUEUE) record at their pair times.
 template <int W>
 __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
                                           int64_t w_all, int64_t lane,
-                                          int64_t rec_base, int32_t* n_tail) {
+                                          int64_t rec_base, int64_t fl_base,
+                                          int32_t* n_tail) {
   int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
                          b.q_phi, b.q_plo};
   const int64_t c = b.c;
@@ -1508,13 +1642,22 @@ __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
         }
         b.rec_valid[r] = valid ? 1 : 0;
       }
+      if (b.flowtrace) {
+        const int32_t src = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
+        const int32_t dst = static_cast<int32_t>(lane);
+        put_flow(b, fl_base + (rank - c),
+                 valid && (ex[2] >> AUX_KIND_SHIFT) == PACKET &&
+                     flow_sampled(b, src, dst),
+                 join_raw(ex[0], ex[1]), FT_DROP, src, dst, ex[3], ex[4],
+                 CAUSE_QUEUE);
+      }
     }
   }
   if (local_tail) atomicAdd(n_tail, local_tail);
 }
 
-// dynamic shared memory: C + S + Cx entries x W words + Cx selected entry
-// indices
+// the row: C + S + Cx entries x W words + Cx selected entry indices, in
+// dynamic shared memory or (merge_global) the block's part of m_scratch
 template <int W>
 __global__ void merge_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
@@ -1523,8 +1666,9 @@ __global__ void merge_kernel(LaneBufs b) {
   const int64_t n = b.n, c = b.c, k = b.k, cx = b.cx, sw = b.sw;
   const int64_t w_all = c + sw + cx, tail = sw + cx, nk = n * k, nsw = n * sw;
   const int64_t n_ent = stream_entries(b);
-  int32_t* e = sm;                  // [C + S + Cx][W]
-  int32_t* sel = sm + W * w_all;    // [Cx]
+  int32_t* const row = b.merge_global ? b.m_scratch + i * (W * w_all + cx) : sm;
+  int32_t* e = row;                  // [C + S + Cx][W]
+  int32_t* sel = row + W * w_all;    // [Cx]
   __shared__ int32_t n_tail;
 
   const int32_t cnt = b.x_cnt[i];
@@ -1606,7 +1750,7 @@ __global__ void merge_kernel(LaneBufs b) {
     }
   }
   __syncthreads();
-  merge_row<W>(b, e, w_all, i, i * tail, &n_tail);
+  merge_row<W>(b, e, w_all, i, i * tail, i * tail, &n_tail);
   __syncthreads();
   if (threadIdx.x == 0) {
     const int32_t lost_pre = cnt > cx ? cnt - static_cast<int32_t>(cx) : 0;
@@ -1622,15 +1766,17 @@ __global__ void merge_kernel(LaneBufs b) {
 // row C | W_s candidates] by the static layout — a client row takes its
 // server's control sends [K], its own RTO arms [K] and K*B empty entries; a
 // server row its client's control sends, its own RTO arms and its client's
-// bursts [K*B], slot-major — and merges it with merge_row.
+// bursts [K*B], slot-major — and merges it with merge_row, in shared memory
+// or (split_global) the block's part of m_scratch.
 __global__ void stream_rows_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
   constexpr int W = 7;  // stream rows always carry the payload words
-  extern __shared__ int32_t sm[];
+  extern __shared__ int32_t smem[];
   __shared__ int32_t n_tail;
   const int64_t r = blockIdx.x;
   const int64_t c = b.c, k = b.k, sf = b.s_flows, s2 = 2 * sf;
   const int64_t w_s = 2 * k + k * PUMP_BURST, w_all = c + w_s;
+  int32_t* const sm = b.split_global ? b.m_scratch + r * W * w_all : smem;
   const int64_t n_ent = stream_entries(b);
   const int64_t lane = b.flow_lanes[r];
   const bool client = r < sf;
@@ -1659,7 +1805,7 @@ __global__ void stream_rows_kernel(LaneBufs b) {
   }
   __syncthreads();
   merge_row<W>(b, sm, w_all, lane, b.rec_slots - s2 * w_s + r * w_s,
-               &n_tail);
+               b.fl_split + r * w_s, &n_tail);
   __syncthreads();
   if (threadIdx.x == 0) b.n_queue[lane] += n_tail;  // lanes are distinct
 }
@@ -1822,7 +1968,8 @@ __device__ int32_t stream_tier_row(const LaneBufs& b, int64_t e) {
       sd = stream_stimulus(
           b, f, stim, now, st, phi, plo, size, we, ur, sl,
           [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
-              int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo) {
+              int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo,
+              bool /*retx*/) {
             const int64_t slot = j * PUMP_BURST + u;
             tier_put(b, lay.bo + slot * sf + e, valid, arr, pkt_auxh, bseq,
                      bsize, bphi, bplo);
@@ -1930,11 +2077,14 @@ __device__ __forceinline__ const int32_t* tier_entry(const LaneBufs& b,
 
 __global__ void tier_merge_kernel(LaneBufs b) {
   if (b.ctl[0] == 0) return;
-  extern __shared__ int32_t sm[];  // the valid entries, [n_valid][7]
+  // the valid entries, [n_valid][7]: in shared memory, or (tier_global) the
+  // block's part of m_scratch
+  extern __shared__ int32_t smem[];
   __shared__ int32_t part[TIER_THREADS];
   const int64_t r = blockIdx.x;
   const int64_t s2 = 2 * b.tier_s, c2 = b.c2;
   const int64_t wt = 3 * b.ks + b.ks * PUMP_BURST + b.cx, total = c2 + wt;
+  int32_t* const sm = b.tier_global ? b.m_scratch + r * 7 * total : smem;
   const int tid = threadIdx.x, nt = blockDim.x;
   const int64_t chunk = (total + nt - 1) / nt;
   const int64_t lo = tid * chunk;
@@ -2058,24 +2208,56 @@ __global__ void queue_min_kernel(LaneBufs b, int advance) {
 }
 
 // ---- kernel D: append_log ---------------------------------------------------
-// One block compacts the valid rows of recs (in buffer order) into the log:
-// tiles of ITEMS entries per thread, a block scan of the per-thread counts,
-// then each thread copies its valid rows to their positions.
+// Compaction of the iteration's valid rows (in buffer order) into a bounded
+// buffer that never wraps, in two instances of one template on the row:
+// the records of recs into the [L, 6] int64 log, and the flow records of
+// fl_recs into the [FL, 10] int32 flowtrace ring, each stamped with the
+// current window's end (C set it before A; D runs before the next C).  One
+// block an instance: tiles of ITEMS entries per thread, a block scan of the
+// per-thread counts, then each thread copies its valid rows to their
+// positions; rows past the end are counted as lost.
 constexpr int LOG_THREADS = 1024;
 constexpr int LOG_ITEMS = 8;
 
-__global__ void append_log_kernel(LaneBufs b, int64_t n_rec) {
-  if (b.ctl[0] == 0) return;
+// the log's rows: six int64 words, copied as they are
+struct LogRows {
+  const int64_t* src;
+  int64_t* dst;
+  __device__ void copy(int64_t r, int64_t pos) const {
+    for (int w = 0; w < 6; ++w) dst[pos * 6 + w] = src[r * 6 + w];
+  }
+};
+
+// the ring's rows: a flow record's eight int32 words around the window stamp
+struct FlowRows {
+  const int32_t* src;
+  int32_t* dst;
+  int32_t we_hi, we_lo;
+  __device__ void copy(int64_t r, int64_t pos) const {
+    const int32_t* x = src + r * FL_WORDS;
+    int32_t* y = dst + pos * FT_COLS;
+    y[0] = x[0];
+    y[1] = x[1];
+    y[2] = we_hi;
+    y[3] = we_lo;
+    for (int w = 2; w < FL_WORDS; ++w) y[w + 2] = x[w];
+  }
+};
+
+template <class Rows>
+__device__ void append_rows(const int32_t* valid, int64_t n_rec,
+                            const Rows& rows, int32_t* count, int32_t* lost,
+                            int64_t cap) {
   __shared__ int32_t warp_sum[32];
   __shared__ int32_t tile_total;
-  const int64_t start = *b.log_count;
+  const int64_t start = *count;
   int64_t base = start;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int64_t t0 = 0; t0 < n_rec; t0 += LOG_THREADS * LOG_ITEMS) {
     const int64_t e0 = t0 + threadIdx.x * static_cast<int64_t>(LOG_ITEMS);
     int32_t cnt = 0;
     for (int u = 0; u < LOG_ITEMS; ++u)
-      if (e0 + u < n_rec && b.rec_valid[e0 + u]) ++cnt;
+      if (e0 + u < n_rec && valid[e0 + u]) ++cnt;
     // inclusive scan within the warp, then across warps
     int32_t incl = cnt;
     for (int s = 1; s < 32; s <<= 1) {
@@ -2097,9 +2279,8 @@ __global__ void append_log_kernel(LaneBufs b, int64_t n_rec) {
     int64_t pos = base + (warp > 0 ? warp_sum[warp - 1] : 0) + incl - cnt;
     for (int u = 0; u < LOG_ITEMS; ++u) {
       const int64_t r = e0 + u;
-      if (r < n_rec && b.rec_valid[r]) {
-        if (pos < b.log_cap)
-          for (int w = 0; w < 6; ++w) b.log[pos * 6 + w] = b.recs[r * 6 + w];
+      if (r < n_rec && valid[r]) {
+        if (pos < cap) rows.copy(r, pos);
         ++pos;
       }
     }
@@ -2108,11 +2289,24 @@ __global__ void append_log_kernel(LaneBufs b, int64_t n_rec) {
   }
   if (threadIdx.x == 0) {
     const int64_t n_valid = base - start;
-    int64_t room = b.log_cap - start;
+    int64_t room = cap - start;
     room = room < 0 ? 0 : room;
     const int64_t kept = n_valid < room ? n_valid : room;
-    *b.log_count = static_cast<int32_t>(start + n_valid);
-    *b.log_lost += static_cast<int32_t>(n_valid - kept);
+    *count = static_cast<int32_t>(start + n_valid);
+    *lost += static_cast<int32_t>(n_valid - kept);
+  }
+}
+
+// block 0 the log (when logging), the next the ring (with flowtrace)
+__global__ void append_log_kernel(LaneBufs b) {
+  if (b.ctl[0] == 0) return;
+  if (blockIdx.x == 0 && b.log_cap > 0) {
+    append_rows(b.rec_valid, b.n_rec, LogRows{b.recs, b.log}, b.log_count,
+                b.log_lost, b.log_cap);
+  } else {
+    append_rows(b.fl_valid, b.n_fl,
+                FlowRows{b.fl_recs, b.fl_buf, *b.now_we_hi, *b.now_we_lo},
+                b.fl_count, b.fl_lost, b.ft_cap);
   }
 }
 
@@ -2130,6 +2324,18 @@ __global__ void rand_u32_kernel(uint32_t seed_lo, uint32_t seed_hi,
 
 inline unsigned blocks_for(int64_t items, unsigned threads) {
   return static_cast<unsigned>((items + threads - 1) / threads);
+}
+
+// a merge's dynamic shared memory: none on its global path; past the
+// default 48 KB the kernel opts in to the size first
+template <class Kernel>
+cudaError_t merge_smem(Kernel* kernel, bool global, int64_t bytes,
+                       int* smem) {
+  *smem = global ? 0 : static_cast<int>(bytes);
+  if (*smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              *smem);
 }
 
 }  // namespace
@@ -2156,8 +2362,12 @@ int exchange_merge(const LaneBufs* b, cudaStream_t stream) {
   x_scan_kernel<<<1, 1024, 0, stream>>>(*b);
   x_place_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(*b);
   const int64_t w_all = b->c + b->sw + b->cx;
-  const int smem =
-      static_cast<int>((b->words * w_all + b->cx) * sizeof(int32_t));
+  const int64_t bytes = (b->words * w_all + b->cx) * sizeof(int32_t);
+  int smem = 0;
+  err = b->words == 7
+            ? merge_smem(merge_kernel<7>, b->merge_global != 0, bytes, &smem)
+            : merge_smem(merge_kernel<5>, b->merge_global != 0, bytes, &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (b->words == 7) {
     merge_kernel<7><<<static_cast<unsigned>(b->n), merge_threads(w_all), smem,
                       stream>>>(*b);
@@ -2170,7 +2380,11 @@ int exchange_merge(const LaneBufs* b, cudaStream_t stream) {
 
 int stream_rows_merge(const LaneBufs* b, cudaStream_t stream) {
   const int64_t w_all = b->c + 2 * b->k + b->k * PUMP_BURST;
-  const int smem = static_cast<int>(7 * w_all * sizeof(int32_t));
+  int smem = 0;
+  const cudaError_t err =
+      merge_smem(stream_rows_kernel, b->split_global != 0,
+                 7 * w_all * sizeof(int32_t), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   stream_rows_kernel<<<static_cast<unsigned>(2 * b->s_flows),
                        merge_threads(w_all), smem, stream>>>(*b);
   return static_cast<int>(cudaGetLastError());
@@ -2186,7 +2400,11 @@ int stream_tier(const LaneBufs* b, cudaStream_t stream) {
 
 int tier_merge(const LaneBufs* b, cudaStream_t stream) {
   const int64_t total = b->c2 + 3 * b->ks + b->ks * PUMP_BURST + b->cx;
-  const int smem = static_cast<int>(7 * total * sizeof(int32_t));
+  int smem = 0;
+  const cudaError_t err =
+      merge_smem(tier_merge_kernel, b->tier_global != 0,
+                 7 * total * sizeof(int32_t), &smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (b->tier_s > 0)
     tier_merge_kernel<<<static_cast<unsigned>(2 * b->tier_s), TIER_THREADS,
                         smem, stream>>>(*b);
@@ -2199,8 +2417,16 @@ int queue_min_window(const LaneBufs* b, int advance, cudaStream_t stream) {
 }
 
 int append_log(const LaneBufs* b, cudaStream_t stream) {
-  append_log_kernel<<<1, LOG_THREADS, 0, stream>>>(*b, b->n_rec);
+  // one block for each instance that runs: the log, the flowtrace ring
+  const unsigned blocks = (b->log_cap > 0 ? 1u : 0u) + (b->flowtrace ? 1u : 0u);
+  if (blocks > 0)
+    append_log_kernel<<<blocks, LOG_THREADS, 0, stream>>>(*b);
   return static_cast<int>(cudaGetLastError());
+}
+
+int smem_optin(int device, int* bytes) {
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }
 
 int rand_u32(uint32_t seed_lo, uint32_t seed_hi, const uint32_t* stream_words,

@@ -205,9 +205,9 @@ hosts:
 ], ids=["faults", "netobs", "flowtrace", "unroll", "pcap",
         "multi_process_phold", "tgen_tcp_server"])
 def test_unported_configs_raise(edit):
-    """What the port refuses.  pcap and netobs are ported now: pcap is
-    refused only without the device log it rides, and netobs not at
-    all."""
+    """What the port refuses.  pcap, netobs and flowtrace are ported now:
+    pcap is refused only without the device log it rides, netobs and
+    flowtrace not at all."""
     from shadow_tpu_torch.config.options import ConfigOptions, LaneCompatError
 
     assert GpuEngine(ConfigOptions.from_yaml(_MESH), device="cpu")
@@ -220,6 +220,10 @@ def test_unported_configs_raise(edit):
         return
     if "netobs" in edit[1]:
         assert GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu").params.netobs
+        return
+    if "flowtrace" in edit[1]:
+        assert GpuEngine(ConfigOptions.from_yaml(yaml),
+                         device="cpu").params.flowtrace
         return
     with pytest.raises(LaneCompatError):
         GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")

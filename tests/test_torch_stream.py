@@ -397,10 +397,11 @@ def test_rounds_match_reference_field_by_field(name, rounds):
 ], ids=["segments_past_26_bits", "size_2_31", "flowtrace", "netobs", "pcap"])
 def test_unported_stream_configs_raise(edit):
     """What the port refuses with streams: flows beyond the lane law's
-    26-bit sequence space or its int32 byte counter, and flowtrace.  pcap
-    and netobs are ported now: pcap is refused only without the device log
-    it rides, and netobs not at all (tests/test_torch_obs.py holds both to
-    the reference)."""
+    26-bit sequence space or its int32 byte counter.  pcap, netobs and
+    flowtrace are ported now: pcap is refused only without the device log
+    it rides, netobs and flowtrace not at all (tests/test_torch_obs.py and
+    tests/test_torch_flowtrace.py hold them to the reference); a traced
+    pair runs untiered, as the reference's does."""
     yaml = STREAM_PAIR.replace(*edit)
     assert yaml != STREAM_PAIR
     if "pcap_enabled" in edit[1]:
@@ -412,6 +413,10 @@ def test_unported_stream_configs_raise(edit):
         return
     if "netobs" in edit[1]:
         assert GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu").params.netobs
+        return
+    if "flowtrace" in edit[1]:
+        p = GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu").params
+        assert p.flowtrace and p.split
         return
     with pytest.raises(LaneCompatError):
         GpuEngine(ConfigOptions.from_yaml(yaml), device="cpu")
