@@ -83,9 +83,29 @@ snapshots; then the stream pair with its queues past the opt-in limit
 8,400: G's), card = CPU.  Between the plane checks and 6, kernels A, B, D and E with
 flowtrace on at samples 1, 0.5 and 0 (waits, losses, CoDel drops, stream
 retransmits, B's and E's queue sheds, a ring that overflows mid-iteration,
-D's two instances in one launch).  Phase 6 also times the tiered mixed
-mesh with netobs, with a log, and with netobs, pcap and a log, and the
-untiered one with flowtrace on.
+D's two instances in one launch), then every kernel (A-G and D, with the
+log's and the ring's instances, netobs and pcap) over S = 3 scenarios of
+different seeds, tables and states in one batched launch against the
+plain loop, then again with one scenario done (its words unchanged); the
+stream groups again at S = 9, where the blocks no longer fit the kernel
+parameter and the kernels read them from the device array.
+Phase 6 also times the tiered mixed mesh with netobs, with a log, and
+with netobs, pcap and a log, and the untiered one with flowtrace on.
+Between the wide rows and 9: fault schedules card = CPU (step and device)
+on six twins of ``tests/test_torch_faults.py``'s configurations and on
+the lossy flagship at 10,000 hosts for 1 sim s with a latency epoch (10 to
+15 ms at 300 ms) and a loss epoch (0.01 to 0.05 at 600 ms), each epoch's
+losses in its 5-sigma band; fleet sweeps, every scenario of a batched
+card run equal to its serial card run (counters, rounds, every LaneState
+field, logs and rings): the fleet cell (``flagship_mesh_config(10000)``,
+C=16, K=2, Cx=8, 5 sim s, seeds 1-4 x {no fault, 1% loss from 2 s}: the
+loss-free scenarios at the mesh's closed form, the lossy ones in their
+5-sigma bands), the JAX package's bench sweep (8 seeds x 1,000 hosts),
+4 seeds x the tiered mixed mesh for 1 sim s and 2 x the traced untiered
+mesh for 100 sim ms; then the fleet cell's kernels per batched launch at
+S = 8 and S = 1, its batched step, and the launches per batched step at
+S = 1, 3 and 8 (equal), and the kernels of the tiered and of the traced
+untiered mixed mesh eight times over against once.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -121,6 +141,8 @@ from shadow_tpu_torch.core import rng as rng_mod  # noqa: E402
 from shadow_tpu_torch.net import ltcp  # noqa: E402
 from shadow_tpu_torch.net.token_bucket import bucket_params  # noqa: E402
 from shadow_tpu_torch.obs import flowtrace as ftr  # noqa: E402
+from shadow_tpu_torch.sweep import (SweepEngine, SweepSpec,  # noqa: E402
+                                    expand_variants)
 
 DEV = torch.device("cuda")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
@@ -416,12 +438,16 @@ def run_pair(p, tb, s0, ws0, call, plain):
         else:
             plain(p, tb, s, ws)
         torch.cuda.synchronize()
-        # the exchange scratch (x_*) and the merges' global rows
-        # (m_scratch) are the kernels' own working memory
-        out.append({**fields(s), **{f: t for f, t in ws._asdict().items()
-                                    if not f.startswith("x_")
-                                    and f != "m_scratch"}})
+        out.append(state_fields(s, ws))
     return out
+
+
+def state_fields(s, ws) -> dict:
+    """A state's and its workspace's tensors by name, as the checks compare
+    them: the exchange scratch (x_*) and the merges' global rows
+    (m_scratch) are the kernels' own working memory, left out."""
+    return {**fields(s), **{f: t for f, t in ws._asdict().items()
+                            if not f.startswith("x_") and f != "m_scratch"}}
 
 
 @phase("kernels vs plain at the flagship shapes (tolerance: exact, integer)")
@@ -1881,6 +1907,207 @@ def wide_rows():
         assert_equal(f"wide pair tiered={tiered} final state", st_g, st_c)
 
 
+# ---- the scenario axis: every kernel over S scenarios in one launch ----------
+
+SWEEP_S = 3
+# past PARAM_SCENARIOS (csrc/lanes.cu) the kernels read the scenarios'
+# blocks from the device array
+SWEEP_S_ARRAY = 9
+
+
+def run_batch(cases, call, plain, done=None):
+    """``cases``: S scenarios ``(p, tb, s0, ws0)`` of one shape.  One
+    batched launch of ``call`` over copies of their inputs — the
+    workspaces rows of one batch, scenario ``done`` (if any) marked done —
+    and the plain version scenario by scenario on other copies; returns
+    the kernel's, the plain version's and the inputs' field dicts."""
+    batch = lanes.make_workspaces(cases[0][0], DEV, len(cases))
+    states = []
+    for (_p, _tb, s0, ws0), ws in zip(cases, batch.rows):
+        copy_into(ws, ws0)
+        states.append(clone(s0))
+    if done is not None:
+        batch.rows[done].ctl[0] = 0
+    call(kernels.SweepArgs([
+        kernels.LaneArgs(p, tb, s, ws)
+        for (p, tb, _s, _w), s, ws in zip(cases, states, batch.rows)]))
+    torch.cuda.synchronize()
+    kern = [state_fields(s, ws) for s, ws in zip(states, batch.rows)]
+    want, inputs = [], []
+    for i, (p, tb, s0, ws0) in enumerate(cases):
+        s, ws = clone(s0), clone(ws0)
+        if i == done:
+            ws.ctl[0] = 0
+        inputs.append(state_fields(clone(s), clone(ws)))
+        plain(p, tb, s, ws)
+        torch.cuda.synchronize()
+        want.append(state_fields(s, ws))
+    return kern, want, inputs
+
+
+def check_batch(name: str, tag: str, cases, call, plain) -> None:
+    """The batched launch against the plain loop, word for word; then
+    with scenario 1 done: its words unchanged, the others as the loop."""
+    kern, want, inputs = run_batch(cases, call, plain)
+    for i in range(len(cases)):
+        check(name, f"sweep {tag} scenario {i}", kern[i], want[i])
+    moved = [sum(int((want[i][f] != inputs[i][f]).sum()) for f in want[i])
+             for i in range(len(cases))]
+    differ = any(not torch.equal(want[0][f], want[1][f]) for f in want[0])
+    if not all(moved) or not differ:
+        raise AssertionError(f"{name} {tag}: the scenarios' outputs are "
+                             f"equal or did not move ({moved})")
+    kern, want, inputs = run_batch(cases, call, plain, done=1)
+    assert_equal(f"{name} sweep {tag}: done scenario 1 unchanged", kern[1],
+                 inputs[1])
+    for i in range(len(cases)):
+        if i != 1:
+            check(name, f"sweep {tag} beside a done scenario {i}", kern[i],
+                  want[i])
+    log(f"{name} sweep {tag}: S = {len(cases)} in one launch equal to the "
+        f"plain loop; words moved by scenario {moved}; with scenario 1 done "
+        "it is unchanged and the others equal")
+
+
+def with_rec_inputs(p, ws, rng) -> None:
+    """Random valid flags and rows for D's instances (the log, and with
+    flowtrace the ring)."""
+    if p.log_capacity:
+        n_rec = ws.rec_valid.numel()
+        ws.rec_valid.copy_(t32(rng.random(n_rec) < 0.3))
+        ws.recs.copy_(torch.as_tensor(rng.integers(0, 1 << 40, (n_rec, 6)),
+                                      device=DEV))
+    if p.flowtrace:
+        n_fl = ws.fl_valid.numel()
+        ws.fl_valid.copy_(t32(rng.random(n_fl) < 0.3))
+        ws.fl_recs.copy_(t32(rng.integers(-(1 << 31), 1 << 31, (n_fl, 8))))
+
+
+def window_passed(cases):
+    """``cases`` with each window's end 10 ms before the earliest head:
+    kernel C opens the next window (a round, the netobs flush)."""
+    out = []
+    for p, tb, s0, ws0 in cases:
+        s1 = clone(s0)
+        we = T0 - 10_000_000
+        s1.now_we_hi.fill_(we >> 31)
+        s1.now_we_lo.fill_(we & lanes.MASK31)
+        out.append((p, tb, s1, ws0))
+    return out
+
+
+def c_call(advance: bool):
+    return (lambda a: kernels.queue_min_window(a, advance),
+            lambda p_, tb_, s, ws: lanes.queue_min_window_plain(p_, s, ws,
+                                                                advance))
+
+
+def d_plain(p_, tb_, s, ws):
+    lanes.append_log_plain(p_, s, ws)
+
+
+@phase("the scenario axis: kernels A-G and D over S = 3 scenarios in one "
+       "launch vs the plain loop, one scenario done, and the stream groups "
+       "at S = 9 (tolerance: exact)")
+def check_sweep_kernels():
+    rng = np.random.default_rng(SEED + 7)
+    a_ = (kernels.lane_slots, lanes.lane_slots_plain)
+    b_ = (kernels.exchange_merge, lanes.exchange_merge_plain)
+
+    # the flagship shapes, passive, with a log: A, B, C, D's log instance
+    eng = GpuEngine(flagship(), log_capacity=60_000)
+    cases = []
+    for i in range(SWEEP_S):
+        p = dataclasses.replace(eng.params, seed=SEED + i)
+        tb = random_tables(eng, rng)
+        s0 = random_state(eng, tb, rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        random_exchange(p, ws0, rng)
+        with_rec_inputs(p, ws0, rng)
+        cases.append((p, tb, s0, ws0))
+    for name, (call, plain) in (("lane_slots", a_), ("exchange_merge", b_),
+                                ("queue_min_window", c_call(True)),
+                                ("append_log", (kernels.append_log, d_plain))):
+        check_batch(name, "flagship", cases, call, plain)
+    check_batch("queue_min_window", "flagship adv=False", cases,
+                *c_call(False))
+    check_batch("queue_min_window", "flagship, window passed",
+                window_passed(cases), *c_call(True))
+
+    # the PHOLD shapes, active: phold and ping lanes, loss draws under each
+    # scenario's own seed, dynamic runahead
+    eng_a = GpuEngine(phold(stop_time="1s"), log_capacity=0)
+    cases = []
+    for i in range(SWEEP_S):
+        p = dataclasses.replace(active_params(eng_a, True),
+                                seed=(1 << 64) - 3 - 11 * i)
+        tb = active_tables(eng_a, rng)
+        s0 = active_state(eng_a, tb, rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        random_exchange(p, ws0, rng)
+        cases.append((p, tb, s0, ws0))
+    for name, (call, plain) in (("lane_slots", a_), ("exchange_merge", b_),
+                                ("queue_min_window", c_call(True))):
+        check_batch(name, "phold", cases, call, plain)
+
+    # the untiered mixed mesh with every flow traced and a log: A's stream
+    # arm, B, E, D's two instances in one launch, C
+    eng_s = GpuEngine(mixed_mesh(1), log_capacity=0)
+    cases = []
+    for i in range(SWEEP_S_ARRAY):
+        p, tb, s0 = stream_case(eng_s, rng)
+        p = dataclasses.replace(traced(p, 1.0, cap=400_000),
+                                log_capacity=100_000, seed=SEED + 10 + i)
+        s0 = with_log(with_ring(s0, p.flow_capacity), p.log_capacity)
+        ws0 = lanes.make_workspace(p, DEV)
+        random_exchange(p, ws0, rng)
+        random_stream_block(p, ws0, rng, p.n_lanes)
+        with_rec_inputs(p, ws0, rng)
+        cases.append((p, tb, s0, ws0))
+    for name, (call, plain) in (
+            ("lane_slots", a_), ("exchange_merge", b_),
+            ("stream_rows_merge", (kernels.stream_rows_merge,
+                                   lanes.stream_rows_merge_plain)),
+            ("append_log", (kernels.append_log, d_plain)),
+            ("queue_min_window", c_call(True))):
+        check_batch(name, "untiered stream, flowtrace, log",
+                    cases[:SWEEP_S], call, plain)
+        check_batch(name, "untiered stream, flowtrace, log", cases, call,
+                    plain)
+
+    # the tiered mixed mesh with netobs, pcap and a log: A, B (the divert),
+    # F, G (on F's outputs), C (the tier's heads), D
+    eng_t = GpuEngine(planes(mixed_tiered(1), "sweep_check"),
+                      log_capacity=200_000)
+    cases, g_cases = [], []
+    for i in range(SWEEP_S_ARRAY):
+        p, tb, s0 = tier_case(eng_t, rng, True, 200_000)
+        p = dataclasses.replace(p, seed=(1 << 64) - 7 - 13 * i)
+        tb = throttling(eng_t, tb, rng)
+        tb, s0 = seed_planes(p, tb, with_log(s0, 200_000), rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        random_exchange(p.lane, ws0, rng)
+        with_rec_inputs(p, ws0, rng)
+        cases.append((p, tb, s0, ws0))
+        s1, ws1 = clone(s0), clone(ws0)
+        lanes.stream_tier_plain(p, tb, s1, ws1)
+        tier_cross_block(p, ws1, rng)
+        g_cases.append((p, tb, s1, ws1))
+    for name, (call, plain) in (
+            ("lane_slots", a_), ("exchange_merge", b_),
+            ("stream_tier", (kernels.stream_tier, lanes.stream_tier_plain)),
+            ("queue_min_window", c_call(True)),
+            ("append_log", (kernels.append_log, d_plain))):
+        for group in (cases[:SWEEP_S], cases):
+            check_batch(name, "tiered, netobs + pcap, log", group, call,
+                        plain)
+    for group in (g_cases[:SWEEP_S], g_cases):
+        check_batch("tier_merge", "tiered, netobs + pcap, log", group,
+                    kernels.tier_merge, lanes.tier_merge_plain)
+    check_batch("queue_min_window", "tiered, netobs, window passed",
+                window_passed(cases[:SWEEP_S]), *c_call(True))
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -2065,7 +2292,7 @@ assert len(WRAPPER_OF) == sum(map(len, KERNEL_PARTS.values()))
 
 def kernel_name(key: str) -> str:
     """The bare name of a profiler event: "merge_kernel" for "void
-    (anonymous namespace)::merge_kernel<7>(LaneBufs)", "Memset" for
+    (anonymous namespace)::merge_kernel<7, ParamBufs>(ParamBufs)", "Memset" for
     "Memset (Device)", the key itself for a runtime call."""
     m = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
     return m.group(1) if m else key.split(" ")[0]
@@ -2085,30 +2312,32 @@ def path_kernels(p: lanes.LaneParams) -> list:
 
 def profile_steps(window, iteration, steps: int, p: lanes.LaneParams) -> dict:
     """Device time per step of each wrapper's kernels, from the profiler's
-    CUDA activity over ``steps`` live steps of the device loop; {} when the
-    profiler records no device time."""
+    CUDA activity over ``steps`` live steps of the device loop (profiled
+    again, up to three times, while a kernel's time is missing); {} when
+    the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            window(True)
-            iteration()
-        torch.cuda.synchronize()
-    totals = {name: 0.0 for name in path_kernels(p)}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = getattr(ev, "cuda_time_total", 0.0)
-        name = WRAPPER_OF.get(kernel_name(ev.key))
-        if name in totals:
-            totals[name] += us
-            log(f"  device {us / steps:9.3f} us/step in {ev.count:5d} "
-                f"launches: {ev.key[:70]}")
-    if not all(totals.values()):
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                window(True)
+                iteration()
+            torch.cuda.synchronize()
+        totals = {name: 0.0 for name in path_kernels(p)}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            name = WRAPPER_OF.get(kernel_name(ev.key))
+            if name in totals:
+                totals[name] += us
+                log(f"  device {us / steps:9.3f} us/step in {ev.count:5d} "
+                    f"launches: {ev.key[:70]}")
+        if all(totals.values()):
+            return {name: us / 1e3 / steps for name, us in totals.items()}
         log(f"profiler device times incomplete: {totals}")
-        return {}
-    return {name: us / 1e3 / steps for name, us in totals.items()}
+    return {}
 
 
 def loop_step_ms(window, iteration, ws_, chunks: int) -> float:
@@ -2921,6 +3150,401 @@ MAIN_PATHS = {
 }
 
 
+# ---- fault schedules and fleet sweeps ---------------------------------------
+
+def _graph(nodes: int, bw: str, edges) -> dict:
+    """An undirected GML graph: ``nodes`` nodes of ``bw`` both ways and
+    ``edges`` (source, target, latency[, loss])."""
+    text = "graph [ directed 0 " + " ".join(
+        f'node [ id {i} host_bandwidth_up "{bw}" host_bandwidth_down "{bw}" ]'
+        for i in range(nodes))
+    for e in edges:
+        loss = f" packet_loss {e[3]}" if len(e) > 3 else ""
+        text += f' edge [ source {e[0]} target {e[1]} latency "{e[2]}"{loss} ]'
+    return {"graph": {"type": "gml", "inline": text + " ]"}}
+
+
+def _client(server: str, interval: str) -> dict:
+    return {"path": "tgen-client",
+            "args": f"--server {server} --interval {interval} --size 600"}
+
+
+_PAIR_2N = _graph(2, "100 Mbit", [(0, 0, "2 ms"), (0, 1, "5 ms"),
+                                  (1, 1, "2 ms")])
+_PAIR_HOSTS = {"a": {"network_node_id": 0, "processes": [_client("b", "50ms")]},
+               "b": {"network_node_id": 1,
+                     "processes": [{"path": "tgen-server"}]}}
+
+# the fault twins of tests/test_torch_faults.py: config, what must happen
+FAULT_PARITY = {
+    "tgen_faulted": ({
+        "general": {"stop_time": "300ms", "seed": 3},
+        "network": _graph(2, "10 Mbit", [(0, 1, "10 ms", 0.2)]),
+        "faults": {"events": [
+            {"at": "50ms", "kind": "latency", "source": 0, "target": 1,
+             "latency": "25 ms"},
+            {"at": "100ms", "kind": "link_down", "source": 0, "target": 1},
+            {"at": "200ms", "kind": "link_up", "source": 0, "target": 1}]},
+        "hosts": {"tx": {"network_node_id": 0,
+                         "processes": [_client("rx", "5ms")]},
+                  "rx": {"network_node_id": 1,
+                         "processes": [{"path": "tgen-server"}]}},
+    }, "lane_drop_loss"),
+    "partition_heal": ({
+        "general": {"stop_time": "3s", "seed": 13}, "network": _PAIR_2N,
+        "faults": {"events": [
+            {"at": "1s", "kind": "partition", "groups": [[0], [1]]},
+            {"at": "2s", "kind": "heal"}]},
+        "hosts": _PAIR_HOSTS,
+    }, "lane_drop_loss"),
+    "crash_restart": ({
+        "general": {"stop_time": "3s", "seed": 13}, "network": _PAIR_2N,
+        "faults": {"events": [
+            {"at": "1s", "kind": "host_crash", "host": "a"},
+            {"at": "1400ms", "kind": "latency", "source": 0, "target": 1,
+             "latency": "15 ms"},
+            {"at": "2s", "kind": "host_restart", "host": "a"}]},
+        "hosts": _PAIR_HOSTS,
+    }, "lane_drop_loss"),
+    "every_kind": ({
+        "general": {"stop_time": "1s", "seed": 3},
+        "network": _graph(3, "10 Mbit", [
+            (0, 0, "1 ms"), (1, 1, "1 ms"), (2, 2, "1 ms"),
+            (0, 1, "5 ms", 0.01), (1, 2, "4 ms"), (0, 2, "7 ms")]),
+        "faults": {"events": [
+            {"at": "100ms", "kind": "link_down", "source": 0, "target": 1},
+            {"at": "100ms", "kind": "loss", "source": 1, "target": 2,
+             "loss": 0.1},
+            {"at": "200ms", "kind": "latency", "source": 0, "target": 2,
+             "latency": "30 ms"},
+            {"at": "300ms", "kind": "partition", "groups": [[0], [1, 2]]},
+            {"at": "400ms", "kind": "heal"},
+            {"at": "500ms", "kind": "host_crash", "host": "c"},
+            {"at": "600ms", "kind": "host_restart", "host": "c"},
+            {"at": "600ms", "kind": "link_up", "source": 0, "target": 1}]},
+        "hosts": {"a": {"network_node_id": 0,
+                        "processes": [_client("c", "20ms")]},
+                  "b": {"network_node_id": 1,
+                        "processes": [{"path": "tgen-server"}]},
+                  "c": {"network_node_id": 2,
+                        "processes": [{"path": "tgen-server"}]}},
+    }, "lane_drop_loss"),
+}
+for _tiered in (True, False):
+    FAULT_PARITY[f"loss_ramp tiered={_tiered}"] = ({
+        "general": {"stop_time": "2s", "seed": 5},
+        "network": _graph(2, "50 Mbit", [(0, 1, "10 ms")]),
+        "experimental": {"tpu_stream_tiered": _tiered},
+        "faults": {"events": [
+            {"at": "20ms", "kind": "loss", "source": 0, "target": 1,
+             "loss": 0.25},
+            {"at": "60ms", "kind": "loss", "source": 0, "target": 1,
+             "loss": 0.0}]},
+        "hosts": {"c1": {"network_node_id": 0, "processes": [{
+            "path": "stream-client", "args": "--server s1 --size 300kB"}]},
+                  "s1": {"network_node_id": 1,
+                         "processes": [{"path": "stream-server"}]}},
+    }, "stream_retransmits")
+
+
+def faulted_run(cfg, dev: str, mode: str, log_cap=None):
+    """A faulted run through ``GpuEngine.run``; the result and the final
+    state (on the CPU)."""
+    eng = GpuEngine(cfg, device=dev, log_capacity=log_cap)
+    res = eng.run(mode=mode)
+    return res, {f: t.cpu() for f, t in fields(eng._live_state).items()}
+
+
+def faulted_flagship():
+    """The lossy flagship (10,000 hosts, 1% loss), 1 sim s, with its
+    latency raised from 10 to 15 ms at 300 ms and its loss from 0.01 to
+    0.05 at 600 ms."""
+    cfg = flagship(sim_seconds=1, packet_loss=0.01)
+    cfg.faults.events = [
+        {"at": "300 ms", "kind": "latency", "source": 0, "target": 0,
+         "latency": "15 ms"},
+        {"at": "600 ms", "kind": "loss", "source": 0, "target": 0,
+         "loss": 0.05}]
+    return cfg
+
+
+def loss_band(sends: int, p: float) -> tuple:
+    q = rng_mod.loss_threshold(p) / 2**32
+    mean, sigma = sends * q, (sends * q * (1 - q)) ** 0.5
+    return int(np.floor(mean - 5 * sigma)), int(np.ceil(mean + 5 * sigma))
+
+
+@phase("faults: card = CPU, step and device, six fault twins and the lossy "
+       "flagship at 10k hosts with a latency and a loss epoch")
+def fault_parity():
+    for name, (doc, must) in FAULT_PARITY.items():
+        runs = {(dev, mode): faulted_run(ConfigOptions.from_dict(doc), dev,
+                                         mode)
+                for dev in ("cuda", "cpu") for mode in ("step", "device")}
+        ref_res, ref_st = runs[("cpu", "step")]
+        if not ref_res.counters.get(must, 0):
+            raise AssertionError(f"{name}: no {must}")
+        for key, (res, st) in runs.items():
+            if (res.log_tuples() != ref_res.log_tuples()
+                    or res.counters != ref_res.counters
+                    or res.rounds != ref_res.rounds):
+                raise AssertionError(f"{name} {key}: differs from cpu/step")
+            assert_equal(f"{name} {key} final state", st, ref_st)
+        log(f"faults {name}: card = CPU, step = device; "
+            f"{len(ref_res.event_log)} records, {ref_res.counters}")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        runs[dev] = faulted_run(faulted_flagship(), dev, "device", 1_200_000)
+        log(f"faulted lossy flagship {dev}: {runs[dev][0].counters}, rounds "
+            f"{runs[dev][0].rounds} ({time.perf_counter() - t0:.1f} s)")
+    (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
+    if (res_g.log_tuples() != res_c.log_tuples()
+            or res_g.counters != res_c.counters or res_g.rounds != res_c.rounds):
+        raise AssertionError("faulted lossy flagship: card and CPU differ")
+    assert_equal("faulted lossy flagship final state", st_g, st_c)
+    rows = np.array([r.as_tuple() for r in res_g.event_log], dtype=np.int64)
+    lost = rows[rows[:, 5] == 1][:, 0]
+    got = (int((lost < 600_000_000).sum()), int((lost >= 600_000_000).sum()))
+    bands = (loss_band(N_FLAG * 59, 0.01), loss_band(N_FLAG * 40, 0.05))
+    arrivals = rows[rows[:, 5] == 0][:, 0]
+    gap = int(((arrivals > 300_000_000) & (arrivals < 315_000_000)).sum())
+    log(f"faulted lossy flagship: card = CPU, {len(rows)} records; losses "
+        f"before / after 600 ms {got} (5-sigma bands {bands}); deliveries in "
+        f"(300, 315) ms: {gap}, at 315 ms: "
+        f"{int((arrivals == 315_000_000).sum())}")
+    if not all(lo <= g <= hi for g, (lo, hi) in zip(got, bands)):
+        raise AssertionError("faulted lossy flagship: a loss count outside "
+                             "its 5-sigma band")
+    if gap or not (arrivals == 315_000_000).any():
+        raise AssertionError("faulted lossy flagship: the 15 ms epoch did "
+                             "not take")
+
+
+def fleet_cfg(n=None, sim_s: int = 5):
+    """``flagship_mesh_config(n)`` (default: the full width, 10,000) at the
+    bench tuning (C=16, K=2, Cx=8)."""
+    cfg = flagship_mesh_config(N_FLAG if n is None else n,
+                               sim_seconds=sim_s, queue_capacity=C_FLAG,
+                               pops_per_round=K_FLAG)
+    cfg.experimental.tpu_cross_capacity = CX_FLAG
+    return cfg
+
+
+FLEET_LOSS = {"at": "2 s", "kind": "loss", "source": 0, "target": 0,
+              "loss": 0.01}
+# the fleet cell's batch, kept for its timing phase
+FLEET: dict = {}
+
+
+def sweep_batch(label: str, base, spec, log_cap: int = 0) -> dict:
+    """One batched card run of ``spec`` over ``base``, launch counts reset
+    just before it and read just after; then each variant's serial card
+    run, held to it: the counters, rounds, every LaneState field, the
+    event log and, with flowtrace, the ring's events."""
+    variants = expand_variants(base, spec)
+    sweep = SweepEngine(variants, log_capacity=log_cap)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    results = sweep.run()
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    for k in path_kernels(sweep.engines[0].params):
+        if counts[k] <= 0:
+            raise AssertionError(f"{label}: {k} was not launched")
+    serial_walls = []
+    for v, res in zip(variants, results):
+        eng = GpuEngine(v.cfg, log_capacity=log_cap)
+        ser = eng.run(mode="device")
+        serial_walls.append(ser.wall_seconds)
+        if (ser.log_tuples() != res.log_tuples()
+                or ser.counters != res.counters or ser.rounds != res.rounds):
+            raise AssertionError(f"{label} {v.label}: batched != serial")
+        assert_equal(f"{label} {v.label} final state",
+                     {f: t.cpu() for f, t in
+                      fields(sweep.states[v.index]).items()},
+                     {f: t.cpu() for f, t in fields(eng._live_state).items()})
+        if eng.params.flowtrace and (
+                eng.flowtrace_snapshot()
+                != sweep.engines[v.index].flowtrace_snapshot()):
+            raise AssertionError(f"{label} {v.label}: rings differ")
+    wall = results[0].wall_seconds
+    out = {"size": len(variants), "batch_wall_s": wall,
+           "serial_wall_s": float(sum(serial_walls)),
+           "scenarios_per_hour": len(variants) * 3600.0 / wall,
+           "launches": counts, "per_step": sweep.launches,
+           "sweep": sweep, "results": results}
+    log(f"sweep {label}: S = {len(variants)} equal to their serial card runs; "
+        f"batch loop {wall:.3f} s (with set-up and collect {total:.3f} s), "
+        f"serial loops {out['serial_wall_s']:.3f} s in all, "
+        f"{out['scenarios_per_hour']:.1f} scenarios/hour; launches {counts}, "
+        f"per batched step {sweep.launches}; nvidia-smi: {smi_line()}")
+    return out
+
+
+@phase("sweeps: every scenario of a batched card run equals its serial card "
+       "run (the fleet cell at 10k hosts, the bench's shape, the main path)")
+def sweep_parity() -> dict:
+    out = {}
+    # the fleet cell: seeds 1-4 x {no fault, 1% loss from 2 s}, 5 sim s
+    fleet = sweep_batch("fleet 8 x 10k, 5 s", fleet_cfg(),
+                        SweepSpec(name="fleet", seeds=[1, 2, 3, 4],
+                                  faults=[[], [FLEET_LOSS]]))
+    exp = expected_mesh(N_FLAG, 5)
+    sends_after = N_FLAG * 300  # the ticks at 2.00 .. 4.99 s
+    lo, hi = loss_band(sends_after, 0.01)
+    for v, res in zip(fleet["sweep"].variants, fleet["results"]):
+        lost = res.counters.get("lane_drop_loss", 0)
+        if v.fault_axis == 0:
+            got = {k: res.counters.get(k, 0) for k in exp}
+            if got != exp or lost:
+                raise AssertionError(f"fleet {v.label}: {got} != {exp}")
+        elif not lo <= lost <= hi:
+            raise AssertionError(f"fleet {v.label}: loss count {lost} "
+                                 f"outside its 5-sigma band {lo}..{hi}")
+        log(f"fleet {v.label}: {res.counters}")
+    out["fleet"] = fleet
+    FLEET["sweep"] = fleet["sweep"]
+    # the JAX package's bench sweep: 8 seeds x 1,000 hosts, 5 sim s
+    bench = sweep_batch("bench shape 8 x 1k, 5 s", fleet_cfg(1000),
+                        SweepSpec.seed_grid(1, 8))
+    for res in bench["results"]:
+        got = {k: res.counters.get(k, 0) for k in expected_mesh(1000, 5)}
+        if got != expected_mesh(1000, 5):
+            raise AssertionError(f"bench shape: {got}")
+    out["bench"] = bench
+    # the port's main path: 4 seeds x the tiered mixed mesh, 1 sim s
+    out["mixed"] = sweep_batch("mixed mesh tiered 4 x 10k, 1 s",
+                               mixed_tiered(1), SweepSpec.seed_grid(1, 4))
+    if not all(r.counters.get("stream_rx_segs")
+               for r in out["mixed"]["results"]):
+        raise AssertionError("mixed mesh sweep: no stream data")
+    # ... untiered with every flow traced, 100 sim ms (one flow seed: the
+    # fault axis varies the scenarios)
+    traced_cfg = with_flowtrace(mixed_mesh(1), cap=1 << 20)
+    traced_cfg.general.stop_time = 100_000_000
+    out["traced"] = sweep_batch(
+        "mixed mesh untiered, flowtrace, 2 x 10k, 100 ms", traced_cfg,
+        SweepSpec(faults=[[], [{"at": "50 ms", "kind": "loss", "source": 0,
+                                "target": 0, "loss": 0.01}]]))
+    for name in ("fleet", "bench", "mixed", "traced"):  # keep numbers only
+        for k in ("sweep", "results"):
+            out[name].pop(k)
+    return out
+
+
+def batch_steps(engines):
+    """Fresh states of ``engines`` and the batched step over them."""
+    states = [e.initial_state() for e in engines]
+    run = lanes._build_sweep_run([e.params for e in engines],
+                                 [e.tables for e in engines], states)
+    window, iteration = lanes._steps(run.args, engines[0].params)
+    return run.args.members[0].ws, window, iteration
+
+
+def sweep_cells() -> dict:
+    """The batched cells timed at S = 8 against S = 1: name -> (the eight
+    engines, warm-up steps, the ``time_all`` cell that holds the same
+    configuration's single-scenario bytes).  The fleet cell's own engines
+    (its lossy scenarios beside the loss-free ones); the tiered mixed mesh
+    (A, B, C, F, G) and the untiered one with every flow traced (A, B, C,
+    E, D's ring) eight times over, as ``time_all`` times them alone."""
+    return {
+        "fleet": (FLEET["sweep"].engines, 100, "flagship"),
+        "mixed_tiered": ([GpuEngine(mixed_tiered(2), log_capacity=0)
+                          for _ in range(8)], 20, "mixed_tiered"),
+        "mixed_flowtrace": (
+            [GpuEngine(with_flowtrace(mixed_mesh(2), cap=1 << 20),
+                       log_capacity=0) for _ in range(8)], 40,
+            "mixed_flowtrace"),
+    }
+
+
+@phase("sweep timing: kernels per batched launch at S = 8 and S = 1 (the "
+       "fleet cell, the mixed mesh tiered and traced); launches per batched "
+       "step at S = 1, 3 and 8")
+def time_sweep(times) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    engines = FLEET["sweep"].engines
+    p = engines[0].params
+    kernels_ = path_kernels(p)
+    per_step = {}
+    for size in (1, 3, 8):
+        ws_, window, iteration = batch_steps(engines[:size])
+        for _ in range(5):
+            window(True)
+            iteration()
+        torch.cuda.synchronize()
+        for _attempt in range(3):  # a window may record no step at all
+            kernels.reset_launches()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    window(True)
+                    iteration()
+                torch.cuda.synchronize()
+            # the device launches (kernels and the exchange's memsets) by
+            # name, per launch of C, which runs once a step: the profiler
+            # may drop whole steps at the edges of its window
+            device = {}
+            for ev in prof.key_averages():
+                part = kernel_name(ev.key)
+                if part in WRAPPER_OF:
+                    device[part] = device.get(part, 0) + ev.count
+            steps = device.get("queue_min_kernel", 0)
+            if steps:
+                break
+            log(f"S = {size}: the profiler recorded no step; profiling "
+                "20 more")
+        else:
+            raise AssertionError("the profiler recorded no step")
+        per_step[size] = {
+            "wrappers": {k: getattr(kernels, k).launches / 20
+                         for k in kernels_},
+            "device": {part: round(n / steps) for part, n in device.items()},
+            "steps_profiled": steps}
+        log(f"launches per batched step at S = {size}: {per_step[size]}")
+    if len({json.dumps({k: v for k, v in x.items() if k != "steps_profiled"},
+                       sort_keys=True) for x in per_step.values()}) != 1:
+        raise AssertionError(f"launches per step grew with S: {per_step}")
+    smi = smi_line()
+    out = {"per_step": per_step, "cells": {}}
+    for cell, (engines, warm, single) in sweep_cells().items():
+        p = engines[0].params
+        prof_ms, step_ms = {1: [], 8: []}, {1: [], 8: []}
+        for size in (1, 8, 8, 1):
+            ws_, window, iteration = batch_steps(engines[:size])
+            for _ in range(warm):  # into the steady state
+                window(True)
+                iteration()
+            step_ms[size].append(loop_step_ms(window, iteration, ws_, 2))
+            prof = profile_steps(window, iteration, 40, p)
+            if not prof:
+                raise AssertionError("the profiler recorded no device time")
+            prof_ms[size].append(prof)
+        res = {"step_ms": {n: float(np.mean(v)) for n, v in step_ms.items()},
+               "kernels": {}}
+        for k in path_kernels(p):
+            one = times[single][k]["bytes"]
+            row = res["kernels"][k] = {
+                f"s{n}_ms": float(np.mean([pm[k] for pm in prof_ms[n]]))
+                for n in (1, 8)}
+            row["bound_s1_ms"] = one / HBM_BYTES_PER_S * 1e3
+            row["bound_s8_ms"] = 8 * row["bound_s1_ms"]
+            log(f"sweep {cell} {k}: device {row['s8_ms'] * 1e3:.3f} us per "
+                f"batched launch at S = 8, {row['s1_ms'] * 1e3:.3f} at S = 1 "
+                f"(profiler, 40 live steps, 2 runs each); bound "
+                f"{row['bound_s8_ms'] * 1e3:.3f} / "
+                f"{row['bound_s1_ms'] * 1e3:.3f} us (8 x / 1 x {one} B / "
+                f"3.35 TB/s) ({smi})")
+        log(f"sweep {cell} step: {res['step_ms'][8] * 1e3:.3f} us at S = 8, "
+            f"{res['step_ms'][1] * 1e3:.3f} us at S = 1 (CUDA events, 64 "
+            f"live steps, 2 runs each) ({smi})")
+        out["cells"][cell] = res
+    return out
+
+
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in kernels.WRAPPERS}
 
@@ -2997,6 +3621,7 @@ def main() -> int:
     check_tier_kernels()
     check_plane_kernels()
     check_flow_kernels()
+    check_sweep_kernels()
     times = time_all()
     parity()
     stream_parity()
@@ -3005,11 +3630,18 @@ def main() -> int:
     plane_parity()
     flow_parity()
     wide_rows()
+    fault_parity()
+    sweeps = sweep_parity()
+    sweep_times = time_sweep(times) if sweeps else None
     main_out = main_path()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
     launches, rates, drawing, per_path = main_out
+    # this slice's path, the sweeps: their launches count to the main paths'
+    for batch in sweeps.values():
+        for k, v in batch["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     smi = smi_line()
     for line in ptxas:  # again here: the start of a long output is cut
         log(f"ptxas: {line}")
@@ -3026,6 +3658,20 @@ def main() -> int:
             log(f"device us/launch, {cfg_name} {name}: {t['ms'] * 1e3:.3f} "
                 f"(bound {t['bound_ms'] * 1e3:.3f}, plain "
                 f"{t['plain_ms'] * 1e3:.1f}) ({smi})")
+    for name, batch in sweeps.items():
+        log(f"sweep {name}: S = {batch['size']}, batch loop "
+            f"{batch['batch_wall_s']:.4f} s, {batch['size']} serial loops "
+            f"{batch['serial_wall_s']:.4f} s, scenarios/hour "
+            f"{batch['scenarios_per_hour']:.1f} ({smi})")
+    for cell, res in sweep_times["cells"].items():
+        for name, t in res["kernels"].items():
+            log(f"device us/batched launch, {cell} {name}: S = 8 "
+                f"{t['s8_ms'] * 1e3:.3f} (bound {t['bound_s8_ms'] * 1e3:.3f}),"
+                f" S = 1 {t['s1_ms'] * 1e3:.3f} (bound "
+                f"{t['bound_s1_ms'] * 1e3:.3f}) ({smi})")
+        log(f"batched step, {cell}: S = 8 {res['step_ms'][8] * 1e3:.3f} us, "
+            f"S = 1 {res['step_ms'][1] * 1e3:.3f} us ({smi})")
+    log(f"launches per batched step (fleet): {sweep_times['per_step']}")
     log(f"device us/launch, rand_u32 ({times['rand_u32']['draws']} draws): "
         f"{times['rand_u32']['ms'] * 1e3:.3f} (bound "
         f"{times['rand_u32']['bound_ms'] * 1e3:.3f}, "
@@ -3088,6 +3734,11 @@ def main() -> int:
                     "bound_ms": times[key][name]["bound_ms"]}
         if "flowtrace" in row["planes"]:
             row["planes"]["flowtrace"]["launches"] = per_path[FLOW_MAIN][name]
+        # the batched cells (8 x 10k hosts): device time per batched launch
+        # over 8 scenarios and over 1, beside 8 and 1 times the bound
+        row["sweep"] = {cell: res["kernels"][name]
+                        for cell, res in sweep_times["cells"].items()
+                        if name in res["kernels"]}
         if name == "rand_u32":
             # the launcher runs on no main path: its own launches in the
             # phase that timed it

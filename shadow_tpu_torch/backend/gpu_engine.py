@@ -2,11 +2,13 @@
 
 The counterpart of the JAX package's ``TpuEngine`` for its lane path (tgen,
 phold, ping, lane-TCP streams, untiered or on the tiered stream pass;
-loss, bootstrap, dynamic runahead; pcap capture and the netobs plane): it
-builds the same tables and initial state from a config (same host
-ordering, routing, runahead, bucket parameters, loss thresholds, flow
-tables and int32 guards), runs the window loop with the lane kernels on
-one device, and reads the result back into a :class:`SimResult` that
+loss, bootstrap, dynamic runahead; pcap capture and the netobs plane;
+fault schedules): it builds the same tables and initial state from a
+config (same host ordering, routing, runahead, bucket parameters, loss
+thresholds, flow tables and int32 guards), runs the window loop with the
+lane kernels on one device — a faulted run segment by segment, each
+fault epoch's tables uploaded between segments — and reads the result
+back into a :class:`SimResult` that
 compares directly with the reference's — with pcap, the capture files of
 ``<data_directory>/hosts/<name>/eth0.pcap`` byte for byte, with netobs,
 ``netobs_snapshot()`` counter for counter, and with flowtrace,
@@ -15,6 +17,7 @@ compares directly with the reference's — with pcap, the capture files of
 
 from __future__ import annotations
 
+import dataclasses
 import time as wall_time
 from pathlib import Path
 from typing import Optional
@@ -25,6 +28,8 @@ import torch
 from .. import default_device
 from ..config.options import ConfigOptions, LaneCompatError
 from ..core import time as stime
+from ..faults import BackendStallError
+from ..faults.overlay import build_overlay
 from ..models.base import create_model
 from ..models.phold import Phold
 from ..models.tcpflow import StreamClient, StreamServer
@@ -93,8 +98,14 @@ class GpuEngine:
         self.cfg = cfg
         self.strict_capacity = strict_capacity
         n = len(cfg.hosts)
-        _graph, self.ips, self.dns, self.routing, bw_up, bw_dn, runahead = (
+        graph, self.ips, self.dns, self.routing, bw_up, bw_dn, runahead = (
             build_world(cfg))
+        # fault schedule: versioned latency and loss tables, uploaded at the
+        # epoch boundaries; the run is segmented there, so no window
+        # straddles a fault (the reference's tpu_engine.py:262-289)
+        self._fault_overlay = (build_overlay(cfg, graph, self.routing)
+                               if cfg.faults.events else None)
+        ov = self._fault_overlay
         # the netobs and flowtrace snapshots of the last collected run
         self._netobs_data = None
         self._flowtrace_data = None
@@ -270,6 +281,10 @@ class GpuEngine:
         # before RTO_MIN (a DELIVERY pop then inserts nothing same-window);
         # the dynamic window never exceeds the largest link latency
         max_lat = int(np.max(np.asarray(lat), initial=0))
+        if ov is not None:
+            # fault epochs can raise latencies mid-run: the bound must hold
+            # for every epoch's tables
+            max_lat = max(max_lat, ov.max_latency_ns())
         stream_wide_pop = max(runahead, max_lat) < ltcp.RTO_MIN
         # pcap rides the device log: a capturing host's sends become
         # PCAP_TX records, its deliveries are the DELIVERED records
@@ -294,7 +309,11 @@ class GpuEngine:
             seed=cfg.general.seed,
             bootstrap_end=cfg.general.bootstrap_end_time,
             models_present=tuple(int(x) for x in np.unique(model)),
-            has_loss=bool(np.any(np.asarray(thresh) > 0)),
+            # a fault epoch may bring loss later in the run: the draw runs
+            # from the start (it keys on the send sequence, so drawing on
+            # loss-free segments shifts nothing)
+            has_loss=(bool(np.any(np.asarray(thresh) > 0))
+                      or (ov is not None and ov.any_loss())),
             dynamic_runahead=bool(cfg.experimental.use_dynamic_runahead),
             runahead_floor=max(cfg.experimental.runahead or 0, 1),
             cross_capacity=cfg.experimental.tpu_cross_capacity,
@@ -338,6 +357,9 @@ class GpuEngine:
         # strictly below NEVER32: a latency equal to the sentinel would read
         # as "no sends yet" in the dynamic-runahead scalar
         _check("link latency (ns)", np.asarray(lat), _I32MAX - 1)
+        if ov is not None:
+            _check("fault-epoch link latency (ns)",
+                   np.asarray([ov.max_latency_ns()]), _I32MAX - 1)
         _check("runahead (ns)", np.asarray([runahead]), _I32MAX)
         for side, b in (("up", up), ("dn", dn)):
             # the refill computes tokens + k*rate <= 2*burst + rate before
@@ -391,6 +413,7 @@ class GpuEngine:
             flow_clid = np.concatenate([fcl, fcl])
         else:
             el = peer = flow_clid = np.zeros(2, dtype=np.int64)
+            e_nodes = p_nodes = el
             flow_lat = np.zeros(2, dtype=np.int64)
             flow_thr = np.zeros(2, dtype=np.int64)
             flow_shape = [np.zeros(2, dtype=np.int32)] * 4
@@ -433,6 +456,9 @@ class GpuEngine:
         self._up_burst = up[:, 1]
         self._dn_burst = dn[:, 1]
         self._el = el  # [2S] endpoint lanes (tiered: their tier rows)
+        # the graph nodes of each endpoint and of its peer: where a fault
+        # epoch's tables are gathered into the [2S] flow tables
+        self._flow_nodes = (e_nodes, p_nodes)
 
     # -- state construction ------------------------------------------------
 
@@ -549,16 +575,84 @@ class GpuEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # -- fault-epoch segmentation ------------------------------------------
+
+    def segment_tables(self, snap=None) -> lanes.LaneTables:
+        """The tables of a fault epoch (the reference's
+        ``_segment_tables``): the ``[G, G]`` latency and loss tables of the
+        snapshot ``snap`` and, with stream flows, the ``[2S]`` flow tables
+        gathered from them (the tier reads those too); the run's own tables
+        when ``snap`` is None.  Loss stays one int64 threshold in the u64
+        domain: a snapshot's thresholds lie in [0, 2**32], where that is
+        ``bridge.thresh_from_split`` of the reference's split pair."""
+        if snap is None:
+            return self.tables
+        dev = self.device
+        lat = np.asarray(snap.latency_ns)
+        thr = np.asarray(snap.loss_threshold, dtype=np.int64)
+        kw = {"lat": torch.as_tensor(lat.astype(np.int32), device=dev),
+              "thresh": torch.as_tensor(thr, device=dev)}
+        if self.params.s_flows:
+            e_nodes, p_nodes = self._flow_nodes
+            kw["flow_lat"] = torch.as_tensor(
+                lat[e_nodes, p_nodes].astype(np.int32), device=dev)
+            kw["flow_thresh"] = torch.as_tensor(thr[e_nodes, p_nodes],
+                                                device=dev)
+        return self.tables._replace(**kw)
+
+    def segment_plan(self, pad_to: int = 0) -> list:
+        """The run's ``(seg_start, seg_end, snapshot)`` rows: one per fault
+        epoch inside the run (``FaultOverlay.segment_plan``), one row of
+        the whole run without a schedule; padded with zero-length rows at
+        the stop time to ``pad_to`` rows."""
+        stop = self.params.stop_time
+        ov = self._fault_overlay
+        if ov is not None:
+            return ov.segment_plan(stop, pad_to=pad_to)
+        return [(0, stop, None)] + [(stop, stop, None)] * (pad_to - 1)
+
+    def _run_faulted(self, mode: str, state: lanes.LaneState,
+                     plan: list) -> None:
+        """Run ``state`` to the end segment by segment along ``plan``
+        (``segment_plan``; the reference's ``_run_faulted``): each segment
+        an ordinary run whose stop time is the next fault epoch, against
+        that epoch's tables, so no window straddles a fault; the lane state
+        carries across untouched.  A ``backend_stall`` epoch raises
+        :class:`BackendStallError`.  In device mode the segments are one
+        batched loop of one scenario, re-targeted at each epoch (the
+        sweep's own driver)."""
+        ov = self._fault_overlay
+        if mode == "device":
+            run_fn = lanes._build_sweep_run([self.params], [self.tables],
+                                            [state])
+        for seg_start, seg_end, snap in plan:
+            if 0 < seg_start < seg_end and ov.stall_at(seg_start):
+                raise BackendStallError(
+                    f"injected backend stall at {seg_start} ns "
+                    "(fault schedule backend_stall event)")
+            tb = self.segment_tables(snap)
+            if mode == "device":
+                run_fn([tb], [seg_end])
+            else:
+                p = dataclasses.replace(self.params, stop_time=seg_end)
+                round_fn = lanes._build_round(p, tb, state)
+                while not round_fn():
+                    pass
+
     def run(self, mode: str = "device") -> SimResult:
         """``mode='device'``: the device loop, which reads the device's
         ``live`` flag every few steps; ``mode='step'``: one window per
-        round, reading the flags after every iteration."""
+        round, reading the flags after every iteration.  With a fault
+        schedule, either runs segment by segment (``_run_faulted``)."""
         if mode not in ("device", "step"):
             raise ValueError(f"mode must be 'device' or 'step', got {mode!r}")
         state = self.initial_state()
         self._live_state = state
         p, tb = self.params, self.tables
-        if mode == "device":
+        if self._fault_overlay is not None:
+            def run_fn() -> None:
+                self._run_faulted(mode, state, self.segment_plan())
+        elif mode == "device":
             run_fn = lanes._build_full_run(p, tb, state)
         else:
             round_fn = lanes._build_round(p, tb, state)

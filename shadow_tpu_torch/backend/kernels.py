@@ -6,14 +6,18 @@ threefry launcher and the shared-memory query behind a plain C interface.  At fi
 the source, and loaded with ``ctypes``.  Nothing is built or loaded when
 this module is imported.
 
-Each wrapper takes a :class:`LaneArgs` — the run's state, tables and
+Each wrapper takes a :class:`LaneArgs` — one run's state, tables and
 workspace, checked once (device, dtype, shape, contiguity) when it is
 built, since the kernels update that state in place and the pointers never
-change during a run.  On CPU tensors a wrapper runs its kernel's plain
-version from ``lanes.py``; on CUDA tensors it launches the kernel on
-PyTorch's current stream and raises if the launch fails.  There is no
-fallback from one to the other.  Each wrapper counts its launches in its
-``launches`` attribute (plain runs count nothing).
+change during a run — or a :class:`SweepArgs`, the S scenarios of a sweep.
+Either way it makes ONE launch of each of its kernels, with a scenario
+coordinate in the grid: a serial run is a sweep of one.  On CPU tensors a
+wrapper runs its kernel's plain version from ``lanes.py``, scenario by
+scenario (each plain version skips a scenario that is not live); on CUDA
+tensors it launches the kernel on PyTorch's current stream and raises if
+the launch fails.  There is no fallback from one to the other.  Each
+wrapper counts its launches in its ``launches`` attribute (plain runs
+count nothing).
 
 The threefry draws run as a device function inside kernel A; the
 ``rand_u32`` wrapper launches the same function on its own, so that it can
@@ -23,6 +27,7 @@ be held against the plain version and timed.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -112,13 +117,14 @@ def build() -> Path:
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    vp = ctypes.c_void_p
+    vp, c_int = ctypes.c_void_p, ctypes.c_int
+    # (host array, device array, scenarios[, advance], stream)
     for name in ("lane_slots", "exchange_merge", "stream_rows_merge",
                  "stream_tier", "tier_merge", "append_log"):
         fn = getattr(lib, name)
-        fn.argtypes = [vp, vp]
+        fn.argtypes = [vp, vp, c_int, vp]
         fn.restype = ctypes.c_int
-    lib.queue_min_window.argtypes = [vp, ctypes.c_int, vp]
+    lib.queue_min_window.argtypes = [vp, vp, c_int, c_int, vp]
     lib.queue_min_window.restype = ctypes.c_int
     lib.smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.smem_optin.restype = ctypes.c_int
@@ -183,7 +189,7 @@ class LaneArgs:
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
         self.p, self.tb, self.s, self.ws = p, tb, s, ws
         pl = p.lane
-        dev = s.q_thi.device
+        dev = self.device = s.q_thi.device
         n, c, k, cx = p.n_lanes, p.capacity, p.pops_per_iter, p.cross_cap
         g = int(tb.lat.shape[0])
         i32, i64 = torch.int32, torch.int64
@@ -289,19 +295,103 @@ class LaneArgs:
             tier_global=int(in_global.get("tier merge", False)),
         )
 
+    @functools.cached_property
+    def batch(self) -> "SweepArgs":
+        """This run as a sweep of one scenario: what the wrappers launch."""
+        return SweepArgs([self])
 
-def _launch(name: str, args: LaneArgs, *extra) -> None:
+
+# the LaneBufs sizes a launch takes its shape from (scenario 0's); equal
+# across the scenarios of a sweep by congruence, checked here
+_LAUNCH_FIELDS = ("n", "c", "k", "cx", "sw", "words", "n_x", "s_flows",
+                  "tier_s", "ks", "c2", "flowtrace", "merge_global",
+                  "split_global", "tier_global")
+
+
+class SweepArgs:
+    """The S scenarios of one batched launch: S :class:`LaneArgs`, each
+    over its own state, tables and workspace, whose ``LaneBufs`` blocks go
+    to the card as one ``[S]`` array (``host``, and ``dev`` in device
+    memory; at S = 1 the launcher passes ``host[0]`` as the kernels'
+    parameter instead).  Their launch shapes must be equal, and their exchange
+    scratch (``x_cnt``, ``x_fill``) rows of one ``[S, N]`` block each
+    (``lanes.make_workspaces``), which the launcher clears in one memset.
+    :meth:`retarget` swaps tables and stop times between run segments and
+    uploads the array again; the tables it replaces stay referenced here
+    until the batch is dropped, so no queued launch reads freed memory."""
+
+    def __init__(self, members) -> None:
+        self.members = list(members)
+        if not self.members:
+            raise ValueError("a sweep needs at least one scenario")
+        first = self.members[0]
+        self.on_cuda, self.device = first.on_cuda, first.device
+        n = first.p.n_lanes
+        for i, m in enumerate(self.members[1:], start=1):
+            if m.device != self.device:
+                raise ValueError(f"scenario {i}: on {m.device}, scenario 0 "
+                                 f"on {self.device}")
+            shape = [(f, getattr(m.bufs, f), getattr(first.bufs, f))
+                     for f in _LAUNCH_FIELDS]
+            shape.append(("logging", m.bufs.log_cap > 0,
+                          first.bufs.log_cap > 0))
+            for f, a, b in shape:
+                if a != b:
+                    raise ValueError(f"scenario {i}: launch shape {f}={a}, "
+                                     f"scenario 0 has {b}")
+            for f in ("x_cnt", "x_fill"):
+                at = getattr(first.ws, f).data_ptr() + 4 * n * i
+                if getattr(m.ws, f).data_ptr() != at:
+                    raise ValueError(f"scenario {i}: {f} is not row {i} of "
+                                     "the batch's [S, N] block")
+        self._retired: list = []
+        self._pack()
+
+    @property
+    def size(self) -> int:
+        return len(self.members)
+
+    def _pack(self) -> None:
+        self.host = (LaneBufs * self.size)(*(m.bufs for m in self.members))
+        self.dev = None
+        if self.on_cuda:  # H2D on the current stream, ordered after
+            # every launch already queued
+            self.dev = torch.frombuffer(bytearray(self.host),
+                                        dtype=torch.uint8).to(self.device)
+
+    def retarget(self, tables, stops) -> None:
+        """Give scenario i the tables ``tables[i]`` and the stop time
+        ``stops[i]`` (a fault segment's), and upload the array again."""
+        self._retired.append(self.members)
+        self.members = [
+            LaneArgs(dataclasses.replace(m.p, stop_time=int(stop)), tb,
+                     m.s, m.ws)
+            for m, tb, stop in zip(self.members, tables, stops)]
+        self._pack()
+
+
+def _launch(name: str, args, plain, *extra) -> bool:
+    """One launch of ``name`` over every scenario of ``args`` (a LaneArgs
+    or a SweepArgs); on the CPU, ``plain(member)`` scenario by scenario.
+    Returns whether the kernel was launched."""
+    batch = args if isinstance(args, SweepArgs) else args.batch
+    if not batch.on_cuda:
+        for m in batch.members:
+            plain(m)
+        return False
     lib = _lib()
-    stream = torch.cuda.current_stream(args.s.q_thi.device).cuda_stream
-    err = getattr(lib, name)(ctypes.byref(args.bufs), *extra, stream)
+    stream = torch.cuda.current_stream(batch.device).cuda_stream
+    err = getattr(lib, name)(ctypes.addressof(batch.host),
+                             batch.dev.data_ptr(), batch.size, *extra, stream)
     if err != 0:
         raise RuntimeError(
             f"{name}: CUDA error {err}: "
             f"{lib.lanes_error_string(err).decode()}"
         )
+    return True
 
 
-def lane_slots(args: LaneArgs) -> None:
+def lane_slots(args) -> None:
     """Kernel A: pop under the co-pop rule, the slot law, emit blocks.
 
     Replaces ``shadow_tpu/backend/lanes.py:2900`` ``_build_iter.iter_body``
@@ -329,13 +419,12 @@ def lane_slots(args: LaneArgs) -> None:
     flags of its seven [N] flow groups and its rows' stream groups, and
     the records of the sampled flows (``flow_hash``, ``:2086``, in
     registers): stores to fixed slots, coalesced across the lanes."""
-    if not args.on_cuda:
-        return lanes.lane_slots_plain(args.p, args.tb, args.s, args.ws)
-    _launch("lane_slots", args)
-    lane_slots.launches += 1
+    if _launch("lane_slots", args,
+               lambda m: lanes.lane_slots_plain(m.p, m.tb, m.s, m.ws)):
+        lane_slots.launches += 1
 
 
-def exchange_merge(args: LaneArgs) -> None:
+def exchange_merge(args) -> None:
     """Kernel B: cross-lane exchange and keyed row merge.
 
     Replaces ``shadow_tpu/backend/lanes.py:1581`` ``_merge_append`` (with
@@ -356,13 +445,12 @@ def exchange_merge(args: LaneArgs) -> None:
     a flow flag, and the PACKETs of sampled flows shed there an FT_DROP
     (CAUSE_QUEUE) record (``:1873-1891``).  A row wider than the device's
     opt-in shared memory ranks in the workspace's ``m_scratch``."""
-    if not args.on_cuda:
-        return lanes.exchange_merge_plain(args.p, args.tb, args.s, args.ws)
-    _launch("exchange_merge", args)
-    exchange_merge.launches += 1
+    if _launch("exchange_merge", args,
+               lambda m: lanes.exchange_merge_plain(m.p, m.tb, m.s, m.ws)):
+        exchange_merge.launches += 1
 
 
-def stream_rows_merge(args: LaneArgs) -> None:
+def stream_rows_merge(args) -> None:
     """Kernel E: the split stream exchange of one-to-one stream configs.
 
     Replaces ``shadow_tpu/backend/lanes.py:1924`` ``_merge_stream_rows``.
@@ -372,13 +460,12 @@ def stream_rows_merge(args: LaneArgs) -> None:
     so the row is read from device memory once and written once, and with
     flowtrace B's FT_DROP records of its tail (``:2024-2036``).  Bound by
     bytes: 2S queue rows and the stream block."""
-    if not args.on_cuda:
-        return lanes.stream_rows_merge_plain(args.p, args.tb, args.s, args.ws)
-    _launch("stream_rows_merge", args)
-    stream_rows_merge.launches += 1
+    if _launch("stream_rows_merge", args,
+               lambda m: lanes.stream_rows_merge_plain(m.p, m.tb, m.s, m.ws)):
+        stream_rows_merge.launches += 1
 
 
-def stream_tier(args: LaneArgs) -> None:
+def stream_tier(args) -> None:
     """Kernel F: the tier's pop and slot walk.
 
     Replaces ``shadow_tpu/backend/lanes.py:2300`` ``_stream_tier_iter`` up
@@ -396,13 +483,12 @@ def stream_tier(args: LaneArgs) -> None:
     the candidate block written once), but its time is the longest row's
     serial walk: 2S threads of up to K_s law steps and K_s*B burst units
     each (PERF.md)."""
-    if not args.on_cuda:
-        return lanes.stream_tier_plain(args.p, args.tb, args.s, args.ws)
-    _launch("stream_tier", args)
-    stream_tier.launches += 1
+    if _launch("stream_tier", args,
+               lambda m: lanes.stream_tier_plain(m.p, m.tb, m.s, m.ws)):
+        stream_tier.launches += 1
 
 
-def tier_merge(args: LaneArgs) -> None:
+def tier_merge(args) -> None:
     """Kernel G: the tier merge.
 
     Replaces ``shadow_tpu/backend/lanes.py:2682-2786`` (the merge and the
@@ -417,13 +503,12 @@ def tier_merge(args: LaneArgs) -> None:
     ranking only the valid ones keeps the compares far below a rank of the
     whole row.  Bound by bytes: the queue rows and the candidate block
     read once, the rows written once."""
-    if not args.on_cuda:
-        return lanes.tier_merge_plain(args.p, args.tb, args.s, args.ws)
-    _launch("tier_merge", args)
-    tier_merge.launches += 1
+    if _launch("tier_merge", args,
+               lambda m: lanes.tier_merge_plain(m.p, m.tb, m.s, m.ws)):
+        tier_merge.launches += 1
 
 
-def queue_min_window(args: LaneArgs, advance: bool) -> None:
+def queue_min_window(args, advance: bool) -> None:
     """Kernel C: earliest head, window law, ``live`` flag.
 
     Replaces ``shadow_tpu/backend/lanes.py:2260`` ``_queue_min`` with
@@ -431,17 +516,18 @@ def queue_min_window(args: LaneArgs, advance: bool) -> None:
     ``_build_round`` /
     ``_build_full_run`` (``lanes.py:3346-3356``, ``:3505-3526``).  Its bytes
     (N head pairs, 80 KB at 10k lanes) bound it at tens of nanoseconds, so
-    launch and one block's latency set its time.  One block reduces and
-    applies the window law, so the flag stays on the device and the host
-    reads it only when it chooses to.  On a tiered run the heads of the
+    launch and one block's latency set its time.  One block per scenario
+    reduces and applies the window law under that scenario's stop, so the
+    flags stay on the device and the host reads them only when it chooses
+    to.  On a tiered run the heads of the
     tier's endpoint rows count too (``lanes.py:2264-2270``)."""
-    if not args.on_cuda:
-        return lanes.queue_min_window_plain(args.p, args.s, args.ws, advance)
-    _launch("queue_min_window", args, int(bool(advance)))
-    queue_min_window.launches += 1
+    if _launch("queue_min_window", args,
+               lambda m: lanes.queue_min_window_plain(m.p, m.s, m.ws, advance),
+               int(bool(advance))):
+        queue_min_window.launches += 1
 
 
-def append_log(args: LaneArgs) -> None:
+def append_log(args) -> None:
     """Kernel D: compaction of the iteration's records into the log, and
     of its flow records into the flowtrace ring.
 
@@ -455,10 +541,9 @@ def append_log(args: LaneArgs) -> None:
     which keeps the reference's row order with no second pass but runs on
     one SM — far above its bound, and only on logging or tracing runs
     (PERF.md)."""
-    if not args.on_cuda:
-        return lanes.append_log_plain(args.p, args.s, args.ws)
-    _launch("append_log", args)
-    append_log.launches += 1
+    if _launch("append_log", args,
+               lambda m: lanes.append_log_plain(m.p, m.s, m.ws)):
+        append_log.launches += 1
 
 
 def rand_u32(seed: int, stream: torch.Tensor,

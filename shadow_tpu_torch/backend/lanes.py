@@ -1,5 +1,6 @@
 """Lane backend of the port: state, laws, and the plain versions of the lane
-kernels, plus the two drivers (round by round, and the device loop).
+kernels, plus the drivers (round by round, and the device loop, which is
+the batched loop over S scenarios of one shape at S = 1).
 
 Counterpart of the JAX package's ``backend/lanes.py`` for its lane path
 and tiered stream pass: hosts run ``tgen-mesh``, ``tgen-client``,
@@ -63,7 +64,8 @@ their outputs into the state's tensors and a per-run :class:`Workspace`,
 so a run allocates nothing per iteration.  Every step of an iteration is
 gated on the device-side ``live`` flag written by kernel C, so steps run
 after the simulation ended change nothing (the device loop reads the flag
-only every few steps).
+only every few steps).  A sweep's S scenarios each keep their own state,
+tables, workspace and flag; one launch of each kernel serves them all.
 """
 
 from __future__ import annotations
@@ -634,7 +636,9 @@ class Workspace(NamedTuple):
     """Per-run buffers the kernels hand to each other (allocated once)."""
 
     # [4] int32: live (min head < stop), in_window (min head < window end),
-    # and the min head pair (hi, lo) — written by queue_min_window
+    # and the min head pair (hi, lo) — written by queue_min_window, which
+    # leaves a done run (live 0) alone; armed (live 1) by the host before a
+    # run or a fault segment
     ctl: torch.Tensor
     # [W, N, S] int32: the same-lane block, S = self_width: DELIVERY
     # inserts in columns [0, K) unless every model is passive, then the
@@ -722,9 +726,20 @@ def merge_scratch_words(p: LaneParams, optin: int) -> int:
                default=0)
 
 
-def make_workspace(p: LaneParams, device) -> Workspace:
-    """The run's workspace; on a card, the device's opt-in shared memory
-    sizes the merges' global scratch."""
+class WorkspaceBatch(NamedTuple):
+    """The workspaces of S scenarios: each field of each workspace is a
+    row of one ``[S, ...]`` tensor, so the S live flags are read in one
+    copy (``ctl``, ``[S, 4]``) and the S exchange scratches cleared in one
+    memset."""
+
+    ctl: torch.Tensor
+    rows: list
+
+
+def make_workspaces(p: LaneParams, device, count: int = 1) -> WorkspaceBatch:
+    """``count`` workspaces for runs of these shapes, their ``ctl`` armed
+    (``live`` = 1 until kernel C decides); on a card, the device's opt-in
+    shared memory sizes the merges' global scratch."""
     pl = p.lane
     n, k = p.n_lanes, p.pops_per_iter
     n_rec = p.n_records if p.log_capacity else 1
@@ -735,10 +750,12 @@ def make_workspace(p: LaneParams, device) -> Workspace:
         scratch = merge_scratch_words(p, kernels.smem_optin(device))
 
     def z(*shape, dtype=i32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros((count, *shape), dtype=dtype, device=device)
 
-    return Workspace(
-        ctl=z(4), self_blk=z(pl.words, n, pl.self_width), out_blk=z(6, k, n),
+    ctl = z(4)
+    ctl[:, 0] = 1
+    batch = Workspace(
+        ctl=ctl, self_blk=z(pl.words, n, pl.self_width), out_blk=z(6, k, n),
         sx_blk=z(8, max(pl.stream_entries, 1)),
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
         x_cnt=z(n), x_start=z(n), x_fill=z(n), x_order=z(pl.exchange_entries),
@@ -746,6 +763,13 @@ def make_workspace(p: LaneParams, device) -> Workspace:
         fl_recs=z(n_fl, FLOW_REC_WORDS), fl_valid=z(n_fl),
         m_scratch=z(scratch),
     )
+    return WorkspaceBatch(ctl, [Workspace(*(t[i] for t in batch))
+                                for i in range(count)])
+
+
+def make_workspace(p: LaneParams, device) -> Workspace:
+    """One run's workspace (a batch of one)."""
+    return make_workspaces(p, device).rows[0]
 
 
 # --------------------------------------------------------------------------
@@ -2078,7 +2102,10 @@ def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
     parameters say so; with netobs the finished window's packet count goes
     into the histogram first (``flush_hist``).  On a tiered run the heads
     of the tier's endpoint rows count too.  Writes ``ctl = (live,
-    in_window, head_hi, head_lo)``."""
+    in_window, head_hi, head_lo)``; a scenario that is done (``live`` 0)
+    is left as it is, until the host arms it again for a new segment."""
+    if not int(ws.ctl[0]):
+        return
     mh, ml = _pairs.pair_min_lanes(s.q_thi[:, 0], s.q_tlo[:, 0])
     if p.stream_tiered:
         tq = s.stream.q
@@ -2141,14 +2168,15 @@ def append_log_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
 # --------------------------------------------------------------------------
 
 
-def _build_iteration(p: LaneParams, tb: LaneTables, s: LaneState):
-    """One iteration of the window loop (kernels A, B, then E in
-    untiered one-to-one stream configs or F and G on a tiered run, and,
-    when logging or tracing flows, D) and the step that precedes it
-    (kernel C), bound to this run's state."""
+def _steps(args, p: LaneParams):
+    """The two halves of a step over ``args`` (a LaneArgs, or the
+    SweepArgs of a sweep whose scenarios share ``p``'s shapes):
+    ``window(advance)``, kernel C, and ``iteration()``, kernels A, B, then
+    E in untiered one-to-one stream configs or F and G on a tiered run,
+    and, when logging or tracing flows, D.  Each is one launch of each
+    kernel, whatever the number of scenarios."""
     from . import kernels
 
-    args = kernels.LaneArgs(p, tb, s, make_workspace(p, s.q_thi.device))
     split, tiered = p.split, p.stream_tiered
     logging = bool(p.log_capacity) or p.flowtrace
 
@@ -2166,7 +2194,16 @@ def _build_iteration(p: LaneParams, tb: LaneTables, s: LaneState):
         if logging:
             kernels.append_log(args)
 
-    return args.ws, window, iteration
+    return window, iteration
+
+
+def _build_iteration(p: LaneParams, tb: LaneTables, s: LaneState):
+    """One iteration of the window loop and the step that precedes it
+    (``_steps``), bound to this run's state and a new workspace."""
+    from . import kernels
+
+    args = kernels.LaneArgs(p, tb, s, make_workspace(p, s.q_thi.device))
+    return (args.ws, *_steps(args, p))
 
 
 def _build_round(p: LaneParams, tb: LaneTables, s: LaneState):
@@ -2190,8 +2227,49 @@ def _build_round(p: LaneParams, tb: LaneTables, s: LaneState):
     return round_fn
 
 
-# device-loop steps between two reads of the live flag
+# device-loop steps between two reads of the live flags
 CHECK_EVERY = 32
+
+
+def _build_sweep_run(ps, tbs, states):
+    """The batched device loop (the reference's ``make_sweep_fn``: the
+    vmapped ``_build_full_run``): S runs, scenario i with parameters
+    ``ps[i]``, tables ``tbs[i]`` and state ``states[i]``, their shapes
+    equal.  ``sweep_run(tables=None, stops=None)`` runs the flat loop of
+    ``_build_full_run`` over all S at once — each step one launch of each
+    kernel for every scenario — reading the S live flags from the device
+    in one copy every ``CHECK_EVERY`` steps, until no scenario is live.
+    A finished scenario is a no-op in every kernel (the per-scenario done
+    mask), so each one's trajectory is its serial run's, ``iters`` and
+    ``rounds`` included.  Given ``tables`` and ``stops`` (a fault
+    segment's), scenario i first takes ``tables[i]`` and the stop time
+    ``stops[i]`` and every scenario is armed again: kernel C re-decides
+    each one's flag under its new stop.  ``sweep_run.steps`` counts the
+    steps run."""
+    from . import kernels
+
+    batch = make_workspaces(ps[0], states[0].q_thi.device, len(ps))
+    args = kernels.SweepArgs([
+        kernels.LaneArgs(p, tb, s, ws)
+        for p, tb, s, ws in zip(ps, tbs, states, batch.rows)])
+    window, iteration = _steps(args, ps[0])
+    live = batch.ctl[:, 0]
+
+    def sweep_run(tables=None, stops=None) -> None:
+        if stops is not None:
+            args.retarget(tables, stops)
+            live.fill_(1)
+        while True:
+            for _ in range(CHECK_EVERY):
+                window(True)
+                iteration()
+            sweep_run.steps += CHECK_EVERY
+            if not bool(live.any()):
+                return
+
+    sweep_run.steps = 0
+    sweep_run.args = args
+    return sweep_run
 
 
 def _build_full_run(p: LaneParams, tb: LaneTables, s: LaneState):
@@ -2199,15 +2277,6 @@ def _build_full_run(p: LaneParams, tb: LaneTables, s: LaneState):
     of steps — window law, then one iteration — that reads the ``live``
     flag from the device once every ``CHECK_EVERY`` steps.  Steps after
     the end are no-ops (every kernel is gated on the flag), so the
-    counters match the step driver's exactly."""
-    ws, window, iteration = _build_iteration(p, tb, s)
-
-    def full_run() -> None:
-        while True:
-            for _ in range(CHECK_EVERY):
-                window(True)
-                iteration()
-            if not int(ws.ctl[0]):
-                return
-
-    return full_run
+    counters match the step driver's exactly.  The batched loop at S = 1
+    (``_build_sweep_run``)."""
+    return _build_sweep_run([p], [tb], [s])

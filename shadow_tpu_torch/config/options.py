@@ -7,7 +7,10 @@ trimmed to what the ported lane path reads.
                     tpu_lane_queue_capacity, tpu_events_per_round,
                     tpu_cross_capacity, tpu_stream_tiered,
                     tpu_stream_events_per_round, tpu_stream_queue_capacity,
-                    netobs, flowtrace, flowtrace_capacity, flowtrace_sample }
+                    netobs, flowtrace, flowtrace_capacity, flowtrace_sample,
+                    sweep_size, sweep_spec, mesh_devices }
+    faults:       { events: [ { at, kind, ... } ], watchdog_timeout,
+                    failover }
     hosts:
       <hostname>:
         network_node_id: 0
@@ -17,9 +20,11 @@ trimmed to what the ported lane path reads.
         processes: [ { path, args, start_time } ]
 
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
-accepts but the port cannot run yet (fault schedules, device-loop
-unrolling) raise :class:`LaneCompatError`, which names the JAX
-package as the way to run them.  ``network_backend: tpu`` selects the lane backend, as there.
+accepts but the port cannot run yet (device-loop unrolling, the fault
+watchdog and the CPU failover, the sweep command line's sweep_size > 1
+and sweep_spec, more than one device) raise
+:class:`LaneCompatError`, which names the JAX package as the way to run
+them.  ``network_backend: tpu`` selects the lane backend, as there.
 
 PyYAML is imported only by :meth:`ConfigOptions.from_yaml`; the presets
 build their configs through :meth:`ConfigOptions.from_dict`.
@@ -97,6 +102,33 @@ class ExperimentalOptions:
     flowtrace: bool = False
     flowtrace_capacity: int = 65536
     flowtrace_sample: float = 1.0
+    # the sweep command line's settings (sweep_size > 1: the seed grid
+    # general.seed .. general.seed + sweep_size - 1; sweep_spec: a
+    # sweep-spec YAML path).  Checked, then refused while that command
+    # line is not ported: 0/1 and unset = no sweep
+    sweep_size: int = 0
+    sweep_spec: Optional[str] = None
+    # devices to spread a run over (0 = one); the port runs on one card
+    mesh_devices: int = 0
+
+
+@dataclasses.dataclass
+class FaultOptions:
+    """The ``faults:`` section: a declarative fault schedule (raw event
+    mappings, parsed by :meth:`schedule`) and the JAX package's
+    graceful-degradation knobs, which the port refuses (:meth:`validate`
+    of :class:`ConfigOptions`)."""
+
+    failover: Optional[bool] = None
+    watchdog_timeout: Optional[float] = None  # wall seconds
+    events: list = dataclasses.field(default_factory=list)
+
+    def schedule(self):
+        """``events`` as a validated FaultSchedule (raises
+        ``faults.FaultConfigError`` on malformed entries)."""
+        from ..faults.schedule import FaultSchedule
+
+        return FaultSchedule.parse(self.events)
 
 
 @dataclasses.dataclass
@@ -128,6 +160,7 @@ class ConfigOptions:
     experimental: ExperimentalOptions = dataclasses.field(
         default_factory=ExperimentalOptions
     )
+    faults: FaultOptions = dataclasses.field(default_factory=FaultOptions)
     hosts: list[HostOptions] = dataclasses.field(default_factory=list)
 
     # -- parsing ----------------------------------------------------------
@@ -208,10 +241,16 @@ class ConfigOptions:
         if exp_doc:
             raise ConfigError(f"unknown experimental options: {sorted(exp_doc)}")
 
-        if (doc.get("faults") or {}).get("events"):
-            raise LaneCompatError(
-                "fault schedules are not ported yet (use the shadow_tpu package)"
-            )
+        f_doc = dict(doc.get("faults", {}) or {})
+        failover = f_doc.pop("failover", None)
+        wd = f_doc.pop("watchdog_timeout", None)
+        faults = FaultOptions(
+            failover=None if failover is None else bool(failover),
+            watchdog_timeout=None if wd is None else float(wd),
+            events=list(f_doc.pop("events", []) or []),
+        )
+        if f_doc:
+            raise ConfigError(f"unknown faults options: {sorted(f_doc)}")
 
         defaults = dict(doc.get("host_option_defaults", {}))
         hosts: list[HostOptions] = []
@@ -241,8 +280,37 @@ class ConfigOptions:
                     ))
         return cls(
             general=general, network=network, experimental=experimental,
-            hosts=hosts,
+            faults=faults, hosts=hosts,
         )
+
+    # -- overrides --------------------------------------------------------
+
+    _TIME_FIELDS = {"stop_time", "bootstrap_end_time", "runahead"}
+
+    def apply_overrides(self, overrides: dict[str, Any]) -> None:
+        """Apply dotted-key overrides, e.g. ``{'general.seed': 7,
+        'experimental.netobs': 'true'}``.  Values are coerced to the
+        target field's type (they may arrive as strings)."""
+        for key, value in overrides.items():
+            section, _, field = key.partition(".")
+            target = getattr(self, section, None)
+            if target is None or not dataclasses.is_dataclass(target):
+                raise ConfigError(f"unknown config option {key!r}")
+            if field not in {f.name for f in dataclasses.fields(target)}:
+                raise ConfigError(f"unknown config option {key!r}")
+            if value is not None:
+                current = getattr(target, field)
+                if field in self._TIME_FIELDS:
+                    value = units.parse_time(value)
+                elif isinstance(current, bool):
+                    value = (value if isinstance(value, bool)
+                             else str(value).lower() in ("1", "true", "yes",
+                                                         "on"))
+                elif isinstance(current, int):
+                    value = int(value)
+                elif isinstance(current, float):
+                    value = float(value)
+            setattr(target, field, value)
 
     def validate(self) -> None:
         if self.general.stop_time <= 0:
@@ -253,6 +321,29 @@ class ConfigOptions:
             raise ConfigError("experimental.flowtrace_capacity must be >= 1")
         if not 0.0 <= self.experimental.flowtrace_sample <= 1.0:
             raise ConfigError("experimental.flowtrace_sample must be in [0, 1]")
+        if self.experimental.sweep_size < 0:
+            raise ConfigError("experimental.sweep_size must be >= 0")
+        if (self.experimental.sweep_spec is not None
+                and not str(self.experimental.sweep_spec).strip()):
+            raise ConfigError(
+                "experimental.sweep_spec must be a spec file path (or unset)")
+        if (self.experimental.sweep_size > 1
+                or self.experimental.sweep_spec is not None):
+            raise LaneCompatError(
+                "experimental.sweep_size > 1 and experimental.sweep_spec are "
+                "read by the sweep command line, which is not ported yet "
+                "(ROADMAP item 3); build the variants with "
+                "shadow_tpu_torch.sweep.expand_variants and run them with "
+                "SweepEngine, or use the shadow_tpu package")
+        if self.experimental.mesh_devices < 0:
+            raise ConfigError(
+                "experimental.mesh_devices must be >= 0 (0 = single-device)")
+        if self.experimental.mesh_devices > 1:
+            raise LaneCompatError(
+                "experimental.mesh_devices > 1: the port runs on one card; "
+                "spreading a run or a sweep over devices is not ported yet "
+                "(ROADMAP item 14; use the shadow_tpu package)")
+        self._validate_faults()
         names = [h.hostname for h in self.hosts]
         if len(set(names)) != len(names):
             raise ConfigError("duplicate hostnames")
@@ -262,6 +353,33 @@ class ConfigOptions:
                     f"host {h.hostname!r}: congestion must be reno|cubic, "
                     f"got {h.congestion!r}"
                 )
+
+
+    def _validate_faults(self) -> None:
+        f = self.faults
+        if f.watchdog_timeout is not None and f.watchdog_timeout <= 0:
+            raise ConfigError("faults.watchdog_timeout must be > 0 (wall seconds)")
+        if f.watchdog_timeout is not None or f.failover:
+            # both end in the CPU failover, which needs the host half
+            raise LaneCompatError(
+                "faults.watchdog_timeout and faults.failover: true are not "
+                "ported yet: the CPU failover needs the host half (ROADMAP "
+                "item 12; use the shadow_tpu package)")
+        if f.events:
+            from ..faults.schedule import FaultConfigError
+
+            try:
+                sched = f.schedule()
+            except FaultConfigError as e:
+                raise ConfigError(f"faults.events: {e}")
+            for ev in sched.events:
+                if ev.at < self.general.bootstrap_end_time:
+                    raise ConfigError(
+                        f"faults.events: {ev.kind} at {ev.at} ns lies inside "
+                        "the loss-free bootstrap window "
+                        f"(bootstrap_end_time={self.general.bootstrap_end_time} "
+                        "ns); fault drops would be silently exempted"
+                    )
 
 
 def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:

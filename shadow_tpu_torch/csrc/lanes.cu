@@ -2,10 +2,18 @@
 // the lane-TCP stream law they share.
 //
 // Plain C interface, bound from shadow_tpu_torch/backend/kernels.py with
-// ctypes.  Every lane launcher takes one LaneBufs block (the device pointers
-// of the run's state, tables and workspace, built and checked once per run
-// on the Python side) and PyTorch's current stream, launches without
-// synchronising, and returns cudaGetLastError().
+// ctypes.  Every lane launcher takes an array of S LaneBufs blocks, one per
+// scenario (the device pointers of that scenario's state, tables and
+// workspace, built and checked on the Python side), twice: in host memory,
+// where the launcher reads the launch shape from scenario 0 (equal across
+// the scenarios of a sweep), and in device memory.  The scenario is
+// blockIdx.y (blockIdx.x for the one-block-per-scenario kernels C and the
+// exchange scan).  Each kernel is one template over where a block finds its
+// scenario's block (`scenario` below): in the kernel's __grid_constant__
+// parameter up to S = 8 (the one block of every serial run, or up to eight
+// side by side), in the device array past that.  Each launcher takes
+// PyTorch's current stream, launches without synchronising, and returns
+// cudaGetLastError().
 //
 // Arithmetic: the lane state keeps the JAX reference's int32 (hi, lo) time
 // pairs in memory; the kernels join them to int64 in registers.  Within the
@@ -17,8 +25,12 @@
 // uint32 (signed overflow is undefined in C++, and wraps in XLA and
 // PyTorch) and every division floored as theirs are.
 //
-// Every kernel that changes state is gated on ctl[0] (the `live` flag that
-// queue_min_window writes), so steps after the end of the run are no-ops.
+// Every kernel is gated on its scenario's ctl[0] (the `live` flag that
+// queue_min_window writes; the host arms it before a run or a segment): a
+// block whose scenario is done returns before any store, so steps after a
+// scenario's end leave every word of it unchanged while the others run on.
+// Each block indexes only its own scenario's buffers: no offset across
+// scenarios is ever formed.
 //
 // Three observation planes ride the kernels, each behind a flag of LaneBufs
 // that is uniform over a launch: pcap (a capturing lane's sends become
@@ -36,6 +48,7 @@
 // is ranked in global memory instead, in the workspace's m_scratch, by the
 // same code.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -149,7 +162,34 @@ struct LaneBufs {
   int64_t merge_global, split_global, tier_global;
 };
 
+// Up to PARAM_SCENARIOS blocks side by side, passed as one kernel parameter
+// (8 x 1,328 bytes; Hopper takes up to 32,764).
+constexpr int PARAM_SCENARIOS = 8;
+struct ParamBufs {
+  LaneBufs b[PARAM_SCENARIOS];
+};
+
 namespace {
+
+// A block's scenario, by the kernel's parameter: one LaneBufs (S = 1), a
+// ParamBufs (S <= 8) or the [S] array in device memory.  From the parameter
+// a field is read from the constant bank where it is used; through the
+// array it is a load whose value the compiler keeps in a register (kernel
+// A: 159 registers at S = 1, 168 at S <= 8, 246 past that).
+__device__ __forceinline__ const LaneBufs& scenario(const LaneBufs& one,
+                                                    unsigned) {
+  return one;
+}
+
+__device__ __forceinline__ const LaneBufs& scenario(const ParamBufs& few,
+                                                    unsigned s) {
+  return few.b[s];
+}
+
+__device__ __forceinline__ const LaneBufs& scenario(const LaneBufs* all,
+                                                    unsigned s) {
+  return all[s];
+}
 
 __device__ __forceinline__ int64_t join_raw(int32_t hi, int32_t lo) {
   return (static_cast<int64_t>(hi) << 31) | static_cast<int64_t>(lo);
@@ -1480,7 +1520,9 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
   return pkts;
 }
 
-__global__ void lane_slots_kernel(LaneBufs b) {
+template <class P>
+__global__ void lane_slots_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   const int32_t pkts = i < b.n ? lane_slots_lane(b, i) : 0;
@@ -1519,7 +1561,9 @@ __device__ __forceinline__ int32_t x_dst(const LaneBufs& b, int64_t m) {
   return m < nk ? b.out_blk[m] : b.sx_blk[m - nk];
 }
 
-__global__ void x_count_kernel(LaneBufs b) {
+template <class P>
+__global__ void x_count_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (m >= b.n_x) return;
@@ -1528,7 +1572,9 @@ __global__ void x_count_kernel(LaneBufs b) {
 }
 
 // exclusive scan of x_cnt into x_start: one block, contiguous chunks
-__global__ void x_scan_kernel(LaneBufs b) {
+template <class P>
+__global__ void x_scan_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.x);
   if (b.ctl[0] == 0) return;
   __shared__ int32_t part[1024];
   const int64_t n = b.n;
@@ -1552,7 +1598,9 @@ __global__ void x_scan_kernel(LaneBufs b) {
   }
 }
 
-__global__ void x_place_kernel(LaneBufs b) {
+template <class P>
+__global__ void x_place_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (m >= b.n_x) return;
@@ -1658,8 +1706,9 @@ __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
 
 // the row: C + S + Cx entries x W words + Cx selected entry indices, in
 // dynamic shared memory or (merge_global) the block's part of m_scratch
-template <int W>
-__global__ void merge_kernel(LaneBufs b) {
+template <int W, class P>
+__global__ void merge_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   extern __shared__ int32_t sm[];
   const int64_t i = blockIdx.x;
@@ -1768,7 +1817,9 @@ __global__ void merge_kernel(LaneBufs b) {
 // server row its client's control sends, its own RTO arms and its client's
 // bursts [K*B], slot-major — and merges it with merge_row, in shared memory
 // or (split_global) the block's part of m_scratch.
-__global__ void stream_rows_kernel(LaneBufs b) {
+template <class P>
+__global__ void stream_rows_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   constexpr int W = 7;  // stream rows always carry the payload words
   extern __shared__ int32_t smem[];
@@ -2030,7 +2081,9 @@ __device__ int32_t stream_tier_row(const LaneBufs& b, int64_t e) {
   return pkts;
 }
 
-__global__ void stream_tier_kernel(LaneBufs b) {
+template <class P>
+__global__ void stream_tier_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   const int32_t pkts = e < 2 * b.tier_s ? stream_tier_row(b, e) : 0;
@@ -2075,7 +2128,9 @@ __device__ __forceinline__ const int32_t* tier_entry(const LaneBufs& b,
   return b.tier_blk + lay.cx + r * b.cx + (x - ks * PUMP_BURST);
 }
 
-__global__ void tier_merge_kernel(LaneBufs b) {
+template <class P>
+__global__ void tier_merge_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   // the valid entries, [n_valid][7]: in shared memory, or (tier_global) the
   // block's part of m_scratch
@@ -2156,7 +2211,11 @@ __global__ void tier_merge_kernel(LaneBufs b) {
 // far, never below the floor (the static runahead until the first send).
 // A window advance first folds the finished window into the netobs
 // histogram (one thread: a scalar step).
-__global__ void queue_min_kernel(LaneBufs b, int advance) {
+template <class P>
+__global__ void queue_min_kernel(const __grid_constant__ P bufs,
+                                 int advance) {
+  const LaneBufs& b = scenario(bufs, blockIdx.x);
+  if (b.ctl[0] == 0) return;
   __shared__ int64_t warp_min[32];
   int64_t m = NEVER64;
   for (int64_t i = threadIdx.x; i < b.n; i += blockDim.x) {
@@ -2298,7 +2357,9 @@ __device__ void append_rows(const int32_t* valid, int64_t n_rec,
 }
 
 // block 0 the log (when logging), the next the ring (with flowtrace)
-__global__ void append_log_kernel(LaneBufs b) {
+template <class P>
+__global__ void append_log_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   if (blockIdx.x == 0 && b.log_cap > 0) {
     append_rows(b.rec_valid, b.n_rec, LogRows{b.recs, b.log}, b.log_count,
@@ -2338,90 +2399,147 @@ cudaError_t merge_smem(Kernel* kernel, bool global, int64_t bytes,
                               *smem);
 }
 
-}  // namespace
-
-extern "C" {
-
-int lane_slots(const LaneBufs* b, cudaStream_t stream) {
-  lane_slots_kernel<<<blocks_for(b->n, 128), 128, 0, stream>>>(*b);
-  return static_cast<int>(cudaGetLastError());
+// Calls `launch` with the kernels' parameter (see `scenario`): host[0] at
+// s = 1, the s blocks of host up to PARAM_SCENARIOS, else the device array.
+// `launch` returns the first error it met.
+template <class Launch>
+int with_bufs(const LaneBufs* host, const LaneBufs* dev, int s,
+              Launch launch) {
+  cudaError_t err;
+  if (s == 1) {
+    err = launch(host[0]);
+  } else if (s <= PARAM_SCENARIOS) {
+    ParamBufs few{};
+    std::copy(host, host + s, few.b);
+    err = launch(few);
+  } else {
+    err = launch(dev);
+  }
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-static unsigned merge_threads(int64_t w_all) {
+unsigned merge_threads(int64_t w_all) {
   int64_t threads = (w_all + 31) / 32 * 32;
   return static_cast<unsigned>(threads < 256 ? threads : 256);
 }
 
-int exchange_merge(const LaneBufs* b, cudaStream_t stream) {
-  const int64_t m = b->n_x;
-  cudaError_t err = cudaMemsetAsync(b->x_cnt, 0, b->n * sizeof(int32_t), stream);
-  if (err == cudaSuccess)
-    err = cudaMemsetAsync(b->x_fill, 0, b->n * sizeof(int32_t), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  x_count_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(*b);
-  x_scan_kernel<<<1, 1024, 0, stream>>>(*b);
-  x_place_kernel<<<blocks_for(m, 256), 256, 0, stream>>>(*b);
-  const int64_t w_all = b->c + b->sw + b->cx;
-  const int64_t bytes = (b->words * w_all + b->cx) * sizeof(int32_t);
-  int smem = 0;
-  err = b->words == 7
-            ? merge_smem(merge_kernel<7>, b->merge_global != 0, bytes, &smem)
-            : merge_smem(merge_kernel<5>, b->merge_global != 0, bytes, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b->words == 7) {
-    merge_kernel<7><<<static_cast<unsigned>(b->n), merge_threads(w_all), smem,
-                      stream>>>(*b);
-  } else {
-    merge_kernel<5><<<static_cast<unsigned>(b->n), merge_threads(w_all), smem,
-                      stream>>>(*b);
-  }
-  return static_cast<int>(cudaGetLastError());
+}  // namespace
+
+// Every lane launcher: `host` and `dev` are the same [s] LaneBufs array in
+// host and in device memory (see the head of this file); the grid takes
+// its shape from host[0] and a scenario coordinate of size s.
+
+extern "C" {
+
+int lane_slots(const LaneBufs* host, const LaneBufs* dev, int s,
+               cudaStream_t stream) {
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    lane_slots_kernel<<<dim3(blocks_for(host->n, 128), s), 128, 0, stream>>>(
+        bufs);
+    return cudaSuccess;
+  });
 }
 
-int stream_rows_merge(const LaneBufs* b, cudaStream_t stream) {
-  const int64_t w_all = b->c + 2 * b->k + b->k * PUMP_BURST;
-  int smem = 0;
-  const cudaError_t err =
-      merge_smem(stream_rows_kernel, b->split_global != 0,
-                 7 * w_all * sizeof(int32_t), &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stream_rows_kernel<<<static_cast<unsigned>(2 * b->s_flows),
-                       merge_threads(w_all), smem, stream>>>(*b);
-  return static_cast<int>(cudaGetLastError());
+// The exchange scratch (x_cnt, x_fill) of the s scenarios is one [s, N]
+// block each (the Python side checks it), so two memsets clear it for all.
+int exchange_merge(const LaneBufs* host, const LaneBufs* dev, int s,
+                   cudaStream_t stream) {
+  const LaneBufs* b = host;
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    using P = decltype(bufs);
+    const int64_t m = b->n_x;
+    const size_t scratch = static_cast<size_t>(s) * b->n * sizeof(int32_t);
+    cudaError_t err = cudaMemsetAsync(b->x_cnt, 0, scratch, stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(b->x_fill, 0, scratch, stream);
+    if (err != cudaSuccess) return err;
+    x_count_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs);
+    x_scan_kernel<<<s, 1024, 0, stream>>>(bufs);
+    x_place_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs);
+    const int64_t w_all = b->c + b->sw + b->cx;
+    const int64_t bytes = (b->words * w_all + b->cx) * sizeof(int32_t);
+    int smem = 0;
+    err = b->words == 7 ? merge_smem(merge_kernel<7, P>, b->merge_global != 0,
+                                     bytes, &smem)
+                        : merge_smem(merge_kernel<5, P>, b->merge_global != 0,
+                                     bytes, &smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(b->n), s);
+    if (b->words == 7) {
+      merge_kernel<7, P><<<grid, merge_threads(w_all), smem, stream>>>(bufs);
+    } else {
+      merge_kernel<5, P><<<grid, merge_threads(w_all), smem, stream>>>(bufs);
+    }
+    return cudaSuccess;
+  });
 }
 
-int stream_tier(const LaneBufs* b, cudaStream_t stream) {
-  // one warp per block: the rows' serial walks spread over the SMs
-  const int64_t rows = 2 * b->tier_s;
-  if (rows > 0)
-    stream_tier_kernel<<<blocks_for(rows, 32), 32, 0, stream>>>(*b);
-  return static_cast<int>(cudaGetLastError());
+int stream_rows_merge(const LaneBufs* host, const LaneBufs* dev, int s,
+                      cudaStream_t stream) {
+  const LaneBufs* b = host;
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    using P = decltype(bufs);
+    const int64_t w_all = b->c + 2 * b->k + b->k * PUMP_BURST;
+    int smem = 0;
+    const cudaError_t err =
+        merge_smem(stream_rows_kernel<P>, b->split_global != 0,
+                   7 * w_all * sizeof(int32_t), &smem);
+    if (err != cudaSuccess) return err;
+    stream_rows_kernel<<<dim3(static_cast<unsigned>(2 * b->s_flows), s),
+                         merge_threads(w_all), smem, stream>>>(bufs);
+    return cudaSuccess;
+  });
 }
 
-int tier_merge(const LaneBufs* b, cudaStream_t stream) {
-  const int64_t total = b->c2 + 3 * b->ks + b->ks * PUMP_BURST + b->cx;
-  int smem = 0;
-  const cudaError_t err =
-      merge_smem(tier_merge_kernel, b->tier_global != 0,
-                 7 * total * sizeof(int32_t), &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (b->tier_s > 0)
-    tier_merge_kernel<<<static_cast<unsigned>(2 * b->tier_s), TIER_THREADS,
-                        smem, stream>>>(*b);
-  return static_cast<int>(cudaGetLastError());
+int stream_tier(const LaneBufs* host, const LaneBufs* dev, int s,
+                cudaStream_t stream) {
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    // one warp per block: the rows' serial walks spread over the SMs
+    const int64_t rows = 2 * host->tier_s;
+    if (rows > 0)
+      stream_tier_kernel<<<dim3(blocks_for(rows, 32), s), 32, 0, stream>>>(
+          bufs);
+    return cudaSuccess;
+  });
 }
 
-int queue_min_window(const LaneBufs* b, int advance, cudaStream_t stream) {
-  queue_min_kernel<<<1, 1024, 0, stream>>>(*b, advance);
-  return static_cast<int>(cudaGetLastError());
+int tier_merge(const LaneBufs* host, const LaneBufs* dev, int s,
+               cudaStream_t stream) {
+  const LaneBufs* b = host;
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    using P = decltype(bufs);
+    const int64_t total = b->c2 + 3 * b->ks + b->ks * PUMP_BURST + b->cx;
+    int smem = 0;
+    const cudaError_t err =
+        merge_smem(tier_merge_kernel<P>, b->tier_global != 0,
+                   7 * total * sizeof(int32_t), &smem);
+    if (err != cudaSuccess) return err;
+    if (b->tier_s > 0)
+      tier_merge_kernel<<<dim3(static_cast<unsigned>(2 * b->tier_s), s),
+                          TIER_THREADS, smem, stream>>>(bufs);
+    return cudaSuccess;
+  });
 }
 
-int append_log(const LaneBufs* b, cudaStream_t stream) {
-  // one block for each instance that runs: the log, the flowtrace ring
-  const unsigned blocks = (b->log_cap > 0 ? 1u : 0u) + (b->flowtrace ? 1u : 0u);
-  if (blocks > 0)
-    append_log_kernel<<<blocks, LOG_THREADS, 0, stream>>>(*b);
-  return static_cast<int>(cudaGetLastError());
+// one block per scenario, each with its own stop and window
+int queue_min_window(const LaneBufs* host, const LaneBufs* dev, int s,
+                     int advance, cudaStream_t stream) {
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    queue_min_kernel<<<s, 1024, 0, stream>>>(bufs, advance);
+    return cudaSuccess;
+  });
+}
+
+int append_log(const LaneBufs* host, const LaneBufs* dev, int s,
+               cudaStream_t stream) {
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    // one block for each instance that runs: the log, the flowtrace ring
+    const unsigned blocks =
+        (host->log_cap > 0 ? 1u : 0u) + (host->flowtrace ? 1u : 0u);
+    if (blocks > 0)
+      append_log_kernel<<<dim3(blocks, s), LOG_THREADS, 0, stream>>>(bufs);
+    return cudaSuccess;
+  });
 }
 
 int smem_optin(int device, int* bytes) {

@@ -1,0 +1,327 @@
+"""Fault schedules compiled into versioned routing tables (the JAX
+package's ``faults/overlay.py``, without the CPU engine's runtime).
+
+A :class:`FaultOverlay` turns a validated :class:`FaultSchedule` into one
+``(latency_ns, packet_loss, loss_threshold)`` snapshot per *fault epoch*
+(each distinct event time).  Snapshots are cumulative: the state at epoch
+``t`` reflects every event with ``at <= t``.  Computation is entirely
+deterministic — re-running the all-pairs shortest-path compile of
+:class:`~shadow_tpu_torch.net.graph.NetworkGraph` over the surviving edge
+set — so the same schedule + seed always yields the same tables.
+
+Semantics:
+
+- ``link_down`` removes the edge from the route compile.  Pairs that keep
+  an alternative path reroute (their latency/loss change accordingly);
+  pairs that become unreachable keep their *base* latency but get a
+  loss threshold of 1.0 — every packet between them is dropped at the
+  source with the ordinary ``loss`` outcome.  Keeping the base latency
+  (rather than a sentinel) matters only for the dynamic-runahead
+  bookkeeping.
+- ``partition`` / ``host_crash`` act at the *pair* level after the route
+  compile: affected pairs drop everything, routing elsewhere is
+  untouched.
+- Fault-induced drops obey the same bootstrap exemption as configured
+  loss; config validation therefore rejects events inside the bootstrap
+  window (the exemption would silently defeat them).
+
+The lane engine re-uploads the snapshots as fresh device gather tables at
+epoch boundaries and clamps round windows at the epoch times
+(``GpuEngine._run_faulted``, ``SweepEngine``), which keeps the window
+sequence — and the event log — identical to the CPU oracle's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from ..net.graph import _UNREACHABLE, GraphEdge, NetworkGraph
+from .schedule import FaultConfigError, FaultEvent, FaultSchedule
+
+FULL_THRESHOLD = np.int64(1) << 32  # loss = 1.0 in the u64 Bernoulli domain
+
+
+@dataclasses.dataclass
+class _EdgeOverride:
+    down: bool = False
+    latency_ns: Optional[int] = None
+    loss: Optional[float] = None
+
+    def clear(self) -> bool:
+        """True when the override is back to base (droppable)."""
+        return not self.down and self.latency_ns is None and self.loss is None
+
+
+@dataclasses.dataclass(frozen=True)
+class Snapshot:
+    at: int
+    latency_ns: np.ndarray  # [G, G] int64 (base latency kept on down pairs)
+    packet_loss: np.ndarray  # [G, G] float64
+    loss_threshold: np.ndarray  # [G, G] int64 (2**32 = drop everything)
+    stall: bool  # a backend_stall event fires at this epoch
+
+
+class FaultOverlay:
+    """Schedule -> per-epoch table snapshots over a compiled base graph."""
+
+    def __init__(
+        self,
+        schedule: FaultSchedule,
+        graph: NetworkGraph,
+        host_node_index: dict[int, int],
+        hostnames: list[str],
+        use_shortest_path: bool = True,
+        bootstrap_end: int = 0,
+    ) -> None:
+        self.schedule = schedule
+        self.base = graph
+        self.use_shortest_path = use_shortest_path
+        self.bootstrap_end = bootstrap_end
+        self._host_node_index = dict(host_node_index)
+        self._host_by_name = {name: hid for hid, name in enumerate(hostnames)}
+        self._node_host_count: dict[int, int] = {}
+        for idx in host_node_index.values():
+            self._node_host_count[idx] = self._node_host_count.get(idx, 0) + 1
+        self._snapshots: list[Snapshot] = []
+        self._recompute()
+
+    # -- event -> mutable fault state ---------------------------------------
+
+    def _edge_index(self, ev: FaultEvent) -> int:
+        for i, e in enumerate(self.base.edges):
+            if (e.source, e.target) == (ev.source, ev.target):
+                return i
+            if not self.base.directed and (e.target, e.source) == (
+                ev.source,
+                ev.target,
+            ):
+                return i
+        raise FaultConfigError(
+            f"{ev.kind} at {ev.at} ns: no edge {ev.source}->{ev.target} in the graph"
+        )
+
+    def _node_index(self, node_id: int, ev: FaultEvent) -> int:
+        idx = self.base.id_to_index.get(node_id)
+        if idx is None:
+            raise FaultConfigError(
+                f"{ev.kind} at {ev.at} ns: unknown graph node id {node_id}"
+            )
+        return idx
+
+    def _crash_node(self, ev: FaultEvent) -> int:
+        hid = self._host_by_name.get(ev.host)
+        if hid is None:
+            raise FaultConfigError(
+                f"{ev.kind} at {ev.at} ns: unknown host {ev.host!r}"
+            )
+        idx = self._host_node_index[hid]
+        if ev.kind == "host_crash" and self._node_host_count.get(idx, 0) > 1:
+            raise FaultConfigError(
+                f"host_crash at {ev.at} ns: host {ev.host!r} shares graph "
+                f"node {self.base.node_ids[idx]} with other hosts — crash "
+                "isolation is per graph node; give the host its own node"
+            )
+        return idx
+
+    def _validate(self, ev: FaultEvent) -> None:
+        if ev.at < self.bootstrap_end:
+            raise FaultConfigError(
+                f"{ev.kind} at {ev.at} ns lies inside the loss-free bootstrap "
+                f"window (bootstrap_end_time={self.bootstrap_end} ns); fault "
+                "drops would be silently exempted — schedule it later"
+            )
+        if ev.kind in ("link_down", "link_up", "loss", "latency"):
+            self._edge_index(ev)
+        elif ev.kind == "partition":
+            for g in ev.groups:
+                for nid in g:
+                    self._node_index(nid, ev)
+        elif ev.kind in ("host_crash", "host_restart"):
+            self._crash_node(ev)
+
+    def _recompute(self) -> None:
+        """Walk the schedule in time order, compiling one cumulative
+        snapshot per distinct event time."""
+        for ev in self.schedule.events:
+            self._validate(ev)
+        over: dict[int, _EdgeOverride] = {}
+        partition: Optional[tuple[tuple[int, ...], ...]] = None
+        crashed: set[int] = set()
+        snapshots: list[Snapshot] = []
+        events = self.schedule.events
+        i = 0
+        while i < len(events):
+            t = events[i].at
+            stall = False
+            while i < len(events) and events[i].at == t:
+                ev = events[i]
+                i += 1
+                if ev.kind == "backend_stall":
+                    stall = True
+                    continue
+                if ev.kind in ("link_down", "link_up", "loss", "latency"):
+                    ei = self._edge_index(ev)
+                    o = over.setdefault(ei, _EdgeOverride())
+                    if ev.kind == "link_down":
+                        o.down = True
+                    elif ev.kind == "link_up":
+                        over.pop(ei, None)
+                    elif ev.kind == "loss":
+                        o.loss = ev.loss
+                    else:
+                        o.latency_ns = ev.latency_ns
+                elif ev.kind == "partition":
+                    partition = tuple(
+                        tuple(self._node_index(nid, ev) for nid in g)
+                        for g in ev.groups
+                    )
+                elif ev.kind == "heal":
+                    partition = None
+                elif ev.kind == "host_crash":
+                    crashed.add(self._crash_node(ev))
+                elif ev.kind == "host_restart":
+                    crashed.discard(self._crash_node(ev))
+            lat, loss, thr = self._compile(over, partition, crashed)
+            snapshots.append(Snapshot(t, lat, loss, thr, stall))
+        self._snapshots = snapshots
+
+    # -- table compilation ---------------------------------------------------
+
+    def _compile(
+        self,
+        over: dict[int, _EdgeOverride],
+        partition: Optional[tuple[tuple[int, ...], ...]],
+        crashed: set[int],
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        base = self.base
+        g = len(base.nodes)
+        edges = []
+        for idx, e in enumerate(base.edges):
+            o = over.get(idx)
+            if o is not None and o.down:
+                continue
+            edges.append(
+                GraphEdge(
+                    source=e.source,
+                    target=e.target,
+                    latency_ns=(
+                        o.latency_ns
+                        if o is not None and o.latency_ns is not None
+                        else e.latency_ns
+                    ),
+                    packet_loss=(
+                        o.loss if o is not None and o.loss is not None else e.packet_loss
+                    ),
+                )
+            )
+        if edges:
+            g2 = NetworkGraph(
+                list(base.nodes), edges, base.directed, self.use_shortest_path
+            )
+            lat2, loss2, thr2 = g2.latency_ns, g2.packet_loss, g2.loss_threshold
+        else:  # every edge down: nothing is routable
+            lat2 = np.full((g, g), _UNREACHABLE, dtype=np.int64)
+            loss2 = np.zeros((g, g), dtype=np.float64)
+            thr2 = np.zeros((g, g), dtype=np.int64)
+
+        base_reach = base.latency_ns != _UNREACHABLE
+        # pairs that LOST their route (reachable in base, not now)
+        down = (lat2 == _UNREACHABLE) & base_reach
+        for n in crashed:
+            down[n, :] = True
+            down[:, n] = True
+        if partition is not None:
+            for ai, ga in enumerate(partition):
+                for gb in partition[ai + 1 :]:
+                    for a in ga:
+                        for b in gb:
+                            down[a, b] = True
+                            down[b, a] = True
+        # down pairs keep a usable latency (base fallback where the route
+        # vanished) and drop everything via the threshold
+        lat = np.where(lat2 == _UNREACHABLE, base.latency_ns, lat2)
+        loss = np.where(down, 1.0, loss2)
+        thr = np.where(down, FULL_THRESHOLD, thr2)
+        return lat, loss, thr
+
+    # -- queries -------------------------------------------------------------
+
+    def epoch_times(self) -> list[int]:
+        return [s.at for s in self._snapshots]
+
+    def snapshot_at(self, t: int) -> Optional[Snapshot]:
+        """Latest snapshot with ``at <= t`` (None = base tables apply)."""
+        best = None
+        for s in self._snapshots:
+            if s.at <= t:
+                best = s
+            else:
+                break
+        return best
+
+    def stall_at(self, t: int) -> bool:
+        for s in self._snapshots:
+            if s.at == t:
+                return s.stall
+        return False
+
+    def max_latency_ns(self) -> int:
+        """Max routable latency over the base and every snapshot (the
+        conservative bound for the stream tier's wide-pop soundness)."""
+        mx = int(np.max(self.base.latency_ns, initial=0))
+        for s in self._snapshots:
+            mx = max(mx, int(np.max(s.latency_ns, initial=0)))
+        return mx
+
+    def any_loss(self) -> bool:
+        if bool(np.any(self.base.loss_threshold > 0)):
+            return True
+        return any(bool(np.any(s.loss_threshold > 0)) for s in self._snapshots)
+
+    def segment_plan(
+        self, stop_time: int, pad_to: int = 0
+    ) -> list[tuple[int, int, Optional[Snapshot]]]:
+        """The run's epoch segmentation as ``(seg_start, seg_end,
+        snapshot)`` rows: segment boundaries at every epoch time inside
+        ``(0, stop_time)``, each row carrying the snapshot whose tables
+        govern it (None = base tables).
+
+        ``pad_to`` appends NO-OP rows — zero-length ``(stop_time,
+        stop_time, last_snapshot)`` segments — until the plan has that
+        many rows: the sweep pads its variants' plans to one depth, so
+        schedules of different lengths batch together.  Padding is bit-safe ONLY in
+        this trailing zero-length form: at ``seg_start == seg_end ==
+        stop_time`` every queue min is already >= the stop bound, so the
+        run loop admits no pops and no window advances — whereas a
+        mid-run zero-length segment would still clamp a window at its
+        boundary and shift the netobs window sequence."""
+        stop = int(stop_time)
+        bounds = [t for t in self.epoch_times() if 0 < t < stop] + [stop]
+        plan: list[tuple[int, int, Optional[Snapshot]]] = []
+        seg_start = 0
+        for seg_end in bounds:
+            snap = self.snapshot_at(seg_start) if seg_start > 0 else None
+            plan.append((seg_start, seg_end, snap))
+            seg_start = seg_end
+        last = plan[-1][2]
+        while len(plan) < pad_to:
+            plan.append((stop, stop, last))
+        return plan
+
+
+def build_overlay(cfg, graph: NetworkGraph, routing) -> Optional[FaultOverlay]:
+    """Overlay for a config's fault schedule (None when no events)."""
+    schedule = cfg.faults.schedule()
+    if not len(schedule):
+        return None
+    return FaultOverlay(
+        schedule,
+        graph,
+        routing.host_node_index,
+        [h.hostname for h in cfg.hosts],
+        use_shortest_path=cfg.network.use_shortest_path,
+        bootstrap_end=cfg.general.bootstrap_end_time,
+    )

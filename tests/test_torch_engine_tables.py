@@ -195,7 +195,7 @@ hosts:
 
 
 @pytest.mark.parametrize("edit", [
-    ("hosts:", "faults: {events: [{at: 50ms, kind: link_down, source: 0, target: 0}]}\nhosts:"),
+    ("hosts:", "faults: {watchdog_timeout: 5.0, events: [{at: 50ms, kind: link_down, source: 0, target: 0}]}\nhosts:"),
     ("hosts:", "experimental: {netobs: true}\nhosts:"),
     ("hosts:", "experimental: {flowtrace: true}\nhosts:"),
     ("hosts:", "experimental: {tpu_round_unroll: 2}\nhosts:"),
@@ -207,7 +207,8 @@ hosts:
 def test_unported_configs_raise(edit):
     """What the port refuses.  pcap, netobs and flowtrace are ported now:
     pcap is refused only without the device log it rides, netobs and
-    flowtrace not at all."""
+    flowtrace not at all.  Fault schedules are ported too; what stays
+    refused there is the watchdog and the CPU failover."""
     from shadow_tpu_torch.config.options import ConfigOptions, LaneCompatError
 
     assert GpuEngine(ConfigOptions.from_yaml(_MESH), device="cpu")
@@ -243,8 +244,9 @@ def test_unported_configs_raise(edit):
      "hosts:\n"
      "  c: {processes: [{path: stream-client, args: [--server, s]}]}\n"
      "  s: {processes: [{path: stream-server}]}\n  m: {count: 2,"),
+    ("hosts:", "faults: {events: [{at: 50ms, kind: link_down, source: 0, target: 0}]}\nhosts:"),
 ], ids=["dynamic_runahead", "phold", "lossy_edge", "stream_pair_untiered",
-        "stream_pair_tiered"])
+        "stream_pair_tiered", "faults"])
 def test_ported_configs_build(edit):
     """What the earlier slices refused and this one runs."""
     from shadow_tpu_torch.config.options import ConfigOptions

@@ -39,6 +39,7 @@ def test_import_leaves_jax_unloaded():
         "import sys\n"
         "import shadow_tpu_torch.backend.gpu_engine, shadow_tpu_torch.backend.kernels\n"
         "import shadow_tpu_torch.backend.bridge, shadow_tpu_torch.config.presets\n"
+        "import shadow_tpu_torch.faults.overlay, shadow_tpu_torch.sweep\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'shadow_tpu', 'yaml')]\n"
         "assert not bad, bad\n"
     )
@@ -80,13 +81,28 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
 
 
 def test_kernel_argument_block_matches_the_cuda_struct():
-    """ctypes passes the LaneBufs block by pointer: its fields must be the
-    CUDA struct's, in the same order."""
+    """ctypes builds the [S] array of LaneBufs blocks that the kernels
+    index by scenario: its fields must be the CUDA struct's, in the same
+    order, and its element size the struct's (every field a pointer or an
+    int64, eight bytes, so neither side pads).  Up to PARAM_SCENARIOS of
+    them go in one kernel parameter, which Hopper caps at 32,764 bytes."""
+    import ctypes
+
     src = (ROOT / "shadow_tpu_torch" / "csrc" / "lanes.cu").read_text()
     body = re.search(r"struct LaneBufs \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     names = re.findall(r"\*?\s*(\w+)\s*[,;]", body)
     assert names == [f for f, _t in kernels.LaneBufs._fields_]
+    for decl in filter(str.strip, body.split(";")):
+        ctype, _, rest = decl.strip().partition(" ")
+        for name in rest.split(","):
+            assert name.strip().startswith("*") or ctype == "int64_t", decl
+    size = ctypes.sizeof(kernels.LaneBufs)
+    assert size == 8 * len(names)
+    assert ctypes.sizeof(kernels.LaneBufs * 3) == 3 * size
+    few = int(re.search(r"constexpr int PARAM_SCENARIOS = (\d+);",
+                        src).group(1))
+    assert few >= 2 and few * size <= 32_764
 
 
 def test_wrappers_check_their_tensors():
