@@ -25,7 +25,7 @@ Phases, in order (any failure exits nonzero and prints no result line):
    tgen mesh with logging, a CoDel bottleneck, a non-strict overflow, and
    small phold, lossy tgen, ping and dynamic-runahead configurations —
    equal event logs, counters and final states, word for word;
-8. full-width parity: PHOLD at 10,000 hosts for 50 sim ms, the lossy
+8. full-width parity: PHOLD at 10,000 hosts for 25 sim ms, the lossy
    flagship for 1 sim s and the mixed mesh, untiered and tiered, for 100
    sim ms, card against the CPU plain path — equal logs and final states;
 9. the main paths, launch counts reset just before each and read just
@@ -68,7 +68,7 @@ card/CPU parity on five untiered stream configs (the pair, the lossy
 pair, the star, ``examples/cubic-vs-reno.yaml`` and a small mixed mesh)
 and six tiered ones (the pair, lossy, CUBIC, the small mixed mesh, a
 250 ms link, dynamic runahead), tiered = untiered, and
-``examples/stream-tcp.yaml`` for 60 sim s, its first 1.5 sim s card
+``examples/stream-tcp.yaml`` for 60 sim s, its first 0.75 sim s card
 against CPU; between 8 and 9, the planes card against CPU (step and
 device mode) on ``tests/test_torch_obs.py``'s six configurations (the
 drop-heavy mesh at its own C = Cx = 2048: merge rows in opted-in shared
@@ -107,6 +107,25 @@ S = 8 and S = 1, its batched step, and the launches per batched step at
 S = 1, 3 and 8 (equal), and the kernels of the tiered and of the traced
 untiered mixed mesh eight times over against once.
 
+The hybrid backend (managed binaries on the host CPU under the LD_PRELOAD
+shim, their packets on the card; ``make -C native`` first builds the shim
+and the apps): after the sweep kernels, kernel H, A's external arm with
+D's egress instance and C's hybrid mode against their plain versions at
+the hybrid flagship's shapes (``managed_relay_chains_large``: 151 managed
+processes, 1,000 tgen-mesh peers, 1,151 lanes; mesh-only and with phold
+lanes beside the external ones; blocks spread and all to one lane past
+Cxi; the host's next event before, inside, past the window and absent,
+the egress buffer empty and at its floor) — exact; after the fault
+phase, the flagship at full width for 2 sim s on the card, in
+``HybridEngine(device="cpu")`` and in the port's CPU oracle — equal logs,
+counters, rounds, process errors and transfer counts — then H, A, C's
+hybrid mode and D timed on the card run's state at that cut; after
+the main paths, the flagship itself: 25 three-relay chains, 75 tcpecho
+clients and the origin beside the 1,000 peers, 10 sim s, device mode,
+strict — 76 clean exits, no process error, its sim-s/wall-s with the
+device turns' and the syscall service's seconds, and H's, A's, C's and
+D's launches.
+
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
 """
@@ -133,11 +152,14 @@ if not torch.cuda.is_available():
 
 from shadow_tpu_torch.backend import kernels, lanes  # noqa: E402
 from shadow_tpu_torch.backend import lanes_stream as lstr  # noqa: E402
+from shadow_tpu_torch.backend.cpu_engine import CpuEngine  # noqa: E402
 from shadow_tpu_torch.backend.gpu_engine import GpuEngine  # noqa: E402
-from shadow_tpu_torch.config import presets  # noqa: E402
+from shadow_tpu_torch.backend.hybrid import HybridEngine  # noqa: E402
+from shadow_tpu_torch.config import presets, scenarios  # noqa: E402
 from shadow_tpu_torch.config.options import ConfigOptions  # noqa: E402
 from shadow_tpu_torch.config.presets import flagship_mesh_config  # noqa: E402
 from shadow_tpu_torch.core import rng as rng_mod  # noqa: E402
+from shadow_tpu_torch.models.base import builtin_models  # noqa: E402
 from shadow_tpu_torch.net import ltcp  # noqa: E402
 from shadow_tpu_torch.net.token_bucket import bucket_params  # noqa: E402
 from shadow_tpu_torch.obs import flowtrace as ftr  # noqa: E402
@@ -1653,11 +1675,11 @@ PLANE_PARITY = {
         "general": {"stop_time": "6s", "seed": 5, "bootstrap_end_time": "100ms"},
     }, ("c", "s")),
     "phold": lambda: every_other({
-        "general": {"stop_time": "1s", "seed": 3},
+        "general": {"stop_time": "500ms", "seed": 3},
         "hosts": {"n": {"count": 8, "processes": [
             {"path": "phold", "args": "--messages 3 --size 600"}]}}}),
-    "mixed_tiered": lambda: planes(presets.mixed_flagship_config(40, 1),
-                                   "mixed40", mesh_hosts=3),
+    "mixed_tiered": lambda: half_second(planes(
+        presets.mixed_flagship_config(40, 1), "mixed40", mesh_hosts=3)),
     "pcap_tgen": lambda: every_other({
         "general": {"stop_time": "300ms", "seed": 6},
         "network": _switch("50 Mbit", "50 Mbit", "4 ms"),
@@ -1682,6 +1704,11 @@ PLANE_PARITY = {
                 "path": "tgen-mesh", "args": "--interval 9ms --size 400"}]},
         }}, ("capc", "caps")),
 }
+
+
+def half_second(cfg):
+    cfg.general.stop_time = 500_000_000
+    return cfg
 
 
 def plane_run(cfg_fn, dev: str, mode: str, tag: str, log_cap=None):
@@ -1777,12 +1804,12 @@ def with_flowtrace(cfg, sample: float = 1.0, cap: int = 65536):
 
 
 def mixed40(cross: int):
-    """The 40-host mixed mesh at C = 4096 (the tier dropped), 200 sim ms:
+    """The 40-host mixed mesh at C = 4096 (the tier dropped), 100 sim ms:
     ``cross`` 8 (the preset's: B's and E's rows opt in to 115 KB of shared
     memory) or 0 (Cx = C: B's rows of 8,196 entries, 246 KB, merge in
     global memory)."""
     cfg = presets.mixed_flagship_config(40, 1)
-    cfg.general.stop_time = 200_000_000
+    cfg.general.stop_time = 100_000_000
     cfg.experimental.tpu_lane_queue_capacity = 4096
     cfg.experimental.tpu_cross_capacity = cross
     return with_flowtrace(cfg)
@@ -2576,6 +2603,398 @@ def time_all() -> dict:
     return out
 
 
+# ---- the hybrid backend: managed binaries on the host CPU, packets here -----
+
+ROOT = Path(__file__).resolve().parent
+# managed_relay_chains_large: 25 three-relay chains, 75 tcpecho clients and
+# the origin (151 managed processes) beside 1,000 tgen-mesh peers, 10 sim s
+HYB_CHAINS, HYB_SIM_S = 25, 10
+# the card = CPU cut (fewer sim seconds first): the full width, 2 sim s —
+# the relays carry the first clients' traffic, and every client is still
+# running at the cut (equal process errors on the three runs)
+HYB_CUT_S = 2
+# the device log: the flagship's 10 sim s make about 230,000 records
+HYB_LOG = 1_000_000
+
+
+# The Makefile's flags, with two defaults of newer distribution compilers
+# turned off that the shim was not written for: _FORTIFY_SOURCE, whose
+# __*_chk wrappers call into libc directly and so bypass the shim's
+# interposed read/recv/poll (the managed apps then talk past the
+# simulation), and a false-positive -Warray-bounds on the shim's
+# close_range loop (an index the loop keeps at or above 0), which -Werror
+# makes fatal; every other warning still fails the build.
+NATIVE_CFLAGS = ("-O2 -g -Wall -Wextra -Werror -Wno-error=array-bounds "
+                 "-U_FORTIFY_SOURCE -D_FORTIFY_SOURCE=0")
+
+
+@phase("native build: make -C native (the LD_PRELOAD shim, tcpecho, relay)")
+def native_build():
+    # the shim and the apps the hybrid flagship runs
+    proc = subprocess.run(
+        ["make", "-C", str(ROOT / "native"), f"CFLAGS={NATIVE_CFLAGS}",
+         "build/libshadow_shim.so", "build/tcpecho", "build/relay"],
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"make -C native failed:\n{proc.stderr[-3000:]}")
+    for name in ("libshadow_shim.so", "tcpecho", "relay"):
+        if not (ROOT / "native" / "build" / name).exists():
+            raise RuntimeError(f"native/build/{name} missing after make")
+    log(f"native build: {proc.stdout.strip()[-600:]}")
+
+
+def hybrid_cfg(tag: str, sim_seconds: float = HYB_SIM_S,
+               chains: int = HYB_CHAINS) -> ConfigOptions:
+    cfg = scenarios.managed_relay_chains_large(
+        Path(DATA) / tag, chains=chains, sim_seconds=int(np.ceil(sim_seconds)))
+    cfg.general.stop_time = int(sim_seconds * 1e9)
+    return cfg
+
+
+def external_mask(cfg) -> np.ndarray:
+    """The hosts that run managed processes (the hybrid engine's rule)."""
+    models = builtin_models()
+    return np.array([any(p.path not in models for p in h.processes)
+                     for h in cfg.hosts])
+
+
+def hybrid_block(p, rng, rows: int, dst, t0: int) -> torch.Tensor:
+    """An injection block on the card: ``rows`` valid PACKET arrivals to
+    lanes drawn from ``dst`` at times from ``t0``, the rest invalid."""
+    b = p.inject_batch
+    valid = np.zeros(b, bool)
+    valid[rng.permutation(b)[:rows]] = True
+    d = rng.choice(dst, size=b)
+    t = t0 + rng.integers(0, 20_000_000, b)
+    src = rng.integers(0, p.n_lanes, b)
+    blk = np.stack([
+        valid, d, np.where(valid, t >> 31, lanes.NEVER32),
+        np.where(valid, t & lanes.MASK31, lanes.NEVER32),
+        (lanes.PACKET << lanes.AUX_KIND_SHIFT) | (src << lanes.AUX_SRC_SHIFT),
+        (1 << 22) + np.arange(b), rng.integers(60, 1500, b)])
+    return torch.as_tensor(blk.astype(np.int32), device=DEV)
+
+
+@phase("hybrid kernels vs plain at the hybrid flagship's shapes: H, A's "
+       "external arm with D's egress instance, C's hybrid mode (tolerance: "
+       "exact, integer)")
+def check_hybrid_kernels():
+    rng = np.random.default_rng(SEED + 8)
+    cfg = hybrid_cfg("kernels")
+    ext = external_mask(cfg)
+    ext_lanes = np.nonzero(ext)[0]
+    for variant in ("flagship", "active"):
+        eng = GpuEngine(cfg, log_capacity=60_000, external=ext)
+        p, tb = eng.params, eng.tables
+        n = p.n_lanes
+        if variant == "active":
+            # phold lanes beside the external ones: A's insert channel, which
+            # an external lane must not take
+            model = np.where(ext, lanes.M_NONE, rng.choice(
+                [lanes.M_TGEN_MESH, lanes.M_PHOLD], n))
+            p = dataclasses.replace(p, models_present=tuple(sorted(
+                {lanes.M_NONE, lanes.M_TGEN_MESH, lanes.M_PHOLD})))
+            tb = tb._replace(model=t32(model))
+        for rep_ in range(2):
+            tag = f"{variant} rep={rep_}"
+            s0 = random_state(eng, tb, rng)
+            ws0 = lanes.make_workspace(p, DEV)
+            ws0.ctl[0] = 1
+            kern, plain = run_pair(
+                p, tb, s0, ws0, kernels.lane_slots,
+                lambda p_, tb_, s, ws: lanes.lane_slots_plain(p_, tb_, s, ws))
+            check("lane_slots:external", tag, kern, plain)
+            eg = plain["eg_valid"].bool()
+            n_eg = int(eg.sum())
+            drops = int((plain["eg_recs"][eg, 5] == 2).sum())
+            if n_eg == 0 or drops == 0:
+                raise AssertionError(f"{tag}: no egress rows ({n_eg}) or no "
+                                     f"CoDel drop among them ({drops})")
+            # D's egress instance over A's candidates, into an empty buffer
+            # and into one 100 rows from its end (rows lost past E)
+            ws1 = clone(ws0)
+            ws1.eg_recs.copy_(plain["eg_recs"])
+            ws1.eg_valid.copy_(plain["eg_valid"])
+            for start in (0, p.egress_capacity - 100):
+                s1 = clone(s0)
+                s1.egress_count.fill_(start)
+                m = T0 + int(rng.integers(0, 30_000_000))
+                s1.egress_min_hi.fill_(m >> 31)
+                s1.egress_min_lo.fill_(m & lanes.MASK31)
+                kern, plain_d = run_pair(
+                    p, tb, s1, ws1, kernels.append_log,
+                    lambda p_, tb_, s, ws: lanes.append_log_plain(p_, s, ws))
+                check("append_log:egress", f"{tag} start={start}", kern,
+                      plain_d)
+                log(f"append_log:egress {tag} start={start}: equal; "
+                    f"{n_eg} rows ({drops} CoDel drops), lost "
+                    f"{int(plain_d['egress_lost'])}")
+            # H: blocks spread over the external lanes, and one block all to
+            # one lane (past Cxi = C: the sheds)
+            for case, rows, dst in (("spread", 200, ext_lanes),
+                                    ("one lane", 400, ext_lanes[:1])):
+                blk = hybrid_block(p, rng, rows, dst, T0)
+                kern, plain_h = run_pair(
+                    p, tb, s0, ws0, lambda a, b_=blk: kernels.inject_merge(a, b_),
+                    lambda p_, tb_, s, ws, b_=blk:
+                        lanes.inject_merge_plain(p_, tb_, s, b_))
+                check("inject_merge", f"{tag} {case}", kern, plain_h)
+                log(f"inject_merge {tag} {case}: equal; n_queue "
+                    f"{int(plain_h['n_queue'].sum())}")
+            # C's hybrid mode: the turn's first step and a later one, the
+            # host's next event before the window's end, inside the next one,
+            # past it and absent, the egress buffer empty and at its floor,
+            # static and dynamic runahead
+            we = T0 + 10_000_000
+            stops = 0
+            for dyn in (False, True):
+                p2 = dataclasses.replace(p, dynamic_runahead=dyn)
+                for first in (True, False):
+                    for ext_t in (we - 5_000_000, we + 500_000,
+                                  we + 80_000_000, lanes.NEVER):
+                        for eg_count in (0, p.egress_capacity - p.ext_per_iter):
+                            s1 = clone(s0)
+                            s1.egress_count.fill_(eg_count)
+                            s1.min_used_lat.fill_(int(rng.choice(
+                                [lanes.NEVER32, 700_000])))
+                            eh, el = ((lanes.NEVER32, lanes.NEVER32)
+                                      if ext_t >= lanes.NEVER
+                                      else (ext_t >> 31, ext_t & lanes.MASK31))
+                            turn = lanes.HybridTurn(eh, el, 900_000, first)
+                            kern, plain_c = run_pair(
+                                p2, tb, s1, ws0,
+                                lambda a, t_=turn: kernels.hybrid_window(a, t_),
+                                lambda p_, tb_, s, ws, t_=turn:
+                                    lanes.hybrid_window_plain(p_, s, ws, t_))
+                            check("hybrid_window",
+                                  f"{tag} dyn={dyn} first={first} "
+                                  f"ext={ext_t} eg={eg_count}", kern, plain_c)
+                            stops += int(plain_c["ctl"][0]) == 0
+            log(f"hybrid_window {tag}: equal in 32 cases, {stops} stopped")
+            if stops == 0 or stops == 32:
+                raise AssertionError("hybrid_window: the cases missed a stop "
+                                     "or a step")
+
+
+def sync_counts(eng) -> dict:
+    return {k: v for k, v in eng.sync_stats.items() if not k.endswith("_s")}
+
+
+@phase("hybrid parity: the hybrid flagship at full width for 2 sim s, the "
+       "card against the port's CPU oracle and HybridEngine(device='cpu')")
+def hybrid_parity():
+    runs = {}
+    t0 = time.perf_counter()
+    runs["cpu oracle"] = CpuEngine(hybrid_cfg("oracle", HYB_CUT_S)).run()
+    log(f"hybrid parity: CPU oracle {time.perf_counter() - t0:.1f} s")
+    engs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        eng = HybridEngine(hybrid_cfg(f"parity-{dev}", HYB_CUT_S), device=dev,
+                           log_capacity=HYB_LOG)
+        runs[dev] = eng.run()
+        engs[dev] = eng
+        log(f"hybrid parity: {dev} {time.perf_counter() - t0:.1f} s, "
+            f"{sync_counts(eng)}")
+    want = runs["cpu oracle"]
+    for name, r in runs.items():
+        if r.process_errors != want.process_errors:
+            raise AssertionError(f"{name}: process errors {r.process_errors} "
+                                 f"!= the oracle's {want.process_errors}")
+    logs = [r.log_tuples() for r in runs.values()]
+    if not logs[0] == logs[1] == logs[2]:
+        raise AssertionError("hybrid parity: the event logs differ")
+    if runs["cuda"].counters != runs["cpu"].counters:
+        raise AssertionError(f"hybrid parity: counters {runs['cuda'].counters}"
+                             f" != {runs['cpu'].counters}")
+    # the oracle counts per app (tgen_sent_bytes too), the lanes per lane:
+    # the managed hosts' counters and the mesh's received bytes compare
+    for k, v in want.counters.items():
+        if ((k.startswith(("managed_", "udp_")) or k == "tgen_recv_bytes")
+                and runs["cuda"].counters.get(k) != v):
+            raise AssertionError(f"hybrid parity: {k} {runs['cuda'].counters.get(k)}"
+                                 f" != the oracle's {v}")
+    if not want.rounds == runs["cuda"].rounds == runs["cpu"].rounds:
+        raise AssertionError("hybrid parity: rounds differ")
+    if sync_counts(engs["cuda"]) != sync_counts(engs["cpu"]):
+        raise AssertionError("hybrid parity: the transfer counts differ")
+    log(f"hybrid parity (cut: full width, {HYB_CUT_S} of {HYB_SIM_S} sim s): "
+        f"equal logs ({len(logs[0])} records), counters, rounds "
+        f"({want.rounds}) and transfer counts; clean exits "
+        f"{want.counters.get('managed_exit_clean')}, processes still running "
+        f"at the cut {len(want.process_errors)}")
+    return engs["cuda"]
+
+
+def hybrid_bytes(p, s, ws, blk) -> dict:
+    """Bytes the hybrid path's new work must move at these inputs: H reads
+    the block and the rows of the lanes it lands on and writes those rows
+    back (with their queue counters); C's hybrid mode reads the N head
+    pairs and a few scalars, and writes the window and the readback; D's
+    egress instance reads A's [K*N] flags and the valid rows and writes
+    those rows (and the count and min)."""
+    words = p.words
+    touched = int(torch.unique(blk[1][blk[0] != 0]).numel())
+    n_eg = int(ws.eg_valid.sum())
+    return {
+        "inject_merge": (lanes.INJ_WORDS * 4 * p.inject_batch
+                         + 2 * touched * (p.capacity * words * 4 + 4)),
+        "hybrid_window": p.n_lanes * 8 + 12 * 4 + 5 * 8,
+        "append_log:egress": p.egress_slots * 4 + 2 * n_eg * 48 + 4 * 4,
+    }
+
+
+# device kernels of the hybrid path's wrappers (kernel_name's bare names); H
+# shares B's scan kernel, so the hybrid timing profiles each wrapper alone
+HYBRID_PARTS = {
+    "inject_merge": ("inj_count_kernel", "x_scan_kernel", "inj_place_kernel",
+                     "inject_merge_kernel", "Memset"),
+    "lane_slots:external": ("lane_slots_kernel",),
+    "hybrid_window": ("hybrid_window_kernel",),
+    "append_log:egress": ("append_log_kernel",),
+}
+
+
+@phase("hybrid kernel times on the parity run's card state (the profiler's "
+       "device time per launch; plain version; bound)")
+def time_hybrid(eng) -> dict:
+    """H, A (with its external arm), C's hybrid mode and D (with its egress
+    instance) on the card state the parity run left at its cut (the
+    flagship at full width after 2 sim s: the relays carry the first
+    clients' traffic), its next window opened: each launched 20 times on a
+    restored snapshot under the profiler (device time per launch), beside
+    the plain version's time (CUDA events) and the bound.  D's time is the
+    launch with all its instances (the log's and the egress)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = eng.device
+    state = dev._live_state
+    p = dataclasses.replace(dev.params, stop_time=HYB_SIM_S * 10**9)
+    tb = dev.tables
+    ws = lanes.make_workspace(p, DEV)
+    args = kernels.LaneArgs(p, tb, state, ws)
+    kernels.hybrid_window(args, lanes.HybridTurn(lanes.NEVER32, lanes.NEVER32,
+                                                 lanes.NEVER32, True))
+    torch.cuda.synchronize()
+    if not int(ws.ctl[0]):
+        raise AssertionError("time_hybrid: no window to time")
+    rng = np.random.default_rng(SEED + 9)
+    ext_lanes = np.nonzero(eng.external_mask)[0]
+    we = int(lanes.t_join(state.now_we_hi, state.now_we_lo))
+    blk = hybrid_block(p, rng, 64, ext_lanes, we - 1_000_000)
+    snap = (clone(state), clone(ws))
+
+    def restore(sn=snap):
+        copy_into(state, sn[0])
+        copy_into(ws, sn[1])
+
+    k = p.pops_per_iter
+    kernels.lane_slots(args)
+    torch.cuda.synchronize()
+    head = snap[0].q_thi[:, :k] != lanes.NEVER32
+    cnt = {"head": int(head.sum()),
+           "popped": int((head & (state.q_thi[:, :k] == lanes.NEVER32)).sum()),
+           "self": int((ws.self_blk[0] != lanes.NEVER32).sum()),
+           "out": int((ws.out_blk[1] != lanes.NEVER32).sum()), "sx": 0,
+           "b_in": int((state.q_thi != lanes.NEVER32).sum())}
+    mid = (clone(state), clone(ws))
+    kernels.exchange_merge(args)
+    cnt["b_out"] = int((state.q_thi != lanes.NEVER32).sum())
+    nbytes = kernel_bytes(p, tb, ws, cnt)
+    hbytes = hybrid_bytes(p, state, ws, blk)
+    # A's bytes with its external arm: every egress flag, the valid rows
+    nbytes["lane_slots"] += p.egress_slots * 4 + int(ws.eg_valid.sum()) * 48
+    log(f"hybrid timing state: window end {we} ns, valid entries {cnt}, "
+        f"egress rows {int(mid[1].eg_valid.sum())}, valid records "
+        f"{nbytes['valid_records']}")
+    turn = lanes.HybridTurn(lanes.NEVER32, lanes.NEVER32, lanes.NEVER32, False)
+    plan = {
+        "inject_merge": (restore, lambda: kernels.inject_merge(args, blk),
+                         lambda: lanes.inject_merge_plain(p, tb, state, blk),
+                         hbytes["inject_merge"]),
+        "lane_slots:external": (
+            restore, lambda: kernels.lane_slots(args),
+            lambda: lanes.lane_slots_plain(p, tb, state, ws),
+            nbytes["lane_slots"]),
+        "hybrid_window": (
+            restore, lambda: kernels.hybrid_window(args, turn),
+            lambda: lanes.hybrid_window_plain(p, state, ws, turn),
+            hbytes["hybrid_window"]),
+        "append_log:egress": (
+            lambda: (copy_into(state, mid[0]), copy_into(ws, mid[1])),
+            lambda: kernels.append_log(args),
+            lambda: lanes.append_log_plain(p, state, ws),
+            hbytes["append_log:egress"] + nbytes["append_log"]),
+    }
+    out = {}
+    for name, (rst, kern, plain, nb) in plan.items():
+        _event_ms(kern, rst, 5)  # warm up
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                rst()
+                kern()
+            torch.cuda.synchronize()
+        dev_us = sum(
+            getattr(ev, "device_time_total", None)
+            or getattr(ev, "cuda_time_total", 0.0)
+            for ev in prof.key_averages()
+            if kernel_name(ev.key) in HYBRID_PARTS[name])
+        event_ms = _event_ms(kern, rst, 50)
+        plain_ms = float(np.mean([_event_ms(plain, rst, 5) for _ in range(2)]))
+        out[name] = {"ms": dev_us / 1e3 / 20 if dev_us else event_ms,
+                     "event_ms": event_ms, "plain_ms": plain_ms,
+                     "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "bytes": nb}
+        log(f"hybrid {name}: device {out[name]['ms']:.5f} ms/launch "
+            f"(profiler, 20 launches), {event_ms:.5f} ms (events around one "
+            f"launch, mean of 50), plain {plain_ms:.4f} ms, bound "
+            f"{out[name]['bound_ms']:.6f} ms ({nb} B / 3.35 TB/s); "
+            f"nvidia-smi: {smi_line()}")
+    restore()
+    return out
+
+
+@phase("hybrid main path: managed_relay_chains_large at full width, 10 sim s, "
+       "device mode, strict capacity")
+def hybrid_main() -> dict:
+    t0 = time.perf_counter()
+    eng = HybridEngine(hybrid_cfg("main"), log_capacity=HYB_LOG)
+    setup = time.perf_counter() - t0
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    st = eng.sync_stats
+    log(f"hybrid flagship: {res.counters}, rounds {res.rounds}, "
+        f"{res.sim_seconds_per_wall_second:.4f} sim-s/wall-s (loop "
+        f"{res.wall_seconds:.3f} s, with collect {total:.3f} s; engine set-up "
+        f"{setup:.3f} s); "
+        f"device_sync_s {st['device_sync_s']:.3f}, syscall_service_s "
+        f"{st['syscall_service_s']:.3f}; {sync_counts(eng)}; launches "
+        f"{counts}; nvidia-smi: {smi_line()}")
+    if res.process_errors:
+        raise AssertionError(f"process errors: {res.process_errors}")
+    clean = res.counters.get("managed_exit_clean", 0)
+    want = 3 * HYB_CHAINS + 1  # the 75 clients and the origin exit 0
+    if clean != want:
+        raise AssertionError(f"{clean} clean exits, expected {want}")
+    for k in ("managed_tcp_tx_bytes", "managed_tcp_rx_bytes",
+              "tgen_recv_bytes"):
+        if res.counters.get(k, 0) <= 0:
+            raise AssertionError(f"no {k} in {res.counters}")
+    for k in ("inject_merge", "lane_slots", "exchange_merge",
+              "hybrid_window", "append_log"):
+        if counts[k] <= 0:
+            raise AssertionError(f"hybrid flagship: {k} was not launched")
+    if counts["queue_min_window"]:
+        raise AssertionError("the hybrid path ran C's plain mode")
+    return {"counts": counts, "result": res, "sync": dict(st),
+            "rate": res.sim_seconds_per_wall_second, "total_s": total,
+            "setup_s": setup}
+
+
 # ---- parity and the main path ----------------------------------------------
 
 def _switch(up: str, down: str, latency: str, loss: float = 0.0) -> dict:
@@ -2844,7 +3263,7 @@ def stream_parity():
 @phase("examples/stream-tcp.yaml: 60 sim s on the card; a prefix card = CPU")
 def stream_tcp_example():
     """4 clients x 1 MiB into one server over a 40 ms link with 2% loss:
-    every flow completes with retransmissions; over the first 1.5 sim s,
+    every flow completes with retransmissions; over the first 0.75 sim s,
     which hold retransmissions already, card and CPU are equal word for
     word."""
     res, _st = run_engine(GpuEngine(ConfigOptions.from_dict(
@@ -2858,11 +3277,11 @@ def stream_tcp_example():
     runs = {}
     for dev in ("cuda", "cpu"):
         doc = presets.stream_tcp_example_doc()
-        doc["general"]["stop_time"] = "1500ms"
+        doc["general"]["stop_time"] = "750ms"
         t0 = time.perf_counter()
         runs[dev] = run_engine(GpuEngine(ConfigOptions.from_dict(doc),
                                          device=dev), "device")
-        log(f"stream-tcp.yaml 1.5 s {dev}: {runs[dev][0].counters} "
+        log(f"stream-tcp.yaml 0.75 s {dev}: {runs[dev][0].counters} "
             f"({time.perf_counter() - t0:.1f} s)")
     (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
     retx = int(st_c["stream"][0, :, lstr.C_RETRANS].sum())
@@ -2899,7 +3318,7 @@ def full_width_parity():
         return cfg_fn
 
     for name, cfg_fn, log_cap in (
-            ("phold 50 ms", lambda: phold(stop_time="50ms"), 1_000_000),
+            ("phold 25 ms", lambda: phold(stop_time="25ms"), 1_000_000),
             ("lossy flagship 1 s",
              lambda: flagship(sim_seconds=1, packet_loss=0.01), 1_200_000),
             ("mixed mesh 100 ms", mixed_100ms(mixed_mesh), 400_000),
@@ -3614,6 +4033,7 @@ def main() -> int:
     for line in ptxas:
         log(f"  ptxas: {line}")
 
+    native_build()
     check_kernels()
     check_rand_u32()
     check_active_kernels()
@@ -3622,6 +4042,7 @@ def main() -> int:
     check_plane_kernels()
     check_flow_kernels()
     check_sweep_kernels()
+    check_hybrid_kernels()
     times = time_all()
     parity()
     stream_parity()
@@ -3631,17 +4052,22 @@ def main() -> int:
     flow_parity()
     wide_rows()
     fault_parity()
+    hyb_eng = hybrid_parity()
+    hyb_times = time_hybrid(hyb_eng) if hyb_eng is not None else None
     sweeps = sweep_parity()
     sweep_times = time_sweep(times) if sweeps else None
     main_out = main_path()
+    hyb = hybrid_main()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
     launches, rates, drawing, per_path = main_out
-    # this slice's path, the sweeps: their launches count to the main paths'
+    # the sweeps' launches and the hybrid flagship's count to the main paths'
     for batch in sweeps.values():
         for k, v in batch["launches"].items():
             launches[k] = launches.get(k, 0) + v
+    for k, v in hyb["counts"].items():
+        launches[k] = launches.get(k, 0) + v
     smi = smi_line()
     for line in ptxas:  # again here: the start of a long output is cut
         log(f"ptxas: {line}")
@@ -3672,6 +4098,24 @@ def main() -> int:
         log(f"batched step, {cell}: S = 8 {res['step_ms'][8] * 1e3:.3f} us, "
             f"S = 1 {res['step_ms'][1] * 1e3:.3f} us ({smi})")
     log(f"launches per batched step (fleet): {sweep_times['per_step']}")
+    st = hyb["sync"]
+    log(f"hybrid flagship ({HYB_CHAINS} chains, 1,000 peers, {HYB_SIM_S} sim "
+        f"s): {hyb['rate']:.4f} sim-s/wall-s (loop "
+        f"{hyb['result'].wall_seconds:.3f} s: device_sync_s "
+        f"{st['device_sync_s']:.3f}, syscall_service_s "
+        f"{st['syscall_service_s']:.3f}); device_turns {st['device_turns']}, "
+        f"inject_blocks {st['inject_blocks']}, egress_reads "
+        f"{st['egress_reads']}; clean exits "
+        f"{hyb['result'].counters.get('managed_exit_clean')}, managed TCP "
+        f"bytes {hyb['result'].counters.get('managed_tcp_tx_bytes')} / "
+        f"{hyb['result'].counters.get('managed_tcp_rx_bytes')}, "
+        f"tgen_recv_bytes {hyb['result'].counters.get('tgen_recv_bytes')} "
+        f"({smi})")
+    for name, t in hyb_times.items():
+        wrapper = name.split(":")[0]
+        log(f"device us/launch, hybrid {name}: {t['ms'] * 1e3:.3f} (bound "
+            f"{t['bound_ms'] * 1e3:.3f}, plain {t['plain_ms'] * 1e3:.1f}); "
+            f"launches on the hybrid path {hyb['counts'][wrapper]} ({smi})")
     log(f"device us/launch, rand_u32 ({times['rand_u32']['draws']} draws): "
         f"{times['rand_u32']['ms'] * 1e3:.3f} (bound "
         f"{times['rand_u32']['bound_ms'] * 1e3:.3f}, "
@@ -3745,6 +4189,26 @@ def main() -> int:
             row["launches"] = t["launches"]
             row["launches_from"] = "timing phase"
         rows.append(row)
+    # the hybrid path's kernel H, C's hybrid mode, and the new instances of
+    # A (its external arm) and D (its egress instance), timed on the hybrid
+    # flagship's state, with their launches on its main path
+    hyb_replaces = {
+        "inject_merge": "shadow_tpu/backend/lanes.py:3583",
+        "hybrid_window": "shadow_tpu/backend/lanes.py:3647",
+        "lane_slots:external": "shadow_tpu/backend/lanes.py:944",
+        "append_log:egress": "shadow_tpu/backend/lanes.py:2219",
+    }
+    for name, rep_ in hyb_replaces.items():
+        t = hyb_times[name]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "shadow_tpu_torch/csrc/lanes.cu", "replaces": rep_,
+            "launches": hyb["counts"][name.split(":")[0]],
+            "launches_from": "the hybrid main path",
+            "max_abs_err": MAX_ERR[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None,
+        })
     print(json.dumps({"kernels": rows}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,9 @@ the port, and compares the two field by field; the port itself never
 touches JAX.  Fields the port does not carry are ignored.
 
 Every field must arrive in the dtype the port keeps — int32, the int64
-log and loss thresholds, the bool ``cd_dropping``, ``lane_stream``,
-``lane_pcap`` and ``flow_pcap`` — and any other dtype
-raises, with these mappings made explicit:
+log, egress buffer and loss thresholds, the bool ``cd_dropping``,
+``lane_stream``, ``lane_pcap``, ``flow_pcap`` and ``lane_external`` — and
+any other dtype raises, with these mappings made explicit:
 
 - the reference keeps its loss thresholds as ``thresh_u32`` (uint32, the
   low word) and ``thresh_all`` (bool, loss 1.0), per node pair and per
@@ -19,8 +19,9 @@ raises, with these mappings made explicit:
   uint32.  ``thresh = 2**32`` where ``thresh_all``, else ``thresh_u32``;
 - the reference's ``()`` placeholder of a field its run does not use (the
   stream fields ``q_phi``, ``q_plo``, ``stream`` without streams, the
-  ``nb_*`` counters without netobs — ``np.asarray(())`` is an empty
-  float64 array) is the port's empty int32 tensor;
+  ``nb_*`` counters without netobs, the hybrid backend's ``egress*`` and
+  ``lane_external`` off it — ``np.asarray(())`` is an empty float64
+  array) is the port's empty int32 tensor;
 - the reference's ``StreamState(cl, sv)`` arrives stacked, ``[2, S, F]``
   (what ``np.asarray`` makes of it), which is the port's ``stream``;
 - on a tiered run ``stream`` arrives as the three arrays of the
@@ -43,13 +44,19 @@ from .lanes_stream import TierState
 _DTYPES = {"cd_dropping": torch.bool, "log": torch.int64,
            "thresh": torch.int64, "flow_thresh": torch.int64,
            "lane_stream": torch.bool, "lane_pcap": torch.bool,
-           "flow_pcap": torch.bool}
+           "flow_pcap": torch.bool, "egress": torch.int64,
+           "lane_external": torch.bool}
+# fields whose placeholder (the reference's () off the hybrid backend) is
+# the port's empty int32 tensor, whatever dtype the field has on it
+_INT32_PLACEHOLDER = frozenset({"egress", "lane_external"})
 _NP = {torch.int32: np.int32, torch.int64: np.int64, torch.bool: np.bool_}
 
 
 def _tensor(name: str, arr, device) -> torch.Tensor:
     dtype = _DTYPES.get(name, torch.int32)
     a = np.asarray(arr)
+    if a.size == 0 and name in _INT32_PLACEHOLDER:
+        dtype = torch.int32  # off the hybrid backend
     if a.size == 0 and a.dtype == np.float64:  # the reference's ()
         a = a.astype(_NP[dtype])
     if a.dtype != _NP[dtype]:

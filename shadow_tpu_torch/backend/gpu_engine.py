@@ -30,7 +30,7 @@ from ..config.options import ConfigOptions, LaneCompatError
 from ..core import time as stime
 from ..faults import BackendStallError
 from ..faults.overlay import build_overlay
-from ..models.base import create_model
+from ..models.base import builtin_models, create_model
 from ..models.phold import Phold
 from ..models.tcpflow import StreamClient, StreamServer
 from ..models.tgen import Ping, TgenClient, TgenMesh, TgenServer
@@ -47,6 +47,9 @@ from .setup import build_world
 
 NEVER = stime.NEVER
 _I32MAX = (1 << 31) - 1
+# the models with a lane law (kernel A): the lane engine runs these
+_LANE_MODELS = frozenset({"tgen-mesh", "tgen-client", "tgen-server", "phold",
+                          "ping", "stream-client", "stream-server"})
 
 
 def _event_rows(rows, n_rows: int, width: int, t, kind, src, seq, size):
@@ -92,14 +95,26 @@ class GpuEngine:
         log_capacity: Optional[int] = None,
         strict_capacity: bool = True,
         device=None,
+        external=None,
+        world=None,
     ) -> None:
+        """``external``: an optional [N] bool mask of EXTERNAL hosts (the
+        hybrid backend, ``backend/hybrid.py``): their apps run on the host
+        CPU, and their lanes keep only the network's down side (down
+        bucket, CoDel, arrival queue), exchanging traffic with the host
+        through injection blocks and the egress buffer.  ``world``: a
+        prebuilt ``setup.build_world`` tuple (the hybrid engine passes its
+        own, so the topology is built once)."""
         self.device = default_device(device)
         cfg.validate()
         self.cfg = cfg
         self.strict_capacity = strict_capacity
         n = len(cfg.hosts)
+        ext_mask = (np.zeros(n, dtype=bool) if external is None
+                    else np.asarray(external, dtype=bool))
+        self._external = ext_mask
         graph, self.ips, self.dns, self.routing, bw_up, bw_dn, runahead = (
-            build_world(cfg))
+            world if world is not None else build_world(cfg))
         # fault schedule: versioned latency and loss tables, uploaded at the
         # epoch boundaries; the run is segmented there, so no window
         # straddles a fault (the reference's tpu_engine.py:262-289)
@@ -139,9 +154,23 @@ class GpuEngine:
             else:
                 model[hid] = lanes.M_TGEN_SERVER
 
+        models = builtin_models()
         for hid, hopt in enumerate(cfg.hosts):
-            if not hopt.processes:
-                continue  # M_NONE: receives, counts nothing
+            if ext_mask[hid] or not hopt.processes:
+                # M_NONE: receives, counts nothing; an external host's apps
+                # run on the host side, its lane only receives
+                continue
+            for p in hopt.processes:
+                if p.path not in models:
+                    raise LaneCompatError(
+                        f"host {hopt.hostname!r}: process {p.path!r} is a "
+                        "managed binary; run the config on the hybrid engine "
+                        "(backend.hybrid.HybridEngine)")
+                if p.path not in _LANE_MODELS:
+                    raise LaneCompatError(
+                        f"host {hopt.hostname!r}: model {p.path!r} has no "
+                        "lane law in the port yet (use the shadow_tpu "
+                        "package)")
             apps = [(p, create_model(p.path, list(p.args)))
                     for p in hopt.processes]
             for _p, a in apps:
@@ -275,8 +304,10 @@ class GpuEngine:
         # the untiered path: a traced run drops the tier, an equivalent
         # execution with the same events
         flowtrace = bool(cfg.experimental.flowtrace)
+        # a hybrid run keeps the untiered path too: host injections land in
+        # [N] rows, which the tier would orphan for stream lanes
         tiered = (one_to_one and bool(cfg.experimental.tpu_stream_tiered)
-                  and not flowtrace)
+                  and not flowtrace and not ext_mask.any())
         # wide stream co-pop is sound only when every possible window ends
         # before RTO_MIN (a DELIVERY pop then inserts nothing same-window);
         # the dynamic window never exceeds the largest link latency
@@ -289,6 +320,9 @@ class GpuEngine:
         # pcap rides the device log: a capturing host's sends become
         # PCAP_TX records, its deliveries are the DELIVERED records
         lane_pcap = np.array([h.pcap_enabled for h in cfg.hosts], dtype=bool)
+        # external hosts' captures are written host-side (the host knows the
+        # payload bytes); the device captures lane-model hosts only
+        lane_pcap = lane_pcap & ~ext_mask
         pcap_any = bool(lane_pcap.any())
         if pcap_any and log_capacity == 0:
             raise LaneCompatError(
@@ -332,6 +366,18 @@ class GpuEngine:
             flow_thresh=flow_thresh,
             flow_all=flow_all,
             flow_seed=cfg.general.seed,
+            external_any=bool(ext_mask.any()),
+            # worst case: every external lane pops a full slot row of
+            # packets in one iteration; a turn stops while the egress buffer
+            # still has that much room, so it never overflows
+            ext_per_iter=(int(ext_mask.sum())
+                          * cfg.experimental.tpu_events_per_round),
+            egress_capacity=(max(1024, 4 * int(ext_mask.sum())
+                                 * cfg.experimental.tpu_events_per_round)
+                             if ext_mask.any() else 0),
+            inject_batch=(cfg.experimental.tpu_inject_batch
+                          if ext_mask.any() else 0),
+            inject_cross=capacity if ext_mask.any() else 0,
         )
 
         up = np.array([bucket_params(int(b)) for b in bw_up], dtype=np.int64)
@@ -452,6 +498,8 @@ class GpuEngine:
             lane_ep_start=t32(ep_start), lane_ep_rows=t32(ep_rows),
             lane_pcap=torch.as_tensor(lane_pcap, device=self.device),
             flow_pcap=torch.as_tensor(lane_pcap[el], device=self.device),
+            lane_external=(torch.as_tensor(ext_mask, device=self.device)
+                           if ext_mask.any() else t32(np.zeros(0))),
         )
         self._up_burst = up[:, 1]
         self._dn_burst = dn[:, 1]
@@ -496,6 +544,11 @@ class GpuEngine:
             return torch.zeros(shape if p.flowtrace else (0,),
                                dtype=torch.int32, device=dev)
 
+        def eg(v=None):  # the egress scalars, empty off the hybrid backend
+            if p.external_any and v is not None:
+                return scalar(v)
+            return torch.zeros(0, dtype=torch.int32, device=dev)
+
         if p.stream_tiered:
             stream = self._initial_tier(t_cols)
         elif p.stream_present:
@@ -535,6 +588,11 @@ class GpuEngine:
             nb_hist=nb(lanes.NB_HIST_BUCKETS), nb_win=nb(),
             fl_buf=fl(p.flow_capacity, ftr.FT_COLS), fl_count=fl(),
             fl_lost=fl(),
+            egress=(torch.zeros((p.egress_capacity, 6), dtype=torch.int64,
+                                device=dev)
+                    if p.external_any else eg()),
+            egress_count=eg(0), egress_lost=eg(0),
+            egress_min_hi=eg(lanes.NEVER32), egress_min_lo=eg(lanes.NEVER32),
         )
 
     def _initial_tier(self, cols) -> lstr.TierState:
@@ -555,6 +613,21 @@ class GpuEngine:
         tier.v[lstr.TV_LOCAL_SEQ] = torch.as_tensor(
             self._local_seq0[el].astype(np.int32), device=dev)
         return tier
+
+    def first_event_time(self) -> int:
+        """The earliest initial event's time (NEVER when none): the hybrid
+        window loop's first device bound."""
+        t = self._init_cols[1]
+        return int(t.min()) if t.size else NEVER
+
+    def make_hybrid_fns(self, state: lanes.LaneState):
+        """The hybrid backend's device entry point, bound to ``state``
+        (updated in place) and this engine's tables: the
+        ``lanes._build_hybrid_run`` turn function.  Kernel H runs inside it,
+        once per staged block: there is no standalone injection entry."""
+        if not self.params.external_any:
+            raise ValueError("make_hybrid_fns needs external lanes")
+        return lanes._build_hybrid_run(self.params, self.tables, state)
 
     def current_runahead(self) -> int:
         """The live window width: the static runahead, or with dynamic
@@ -773,7 +846,8 @@ class GpuEngine:
         in_sorted = delivered[np.argsort(delivered[:, 2], kind="stable")]
         root = Path(self.cfg.general.data_directory) / "hosts"
         for hid, hopt in enumerate(self.cfg.hosts):
-            if not hopt.pcap_enabled:
+            if not hopt.pcap_enabled or self._external[hid]:
+                # external (hybrid) hosts' files are written host-side
                 continue
             w = PcapWriter(root / hopt.hostname / "eth0.pcap",
                            snaplen=hopt.pcap_capture_size)

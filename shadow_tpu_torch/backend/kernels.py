@@ -1,7 +1,9 @@
 """The lane engine's CUDA kernels: build, binding and wrappers.
 
-``csrc/lanes.cu`` holds the seven lane kernels for Hopper (``sm_90a``), the
-threefry launcher and the shared-memory query behind a plain C interface.  At first use on the card it is compiled with ``nvcc`` into
+``csrc/lanes.cu`` holds the eight lane kernels for Hopper (``sm_90a``) —
+A to G and the hybrid backend's H, with C's hybrid mode beside its plain
+one — the threefry launcher and the shared-memory query behind a plain C
+interface.  At first use on the card it is compiled with ``nvcc`` into
 ``build/shadow_tpu_torch/`` at the root of the checkout, keyed by a hash of
 the source, and loaded with ``ctypes``.  Nothing is built or loaded when
 this module is imported.
@@ -64,7 +66,8 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "rec_tspc", "rec_tbpc", "rec_ttail", "flowtrace", "ft_cap",
                "ft_thresh", "ft_all", "ft_seed", "fl_split", "fl_slots",
                "fl_ss", "fl_bs", "n_fl", "merge_global", "split_global",
-               "tier_global")
+               "tier_global", "ext_any", "eg_cap", "room_floor", "n_eg",
+               "inj_b", "cxi", "inject_global")
 
 
 class LaneBufs(ctypes.Structure):
@@ -126,6 +129,14 @@ def _lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.queue_min_window.argtypes = [vp, vp, c_int, c_int, vp]
     lib.queue_min_window.restype = ctypes.c_int
+    # (host array, device array, scenarios, first, ext_hi, ext_lo,
+    # ext_used, stream)
+    lib.hybrid_window.argtypes = [vp, vp, c_int, c_int, c_int, c_int, c_int,
+                                  vp]
+    lib.hybrid_window.restype = ctypes.c_int
+    # (host array, device array, scenarios, injection block, stream)
+    lib.inject_merge.argtypes = [vp, vp, c_int, vp, vp]
+    lib.inject_merge.restype = ctypes.c_int
     lib.smem_optin.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.smem_optin.restype = ctypes.c_int
     u32 = ctypes.c_uint32
@@ -181,7 +192,10 @@ class LaneArgs:
     record groups' starts; ``flowtrace`` (the flow records, at the flow
     groups' starts ``fl_*``, and the ring), with the sampling law's
     ``ft_thresh``, ``ft_all`` and ``ft_seed`` (mod 2**32, all the hash
-    reads of it).  On the card each merge takes the path
+    reads of it).  The hybrid backend's sizes: ``ext_any``, the egress
+    buffer's ``eg_cap`` rows and the ``room_floor`` a turn stops at, A's
+    ``n_eg`` egress candidates, the injection block's ``inj_b`` rows and
+    the ``cxi`` a lane takes from one.  On the card each merge takes the path
     ``lanes.merge_in_shared`` gives its rows at the device's opt-in limit:
     ``*_global`` marks the merges that run in ``m_scratch``."""
 
@@ -200,6 +214,7 @@ class LaneArgs:
         n_ep = 2 * sf if sp else 2
         tier_n = p.tier_layout[-1]
         nb = p.netobs
+        ext = p.external_any
         shapes = {
             **{f: (n, c) for f in ("q_thi", "q_tlo", "q_auxh", "q_auxl",
                                    "q_size")},
@@ -229,18 +244,28 @@ class LaneArgs:
             "out_blk": (6, k, n), "sx_blk": (8, max(pl.stream_entries, 1)),
             "recs": (n_rec, 6), "rec_valid": (n_rec,),
             "x_cnt": (n,), "x_start": (n,), "x_fill": (n,),
-            "x_order": (pl.exchange_entries,),
             "tier_blk": (7, max(tier_n, 1)),
             "fl_buf": (p.flow_capacity, lanes.ftr.FT_COLS) if p.flowtrace
             else (0,),
             **{f: () if p.flowtrace else (0,)
                for f in ("fl_count", "fl_lost")},
             "fl_recs": (n_fl, lanes.FLOW_REC_WORDS), "fl_valid": (n_fl,),
+            "x_order": (max(pl.exchange_entries, p.inject_batch),),
+            # the hybrid backend's egress (empty [0] int32 off it)
+            "egress": (p.egress_capacity, 6) if ext else (0,),
+            **{f: () if ext else (0,)
+               for f in ("egress_count", "egress_lost", "egress_min_hi",
+                         "egress_min_lo")},
+            "lane_external": (n,) if ext else (0,),
+            "eg_recs": (max(p.egress_slots, 1), 6),
+            "eg_valid": (max(p.egress_slots, 1),), "hyb": (5,),
         }
         dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
                   "thresh": i64, "flow_thresh": i64,
                   "lane_stream": torch.bool, "lane_pcap": torch.bool,
-                  "flow_pcap": torch.bool}
+                  "flow_pcap": torch.bool, "eg_recs": i64, "hyb": i64}
+        if ext:
+            dtypes.update(egress=i64, lane_external=torch.bool)
         tensors = {**s._asdict(), **tb._asdict(), **ws._asdict()}
         if tiered:
             tensors["stream"] = s.stream.flows
@@ -293,6 +318,10 @@ class LaneArgs:
             merge_global=int(in_global.get("merge", False)),
             split_global=int(in_global.get("stream merge", False)),
             tier_global=int(in_global.get("tier merge", False)),
+            ext_any=int(ext), eg_cap=p.egress_capacity,
+            room_floor=p.egress_capacity - p.ext_per_iter,
+            n_eg=p.egress_slots, inj_b=p.inject_batch, cxi=p.inject_cap,
+            inject_global=int(in_global.get("inject merge", False)),
         )
 
     @functools.cached_property
@@ -305,7 +334,8 @@ class LaneArgs:
 # across the scenarios of a sweep by congruence, checked here
 _LAUNCH_FIELDS = ("n", "c", "k", "cx", "sw", "words", "n_x", "s_flows",
                   "tier_s", "ks", "c2", "flowtrace", "merge_global",
-                  "split_global", "tier_global")
+                  "split_global", "tier_global", "ext_any", "n_eg", "inj_b",
+                  "cxi", "inject_global")
 
 
 class SweepArgs:
@@ -527,9 +557,54 @@ def queue_min_window(args, advance: bool) -> None:
         queue_min_window.launches += 1
 
 
+def hybrid_window(args, turn: "lanes.HybridTurn") -> None:
+    """Kernel C in its hybrid mode: one step of a hybrid turn's window law.
+
+    Replaces ``shadow_tpu/backend/lanes.py:3647-3754``
+    ``_build_hybrid_run``: its ``cond``, evaluated before each iteration,
+    the window law of its ``body`` with the host side's bound in the
+    global min, the egress reset and the ``ext_used`` fold at the turn's
+    start, and the packed ``[5]`` readback.  The same block as
+    ``queue_min_window`` (the head reduction is shared); the host side's
+    next event time and used latency arrive as kernel parameters, so
+    forming them reads nothing from the device.  A step whose stop
+    condition fails clears ``live`` and writes the readback; the gated
+    steps after it change nothing.  Bound by bytes: the N head pairs, as
+    C."""
+    if _launch("hybrid_window", args,
+               lambda m: lanes.hybrid_window_plain(m.p, m.s, m.ws, turn),
+               int(turn.first), turn.ext_hi, turn.ext_lo, turn.ext_used):
+        hybrid_window.launches += 1
+
+
+def inject_merge(args, blk: torch.Tensor) -> None:
+    """Kernel H: merge one injection block into the lane queues.
+
+    Replaces ``shadow_tpu/backend/lanes.py:3583`` ``_inject_merge`` (its
+    sort of the ``[B]`` block by destination, the per-lane segments of
+    fan-in Cxi = C, the keyed 4-word merge of ``[C + Cxi]`` rows with the
+    stream payload words riding along, the tail and the sheds into
+    ``n_queue`` and ``nb_shed``).  ``blk`` is ``[INJ_WORDS, B]`` int32 on
+    the state's device.  B's counting sort (count, one-block scan, place)
+    groups the block by destination; one block per lane ranks its group by
+    (time, aux, index), takes the first Cxi, and ranks ``[queue C |
+    injected Cxi]`` in shared memory with B's keyed merge (no overflow
+    records: the reference writes none here).  Bound by bytes: the [N, C]
+    queue words read and written once, the block read once.  Not gated
+    on ``live``: it runs before the turn's first step arms it."""
+    lanes_p = args.p if isinstance(args, LaneArgs) else args.members[0].p
+    _check("injection block", blk, args.device, torch.int32,
+           (lanes.INJ_WORDS, lanes_p.inject_batch))
+    if _launch("inject_merge", args,
+               lambda m: lanes.inject_merge_plain(m.p, m.tb, m.s, blk),
+               blk.data_ptr()):
+        inject_merge.launches += 1
+
+
 def append_log(args) -> None:
-    """Kernel D: compaction of the iteration's records into the log, and
-    of its flow records into the flowtrace ring.
+    """Kernel D: compaction of the iteration's records into the log, of its
+    flow records into the flowtrace ring and, on a hybrid run, of kernel
+    A's egress candidates into the egress buffer.
 
     Replaces ``shadow_tpu/backend/lanes.py:2056`` ``_append_log`` and
     ``:2117`` ``_append_flow`` (with ``:2160`` ``_flow_group`` and
@@ -540,7 +615,11 @@ def append_log(args) -> None:
     and only the valid rows are copied.  One block scans tile by tile,
     which keeps the reference's row order with no second pass but runs on
     one SM — far above its bound, and only on logging or tracing runs
-    (PERF.md)."""
+    (PERF.md).  The egress instance (``lanes.py:2219`` ``_append_egress``,
+    called from ``_process_slot`` at ``:944-959``) is a third block: A's
+    ``[K*N]`` candidates in slot-major order, the reference's append order,
+    into the ``[E, 6]`` int64 buffer, and a block min of the DELIVERED
+    times into ``egress_min``."""
     if _launch("append_log", args,
                lambda m: lanes.append_log_plain(m.p, m.s, m.ws)):
         append_log.launches += 1
@@ -586,7 +665,8 @@ def rand_u32(seed: int, stream: torch.Tensor,
 
 
 WRAPPERS = (lane_slots, exchange_merge, stream_rows_merge, stream_tier,
-            tier_merge, queue_min_window, append_log, rand_u32)
+            tier_merge, queue_min_window, hybrid_window, append_log,
+            inject_merge, rand_u32)
 
 
 def reset_launches() -> None:

@@ -41,6 +41,21 @@ six kernels (``kernels.py`` binds their CUDA versions):
 - D ``append_log``: compaction of the iteration's records into the log
   and, with flowtrace, of its flow records into the ring.
 
+The hybrid backend (``backend/hybrid.py``: managed binaries on the host
+CPU, every packet here) marks its hosts' lanes EXTERNAL and adds:
+
+- H ``inject_merge``: the host's staged sends, a block of B PACKET
+  arrivals, merged into the lane queues (once per staged block, before a
+  turn);
+- in A, the external arm: a packet popped at an external lane neither
+  delivers inline nor inserts a DELIVERY; its outcome (DELIVERED or a
+  CoDel drop) is an egress candidate, which D compacts into the egress
+  buffer as a third instance, with the earliest delivery's time;
+- C's hybrid mode (``HybridTurn``): the turn's window law, bounded by the
+  host side's next event and the earliest egressed delivery, stopping
+  after the first window the host takes part in, and the turn's packed
+  ``[5]`` readback (``_build_hybrid_run``).
+
 Three observation planes ride these kernels, all static and all free when
 off: pcap (a capturing host's sends become PCAP_TX records in the log, at
 their departure; ``GpuEngine`` writes the capture files from the log),
@@ -261,6 +276,18 @@ class LaneState(NamedTuple):
     fl_buf: torch.Tensor
     fl_count: torch.Tensor  # int32 scalar: rows appended (kept or not)
     fl_lost: torch.Tensor  # int32 scalar: rows lost on overflow
+    # the hybrid backend's egress (LaneParams.external_any; empty [0] int32
+    # tensors otherwise, where the reference holds ()): the outcomes of the
+    # packets that arrived at EXTERNAL lanes (host-executed hosts) this
+    # turn, as [E, 6] int64 rows (t_deliver, src, dst, seq, size, DELIVERED
+    # or DROP_CODEL) in the reference's order, their count, the rows lost
+    # past E, and the earliest DELIVERED time as a pair (the window law's
+    # bound on the host side's pending events)
+    egress: torch.Tensor
+    egress_count: torch.Tensor  # int32 scalar
+    egress_lost: torch.Tensor  # int32 scalar
+    egress_min_hi: torch.Tensor  # int32 scalar pair
+    egress_min_lo: torch.Tensor
 
 
 class RecGroups(NamedTuple):
@@ -359,10 +386,33 @@ class LaneParams:
     flow_thresh: int = 0
     flow_all: bool = False
     flow_seed: int = 0
+    # the hybrid backend (backend/hybrid.py): some lanes are EXTERNAL — their
+    # apps (real managed binaries) run on the host CPU while their network
+    # down side (down bucket, CoDel, arrival queue) stays here.  Packets
+    # arriving there leave through the egress buffer (E = egress_capacity
+    # rows; a turn stops before fewer than ext_per_iter rows, one
+    # iteration's worst case, are left); host sends come in as injection
+    # blocks of inject_batch rows, each lane taking up to inject_cross (0 =
+    # C) of a block
+    external_any: bool = False
+    egress_capacity: int = 0
+    ext_per_iter: int = 0
+    inject_batch: int = 0
+    inject_cross: int = 0
 
     @property
     def cross_cap(self) -> int:
         return min(self.cross_capacity, self.capacity) or self.capacity
+
+    @property
+    def inject_cap(self) -> int:
+        """Cxi: the injected rows a lane takes from one block."""
+        return min(self.inject_cross or self.capacity, self.capacity)
+
+    @property
+    def egress_slots(self) -> int:
+        """Egress candidates an iteration: one per popped slot, [K, N]."""
+        return self.pops_per_iter * self.n_lanes if self.external_any else 0
 
     @functools.cached_property
     def lane(self) -> "LaneParams":
@@ -561,6 +611,17 @@ class LaneParams:
             raise ValueError(
                 f"flowtrace requires flow_capacity > 0 (got {self.flow_capacity})"
             )
+        if self.external_any and self.stream_tiered:
+            # the reference's rule: injections land in [N] rows, which the
+            # tier would orphan for stream lanes
+            raise ValueError("the hybrid backend requires stream_tiered=False")
+        if self.external_any and (
+                self.inject_batch < 1
+                or self.egress_capacity <= self.ext_per_iter):
+            raise ValueError(
+                f"the hybrid backend needs inject_batch >= 1 (got "
+                f"{self.inject_batch}) and egress_capacity > ext_per_iter "
+                f"(got {self.egress_capacity} <= {self.ext_per_iter})")
         if self.stream_tiered and not (
                 1 <= self.stream_pops <= self.stream_capacity):
             raise ValueError(
@@ -630,6 +691,9 @@ class LaneTables(NamedTuple):
     # bool, the placeholders' lanes when no stream model is present)
     lane_pcap: torch.Tensor
     flow_pcap: torch.Tensor
+    # the hybrid backend: which lanes are EXTERNAL, [N] bool (empty [0]
+    # int32 otherwise, where the reference holds ())
+    lane_external: torch.Tensor
 
 
 class Workspace(NamedTuple):
@@ -685,6 +749,14 @@ class Workspace(NamedTuple):
     # the merges' rows where one is too wide for a block's shared memory
     # (merge_scratch_words; [0] when every row fits, and on the CPU)
     m_scratch: torch.Tensor
+    # the hybrid backend ([1, 6] / [1] / [5] otherwise): kernel A's egress
+    # candidates, [K*N, 6] int64 rows (slot-major, the reference's append
+    # order) and their flags, which D compacts into the state's egress;
+    # and the turn's packed readback, int64 [5] by the HYB_* indices,
+    # which C writes when the turn stops (HYB_DEV_WE < 0 until then)
+    eg_recs: torch.Tensor
+    eg_valid: torch.Tensor
+    hyb: torch.Tensor
 
 
 # bytes of static shared memory the merge kernels keep beside a row
@@ -707,6 +779,9 @@ def merge_rows(p: LaneParams) -> dict:
     indices), E's ``[C | W_s]`` rows, G's ``[C2 | W_t]`` rows."""
     pl = p.lane
     out = {"merge": (p.n_lanes, pl.merge_width, pl.words, 4 * pl.cross_cap)}
+    if p.external_any:
+        out["inject merge"] = (p.n_lanes, p.capacity + p.inject_cap,
+                               pl.words, 0)
     if p.split:
         out["stream merge"] = (2 * p.s_flows,
                                p.capacity + p.stream_row_width, 7, 0)
@@ -744,6 +819,7 @@ def make_workspaces(p: LaneParams, device, count: int = 1) -> WorkspaceBatch:
     n, k = p.n_lanes, p.pops_per_iter
     n_rec = p.n_records if p.log_capacity else 1
     n_fl = p.flow_offsets.end if p.flowtrace else 1
+    n_eg = max(p.egress_slots, 1)
     scratch = 0
     if torch.device(device).type == "cuda":
         from . import kernels
@@ -758,10 +834,12 @@ def make_workspaces(p: LaneParams, device, count: int = 1) -> WorkspaceBatch:
         ctl=ctl, self_blk=z(pl.words, n, pl.self_width), out_blk=z(6, k, n),
         sx_blk=z(8, max(pl.stream_entries, 1)),
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
-        x_cnt=z(n), x_start=z(n), x_fill=z(n), x_order=z(pl.exchange_entries),
+        x_cnt=z(n), x_start=z(n), x_fill=z(n),
+        x_order=z(max(pl.exchange_entries, p.inject_batch)),
         tier_blk=z(7, max(p.tier_layout[-1], 1)),
         fl_recs=z(n_fl, FLOW_REC_WORDS), fl_valid=z(n_fl),
         m_scratch=z(scratch),
+        eg_recs=z(n_eg, 6, dtype=i64), eg_valid=z(n_eg), hyb=z(5, dtype=i64),
     )
     return WorkspaceBatch(ctl, [Workspace(*(t[i] for t in batch))
                                 for i in range(count)])
@@ -1068,7 +1146,8 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
     a lane captures and the log is on: a PCAP_TX record per capturing
     lane's send, at its departure, before the loss draw), and with
     flowtrace its seven flow groups (``_put_flows`` arguments; ``None``
-    when off).  Mirrors the reference's ``_process_slot`` for the ported
+    when off), and on a hybrid run its egress candidates (flags and rows;
+    ``None`` otherwise).  Mirrors the reference's ``_process_slot`` for the ported
     models."""
     n = p.n_lanes
     thi, tlo = col["thi"], col["tlo"]
@@ -1108,12 +1187,26 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
         v["nb_rxb"] = v["nb_rxb"] + torch.where(deliver, size, 0)
     # passive lanes consume the delivery inline: each counting app on the
     # host adds the size (recv_mult apps; 0 on empty hosts).  Active lanes
-    # get a DELIVERY self-insert keyed by the packet's (src, seq)
+    # get a DELIVERY self-insert keyed by the packet's (src, seq).  EXTERNAL
+    # lanes (the hybrid backend) do neither: the packet's outcome, CoDel
+    # drops too, leaves through the egress buffer, and the host side queues
+    # the delivery (or applies the same passive elision) at t_deliver
+    inline = passive
+    eg = None
+    if p.external_any:
+        ext = tb.lane_external
+        inline = passive & ~ext
+        eg_valid = is_pkt & ext
+        eg = eg_valid, _rec_rows(eg_valid, t_join(td_hi, td_lo), src, lanes,
+                                 seq, size, torch.where(codel_drop, DROP_CODEL,
+                                                        DELIVERED))
     v["recv_bytes"] = v["recv_bytes"] + torch.where(
-        deliver & passive, size * tb.recv_mult, 0)
+        deliver & inline, size * tb.recv_mult, 0)
     ins = None  # a passive-only run has no insert channel
     if not p.all_passive:
         ins_valid = deliver & ~passive
+        if p.external_any:
+            ins_valid = ins_valid & ~tb.lane_external
         ins = (
             torch.where(ins_valid, td_hi, NEVER32),
             torch.where(ins_valid, td_lo, NEVER32),
@@ -1260,7 +1353,7 @@ def _process_slot(p: LaneParams, tb: LaneTables, v: dict, col: dict,
                (ar & codel_drop, td_hi, td_lo, ftr.FT_DROP, *arv,
                 ftr.CAUSE_CODEL),
                (ar & ~codel_drop, td_hi, td_lo, ftr.FT_DELIVERY, *arv, 0)]
-    return ins, arm, out, rec, rec_valid, pc, ft
+    return ins, arm, out, rec, rec_valid, pc, ft, eg
 
 
 class StreamSends(NamedTuple):
@@ -1564,7 +1657,8 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
     the co-pop rule and run the slot law on each, in slot order.  Consumed
     slots become NEVER in place; the state vectors are updated in place;
     the self, outbound, stream and record blocks go to ``ws``, with
-    flowtrace the flow groups of A's part of the flow buffer.  With netobs,
+    flowtrace the flow groups of A's part of the flow buffer, on a hybrid
+    run the egress candidates of the external lanes.  With netobs,
     the popped PACKETs join the window's count.  On a tiered run the lanes
     run without the stream models."""
     if not int(ws.ctl[0]):
@@ -1612,6 +1706,9 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         ws.self_blk[4:, :, arm0 + j] = 0
         ws.out_blk[:, j] = torch.tensor(
             _empty_entries(n)[:6], dtype=i32, device=lanes.device)[:, None]
+        if p.external_any:
+            ws.eg_valid[j * n:(j + 1) * n] = 0
+            ws.eg_recs[j * n:(j + 1) * n] = 0
         if p.log_capacity:
             for r0 in (rg.slots, rg.pc)[:2 if p.pcap_any else 1]:
                 ws.recs[r0 + j * n: r0 + (j + 1) * n] = 0
@@ -1624,8 +1721,11 @@ def lane_slots_plain(p: LaneParams, tb: LaneTables, s: LaneState,
         }
         if p.stream_present:
             col["phi"], col["plo"] = s.q_phi[:, j], s.q_plo[:, j]
-        ins, arm, out, rec, rec_valid, pc, ft = _process_slot(
+        ins, arm, out, rec, rec_valid, pc, ft, eg = _process_slot(
             p, tb, v, col, s.now_we_hi, s.now_we_lo, lanes, lw)
+        if eg is not None:
+            ws.eg_valid[j * n:(j + 1) * n] = eg[0].to(i32)
+            ws.eg_recs[j * n:(j + 1) * n] = eg[1]
         for g, grp in enumerate(ft or ()):  # the [N] groups, [K, N] each
             _put_flows(ws, fg.slots + (g * k + j) * n, *grp)
         for w in range(p.words):
@@ -2093,6 +2193,90 @@ def flush_hist(s: LaneState, enable) -> None:
     s.nb_win.copy_(torch.where(do, 0, s.nb_win))
 
 
+class HybridTurn(NamedTuple):
+    """What a hybrid turn's window law takes from the host (kernel C's
+    parameters in its hybrid mode): the host side's next event time as a
+    pair (NEVER32, NEVER32 when none), its smallest used latency (NEVER32
+    when none), and whether this is the turn's first step."""
+    ext_hi: int
+    ext_lo: int
+    ext_used: int
+    first: bool
+
+
+# indices into the turn's packed readback (Workspace.hyb; the reference's
+# HYB_* of make_hybrid_fn)
+HYB_LANE_MIN = 0
+HYB_DEV_WE = 1
+HYB_MIN_USED = 2
+HYB_EGRESS_COUNT = 3
+HYB_EGRESS_LOST = 4
+
+
+def hybrid_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
+                        turn: HybridTurn) -> None:
+    """Kernel C's hybrid mode, plain (the reference's ``_build_hybrid_run``
+    loop: its ``cond`` and the window law of its ``body``).  The turn's
+    first step resets the egress count, losses and min (the host consumed
+    the last turn's rows), folds the host side's used latency into
+    ``min_used_lat`` (dynamic runahead) and arms the turn.  Each step then
+    evaluates the reference's stop condition on the state as it stands:
+    room in the egress buffer for one more iteration, and either a lane
+    head inside the current window or a fresh window the host does not
+    take part in in the current one — where ``ext_bound = min(the host's
+    next event, the earliest egressed delivery)`` joins the lane heads in
+    the global min.  When it holds, the window law opens the next window
+    at the global min (a round) as the device loop does; when it fails,
+    the turn stops: ``live`` goes to 0, so the rest of the steps leave
+    every word alone, and the packed readback is written."""
+    if turn.first:
+        ws.ctl[0] = 1
+        if p.dynamic_runahead:
+            s.min_used_lat.clamp_(max=turn.ext_used)
+        s.egress_count.zero_()
+        s.egress_lost.zero_()
+        s.egress_min_hi.fill_(NEVER32)
+        s.egress_min_lo.fill_(NEVER32)
+        ws.hyb[HYB_DEV_WE] = -1
+    if not int(ws.ctl[0]):
+        return
+    mh, ml = _pairs.pair_min_lanes(s.q_thi[:, 0], s.q_tlo[:, 0])
+    eh = torch.tensor(turn.ext_hi, dtype=i32, device=mh.device)
+    el = torch.tensor(turn.ext_lo, dtype=i32, device=mh.device)
+    lt = pair_lt(eh, el, s.egress_min_hi, s.egress_min_lo)
+    bh = torch.where(lt, eh, s.egress_min_hi)
+    bl = torch.where(lt, el, s.egress_min_lo)
+    stop_hi, stop_lo = p.stop_time >> 31, p.stop_time & MASK31
+    in_window = pair_lt(mh, ml, s.now_we_hi, s.now_we_lo)
+    host_in = pair_lt(bh, bl, s.now_we_hi, s.now_we_lo)
+    nh, nl = pair_sel(pair_lt(mh, ml, bh, bl), mh, ml, bh, bl)
+    fresh_ok = ~host_in & pair_lt(nh, nl, stop_hi, stop_lo)
+    room = s.egress_count < p.egress_capacity - p.ext_per_iter
+    if not bool(room & (in_window | fresh_ok)):
+        ws.ctl.copy_(torch.stack([torch.zeros_like(mh), torch.zeros_like(mh),
+                                  mh, ml]))
+        used = s.min_used_lat if p.dynamic_runahead else torch.tensor(
+            NEVER32, dtype=i32)
+        ws.hyb.copy_(torch.stack([
+            t_join(mh, ml), t_join(s.now_we_hi, s.now_we_lo),
+            used.to(i64).to(mh.device), s.egress_count.to(i64),
+            s.egress_lost.to(i64)]))
+        return
+    live = pair_lt(nh, nl, stop_hi, stop_lo)
+    fresh = pair_ge(nh, nl, s.now_we_hi, s.now_we_lo) & live
+    if p.netobs:
+        flush_hist(s, fresh)
+    stop_t = torch.tensor([stop_hi, stop_lo], dtype=i32, device=mh.device)
+    c_hi, c_lo = pair_sel(live, nh, nl, stop_t[0], stop_t[1])
+    c_hi, c_lo = pair_add32(c_hi, c_lo, effective_runahead(p, s.min_used_lat))
+    c_hi, c_lo = pair_sel(pair_lt(c_hi, c_lo, stop_hi, stop_lo),
+                          c_hi, c_lo, stop_t[0], stop_t[1])
+    s.now_we_hi.copy_(torch.where(fresh, c_hi, s.now_we_hi))
+    s.now_we_lo.copy_(torch.where(fresh, c_lo, s.now_we_lo))
+    s.rounds.add_(fresh.to(i32))
+    ws.ctl.copy_(torch.stack([torch.ones_like(mh), in_window.to(i32), mh, ml]))
+
+
 def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
                            advance: bool) -> None:
     """Kernel C, plain: the earliest head over all queues, then the window
@@ -2141,15 +2325,38 @@ def _append_rows(valid, rows, buf, count, lost, capacity: int) -> None:
     lost.add_(n_valid - ok.sum(dtype=i32))
 
 
+def append_egress_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
+    """Kernel D's egress instance, plain (the reference's ``_append_egress``,
+    which the slot law calls once per popped column): kernel A's egress
+    candidates appended to the egress buffer in buffer order — slot by
+    slot, each slot's lanes in order, as the reference's per-column cumsum
+    over the lanes — from ``egress_count``, rows past E counted in
+    ``egress_lost``; the earliest DELIVERED time among them lowers the
+    ``egress_min`` pair (DROP_CODEL rows only release the host's parked
+    payload, and do not bound the window law)."""
+    valid = ws.eg_valid.bool()
+    _append_rows(valid, ws.eg_recs, s.egress, s.egress_count, s.egress_lost,
+                 p.egress_capacity)
+    live = valid & (ws.eg_recs[:, 5] == DELIVERED)
+    if bool(live.any()):
+        t = int(ws.eg_recs[live, 0].min())
+        if t < t_join(s.egress_min_hi, s.egress_min_lo):
+            s.egress_min_hi.fill_(t >> 31)
+            s.egress_min_lo.fill_(t & MASK31)
+
+
 def append_log_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
-    """Kernel D, plain, in its two instances: when logging, the valid
+    """Kernel D, plain, in its three instances: when logging, the valid
     records of ``ws.recs`` appended to the log in buffer order (the
     reference's ``_append_log``); with flowtrace, the valid flow records
     of ``ws.fl_recs`` to the flowtrace ring, each stamped with the current
-    window's end (the reference's ``_append_flow``).  Rows past the end
-    are counted as lost."""
+    window's end (the reference's ``_append_flow``); on a hybrid run, the
+    egress candidates to the egress buffer (``append_egress_plain``).
+    Rows past the end are counted as lost."""
     if not int(ws.ctl[0]):
         return
+    if p.external_any:
+        append_egress_plain(p, s, ws)
     if p.log_capacity:
         _append_rows(ws.rec_valid.bool(), ws.recs, s.log, s.log_count,
                      s.log_lost, p.log_capacity)
@@ -2163,6 +2370,63 @@ def append_log_plain(p: LaneParams, s: LaneState, ws: Workspace) -> None:
                      rows, s.fl_buf, s.fl_count, s.fl_lost, p.flow_capacity)
 
 
+# the rows of an injection block ([INJ_WORDS, B] int32): valid, dst, and
+# the entry's words thi, tlo, auxh, auxl, size (the reference's dict of [B]
+# arrays, stacked)
+INJ_WORDS = 7
+
+
+def inject_merge_plain(p: LaneParams, tb: LaneTables, s: LaneState,
+                       inj: torch.Tensor) -> None:
+    """Kernel H, plain: merge one host-staged injection block into the lane
+    queues (the reference's ``_inject_merge``).  ``inj`` holds B PACKET
+    arrivals that the host side computed (a managed host's up bucket, loss
+    draw and latency applied: the CPU engine's source half).  The valid
+    rows are ranked by (dst, time, aux, index) and grouped by destination;
+    each lane takes the first Cxi of its group (``inject_cap``), counting
+    the rest as shed, and merges them into its queue row by the event key
+    (the payload words of stream configs are zero on injected entries),
+    keeping the first C; real events past C are queue overflow.  Both go
+    to ``n_queue`` (strict capacity raises at collect), the sheds also to
+    ``nb_shed`` with netobs.  No log record: the reference writes none
+    here.  The reference sorts by destination unstably, so which rows of
+    an overfull group survive is not defined there; only the counts are
+    compared."""
+    n, c, cxi = p.n_lanes, p.capacity, p.inject_cap
+    valid = inj[0] != 0
+    dst = torch.where(valid, inj[1], n).long()
+    thi = torch.where(valid, inj[2], NEVER32)
+    tlo = torch.where(valid, inj[3], NEVER32)
+    words = (thi, tlo, inj[4], inj[5], inj[6])
+
+    def fold(hi, lo):
+        return (hi.to(i64) << 32) + (lo.to(i64) + (1 << 31))
+
+    perm = torch.sort(fold(inj[4], inj[5]), stable=True).indices
+    perm = perm[torch.sort(fold(thi, tlo)[perm], stable=True).indices]
+    perm = perm[torch.sort(dst[perm], stable=True).indices]
+    cnt = torch.bincount(dst, minlength=n + 1)[:n]
+    start = torch.cumsum(cnt, 0) - cnt
+    r = torch.arange(cxi, device=dst.device)
+    in_seg = r[None, :] < cnt[:, None]
+    idx = perm[torch.clamp(start[:, None] + r[None, :], max=dst.numel() - 1)]
+    cross = [torch.where(in_seg, w[idx], NEVER32 if k < 2 else 0)
+             for k, w in enumerate(words)]
+    if p.words == 7:
+        cross += [torch.zeros_like(cross[0])] * 2
+    q = _queue_words(p, s)
+    merged = [torch.cat([a, b], dim=1) for a, b in zip(q, cross)]
+    order = _key_order(*merged[:4])
+    merged = [torch.gather(m, 1, order) for m in merged]
+    tail = (merged[0][:, c:] != NEVER32).sum(dim=1, dtype=i32)
+    for w in range(p.words):
+        q[w].copy_(merged[w][:, :c])
+    lost_pre = torch.clamp(cnt - cxi, min=0).to(i32)
+    s.n_queue.add_(tail + lost_pre)
+    if p.netobs:
+        s.nb_shed.add_(lost_pre)
+
+
 # --------------------------------------------------------------------------
 # drivers
 # --------------------------------------------------------------------------
@@ -2173,15 +2437,19 @@ def _steps(args, p: LaneParams):
     SweepArgs of a sweep whose scenarios share ``p``'s shapes):
     ``window(advance)``, kernel C, and ``iteration()``, kernels A, B, then
     E in untiered one-to-one stream configs or F and G on a tiered run,
-    and, when logging or tracing flows, D.  Each is one launch of each
+    and, when logging, tracing flows or on a hybrid run, D.  On a hybrid
+    run ``window`` takes the turn's ``HybridTurn``.  Each is one launch of each
     kernel, whatever the number of scenarios."""
     from . import kernels
 
     split, tiered = p.split, p.stream_tiered
-    logging = bool(p.log_capacity) or p.flowtrace
+    logging = bool(p.log_capacity) or p.flowtrace or p.external_any
 
-    def window(advance: bool) -> None:
-        kernels.queue_min_window(args, advance)
+    def window(advance: bool, turn: HybridTurn = None) -> None:
+        if turn is None:
+            kernels.queue_min_window(args, advance)
+        else:
+            kernels.hybrid_window(args, turn)
 
     def iteration() -> None:
         kernels.lane_slots(args)
@@ -2280,3 +2548,57 @@ def _build_full_run(p: LaneParams, tb: LaneTables, s: LaneState):
     counters match the step driver's exactly.  The batched loop at S = 1
     (``_build_sweep_run``)."""
     return _build_sweep_run([p], [tb], [s])
+
+
+# the device loop's steps between reads of a hybrid turn's readback: most
+# turns take one to three iterations and stop at the next step, so the
+# first read comes after four; longer turns (windows the host takes no
+# part in, free-run) double the chunk up to CHECK_EVERY.  Steps past the
+# turn's end are gated no-ops: no counter depends on this schedule
+HYBRID_CHECKS = (4, 8, 16)
+
+
+def _build_hybrid_run(p: LaneParams, tb: LaneTables, s: LaneState):
+    """The device half of the hybrid backend (the reference's
+    ``_build_hybrid_run``): ``hybrid_run(ext_t, ext_used, inj=None) ->
+    [5] ints`` merges each staged injection block of ``inj`` (``[blocks,
+    INJ_WORDS, B]`` int32 on the device; kernel H, one launch a block),
+    then runs the device loop under the hybrid window law (kernel C's
+    hybrid mode with the host side's next event time ``ext_t`` and its
+    smallest used latency ``ext_used``, NEVER32 for none): it free-runs
+    the windows the host takes no part in, completes the first one it
+    does, and stops (or earlier, when the egress buffer runs low).  It
+    returns the turn's packed readback by the ``HYB_*`` indices — one
+    device-to-host copy of the ``[5]`` vector per read, the reads spaced
+    by ``HYBRID_CHECKS``.  ``hybrid_run.steps`` counts the steps run."""
+    from . import kernels
+
+    dev = s.q_thi.device
+    args = kernels.LaneArgs(p, tb, s, make_workspace(p, dev))
+    window, iteration = _steps(args, p)
+    hyb = args.ws.hyb
+    out = torch.empty(5, dtype=i64, pin_memory=dev.type == "cuda")
+
+    def hybrid_run(ext_t: int, ext_used: int, inj=None) -> list:
+        for blk in (() if inj is None else inj):
+            kernels.inject_merge(args, blk)
+        eh, el = ((NEVER32, NEVER32) if ext_t >= NEVER
+                  else (ext_t >> 31, ext_t & MASK31))
+        turn = HybridTurn(eh, el, ext_used, True)
+        chunks = iter(HYBRID_CHECKS)
+        while True:
+            steps = next(chunks, CHECK_EVERY)
+            for _ in range(steps):
+                window(True, turn)
+                turn = turn._replace(first=False)
+                iteration()
+            hybrid_run.steps += steps
+            out.copy_(hyb, non_blocking=True)
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+            if int(out[HYB_DEV_WE]) >= 0:
+                return out.tolist()
+
+    hybrid_run.steps = 0
+    hybrid_run.args = args
+    return hybrid_run

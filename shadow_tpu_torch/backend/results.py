@@ -36,6 +36,10 @@ class SimResult:
     rounds: int
     event_log: list[LogRecord]
     counters: dict[str, int]
+    per_host_counters: list[dict[str, int]] = dataclasses.field(
+        default_factory=list)
+    # expected_final_state mismatches of managed processes
+    process_errors: list[str] = dataclasses.field(default_factory=list)
 
     def log_tuples(self) -> list[tuple[int, int, int, int, int, int]]:
         """Canonical ordered event log for determinism diffs."""

@@ -1,14 +1,21 @@
 """Simulation configuration: the YAML document shape of the JAX package,
-trimmed to what the ported lane path reads.
+trimmed to what the port reads.
 
-    general:      { stop_time, seed, bootstrap_end_time, data_directory }
+    general:      { stop_time, seed, bootstrap_end_time, data_directory,
+                    parallelism, heartbeat_interval,
+                    model_unblocked_syscall_latency }
     network:      { graph: { type: gml|1_gbit_switch, file|inline }, ... }
     experimental: { runahead, use_dynamic_runahead, network_backend,
                     tpu_lane_queue_capacity, tpu_events_per_round,
                     tpu_cross_capacity, tpu_stream_tiered,
                     tpu_stream_events_per_round, tpu_stream_queue_capacity,
                     netobs, flowtrace, flowtrace_capacity, flowtrace_sample,
-                    sweep_size, sweep_spec, mesh_devices }
+                    sweep_size, sweep_spec, mesh_devices,
+                    scheduler, use_cpu_pinning, socket_send_buffer,
+                    socket_recv_buffer, strace_logging_mode, use_seccomp,
+                    use_vdso_patching, perf_logging, obs_turns, obs_trace,
+                    hybrid_workers, hybrid_fuse_k, hybrid_async_dispatch,
+                    tpu_inject_batch, dispatch_retry_max }
     faults:       { events: [ { at, kind, ... } ], watchdog_timeout,
                     failover }
     hosts:
@@ -17,12 +24,19 @@ trimmed to what the ported lane path reads.
         congestion: reno | cubic
         pcap_enabled: false
         pcap_capture_size: 65535
-        processes: [ { path, args, start_time } ]
+        processes: [ { path, args, environment, start_time,
+                       shutdown_time, shutdown_signal,
+                       expected_final_state } ]
+
+A process whose ``path`` names no built-in model is a managed process: a
+real binary that the hybrid engine (``backend/hybrid.py``) runs under the
+LD_PRELOAD shim.
 
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
 accepts but the port cannot run yet (device-loop unrolling, the fault
 watchdog and the CPU failover, the sweep command line's sweep_size > 1
-and sweep_spec, more than one device) raise
+and sweep_spec, more than one device, the observation of runs, and on a
+hybrid run the fused law, worker processes and fault schedules) raise
 :class:`LaneCompatError`, which names the JAX package as the way to run
 them.  ``network_backend: tpu`` selects the lane backend, as there.
 
@@ -39,6 +53,12 @@ from ..core import time as stime
 from . import units
 
 
+# socket buffer defaults, single-sourced for the config, the shim's
+# shared-memory block and the managed-process manager
+SOCKET_SEND_BUFFER_DEFAULT = 131072
+SOCKET_RECV_BUFFER_DEFAULT = 174760
+
+
 class ConfigError(ValueError):
     pass
 
@@ -52,8 +72,16 @@ class GeneralOptions:
     stop_time: int = 0  # ns; required > 0
     seed: int = 1
     bootstrap_end_time: int = 0  # ns; loss-free warm-up window (worker.rs:335)
-    # where per-host output (pcap captures) is written
+    # where per-host output (pcap captures, managed processes' files) is
+    # written
     data_directory: str = "shadow.data"
+    # syscall-servicing threads of the CPU engines' host scheduler (0 = all
+    # cores where managed processes run)
+    parallelism: int = 0
+    # the JAX package's progress heartbeat; accepted, the port prints none
+    heartbeat_interval: Optional[int] = stime.NANOS_PER_SEC
+    # managed processes: charge a modelled CPU latency to unblocked syscalls
+    model_unblocked_syscall_latency: bool = False
 
 
 @dataclasses.dataclass
@@ -110,6 +138,34 @@ class ExperimentalOptions:
     sweep_spec: Optional[str] = None
     # devices to spread a run over (0 = one); the port runs on one card
     mesh_devices: int = 0
+    # the CPU engines' host scheduler (thread-per-core: a pool of workers;
+    # thread-per-host: one each) and its CPU pinning
+    scheduler: str = "thread-per-core"
+    use_cpu_pinning: bool = True
+    # managed processes: socket buffer sizes, strace-style logging (off |
+    # standard | deterministic) and the interposition backstops (the
+    # seccomp trap for raw syscalls, vDSO patching for time reads)
+    socket_send_buffer: int = SOCKET_SEND_BUFFER_DEFAULT  # bytes
+    socket_recv_buffer: int = SOCKET_RECV_BUFFER_DEFAULT
+    strace_logging_mode: str = "off"
+    use_seccomp: bool = True
+    use_vdso_patching: bool = True
+    # the JAX package's observation of runs: per-window perf lines, the
+    # device-turn ledger and the span tracer.  Not ported: true raises
+    perf_logging: bool = False
+    obs_turns: bool = False
+    obs_trace: bool = False
+    # the hybrid backend (backend/hybrid.py): managed hosts' syscalls on
+    # the host CPU, every packet on the card.  The port runs the serial
+    # engine (hybrid_workers 1) on the one-window law (hybrid_fuse_k 1,
+    # the port's default; the JAX package's is 8, with the same events);
+    # other values raise on a hybrid run.  tpu_inject_batch is B, the
+    # rows of one injection block
+    hybrid_workers: int = 1
+    hybrid_fuse_k: int = 1
+    hybrid_async_dispatch: bool = True
+    tpu_inject_batch: int = 512
+    dispatch_retry_max: int = 2
 
 
 @dataclasses.dataclass
@@ -135,7 +191,13 @@ class FaultOptions:
 class ProcessOptions:
     path: str = ""
     args: list[str] = dataclasses.field(default_factory=list)
+    # managed processes: extra environment, a shutdown signal at
+    # shutdown_time, and the state the process must end in
+    environment: dict[str, str] = dataclasses.field(default_factory=dict)
     start_time: int = 0  # ns
+    shutdown_time: Optional[int] = None
+    shutdown_signal: str = "SIGTERM"
+    expected_final_state: Any = "exited"  # {"exited": code}|"running"|{"signaled": sig}
 
 
 @dataclasses.dataclass
@@ -190,6 +252,11 @@ class ConfigOptions:
             seed=int(gen_doc.pop("seed", 1)),
             bootstrap_end_time=units.parse_time(gen_doc.pop("bootstrap_end_time", 0)),
             data_directory=str(gen_doc.pop("data_directory", "shadow.data")),
+            parallelism=int(gen_doc.pop("parallelism", 0)),
+            heartbeat_interval=_opt_time(gen_doc.pop("heartbeat_interval",
+                                                     "1s")),
+            model_unblocked_syscall_latency=bool(
+                gen_doc.pop("model_unblocked_syscall_latency", False)),
         )
         if gen_doc:
             raise ConfigError(f"unknown general options: {sorted(gen_doc)}")
@@ -237,6 +304,8 @@ class ConfigOptions:
                 v = exp_doc.pop(f.name)
                 if f.name == "runahead":
                     v = None if v is None else units.parse_time(v)
+                elif f.name in ("socket_send_buffer", "socket_recv_buffer"):
+                    v = units.parse_bytes(v)
                 setattr(experimental, f.name, v)
         if exp_doc:
             raise ConfigError(f"unknown experimental options: {sorted(exp_doc)}")
@@ -274,7 +343,9 @@ class ConfigOptions:
                         base,
                         hostname=f"{name}{i}",
                         processes=[
-                            dataclasses.replace(p, args=list(p.args))
+                            dataclasses.replace(
+                                p, args=list(p.args),
+                                environment=dict(p.environment))
                             for p in base.processes
                         ],
                     ))
@@ -285,7 +356,8 @@ class ConfigOptions:
 
     # -- overrides --------------------------------------------------------
 
-    _TIME_FIELDS = {"stop_time", "bootstrap_end_time", "runahead"}
+    _TIME_FIELDS = {"stop_time", "bootstrap_end_time", "runahead",
+                    "heartbeat_interval"}
 
     def apply_overrides(self, overrides: dict[str, Any]) -> None:
         """Apply dotted-key overrides, e.g. ``{'general.seed': 7,
@@ -343,7 +415,21 @@ class ConfigOptions:
                 "experimental.mesh_devices > 1: the port runs on one card; "
                 "spreading a run or a sweep over devices is not ported yet "
                 "(ROADMAP item 14; use the shadow_tpu package)")
+        if self.experimental.scheduler not in ("thread-per-core",
+                                               "thread-per-host"):
+            raise ConfigError(
+                "experimental.scheduler must be thread-per-core|thread-per-host")
+        if self.experimental.hybrid_fuse_k < 1:
+            raise ConfigError("experimental.hybrid_fuse_k must be >= 1")
+        if self.experimental.dispatch_retry_max < 0:
+            raise ConfigError("experimental.dispatch_retry_max must be >= 0")
+        for flag in ("perf_logging", "obs_turns", "obs_trace"):
+            if getattr(self.experimental, flag):
+                raise LaneCompatError(
+                    f"experimental.{flag}: the observation of runs is not "
+                    "ported yet (ROADMAP item 12; use the shadow_tpu package)")
         self._validate_faults()
+        self._validate_hybrid()
         names = [h.hostname for h in self.hosts]
         if len(set(names)) != len(names):
             raise ConfigError("duplicate hostnames")
@@ -382,6 +468,75 @@ class ConfigOptions:
                     )
 
 
+    def _validate_hybrid(self) -> None:
+        """A config with managed processes (real binaries) runs on the
+        hybrid engine, which the port has on its serial, one-window law
+        only, without fault schedules."""
+        from ..models.base import config_has_managed
+
+        if not config_has_managed(self):
+            return
+        exp = self.experimental
+        if exp.hybrid_fuse_k >= 2:
+            raise LaneCompatError(
+                f"experimental.hybrid_fuse_k={exp.hybrid_fuse_k}: the port's "
+                "hybrid engine runs the one-window law (hybrid_fuse_k: 1, the "
+                "same events); the k-window fused law is not ported yet "
+                "(ROADMAP item 12; use the shadow_tpu package)")
+        if exp.hybrid_workers != 1:
+            raise LaneCompatError(
+                f"experimental.hybrid_workers={exp.hybrid_workers}: the port "
+                "services managed hosts serially (hybrid_workers: 1); the "
+                "syscall worker processes are not ported yet (ROADMAP item "
+                "12; use the shadow_tpu package)")
+        if self.faults.events:
+            raise LaneCompatError(
+                "faults.events on a hybrid run (backend_stall included): the "
+                "port's hybrid engine has no fault schedule and no CPU "
+                "failover yet (ROADMAP item 12; use the shadow_tpu package)")
+
+
+def _opt_time(v: Any) -> Optional[int]:
+    return None if v is None else units.parse_time(v)
+
+
+def _parse_final_state(v: Any, host: str) -> Any:
+    """Validate/normalize expected_final_state at parse time: "running",
+    {exited: code}, or {signaled: SIG} (signal normalized like
+    shutdown_signal) — a typo must fail the config, not the whole run."""
+    if v in ("running", "exited"):
+        return v
+    if isinstance(v, dict) and len(v) == 1:
+        if "exited" in v:
+            return {"exited": int(v["exited"])}
+        if "signaled" in v:
+            return {"signaled": _parse_signal(v["signaled"], host)}
+        if "running" in v:
+            return "running"
+    raise ConfigError(
+        f"host {host!r}: expected_final_state must be 'running', "
+        f"{{exited: CODE}}, or {{signaled: SIG}}; got {v!r}"
+    )
+
+
+def _parse_signal(v: Any, host: str) -> str:
+    """Validate a signal name (or number) at parse time — a typo'd
+    shutdown_signal must not silently become SIGTERM."""
+    import signal as _sig
+
+    if isinstance(v, int):
+        try:
+            return _sig.Signals(v).name
+        except ValueError:
+            raise ConfigError(f"host {host!r}: unknown signal number {v}")
+    name = str(v).upper()
+    if not name.startswith("SIG"):
+        name = "SIG" + name
+    if not hasattr(_sig, name) or not isinstance(getattr(_sig, name), _sig.Signals):
+        raise ConfigError(f"host {host!r}: unknown shutdown_signal {v!r}")
+    return name
+
+
 def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:
     doc = dict(doc)
     procs = []
@@ -394,7 +549,14 @@ def _parse_host(name: str, doc: dict[str, Any]) -> HostOptions:
             ProcessOptions(
                 path=str(p.pop("path")),
                 args=[str(a) for a in args],
+                environment={str(k): str(v)
+                             for k, v in p.pop("environment", {}).items()},
                 start_time=units.parse_time(p.pop("start_time", 0)),
+                shutdown_time=_opt_time(p.pop("shutdown_time", None)),
+                shutdown_signal=_parse_signal(
+                    p.pop("shutdown_signal", "SIGTERM"), name),
+                expected_final_state=_parse_final_state(
+                    p.pop("expected_final_state", {"exited": 0}), name),
             )
         )
         if p:

@@ -1,0 +1,95 @@
+"""Events and their total deterministic order.
+
+The reference derives simulation determinism from a *total* order on events
+(src/main/core/work/event.rs:84-130): events are ordered by
+
+  1. time (ns),
+  2. event-kind discriminant (packet events sort before local/task events at
+     the same instant),
+  3. source host id,
+  4. per-source monotonically increasing event id.
+
+We keep exactly that rule.  The order key is four integers, which both the
+host-side binary heap and the device-side multi-key ``lax.sort`` can order
+lexicographically, so CPU and lane backends agree bit-for-bit on execution
+order.
+
+The JAX package's ``core/event.py``, copied into the port unchanged in law
+(plain Python and numpy, no JAX).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Callable, Optional
+
+
+class EventKind(enum.IntEnum):
+    """Discriminant part of the event order (packet < local, as in the
+    reference where ``EventData::Packet`` sorts first).
+
+    DELIVERY is a third kind (not in the reference, which uses closures):
+    post-bandwidth datagram deliveries to the app layer.  It has its own
+    discriminant so its keys — ``(time, DELIVERY, packet_src, packet_seq)``
+    — live in a separate space from timer/task keys ``(time, LOCAL,
+    self_host, local_seq)``; on a self-send the two spaces could otherwise
+    collide and make the total order ambiguous, which the lane backend's
+    ``lax.sort`` replay cannot reproduce."""
+
+    PACKET = 0
+    LOCAL = 1
+    DELIVERY = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class OrderKey:
+    """The 4-tuple total order.  ``sort_key()`` gives a plain tuple usable by
+    ``heapq``; the device packs the same fields into sort operands."""
+
+    time: int
+    kind: int
+    src_host: int
+    seq: int
+
+    def sort_key(self) -> tuple[int, int, int, int]:
+        return (self.time, self.kind, self.src_host, self.seq)
+
+
+@dataclasses.dataclass
+class Event:
+    """A scheduled occurrence on one host.
+
+    ``data`` is either a :class:`~shadow_tpu.net.packet.Packet` (for
+    ``EventKind.PACKET``) or a callable task ``fn(host) -> None`` (for
+    ``EventKind.LOCAL``), mirroring the reference's
+    ``EventData::{Packet, Local}`` (core/work/event.rs:10).
+    """
+
+    time: int
+    kind: EventKind
+    src_host: int
+    seq: int
+    data: Any = None
+    label: str = ""
+
+    def key(self) -> tuple[int, int, int, int]:
+        return (self.time, int(self.kind), self.src_host, self.seq)
+
+    def __lt__(self, other: "Event") -> bool:
+        return self.key() < other.key()
+
+
+TaskFn = Callable[..., None]
+
+
+@dataclasses.dataclass
+class Task:
+    """Refcounted-closure analog of the reference ``TaskRef``
+    (core/work/task.rs): a host-local callback plus a debug label."""
+
+    fn: TaskFn
+    label: str = ""
+
+    def execute(self, host: Any) -> None:
+        self.fn(host)

@@ -7,6 +7,11 @@ bits.  The lane engine draws with it for packet loss (``LOSS_STREAM``,
 counter = the send's sequence number) and for phold's peer choice
 (``APP_STREAM``, counter = the lane's app-draw count).
 
+The CPU engine and the hybrid engine's host side (``backend/cpu_engine.py``)
+draw one loss per packet and one app draw per phold hop: for them the same
+function runs on Python ints (``rand_u32_int``), since a tensor op per
+packet would dominate the syscall plane.
+
 PyTorch has no ``+``, ``<<``, ``>>`` or ``<`` for ``torch.uint32`` on the
 CPU, so every 32-bit word here is an int64 tensor holding a value in
 ``[0, 2**32)``, and each add and shift is masked back to 32 bits.  The CUDA
@@ -31,19 +36,24 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
 
 
-def _u32(x) -> torch.Tensor:
-    """``x`` (int, or integer tensor) as int64 words masked to 32 bits."""
+def _u32(x):
+    """``x`` taken mod 2**32: a Python int stays an int (the host-side
+    path), an integer tensor becomes int64 words."""
+    if isinstance(x, int):
+        return x & M32
     return torch.as_tensor(x).to(torch.int64) & M32
 
 
-def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+def _rotl(x, d: int):
     return ((x << d) | (x >> (32 - d))) & M32
 
 
-def threefry2x32(k0, k1, c0, c1) -> tuple[torch.Tensor, torch.Tensor]:
+def threefry2x32(k0, k1, c0, c1):
     """Threefry-2x32, 20 rounds.  Inputs are 32-bit words (ints or integer
-    tensors, taken mod 2**32); returns the two output words as int64
-    tensors of the broadcast shape, each in ``[0, 2**32)``."""
+    tensors, taken mod 2**32); returns the two output words, each in
+    ``[0, 2**32)``: Python ints when every input is an int (the host-side
+    path: one draw costs no tensor op), else int64 tensors of the
+    broadcast shape."""
     ks0, ks1 = _u32(k0), _u32(k1)
     ks2 = ks0 ^ ks1 ^ _PARITY
     x0 = (_u32(c0) + ks0) & M32
@@ -84,6 +94,16 @@ def rand_u32(seed: int, stream, counter) -> torch.Tensor:
     return rand_u32_pair(seed, stream, counter)[0]
 
 
+def rand_u32_int(seed: int, stream: int, counter: int) -> int:
+    """The host-side draw: :func:`rand_u32` of one (stream, counter) pair on
+    Python ints (``counter`` may use all 64 bits), as an int in
+    ``[0, 2**32)``."""
+    s_lo, s_hi = split_seed(seed)
+    counter &= (1 << 64) - 1
+    return threefry2x32(s_lo, (stream & M32) ^ s_hi, counter & M32,
+                        counter >> 32)[0]
+
+
 def rand_u32_words(seed_lo, seed_hi, stream, counter) -> torch.Tensor:
     """The lane engine's draw from explicit key words: counter word
     ``c0 = counter mod 2**32`` and ``c1 = 0``.  Equal to :func:`rand_u32`
@@ -99,7 +119,10 @@ def as_i32(x: torch.Tensor) -> torch.Tensor:
 
 def u32_below(u, n) -> torch.Tensor:
     """Map a uniform 32-bit draw to ``[0, n)`` by the multiply-shift trick
-    ``(u * n) >> 32``; exact in int64 for ``n < 2**31``."""
+    ``(u * n) >> 32``; exact in int64 for ``n < 2**31``.  On Python ints
+    (the host-side path) the result is an int."""
+    if isinstance(u, int) and isinstance(n, int):
+        return ((u & M32) * n) >> 32
     return (_u32(u) * torch.as_tensor(n).to(torch.int64)) >> 32
 
 
@@ -112,3 +135,13 @@ def loss_threshold(packet_loss: float) -> int:
     if packet_loss >= 1.0:
         return 1 << 32
     return int(packet_loss * 4294967296.0)
+
+
+def host_seed(master_seed: int, host_id: int) -> int:
+    """Per-host 64-bit sub-seed (a splitmix64 finaliser over the master
+    seed and the host id): the seed of a managed process's shim-side
+    generator."""
+    x = (master_seed ^ (host_id * 0x9E3779B97F4A7C15)) & ((1 << 64) - 1)
+    x = (x ^ (x >> 30)) * 0xBF58476D1CE4E5B9 & ((1 << 64) - 1)
+    x = (x ^ (x >> 27)) * 0x94D049BB133111EB & ((1 << 64) - 1)
+    return x ^ (x >> 31)

@@ -35,3 +35,13 @@ def sim_to_emu(sim_ns: int) -> int:
     if sim_ns == NEVER:
         return NEVER
     return SIM_START_EMU + sim_ns
+
+
+def fmt(ns: int) -> str:
+    """Human-readable time for logs (managed processes' strace lines):
+    ``12.345678901s`` style."""
+    if ns == NEVER:
+        return "never"
+    sign = "-" if ns < 0 else ""
+    ns = abs(ns)
+    return f"{sign}{ns // NANOS_PER_SEC}.{ns % NANOS_PER_SEC:09d}s"

@@ -1,5 +1,8 @@
-// The lane engine's seven kernels for Hopper (sm_90a), the threefry draw and
-// the lane-TCP stream law they share.
+// The lane engine's eight kernels for Hopper (sm_90a), the threefry draw and
+// the lane-TCP stream law they share.  The hybrid backend (managed hosts on
+// the host CPU, their packets here) adds kernel H (the injection merge), an
+// external arm in A whose egress candidates D compacts as a third instance,
+// and a hybrid mode of C (the turn's window law and its packed readback).
 //
 // Plain C interface, bound from shadow_tpu_torch/backend/kernels.py with
 // ctypes.  Every lane launcher takes an array of S LaneBufs blocks, one per
@@ -110,6 +113,10 @@ struct LaneBufs {
   // the flowtrace ring [FL, FT_COLS], its count and its losses (empty when
   // flowtrace is off)
   int32_t *fl_buf, *fl_count, *fl_lost;
+  // the hybrid backend's egress buffer [E, 6], its count, losses and the
+  // earliest DELIVERED time as a pair (empty off the hybrid backend)
+  int64_t *egress;
+  int32_t *egress_count, *egress_lost, *egress_min_hi, *egress_min_lo;
   // LaneTables
   int32_t *node_of, *lat;
   int64_t *thresh;
@@ -125,6 +132,8 @@ struct LaneBufs {
   uint8_t *lane_stream;
   int32_t *lane_ep_start, *lane_ep_rows;
   uint8_t *lane_pcap, *flow_pcap;
+  // the hybrid backend's external lanes [N] (empty off it)
+  uint8_t *lane_external;
   // Workspace
   int32_t *ctl, *self_blk, *out_blk, *sx_blk;
   int64_t *recs;
@@ -132,6 +141,11 @@ struct LaneBufs {
   // the iteration's flow records [R_f, FL_WORDS] and their flags; the
   // merges' rows where they do not fit shared memory
   int32_t *fl_recs, *fl_valid, *m_scratch;
+  // the hybrid backend: A's egress candidates [K*N, 6] and their flags, and
+  // the turn's packed readback [5] (HYB_*)
+  int64_t *eg_recs;
+  int32_t *eg_valid;
+  int64_t *hyb;
   // the tier's queues [7, 2S, C2] and vectors [TV_COUNT, 2S] (tiered runs)
   int32_t *tier_q, *tier_v;
   // sizes (sw: self block width, K or 2K; words: 5, or 7 with the stream
@@ -160,10 +174,15 @@ struct LaneBufs {
       fl_ss, fl_bs, n_fl;
   // the merges whose rows run in m_scratch (B, E, G)
   int64_t merge_global, split_global, tier_global;
+  // the hybrid backend: the flag, the egress buffer's rows and the count a
+  // turn stops at, A's egress candidates (K*N), the injection block's rows,
+  // the injected rows a lane takes from one, and whether H's rows run in
+  // m_scratch
+  int64_t ext_any, eg_cap, room_floor, n_eg, inj_b, cxi, inject_global;
 };
 
 // Up to PARAM_SCENARIOS blocks side by side, passed as one kernel parameter
-// (8 x 1,328 bytes; Hopper takes up to 32,764).
+// (8 x 1,456 bytes; Hopper takes up to 32,764).
 constexpr int PARAM_SCENARIOS = 8;
 struct ParamBufs {
   LaneBufs b[PARAM_SCENARIOS];
@@ -1245,6 +1264,9 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
   const int32_t model = b.model[i];
   const bool passive = model == M_NONE || model == M_TGEN_MESH ||
                        model == M_TGEN_CLIENT || model == M_TGEN_SERVER;
+  // hybrid: an external lane's packets neither deliver inline nor insert;
+  // their outcomes go to the egress candidates
+  const bool ext = b.ext_any && b.lane_external[i] != 0;
   const int32_t recv_mult = b.recv_mult[i];
   const int32_t p_size = b.p_size[i];
   const int32_t p_count = b.p_count[i];
@@ -1313,11 +1335,24 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
       nb_rxb = wadd(nb_rxb, size);
     }
     // passive lanes count inline; active lanes get a DELIVERY self-insert
-    // keyed by the packet's (src, seq)
-    if (deliver && passive) recv += size * recv_mult;
+    // keyed by the packet's (src, seq); external lanes egress (CoDel drops
+    // too), slot-major as the reference appends
+    if (deliver && passive && !ext) recv += size * recv_mult;
+    if (b.ext_any) {
+      const int64_t r = j * n + i;
+      const bool eg = is_pkt && ext;
+      int64_t* row = b.eg_recs + r * 6;
+      row[0] = eg ? td : 0;
+      row[1] = eg ? src : 0;
+      row[2] = eg ? lane : 0;
+      row[3] = eg ? seq : 0;
+      row[4] = eg ? size : 0;
+      row[5] = eg ? (drop ? DROP_CODEL : DELIVERED) : 0;
+      b.eg_valid[r] = eg ? 1 : 0;
+    }
     if (!all_passive) {
       const int64_t si = i * sw + j;
-      const bool ins = deliver && !passive;
+      const bool ins = deliver && !passive && !ext;
       int32_t ins_hi = NEVER32, ins_lo = NEVER32;
       if (ins) split(td, &ins_hi, &ins_lo);
       b.self_blk[0 * nsw + si] = ins_hi;
@@ -1571,11 +1606,12 @@ __global__ void x_count_kernel(const __grid_constant__ P bufs) {
   if (d < b.n) atomicAdd(&b.x_cnt[d], 1);
 }
 
-// exclusive scan of x_cnt into x_start: one block, contiguous chunks
-template <class P>
+// exclusive scan of x_cnt into x_start: one block, contiguous chunks (gated
+// on live in B; not in H, which runs before a hybrid turn arms it)
+template <class P, bool GATED = true>
 __global__ void x_scan_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.x);
-  if (b.ctl[0] == 0) return;
+  if (GATED && b.ctl[0] == 0) return;
   __shared__ int32_t part[1024];
   const int64_t n = b.n;
   const int64_t chunk = (n + blockDim.x - 1) / blockDim.x;
@@ -1650,14 +1686,14 @@ __device__ __forceinline__ int64_t key_rank(const int32_t* e, int64_t n,
   return rank;
 }
 
-// The keyed row merge, shared by kernels B and E: rank each of the w_all
+// The keyed row merge, shared by kernels B, E and H: rank each of the w_all
 // entries at e — shared memory, or the row's m_scratch (key_rank) — write
 // the first C to the queue row of `lane`, count the real events past C into
 // *n_tail and, when logging, record them as DROP_QUEUE at recs[rec_base +
 // rank - C]; with flowtrace, the flag of every flow slot fl_base + rank - C
 // and, for the PACKETs of sampled flows among them, an FT_DROP
-// (CAUSE_QUEUE) record at their pair times.
-template <int W>
+// (CAUSE_QUEUE) record at their pair times.  REC off (H): no record.
+template <int W, bool REC = true>
 __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
                                           int64_t w_all, int64_t lane,
                                           int64_t rec_base, int64_t fl_base,
@@ -1675,7 +1711,7 @@ __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
     } else {
       const bool valid = ex[0] != NEVER32;
       if (valid) ++local_tail;
-      if (b.log_cap > 0) {
+      if (REC && b.log_cap > 0) {
         const int64_t r = rec_base + (rank - c);
         int64_t* row = b.recs + r * 6;
         if (valid) {
@@ -1690,7 +1726,7 @@ __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
         }
         b.rec_valid[r] = valid ? 1 : 0;
       }
-      if (b.flowtrace) {
+      if (REC && b.flowtrace) {
         const int32_t src = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
         const int32_t dst = static_cast<int32_t>(lane);
         put_flow(b, fl_base + (rank - c),
@@ -1806,6 +1842,98 @@ __global__ void merge_kernel(const __grid_constant__ P bufs) {
     b.n_queue[i] += n_tail + lost_pre;
     if (b.netobs) b.nb_shed[i] += lost_pre;  // the cross sheds, apart
     if (i == 0) *b.iters += 1;
+  }
+}
+
+// ---- kernel H: inject_merge -------------------------------------------------
+// One host-staged injection block ([INJ_WORDS, B] int32: valid, dst, thi,
+// tlo, auxh, auxl, size) into the lane queues: B's counting sort groups the
+// valid rows by destination (count, the ungated scan, place), then one
+// block per lane ranks its group by (time, aux, index), keeps the first
+// Cxi as the cross entries of its [queue C | injected Cxi] row (the
+// payload words of stream configs zero) and merges the row with B's keyed
+// merge, without records; the rest of the group and the tail past C count
+// into n_queue (the sheds into nb_shed too, with netobs).  Not gated on
+// live: the host launches it only with rows to inject, before the turn's
+// first step arms the turn.
+constexpr int INJ_WORDS = 7;
+
+template <class P>
+__global__ void inj_count_kernel(const __grid_constant__ P bufs,
+                                 const int32_t* inj) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (m >= b.inj_b || inj[m] == 0) return;
+  atomicAdd(&b.x_cnt[inj[b.inj_b + m]], 1);
+}
+
+template <class P>
+__global__ void inj_place_kernel(const __grid_constant__ P bufs,
+                                 const int32_t* inj) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (m >= b.inj_b || inj[m] == 0) return;
+  const int32_t d = inj[b.inj_b + m];
+  const int32_t pos = b.x_start[d] + atomicAdd(&b.x_fill[d], 1);
+  b.x_order[pos] = static_cast<int32_t>(m);
+}
+
+// the row: C + Cxi entries x W words, in dynamic shared memory or
+// (inject_global) the block's part of m_scratch
+template <int W, class P>
+__global__ void inject_merge_kernel(const __grid_constant__ P bufs,
+                                    const int32_t* inj) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  extern __shared__ int32_t sm[];
+  const int64_t i = blockIdx.x;
+  const int64_t c = b.c, cxi = b.cxi, w_all = c + cxi, nb = b.inj_b;
+  int32_t* const e = b.inject_global ? b.m_scratch + i * W * w_all : sm;
+  __shared__ int32_t n_tail;
+  const int32_t cnt = b.x_cnt[i];
+  const int32_t* seg = b.x_order + b.x_start[i];
+  if (threadIdx.x == 0) n_tail = 0;
+  load_queue_row<W>(b, e, i);
+  for (int64_t x = c + threadIdx.x; x < w_all; x += blockDim.x) {
+    int32_t* ex = e + W * x;
+    ex[0] = NEVER32;
+    ex[1] = NEVER32;
+#pragma unroll
+    for (int w = 2; w < W; ++w) ex[w] = 0;
+  }
+  __syncthreads();
+  // the group's rank by (time, aux, index): the first Cxi take the slots
+  for (int32_t r = threadIdx.x; r < cnt; r += blockDim.x) {
+    const int32_t m = seg[r];
+    const int32_t k0 = inj[2 * nb + m], k1 = inj[3 * nb + m];
+    const int32_t k2 = inj[4 * nb + m], k3 = inj[5 * nb + m];
+    int64_t rank = 0;
+    for (int32_t q = 0; q < cnt; ++q) {
+      const int32_t y = seg[q];
+      const int32_t a0 = inj[2 * nb + y], a1 = inj[3 * nb + y];
+      const int32_t a2 = inj[4 * nb + y], a3 = inj[5 * nb + y];
+      const bool less = a0 != k0   ? a0 < k0
+                        : a1 != k1 ? a1 < k1
+                        : a2 != k2 ? a2 < k2
+                        : a3 != k3 ? a3 < k3
+                                   : y < m;
+      if (less) ++rank;
+    }
+    if (rank < cxi) {
+      int32_t* ex = e + W * (c + rank);
+      ex[0] = k0;
+      ex[1] = k1;
+      ex[2] = k2;
+      ex[3] = k3;
+      ex[4] = inj[6 * nb + m];
+    }
+  }
+  __syncthreads();
+  merge_row<W, false>(b, e, w_all, i, 0, 0, &n_tail);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const int32_t lost_pre = cnt > cxi ? cnt - static_cast<int32_t>(cxi) : 0;
+    b.n_queue[i] += n_tail + lost_pre;
+    if (b.netobs) b.nb_shed[i] += lost_pre;
   }
 }
 
@@ -2211,11 +2339,8 @@ __global__ void tier_merge_kernel(const __grid_constant__ P bufs) {
 // far, never below the floor (the static runahead until the first send).
 // A window advance first folds the finished window into the netobs
 // histogram (one thread: a scalar step).
-template <class P>
-__global__ void queue_min_kernel(const __grid_constant__ P bufs,
-                                 int advance) {
-  const LaneBufs& b = scenario(bufs, blockIdx.x);
-  if (b.ctl[0] == 0) return;
+// The block's min head: valid in thread 0.
+__device__ int64_t heads_min(const LaneBufs& b) {
   __shared__ int64_t warp_min[32];
   int64_t m = NEVER64;
   for (int64_t i = threadIdx.x; i < b.n; i += blockDim.x) {
@@ -2235,28 +2360,49 @@ __global__ void queue_min_kernel(const __grid_constant__ P bufs,
   }
   if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
   __syncthreads();
+  if (threadIdx.x == 0) {
+    for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
+      m = warp_min[w] < m ? warp_min[w] : m;
+  }
+  return m;
+}
+
+// netobs: the finished window's PACKET count into the histogram, at bucket
+// floor(log2) (the last bucket open-ended); windows without a packet are
+// skipped.  One thread.
+__device__ __forceinline__ void flush_hist(const LaneBufs& b) {
+  if (b.netobs && *b.nb_win > 0) {
+    const int32_t bucket = 31 - __clz(*b.nb_win);
+    b.nb_hist[bucket < NB_HIST_BUCKETS ? bucket : NB_HIST_BUCKETS - 1] += 1;
+    *b.nb_win = 0;
+  }
+}
+
+// The window width: the static runahead, or with dynamic runahead the
+// smallest latency sent over so far, never below the floor.
+__device__ __forceinline__ int64_t runahead_now(const LaneBufs& b) {
+  int64_t runahead = b.runahead;
+  if (b.dyn_runahead) {
+    const int32_t used = *b.min_used_lat;
+    if (used != NEVER32)
+      runahead = used > b.runahead_floor ? used : b.runahead_floor;
+  }
+  return runahead;
+}
+
+template <class P>
+__global__ void queue_min_kernel(const __grid_constant__ P bufs,
+                                 int advance) {
+  const LaneBufs& b = scenario(bufs, blockIdx.x);
+  if (b.ctl[0] == 0) return;
+  const int64_t m = heads_min(b);
   if (threadIdx.x != 0) return;
-  for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
-    m = warp_min[w] < m ? warp_min[w] : m;
 
   const bool live = m < b.stop;
   int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
   if (advance && live && m >= we) {
-    // netobs: the finished window's PACKET count into the histogram, at
-    // bucket floor(log2) (the last bucket open-ended); windows without a
-    // packet are skipped
-    if (b.netobs && *b.nb_win > 0) {
-      const int32_t bucket = 31 - __clz(*b.nb_win);
-      b.nb_hist[bucket < NB_HIST_BUCKETS ? bucket : NB_HIST_BUCKETS - 1] += 1;
-      *b.nb_win = 0;
-    }
-    int64_t runahead = b.runahead;
-    if (b.dyn_runahead) {
-      const int32_t used = *b.min_used_lat;
-      if (used != NEVER32)
-        runahead = used > b.runahead_floor ? used : b.runahead_floor;
-    }
-    int64_t end = m + runahead;
+    flush_hist(b);
+    const int64_t end = m + runahead_now(b);
     we = end < b.stop ? end : b.stop;
     split(we, b.now_we_hi, b.now_we_lo);
     *b.rounds += 1;
@@ -2264,6 +2410,66 @@ __global__ void queue_min_kernel(const __grid_constant__ P bufs,
   b.ctl[0] = live ? 1 : 0;
   b.ctl[1] = (live && m < we) ? 1 : 0;
   split(m, &b.ctl[2], &b.ctl[3]);
+}
+
+// Kernel C's hybrid mode, one step of a hybrid turn (lanes.py
+// hybrid_window_plain; the reference's _build_hybrid_run): the turn's first step
+// resets the egress count, losses and min, folds the host side's used
+// latency in (dynamic runahead) and arms the turn.  Each step evaluates the
+// stop condition on the state as it stands — room for one more iteration
+// in the egress buffer, and a lane head in the current window or a fresh
+// window the host takes no part in (ext_bound = min(the host's next event,
+// the earliest egressed delivery)) — and either opens the next window at
+// the global min, as the device loop does, or stops the turn: live 0 and
+// the packed readback written (HYB_* order).  The host's inputs arrive as
+// kernel parameters.
+constexpr int HYB_LANE_MIN = 0, HYB_DEV_WE = 1, HYB_MIN_USED = 2,
+              HYB_EGRESS_COUNT = 3, HYB_EGRESS_LOST = 4;
+
+template <class P>
+__global__ void hybrid_window_kernel(const __grid_constant__ P bufs,
+                                     int first, int32_t ext_hi,
+                                     int32_t ext_lo, int32_t ext_used) {
+  const LaneBufs& b = scenario(bufs, blockIdx.x);
+  if (!first && b.ctl[0] == 0) return;
+  const int64_t m = heads_min(b);
+  if (threadIdx.x != 0) return;
+  if (first) {
+    if (b.dyn_runahead && ext_used < *b.min_used_lat)
+      *b.min_used_lat = ext_used;
+    *b.egress_count = 0;
+    *b.egress_lost = 0;
+    *b.egress_min_hi = NEVER32;
+    *b.egress_min_lo = NEVER32;
+    b.hyb[HYB_DEV_WE] = -1;
+  }
+  const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
+  const int64_t ext = join_t(ext_hi, ext_lo);
+  const int64_t egm = join_t(*b.egress_min_hi, *b.egress_min_lo);
+  const int64_t bound = ext < egm ? ext : egm;
+  const bool in_window = m < we;
+  const int64_t next = m < bound ? m : bound;
+  const bool fresh_ok = !(bound < we) && next < b.stop;
+  const bool room = *b.egress_count < b.room_floor;
+  split(m, &b.ctl[2], &b.ctl[3]);
+  if (!(room && (in_window || fresh_ok))) {
+    b.ctl[0] = 0;
+    b.ctl[1] = 0;
+    b.hyb[HYB_LANE_MIN] = m;
+    b.hyb[HYB_DEV_WE] = join_t(*b.now_we_hi, *b.now_we_lo);
+    b.hyb[HYB_MIN_USED] = b.dyn_runahead ? *b.min_used_lat : NEVER32;
+    b.hyb[HYB_EGRESS_COUNT] = *b.egress_count;
+    b.hyb[HYB_EGRESS_LOST] = *b.egress_lost;
+    return;
+  }
+  if (next >= we) {  // a fresh window (next < stop here: the turn is live)
+    flush_hist(b);
+    const int64_t end = next + runahead_now(b);
+    split(end < b.stop ? end : b.stop, b.now_we_hi, b.now_we_lo);
+    *b.rounds += 1;
+  }
+  b.ctl[0] = 1;
+  b.ctl[1] = in_window ? 1 : 0;
 }
 
 // ---- kernel D: append_log ---------------------------------------------------
@@ -2356,19 +2562,55 @@ __device__ void append_rows(const int32_t* valid, int64_t n_rec,
   }
 }
 
-// block 0 the log (when logging), the next the ring (with flowtrace)
+// The egress instance's second pass: the earliest DELIVERED time among the
+// iteration's egress rows lowers egress_min (a block min).
+__device__ void egress_min(const LaneBufs& b) {
+  __shared__ int64_t warp_min[32];
+  int64_t m = NEVER64;
+  for (int64_t r = threadIdx.x; r < b.n_eg; r += blockDim.x) {
+    const int64_t* row = b.eg_recs + r * 6;
+    if (b.eg_valid[r] && row[5] == DELIVERED) m = row[0] < m ? row[0] : m;
+  }
+  for (int s = 16; s > 0; s >>= 1) {
+    const int64_t o = __shfl_down_sync(0xFFFFFFFFu, m, s);
+    m = o < m ? o : m;
+  }
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
+    m = warp_min[w] < m ? warp_min[w] : m;
+  if (m < join_t(*b.egress_min_hi, *b.egress_min_lo))
+    split(m, b.egress_min_hi, b.egress_min_lo);
+}
+
+// one block for each instance that runs, in this order: the log (when
+// logging), the ring (with flowtrace), the egress (hybrid)
 template <class P>
 __global__ void append_log_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
-  if (blockIdx.x == 0 && b.log_cap > 0) {
-    append_rows(b.rec_valid, b.n_rec, LogRows{b.recs, b.log}, b.log_count,
-                b.log_lost, b.log_cap);
-  } else {
-    append_rows(b.fl_valid, b.n_fl,
-                FlowRows{b.fl_recs, b.fl_buf, *b.now_we_hi, *b.now_we_lo},
-                b.fl_count, b.fl_lost, b.ft_cap);
+  unsigned inst = blockIdx.x;
+  if (b.log_cap > 0) {
+    if (inst == 0) {
+      append_rows(b.rec_valid, b.n_rec, LogRows{b.recs, b.log}, b.log_count,
+                  b.log_lost, b.log_cap);
+      return;
+    }
+    --inst;
   }
+  if (b.flowtrace) {
+    if (inst == 0) {
+      append_rows(b.fl_valid, b.n_fl,
+                  FlowRows{b.fl_recs, b.fl_buf, *b.now_we_hi, *b.now_we_lo},
+                  b.fl_count, b.fl_lost, b.ft_cap);
+      return;
+    }
+    --inst;
+  }
+  append_rows(b.eg_valid, b.n_eg, LogRows{b.eg_recs, b.egress},
+              b.egress_count, b.egress_lost, b.eg_cap);
+  egress_min(b);
 }
 
 // ---- rand_u32: the threefry draw alone, one thread per draw -----------------
@@ -2530,12 +2772,64 @@ int queue_min_window(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
+// a hybrid turn's step of C: its first step arms the turn (ungated)
+int hybrid_window(const LaneBufs* host, const LaneBufs* dev, int s,
+                  int first, int ext_hi, int ext_lo, int ext_used,
+                  cudaStream_t stream) {
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    hybrid_window_kernel<<<s, 1024, 0, stream>>>(bufs, first, ext_hi, ext_lo,
+                                                 ext_used);
+    return cudaSuccess;
+  });
+}
+
+// kernel H over one injection block `inj` ([INJ_WORDS, inj_b] int32 on the
+// device): the two memsets, count, the ungated scan, place, the merge
+int inject_merge(const LaneBufs* host, const LaneBufs* dev, int s,
+                 const int32_t* inj, cudaStream_t stream) {
+  const LaneBufs* b = host;
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    using P = decltype(bufs);
+    const int64_t m = b->inj_b;
+    const size_t scratch = static_cast<size_t>(s) * b->n * sizeof(int32_t);
+    cudaError_t err = cudaMemsetAsync(b->x_cnt, 0, scratch, stream);
+    if (err == cudaSuccess)
+      err = cudaMemsetAsync(b->x_fill, 0, scratch, stream);
+    if (err != cudaSuccess) return err;
+    inj_count_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs,
+                                                                      inj);
+    x_scan_kernel<P, false><<<s, 1024, 0, stream>>>(bufs);
+    inj_place_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs,
+                                                                      inj);
+    const int64_t w_all = b->c + b->cxi;
+    const int64_t bytes = b->words * w_all * sizeof(int32_t);
+    int smem = 0;
+    err = b->words == 7
+              ? merge_smem(inject_merge_kernel<7, P>, b->inject_global != 0,
+                           bytes, &smem)
+              : merge_smem(inject_merge_kernel<5, P>, b->inject_global != 0,
+                           bytes, &smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid(static_cast<unsigned>(b->n), s);
+    if (b->words == 7) {
+      inject_merge_kernel<7, P>
+          <<<grid, merge_threads(w_all), smem, stream>>>(bufs, inj);
+    } else {
+      inject_merge_kernel<5, P>
+          <<<grid, merge_threads(w_all), smem, stream>>>(bufs, inj);
+    }
+    return cudaSuccess;
+  });
+}
+
 int append_log(const LaneBufs* host, const LaneBufs* dev, int s,
                cudaStream_t stream) {
   return with_bufs(host, dev, s, [&](auto bufs) {
-    // one block for each instance that runs: the log, the flowtrace ring
-    const unsigned blocks =
-        (host->log_cap > 0 ? 1u : 0u) + (host->flowtrace ? 1u : 0u);
+    // one block for each instance that runs: the log, the flowtrace ring,
+    // the egress
+    const unsigned blocks = (host->log_cap > 0 ? 1u : 0u) +
+                            (host->flowtrace ? 1u : 0u) +
+                            (host->ext_any ? 1u : 0u);
     if (blocks > 0)
       append_log_kernel<<<dim3(blocks, s), LOG_THREADS, 0, stream>>>(bufs);
     return cudaSuccess;

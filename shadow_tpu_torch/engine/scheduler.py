@@ -1,0 +1,139 @@
+"""Host scheduler: parallel execution of hosts within a round.
+
+Rebuild of the reference's scheduler crate (src/lib/scheduler/): hosts are
+the unit of parallel work (lib.rs:3-7); a pool of worker threads executes
+disjoint host partitions inside each round, with cross-host packet pushes
+going through per-host locked inboxes that drain at the round barrier —
+the ``WorkerShared::push_packet_to_host`` discipline (worker.rs:603-615).
+
+Two policies behind one API, as in the reference (lib.rs:1-30):
+``thread-per-core`` (N pinned workers, hosts distributed round-robin) and
+``thread-per-host`` (one worker per host — the legacy/debug mode the
+reference keeps and documents as ~10x slower, lib.rs:8-11).
+
+Python-threading reality check: pure-Python model hosts do not speed up
+under the GIL; hosts driving managed OS processes do — their dominant cost
+is futex waits on the plugin channel (ctypes releases the GIL), so real
+binaries genuinely run concurrently, which is exactly the workload the
+reference parallelizes.  Pure-model workloads get genuine parallelism
+from the FORK-based backend instead (backend/cpu_mp.MpCpuEngine: worker
+processes own host partitions, cross-partition packets ride pipes at the
+round barrier), which the bench uses for its CPU-side number.  Determinism holds for ANY worker count: within a
+round hosts only touch their own state, cross-host effects are inbox
+appends whose drain order is normalized by the total event order, and
+per-HOST log/min-latency buffers (cpu_engine.Host.log_buf / min_used_lat)
+merge at the barrier in host-id order — which is precisely why work
+stealing preserves determinism: no accumulation is keyed on which worker
+ran a host.  Any future per-WORKER state must be steal-order-invariant
+or it will break parallelism-invariance (the determinism suite asserts
+it).
+
+The JAX package's ``engine/scheduler.py``, copied into the port unchanged in law
+(plain Python and numpy, no JAX).
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+
+class HostScheduler:
+    """Executes ``host.execute(until)`` for every host each round."""
+
+    def __init__(
+        self,
+        hosts,
+        parallelism: int = 0,
+        policy: str = "thread-per-core",
+        pin_cpus: bool = True,
+    ) -> None:
+        n_hosts = len(hosts)
+        # cumulative cross-worker steals (perf observability)
+        self.steals = 0
+        if policy == "thread-per-host":
+            workers = n_hosts
+        else:
+            workers = parallelism if parallelism > 0 else (os.cpu_count() or 1)
+        self.workers = max(1, min(workers, n_hosts) if n_hosts else 1)
+        self.hosts = hosts
+        self._pool = None
+        if self.workers > 1:
+            self._pool = ThreadPoolExecutor(
+                max_workers=self.workers,
+                thread_name_prefix="shadow-worker",
+                initializer=_pin_worker if pin_cpus else None,
+            )
+            # round-robin by host id: the reference distributes hosts across
+            # per-thread queues the same way (thread_per_core.rs:17-50)
+            self.partitions = [
+                [h for i, h in enumerate(hosts) if i % self.workers == w]
+                for w in range(self.workers)
+            ]
+
+    def run_round(self, until: int) -> None:
+        if self._pool is None:
+            for host in self.hosts:  # id order; serial == deterministic
+                host.execute(until)
+            return
+        # fresh per-worker deques each round; workers drain their own and
+        # then STEAL from their neighbors' tails (thread_per_core.rs:17-50:
+        # per-thread ArrayQueues with cross-thread stealing) — a worker
+        # whose hosts finish early picks up a stalled partition's backlog
+        # (e.g. one host driving a slow managed process)
+        queues = [collections.deque(p) for p in self.partitions]
+        futures = [
+            self._pool.submit(_run_stealing, queues, w, until)
+            for w in range(self.workers)
+        ]
+        for f in futures:  # barrier; re-raise worker exceptions
+            self.steals += f.result()
+
+    def shutdown(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+            self._pool = None
+
+
+def _run_stealing(queues, w: int, until: int) -> int:
+    """Drain own queue head-first; steal from other queues' TAILS when
+    empty (deque.popleft/pop are GIL-atomic, so no extra locking).  Hosts
+    only touch their own state within a round, so which worker runs a
+    host is unobservable — determinism is parallelism-invariant."""
+    my = queues[w]
+    n = len(queues)
+    steals = 0
+    while True:
+        try:
+            host = my.popleft()
+        except IndexError:
+            host = None
+            for i in range(1, n):
+                try:
+                    host = queues[(w + i) % n].pop()
+                    steals += 1
+                    break
+                except IndexError:
+                    continue
+            if host is None:
+                return steals
+        host.execute(until)
+
+
+_pin_counter = [0]
+_pin_lock = threading.Lock()
+
+
+def _pin_worker() -> None:
+    """Pin this worker thread to one CPU (core/affinity.c's job; docs cite
+    up to ~3x penalty without pinning, docs/parallel_sims.md:12-15)."""
+    try:
+        cpus = sorted(os.sched_getaffinity(0))
+        with _pin_lock:
+            idx = _pin_counter[0]
+            _pin_counter[0] += 1
+        os.sched_setaffinity(0, {cpus[idx % len(cpus)]})
+    except (AttributeError, OSError):  # non-Linux or restricted: best effort
+        pass

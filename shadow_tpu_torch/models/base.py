@@ -1,18 +1,69 @@
-"""Application models (the simulated workloads): registry and arguments.
+"""Application models (the simulated workloads).
 
-A process entry of the config names a model by ``path`` and configures it
-with ``--key value`` args.  The lane engine reads each model's parameters
-from the instance :func:`create_model` returns; the behaviour itself is
-the lane law in ``backend/lanes.py``.
+The reference runs real Linux binaries under syscall interposition; the
+built-in *models* here are the lane-friendly first tier: each model is a
+small state machine over the host API below, restricted enough that the lane
+backend can run the identical logic vectorized on-device (one lane per
+host).  Real-binary execution via the native shim plugs into the same engine
+as a host-resident app (later milestone).
+
+A model reacts to three stimuli, always at a definite simulation time:
+
+- ``on_start(api)``        — process start (config ``start_time``)
+- ``on_timer(api, t)``     — a timer it armed fired
+- ``on_delivery(api, t, src, seq, size)`` — a datagram arrived
+
+and acts through the :class:`HostApi`: ``send``, ``set_timer``,
+``rand_u32`` (deterministic APP_STREAM draws), and counters.
+
+The JAX package's ``models/base.py``, copied into the port unchanged in law
+(plain Python and numpy, no JAX).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Protocol
 
-from ..config.options import LaneCompatError
 
-_REGISTRY: dict[str, Callable[..., Any]] = {}
+class HostApi(Protocol):
+    """What a model may do to its host (both backends provide this)."""
+
+    host_id: int
+    num_hosts: int
+
+    def send(self, dst: int, size_bytes: int) -> int:
+        """Send a datagram (IP size incl. 28 header bytes) at current time;
+        returns its per-host sequence number."""
+
+    def set_timer(self, t_abs_ns: int) -> None:
+        """Arm a timer local event at absolute sim time."""
+
+    def set_timer_relative(self, delta_ns: int) -> None:
+        """Arm a timer ``delta_ns`` after the current time."""
+
+    def schedule_at(self, t_abs_ns: int, fn) -> None:
+        """Queue an exact-time local event calling ``fn(host)`` (may land
+        at the current instant; pops in event-key order)."""
+
+    def resolve(self, hostname: str) -> int:
+        """DNS: hostname -> host id (also accepts a numeric id string)."""
+
+    def rand_u32(self) -> int:
+        """Next deterministic app-stream draw (u32)."""
+
+    def count(self, key: str, n: int = 1) -> None:
+        """Bump a named per-host counter (merged into sim stats)."""
+
+
+class AppModel(Protocol):
+    def on_start(self, api: HostApi) -> None: ...
+
+    def on_timer(self, api: HostApi, t: int) -> None: ...
+
+    def on_delivery(self, api: HostApi, t: int, src: int, seq: int, size: int, payload=None) -> None: ...
+
+
+_REGISTRY: dict[str, Callable[..., AppModel]] = {}
 
 
 def register_model(name: str):
@@ -23,15 +74,40 @@ def register_model(name: str):
     return deco
 
 
-def create_model(path: str, args: list[str]) -> Any:
-    """Instantiate a model from a process ``path`` + ``args``.  Paths that
-    name no model of this slice (other built-in models, real binaries)
-    raise :class:`LaneCompatError`."""
+def builtin_models() -> dict[str, Callable[..., AppModel]]:
+    """The registry with every built-in model registered (their modules
+    register on import): a process path outside it is a managed binary."""
+    from . import phold, tcpflow, tgen, tgen_tcp  # noqa: F401
+
+    return _REGISTRY
+
+
+def config_has_managed(cfg) -> bool:
+    """True when any process path of ``cfg`` is not a built-in model, i.e.
+    a real binary that must run host-side under the shim (a hybrid run)."""
+    models = builtin_models()
+    return any(p.path not in models for h in cfg.hosts for p in h.processes)
+
+
+def create_model(
+    path: str, args: list[str], environment: dict | None = None
+) -> AppModel:
+    """Instantiate an app from a process ``path`` + ``args`` (config-
+    compatible with the reference's process entries).  A registered model
+    name selects the built-in (lane-compilable) tier; an executable path
+    selects the native-shim tier — a real Linux binary run under syscall
+    interposition, as the reference does for every process."""
     if path in _REGISTRY:
         return _REGISTRY[path].from_args(args)  # type: ignore[attr-defined]
-    raise LaneCompatError(
-        f"process {path!r} is not ported yet: this slice runs "
-        f"{sorted(_REGISTRY)} only (use the shadow_tpu package)"
+    import os
+
+    if os.path.isfile(path) and os.access(path, os.X_OK):
+        from ..native.process import ManagedApp
+
+        return ManagedApp([path, *args], environment)
+    raise ValueError(
+        f"unknown app model {path!r}: neither a built-in model "
+        f"({sorted(_REGISTRY)}) nor an executable file"
     )
 
 

@@ -354,6 +354,13 @@ class RoutingInfo:
                         f"({graph.node_ids[s]} -> {graph.node_ids[t]})"
                     )
 
+    def path(self, src_host: int, dst_host: int) -> tuple[int, int]:
+        """(latency_ns, loss_threshold) for a host pair: the CPU engines'
+        per-packet lookup."""
+        s = self.host_node_index[src_host]
+        t = self.host_node_index[dst_host]
+        return int(self.graph.latency_ns[s, t]), int(self.graph.loss_threshold[s, t])
+
     def min_used_latency_ns(self) -> int:
         """Min latency over node pairs actually used by hosts — the
         lookahead bound (runahead.rs:60-118)."""

@@ -40,6 +40,7 @@ def test_import_leaves_jax_unloaded():
         "import shadow_tpu_torch.backend.gpu_engine, shadow_tpu_torch.backend.kernels\n"
         "import shadow_tpu_torch.backend.bridge, shadow_tpu_torch.config.presets\n"
         "import shadow_tpu_torch.faults.overlay, shadow_tpu_torch.sweep\n"
+        "import shadow_tpu_torch.backend.hybrid, shadow_tpu_torch.config.scenarios\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'shadow_tpu', 'yaml')]\n"
         "assert not bad, bad\n"
     )
