@@ -115,16 +115,27 @@ the hybrid flagship's shapes (``managed_relay_chains_large``: 151 managed
 processes, 1,000 tgen-mesh peers, 1,151 lanes; mesh-only and with phold
 lanes beside the external ones; blocks spread and all to one lane past
 Cxi; the host's next event before, inside, past the window and absent,
-the egress buffer empty and at its floor) — exact; after the fault
-phase, the flagship at full width for 2 sim s on the card, in
-``HybridEngine(device="cpu")`` and in the port's CPU oracle — equal logs,
-counters, rounds, process errors and transfer counts — then H, A, C's
-hybrid mode and D timed on the card run's state at that cut; after
+the egress buffer empty and at its floor) — exact; then C's fused mode
+(the k-window law) against its plain version at the same shapes, single
+steps (the window law, a consumed window with the guard refolded over
+egress rows on both sides of its end, the k_eff, horizon and egress-room
+stops, first and later steps) and whole dispatches on the card against
+the plain versions on a CPU copy — exact; after the fault phase, the
+flagship at full width for 2 sim s at the reference's defaults (the
+fused law, eager dispatch, 2 syscall worker processes) on the card, the
+same with ``device="cpu"``, the port's CPU oracle and the one-window law
+on the card — equal logs, counters, rounds, process errors and transfer
+counts — then ``tests/test_hybrid_fusion.py``'s congested config on the
+card (rollbacks), the CPU and the one-window law, then H, A, C's hybrid
+and fused modes and D timed on the card run's state at the cut; after
 the main paths, the flagship itself: 25 three-relay chains, 75 tcpecho
 clients and the origin beside the 1,000 peers, 10 sim s, device mode,
-strict — 76 clean exits, no process error, its sim-s/wall-s with the
-device turns' and the syscall service's seconds, and H's, A's, C's and
-D's launches.
+strict, at the defaults (a worker process per core: none of them may
+hold a CUDA context) and on the serial one-window law — 76 clean exits,
+4,216 rounds, no egress row lost, no process error, the two runs equal,
+each with its sim-s/wall-s,
+the device turns' and the syscall service's seconds, the fused law's
+counters and the kernels' launches.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -134,6 +145,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -146,15 +158,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-if not torch.cuda.is_available():
-    print("chip_smoke: no CUDA device", file=sys.stderr)
-    sys.exit(1)
-
 from shadow_tpu_torch.backend import kernels, lanes  # noqa: E402
 from shadow_tpu_torch.backend import lanes_stream as lstr  # noqa: E402
 from shadow_tpu_torch.backend.cpu_engine import CpuEngine  # noqa: E402
 from shadow_tpu_torch.backend.gpu_engine import GpuEngine  # noqa: E402
-from shadow_tpu_torch.backend.hybrid import HybridEngine  # noqa: E402
+from shadow_tpu_torch.backend.hybrid import (  # noqa: E402
+    HybridEngine, MpHybridEngine, make_hybrid_engine)
 from shadow_tpu_torch.config import presets, scenarios  # noqa: E402
 from shadow_tpu_torch.config.options import ConfigOptions  # noqa: E402
 from shadow_tpu_torch.config.presets import flagship_mesh_config  # noqa: E402
@@ -1271,7 +1280,10 @@ def check_tier_kernels():
 
 # where the planes' runs write their capture files (a temporary directory,
 # removed at the end)
-DATA = tempfile.mkdtemp(prefix="chip_smoke_")
+# the runs' data directories (set by main: a spawned worker process of the
+# multiprocess hybrid engine imports this module again, and must create and
+# touch nothing — the card least of all)
+DATA = None
 HIST_TOP = 1 << 23  # a window count in the histogram's last bucket
 
 
@@ -2611,7 +2623,7 @@ ROOT = Path(__file__).resolve().parent
 HYB_CHAINS, HYB_SIM_S = 25, 10
 # the card = CPU cut (fewer sim seconds first): the full width, 2 sim s —
 # the relays carry the first clients' traffic, and every client is still
-# running at the cut (equal process errors on the three runs)
+# running at the cut (equal process errors on every run)
 HYB_CUT_S = 2
 # the device log: the flagship's 10 sim s make about 230,000 records
 HYB_LOG = 1_000_000
@@ -2628,16 +2640,18 @@ NATIVE_CFLAGS = ("-O2 -g -Wall -Wextra -Werror -Wno-error=array-bounds "
                  "-U_FORTIFY_SOURCE -D_FORTIFY_SOURCE=0")
 
 
-@phase("native build: make -C native (the LD_PRELOAD shim, tcpecho, relay)")
+@phase("native build: make -C native (the LD_PRELOAD shim, tcpecho, relay, "
+       "pingpong)")
 def native_build():
     # the shim and the apps the hybrid flagship runs
     proc = subprocess.run(
         ["make", "-C", str(ROOT / "native"), f"CFLAGS={NATIVE_CFLAGS}",
-         "build/libshadow_shim.so", "build/tcpecho", "build/relay"],
+         "build/libshadow_shim.so", "build/tcpecho", "build/relay",
+         "build/pingpong"],
         capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"make -C native failed:\n{proc.stderr[-3000:]}")
-    for name in ("libshadow_shim.so", "tcpecho", "relay"):
+    for name in ("libshadow_shim.so", "tcpecho", "relay", "pingpong"):
         if not (ROOT / "native" / "build" / name).exists():
             raise RuntimeError(f"native/build/{name} missing after make")
     log(f"native build: {proc.stdout.strip()[-600:]}")
@@ -2776,57 +2790,302 @@ def check_hybrid_kernels():
                                      "or a step")
 
 
+# the fused law at the defaults: k = 8 windows a dispatch at most, over a
+# schedule of max(2k, 9) = 16 peeked host event times
+FUSE_K = 8
+FUSE_SLOTS = max(2 * FUSE_K, 9)
+
+
+def fused_schedule(times, horizon=lanes.NEVER) -> list:
+    head = sorted(set(int(t) for t in times))[:FUSE_SLOTS - 1]
+    return head + [horizon] * (FUSE_SLOTS - len(head))
+
+
+def egress_rows(p, rng, count: int, t0: int) -> torch.Tensor:
+    """``count`` egress rows (DELIVERED and CoDel drops) at times around
+    ``t0``, in an [E, 6] buffer."""
+    e = np.zeros((p.egress_capacity, 6), dtype=np.int64)
+    e[:count, 0] = t0 + rng.integers(-6_000_000, 30_000_000, count)
+    e[:count, 1] = rng.integers(0, p.n_lanes, count)
+    e[:count, 2] = rng.integers(0, p.n_lanes, count)
+    e[:count, 3] = rng.integers(0, 1 << 20, count)
+    e[:count, 4] = rng.integers(60, 1500, count)
+    e[:count, 5] = rng.choice([0, 0, 0, 2], count)
+    return torch.as_tensor(e, device=DEV)
+
+
+@phase("C's fused mode vs plain at the hybrid flagship's shapes: single steps "
+       "(window law, consume and refold, k_eff, horizon and egress-room "
+       "stops, first and later steps) and whole dispatches card = CPU "
+       "(tolerance: exact, integer)")
+def check_fused_kernels():
+    rng = np.random.default_rng(SEED + 10)
+    cfg = hybrid_cfg("fused-kernels")
+    ext = external_mask(cfg)
+    eng = GpuEngine(cfg, log_capacity=60_000, external=ext)
+    tb = eng.tables
+    counts = {"step": 0, "consume": 0, "stop": 0, "refold": 0}
+    for dyn in (False, True):
+        p = dataclasses.replace(eng.params, dynamic_runahead=dyn,
+                                hybrid_k_cap=FUSE_K, ext_slots=FUSE_SLOTS)
+        s0 = random_state(eng, tb, rng)
+        # the lane heads from T0: a window ending before them leaves the
+        # host's events to decide (we_lo), one past them iterates (we_hi)
+        we_lo, we_hi = T0 - 1_000_000, T0 + 10_000_000
+        s0.egress.copy_(egress_rows(p, rng, 900, T0))
+        for first in (True, False):
+            for k_eff in (1, 2, FUSE_K):
+                for case in ("step", "consume", "horizon", "room"):
+                    we = we_hi if case == "step" else we_lo
+                    s1 = clone(s0)
+                    s1.now_we_hi.fill_(we >> 31)
+                    s1.now_we_lo.fill_(we & lanes.MASK31)
+                    s1.egress_count.fill_(
+                        p.egress_capacity - p.ext_per_iter if case == "room"
+                        else 900)
+                    s1.min_used_lat.fill_(int(rng.choice(
+                        [lanes.NEVER32, 700_000])))
+                    s1.egress_min_hi.fill_(lanes.NEVER32)
+                    s1.egress_min_lo.fill_(lanes.NEVER32)
+                    ws0 = lanes.make_workspace(p, DEV)
+                    ws0.ctl[0] = 1
+                    if case == "horizon":  # the host's first time IS it
+                        sched = fused_schedule([], horizon=we - 500_000)
+                    else:  # the host takes part in the current window
+                        sched = fused_schedule(
+                            [we - 500_000]
+                            + list(we + rng.integers(0, 20_000_000, 12)))
+                    ws0.ext.copy_(torch.tensor(sched, dtype=torch.int64))
+                    kd = int(rng.integers(0, k_eff))
+                    ws0.fz.copy_(torch.tensor([0, kd, 3], dtype=torch.int32))
+                    turn = lanes.FusedTurn(900_000, k_eff, first)
+                    kern, plain = run_pair(
+                        p, tb, s1, ws0,
+                        lambda a, t_=turn: kernels.hybrid_fused_window(a, t_),
+                        lambda p_, tb_, s, ws, t_=turn:
+                            lanes.hybrid_fused_window_plain(p_, s, ws, t_))
+                    check("hybrid_fused_window",
+                          f"dyn={dyn} first={first} k_eff={k_eff} {case}",
+                          kern, plain)
+                    live = int(plain["ctl"][0])
+                    k_done = int(plain["fz"][1]) - (0 if first else kd)
+                    counts["step"] += live
+                    counts["stop"] += 1 - live
+                    counts["consume"] += k_done > 0
+                    counts["refold"] += k_done > 0 and int(
+                        plain["egress_min_hi"]) != lanes.NEVER32
+    log(f"hybrid_fused_window: equal in 48 single steps: {counts}")
+    if min(counts.values()) == 0:
+        raise AssertionError(f"hybrid_fused_window: the cases missed a path "
+                             f"({counts})")
+    # whole dispatches on the card (H, A, B, D and C's fused mode) against
+    # the plain versions on a CPU copy, from one seeded state: the CPU
+    # tests' schedules (consumed windows at k_eff 1, 2 and 8, the horizon
+    # inside the span, the egressed deliveries alone, the egress room)
+    p = eng.params
+    s0 = random_state(eng, tb, rng)
+    we = T0 + 10_000_000
+    blk = hybrid_block(p, rng, 200, np.nonzero(ext)[0], we)
+    cases = {
+        "consume": fused_schedule(we + np.arange(-1, 12) * 1_300_000),
+        "horizon": fused_schedule([we - 300_000, we + 700_000],
+                                  horizon=we + 2_500_000),
+        "egress": fused_schedule([]),
+    }
+    tb_cpu = lanes.LaneTables(*[t.cpu() for t in tb])
+    for case, k_eff in (("consume", 1), ("consume", 2), ("consume", FUSE_K),
+                        ("horizon", FUSE_K), ("egress", FUSE_K),
+                        ("room", FUSE_K)):
+        pc = p if case != "room" else dataclasses.replace(
+            p, egress_capacity=p.ext_per_iter + 40)
+        s_card = clone(s0)
+        if case == "room":
+            s_card = s_card._replace(egress=torch.zeros(
+                (pc.egress_capacity, 6), dtype=torch.int64, device=DEV))
+        s_cpu = lanes.LaneState(*[t.to("cpu", copy=True) for t in s_card])
+        sched = cases["consume" if case == "room" else case]
+        outs = []
+        for s_, tb_, inj in ((s_card, tb, blk[None]),
+                             (s_cpu, tb_cpu, blk[None].cpu())):
+            run = lanes.FusedRun(pc, tb_, s_, FUSE_K, FUSE_SLOTS)
+            outs.append((run(sched, 900_000, inj, k_eff),
+                         run(sched, lanes.NEVER32, None, k_eff)))
+        if outs[0] != outs[1]:
+            raise AssertionError(f"fused dispatch {case} k_eff={k_eff}: "
+                                 f"readbacks {outs[0]} != {outs[1]}")
+        check("hybrid_fused_window", f"dispatch {case} k_eff={k_eff}",
+              fields(s_card), {f: t.to(DEV) for f, t in fields(s_cpu).items()})
+        log(f"fused dispatch {case} k_eff={k_eff}: card = CPU; readbacks "
+            f"{[o[:lanes.HYB_WE_BASE] for o in outs[0]]}")
+
+
 def sync_counts(eng) -> dict:
     return {k: v for k, v in eng.sync_stats.items() if not k.endswith("_s")}
 
 
-@phase("hybrid parity: the hybrid flagship at full width for 2 sim s, the "
-       "card against the port's CPU oracle and HybridEngine(device='cpu')")
+def hybrid_engine(tag: str, sim_s: float, dev: str, workers: int,
+                  fuse_k: int) -> HybridEngine:
+    """The hybrid flagship at full width for ``sim_s`` sim s, on the engine
+    the reference's facade picks (``make_hybrid_engine``)."""
+    cfg = hybrid_cfg(tag, sim_s)
+    cfg.experimental.hybrid_workers = workers
+    cfg.experimental.hybrid_fuse_k = fuse_k
+    return make_hybrid_engine(cfg, device=dev, log_capacity=HYB_LOG)
+
+
+def mod_iters(r) -> dict:
+    # lane_iters counts device iterations: a fused dispatch runs no-op
+    # iterations in windows the one-window law never visits
+    return {k: v for k, v in r.counters.items() if k != "lane_iters"}
+
+
+@phase("hybrid parity: the hybrid flagship at full width for 2 sim s at the "
+       "defaults (the fused law, k = 8, eager dispatch, 2 worker "
+       "processes) on the card = device='cpu' = the port's CPU oracle = the "
+       "one-window law on the card")
 def hybrid_parity():
     runs = {}
     t0 = time.perf_counter()
     runs["cpu oracle"] = CpuEngine(hybrid_cfg("oracle", HYB_CUT_S)).run()
     log(f"hybrid parity: CPU oracle {time.perf_counter() - t0:.1f} s")
     engs = {}
-    for dev in ("cuda", "cpu"):
+    for name, dev, workers, fuse_k in (("card", "cuda", 2, FUSE_K),
+                                       ("cpu", "cpu", 2, FUSE_K),
+                                       ("card one-window", "cuda", 1, 1)):
         t0 = time.perf_counter()
-        eng = HybridEngine(hybrid_cfg(f"parity-{dev}", HYB_CUT_S), device=dev,
-                           log_capacity=HYB_LOG)
-        runs[dev] = eng.run()
-        engs[dev] = eng
-        log(f"hybrid parity: {dev} {time.perf_counter() - t0:.1f} s, "
-            f"{sync_counts(eng)}")
+        eng = hybrid_engine(f"parity-{name.replace(' ', '-')}", HYB_CUT_S,
+                            dev, workers, fuse_k)
+        runs[name] = eng.run()
+        engs[name] = eng
+        log(f"hybrid parity: {name} ({type(eng).__name__}, "
+            f"{getattr(eng, 'workers', 1)} workers, k = {fuse_k}) "
+            f"{time.perf_counter() - t0:.1f} s, {sync_counts(eng)}")
     want = runs["cpu oracle"]
     for name, r in runs.items():
-        if r.process_errors != want.process_errors:
+        # the workers report their partitions' errors in worker order
+        if sorted(r.process_errors) != sorted(want.process_errors):
             raise AssertionError(f"{name}: process errors {r.process_errors} "
                                  f"!= the oracle's {want.process_errors}")
     logs = [r.log_tuples() for r in runs.values()]
-    if not logs[0] == logs[1] == logs[2]:
+    if any(lg != logs[0] for lg in logs[1:]):
         raise AssertionError("hybrid parity: the event logs differ")
-    if runs["cuda"].counters != runs["cpu"].counters:
-        raise AssertionError(f"hybrid parity: counters {runs['cuda'].counters}"
+    if runs["card"].counters != runs["cpu"].counters:
+        raise AssertionError(f"hybrid parity: counters {runs['card'].counters}"
                              f" != {runs['cpu'].counters}")
+    if mod_iters(runs["card"]) != mod_iters(runs["card one-window"]):
+        raise AssertionError("hybrid parity: the fused law's counters differ "
+                             "from the one-window law's")
     # the oracle counts per app (tgen_sent_bytes too), the lanes per lane:
     # the managed hosts' counters and the mesh's received bytes compare
     for k, v in want.counters.items():
         if ((k.startswith(("managed_", "udp_")) or k == "tgen_recv_bytes")
-                and runs["cuda"].counters.get(k) != v):
-            raise AssertionError(f"hybrid parity: {k} {runs['cuda'].counters.get(k)}"
+                and runs["card"].counters.get(k) != v):
+            raise AssertionError(f"hybrid parity: {k} {runs['card'].counters.get(k)}"
                                  f" != the oracle's {v}")
-    if not want.rounds == runs["cuda"].rounds == runs["cpu"].rounds:
+    if len({r.rounds for r in runs.values()}) != 1:
         raise AssertionError("hybrid parity: rounds differ")
-    if sync_counts(engs["cuda"]) != sync_counts(engs["cpu"]):
+    if sync_counts(engs["card"]) != sync_counts(engs["cpu"]):
         raise AssertionError("hybrid parity: the transfer counts differ")
+    st = engs["card"].sync_stats
+    if st["fused_dispatches"] == 0:
+        raise AssertionError("hybrid parity: no fused dispatch")
+    # one device snapshot (the checkpoint a fused dispatch starts from)
+    snap = engs["card"]._snaps[engs["card"]._ckpt]
+    log(f"hybrid parity: a device snapshot holds {lanes.snapshot_bytes(snap)}"
+        f" bytes in {len(snap)} fields (the [1151, 64] queues "
+        f"{5 * lanes.snapshot_bytes({'q': snap['q_thi']})} of them)")
     log(f"hybrid parity (cut: full width, {HYB_CUT_S} of {HYB_SIM_S} sim s): "
         f"equal logs ({len(logs[0])} records), counters, rounds "
-        f"({want.rounds}) and transfer counts; clean exits "
-        f"{want.counters.get('managed_exit_clean')}, processes still running "
-        f"at the cut {len(want.process_errors)}")
-    return engs["cuda"]
+        f"({want.rounds}) and transfer counts; device turns "
+        f"{st['device_turns']} fused against "
+        f"{engs['card one-window'].sync_stats['device_turns']} one-window; "
+        f"clean exits {want.counters.get('managed_exit_clean')}, processes "
+        f"still running at the cut {len(want.process_errors)}")
+    return engs["card"]
 
 
-def hybrid_bytes(p, s, ws, blk) -> dict:
+def congested_yaml(d: Path, fuse_k: int) -> str:
+    """tests/test_hybrid_fusion.py's congested config without the turn
+    ledger: bulk tcpecho into a 10 Mbit node queues deliveries in the down
+    buckets past the windows that made them, while a pingpong pair's
+    cadence stages sends inside fused spans (rollbacks)."""
+    build = ROOT / "native" / "build"
+    bulk = "".join(f"""
+  bcli{i}:
+    network_node_id: 0
+    processes:
+      - path: {build / 'tcpecho'}
+        args: [hclient, bsrv{i}, "{7000 + i}", "6", "8192", "0"]
+        start_time: {100 + 40 * i}ms
+  bsrv{i}:
+    network_node_id: 1
+    processes:
+      - path: {build / 'tcpecho'}
+        args: [server, "{7000 + i}", "1"]
+""" for i in range(3))
+    return f"""
+general: {{stop_time: 2s, seed: 7, data_directory: {d}, heartbeat_interval: null}}
+network:
+  graph:
+    type: gml
+    inline: |
+      graph [
+        directed 0
+        node [ id 0 host_bandwidth_up "1 Gbit" host_bandwidth_down "1 Gbit" ]
+        node [ id 1 host_bandwidth_up "10 Mbit" host_bandwidth_down "10 Mbit" ]
+        edge [ source 0 target 0 latency "100 us" ]
+        edge [ source 1 target 1 latency "100 us" ]
+        edge [ source 0 target 1 latency "300 us" ]
+      ]
+experimental: {{network_backend: tpu, hybrid_fuse_k: {fuse_k}}}
+hosts:
+  acli:
+    network_node_id: 0
+    processes:
+      - path: {build / 'pingpong'}
+        args: [client, 11.0.0.2, "9000", "4", "100"]
+  asrv:
+    network_node_id: 0
+    processes:
+      - path: {build / 'pingpong'}
+        args: [server, "9000", "4"]
+{bulk}
+"""
+
+
+@phase("hybrid rollbacks: the congested config, the fused law on the card = "
+       "device='cpu' = the one-window law on the card, with rollbacks on "
+       "the card")
+def hybrid_congested():
+    runs, engs = {}, {}
+    for name, dev, fuse_k in (("card", "cuda", FUSE_K), ("cpu", "cpu", FUSE_K),
+                              ("card one-window", "cuda", 1)):
+        cfg = ConfigOptions.from_yaml(congested_yaml(
+            Path(DATA) / f"congested-{name.replace(' ', '-')}", fuse_k))
+        engs[name] = HybridEngine(cfg, device=dev)
+        runs[name] = engs[name].run()
+        if runs[name].process_errors:
+            raise AssertionError(f"congested {name}: process errors "
+                                 f"{runs[name].process_errors}")
+    logs = [r.log_tuples() for r in runs.values()]
+    if any(lg != logs[0] for lg in logs[1:]):
+        raise AssertionError("congested: the event logs differ")
+    if len({r.rounds for r in runs.values()}) != 1:
+        raise AssertionError("congested: rounds differ")
+    if (runs["card"].counters != runs["cpu"].counters
+            or mod_iters(runs["card"]) != mod_iters(runs["card one-window"])):
+        raise AssertionError("congested: counters differ")
+    if sync_counts(engs["card"]) != sync_counts(engs["cpu"]):
+        raise AssertionError("congested: the transfer counts differ")
+    st = engs["card"].sync_stats
+    if st["fuse_rollbacks"] < 1:
+        raise AssertionError("congested: the card never rolled back")
+    log(f"congested: equal logs ({len(logs[0])} records), rounds "
+        f"{runs['card'].rounds}, counters and transfer counts; card "
+        f"{sync_counts(engs['card'])}")
+
+
+def hybrid_bytes(p, s, ws, blk, eg_count: int) -> dict:
     """Bytes the hybrid path's new work must move at these inputs: H reads
     the block and the rows of the lanes it lands on and writes those rows
     back (with their queue counters); C's hybrid mode reads the N head
@@ -2841,6 +3100,12 @@ def hybrid_bytes(p, s, ws, blk) -> dict:
                          + 2 * touched * (p.capacity * words * 4 + 4)),
         "hybrid_window": p.n_lanes * 8 + 12 * 4 + 5 * 8,
         "append_log:egress": p.egress_slots * 4 + 2 * n_eg * 48 + 4 * 4,
+        # C's fused mode on a consume: the heads, the schedule, each egress
+        # row's time and outcome once (the refold), the scalars and the
+        # readback
+        "hybrid_fused_window": (p.n_lanes * 8 + FUSE_SLOTS * 8
+                                + eg_count * 16 + 16 * 4
+                                + (lanes.HYB_WE_BASE + FUSE_K + 1) * 8),
     }
 
 
@@ -2851,6 +3116,7 @@ HYBRID_PARTS = {
                      "inject_merge_kernel", "Memset"),
     "lane_slots:external": ("lane_slots_kernel",),
     "hybrid_window": ("hybrid_window_kernel",),
+    "hybrid_fused_window": ("hybrid_fused_kernel",),
     "append_log:egress": ("append_log_kernel",),
 }
 
@@ -2864,11 +3130,17 @@ def time_hybrid(eng) -> dict:
     clients' traffic), its next window opened: each launched 20 times on a
     restored snapshot under the profiler (device time per launch), beside
     the plain version's time (CUDA events) and the bound.  D's time is the
-    launch with all its instances (the log's and the egress)."""
+    launch with all its instances (the log's and the egress).  C's fused
+    mode is timed on a step that consumes the window and refolds the guard
+    over the last dispatch's egress rows."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = eng.device
     state = dev._live_state
+    # the last dispatch's egress rows (below the room floor, so a fused
+    # step may consume)
+    eg_count = min(int(state.egress_count),
+                   dev.params.egress_capacity - dev.params.ext_per_iter - 1)
     p = dataclasses.replace(dev.params, stop_time=HYB_SIM_S * 10**9)
     tb = dev.tables
     ws = lanes.make_workspace(p, DEV)
@@ -2901,7 +3173,7 @@ def time_hybrid(eng) -> dict:
     kernels.exchange_merge(args)
     cnt["b_out"] = int((state.q_thi != lanes.NEVER32).sum())
     nbytes = kernel_bytes(p, tb, ws, cnt)
-    hbytes = hybrid_bytes(p, state, ws, blk)
+    hbytes = hybrid_bytes(p, state, ws, blk, eg_count)
     # A's bytes with its external arm: every egress flag, the valid rows
     nbytes["lane_slots"] += p.egress_slots * 4 + int(ws.eg_valid.sum()) * 48
     log(f"hybrid timing state: window end {we} ns, valid entries {cnt}, "
@@ -2926,6 +3198,36 @@ def time_hybrid(eng) -> dict:
             lambda: lanes.append_log_plain(p, state, ws),
             hbytes["append_log:egress"] + nbytes["append_log"]),
     }
+    # C's fused mode on the cut's state, its egress rows those of the last
+    # dispatch: a later step with the window ending at the lane heads and a
+    # host event inside it, so the window is consumed, the guard refolded
+    # over the rows and the next window opened (the costliest path)
+    pf = dataclasses.replace(p, hybrid_k_cap=FUSE_K, ext_slots=FUSE_SLOTS)
+    wsf = lanes.make_workspace(pf, DEV)
+    argsf = kernels.LaneArgs(pf, tb, state, wsf)
+    head = int(lanes.t_join(snap[1].ctl[2], snap[1].ctl[3]))
+    wsf.ctl[0] = 1
+    wsf.ext.copy_(torch.tensor(fused_schedule([head - 1]), dtype=torch.int64))
+    wsf.fz.copy_(torch.tensor([0, 0, 1], dtype=torch.int32))
+    snapf = clone(wsf)
+    fturn = lanes.FusedTurn(lanes.NEVER32, FUSE_K, False)
+
+    def restore_f():
+        restore()
+        copy_into(wsf, snapf)
+        state.now_we_hi.fill_(head >> 31)
+        state.now_we_lo.fill_(head & lanes.MASK31)
+        state.egress_count.fill_(eg_count)
+
+    restore_f()
+    kernels.hybrid_fused_window(argsf, fturn)
+    if int(wsf.fz[1]) != 1 or not int(wsf.ctl[0]):
+        raise AssertionError("time_hybrid: the fused step did not consume "
+                             f"and go on (fz {wsf.fz.tolist()})")
+    plan["hybrid_fused_window"] = (
+        restore_f, lambda: kernels.hybrid_fused_window(argsf, fturn),
+        lambda: lanes.hybrid_fused_window_plain(pf, state, wsf, fturn),
+        hbytes["hybrid_fused_window"])
     out = {}
     for name, (rst, kern, plain, nb) in plan.items():
         _event_ms(kern, rst, 5)  # warm up
@@ -2955,44 +3257,121 @@ def time_hybrid(eng) -> dict:
     return out
 
 
-@phase("hybrid main path: managed_relay_chains_large at full width, 10 sim s, "
-       "device mode, strict capacity")
-def hybrid_main() -> dict:
+# the flagship's rounds in 10 sim s (the port's CPU oracle's count)
+HYB_ROUNDS = 4216
+
+
+def compute_apps() -> list:
+    """The processes holding a context on the card, as ``nvidia-smi``
+    lists them: (pid, used memory)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return [tuple(x.strip() for x in line.split(","))
+            for line in out.strip().splitlines() if line.strip()]
+
+
+# the flagship's runs: the reference's defaults (the fused law, k = 8,
+# eager dispatch, one worker process per core, at most one per managed
+# host) and the serial one-window law
+HYB_LAWS = {"fused": (0, FUSE_K), "one-window": (1, 1)}
+
+
+def hybrid_flagship(law: str) -> dict:
+    """The flagship at full width for 10 sim s on one of ``HYB_LAWS``.
+    Launch counts reset just before the run and read just after.  With
+    worker processes, once they run managed processes, the card's compute
+    apps are read: the workers must hold no context."""
+    workers_cfg, fuse_k = HYB_LAWS[law]
+    fused = fuse_k >= 2
     t0 = time.perf_counter()
-    eng = HybridEngine(hybrid_cfg("main"), log_capacity=HYB_LOG)
+    eng = hybrid_engine(f"main-{law}", HYB_SIM_S, "cuda", workers_cfg, fuse_k)
     setup = time.perf_counter() - t0
+    seen = {}
+    mp_run = isinstance(eng, MpHybridEngine)
+
+    def on_window(start, _end, _next):
+        if mp_run and not seen and start >= 10**9:
+            seen["apps"] = compute_apps()
+            seen["env"] = {pid: Path(f"/proc/{pid}/environ").read_bytes()
+                           for pid in eng.worker_pids}
+
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = eng.run()
+    res = eng.run(on_window=on_window)
     total = time.perf_counter() - t0
     counts = launch_counts()
     st = eng.sync_stats
-    log(f"hybrid flagship: {res.counters}, rounds {res.rounds}, "
+    workers = getattr(eng, "workers", 1)
+    startup = getattr(eng, "startup_s", 0.0)
+    log(f"hybrid flagship, {law} law ({type(eng).__name__}, {workers} "
+        f"workers): {res.counters}, rounds {res.rounds}, "
         f"{res.sim_seconds_per_wall_second:.4f} sim-s/wall-s (loop "
-        f"{res.wall_seconds:.3f} s, with collect {total:.3f} s; engine set-up "
-        f"{setup:.3f} s); "
-        f"device_sync_s {st['device_sync_s']:.3f}, syscall_service_s "
-        f"{st['syscall_service_s']:.3f}; {sync_counts(eng)}; launches "
-        f"{counts}; nvidia-smi: {smi_line()}")
+        f"{res.wall_seconds:.3f} s, with the workers' start-up {startup:.3f} "
+        f"s and collect {total:.3f} s; engine set-up "
+        f"{setup:.3f} s); device_sync_s {st['device_sync_s']:.3f}, "
+        f"syscall_service_s {st['syscall_service_s']:.3f}; "
+        f"{sync_counts(eng)}; launches {counts}; nvidia-smi: {smi_line()}")
     if res.process_errors:
         raise AssertionError(f"process errors: {res.process_errors}")
     clean = res.counters.get("managed_exit_clean", 0)
     want = 3 * HYB_CHAINS + 1  # the 75 clients and the origin exit 0
     if clean != want:
         raise AssertionError(f"{clean} clean exits, expected {want}")
+    if res.rounds != HYB_ROUNDS:
+        raise AssertionError(f"{res.rounds} rounds, expected {HYB_ROUNDS}")
     for k in ("managed_tcp_tx_bytes", "managed_tcp_rx_bytes",
               "tgen_recv_bytes"):
         if res.counters.get(k, 0) <= 0:
             raise AssertionError(f"no {k} in {res.counters}")
-    for k in ("inject_merge", "lane_slots", "exchange_merge",
-              "hybrid_window", "append_log"):
+    window = "hybrid_fused_window" if fused else "hybrid_window"
+    other = "hybrid_window" if fused else "hybrid_fused_window"
+    for k in ("inject_merge", "lane_slots", "exchange_merge", window,
+              "append_log"):
         if counts[k] <= 0:
-            raise AssertionError(f"hybrid flagship: {k} was not launched")
-    if counts["queue_min_window"]:
-        raise AssertionError("the hybrid path ran C's plain mode")
+            raise AssertionError(f"hybrid flagship {law}: {k} was not "
+                                 "launched")
+    if counts["queue_min_window"] or counts[other]:
+        raise AssertionError(f"hybrid flagship {law}: ran C's other modes")
+    if mp_run:
+        if workers != min(os.cpu_count() or 1, 151) or workers < 2:
+            raise AssertionError(f"{workers} workers on "
+                                 f"{os.cpu_count()} cores")
+        if "apps" not in seen:
+            raise AssertionError("the compute apps were never read")
+        pids = {int(a[0]) for a in seen["apps"]}
+        if pids & set(eng.worker_pids) or len(seen["apps"]) > 1:
+            raise AssertionError(f"worker processes hold a CUDA context: "
+                                 f"{seen['apps']}, workers {eng.worker_pids}")
+        for pid, env in seen["env"].items():
+            if b"CUDA_VISIBLE_DEVICES=\x00" not in env:
+                raise AssertionError(f"worker {pid} sees the card")
+        log(f"compute apps while {workers} workers ran: {seen['apps']} "
+            f"(this process {os.getpid()}; workers {eng.worker_pids}, each "
+            "with CUDA_VISIBLE_DEVICES empty)")
     return {"counts": counts, "result": res, "sync": dict(st),
             "rate": res.sim_seconds_per_wall_second, "total_s": total,
-            "setup_s": setup}
+            "setup_s": setup, "startup_s": startup, "workers": workers,
+            "apps": seen.get("apps")}
+
+
+@phase("hybrid main path: managed_relay_chains_large at full width, 10 sim s, "
+       "strict capacity, at the reference's defaults (the fused law, k = 8, "
+       "eager dispatch, a worker process per core) and on the serial "
+       "one-window law")
+def hybrid_main() -> dict:
+    out = {law: hybrid_flagship(law) for law in HYB_LAWS}
+    a = out["fused"]["result"]
+    for law in HYB_LAWS:
+        b = out[law]["result"]
+        if a.log_tuples() != b.log_tuples() or mod_iters(a) != mod_iters(b):
+            raise AssertionError(f"hybrid flagship: the {law} run's logs or "
+                                 "counters differ from the defaults'")
+    log(f"hybrid flagship: the two laws equal ({len(a.event_log)} records);"
+        f" device turns {out['fused']['sync']['device_turns']} fused against "
+        f"{out['one-window']['sync']['device_turns']} one-window")
+    return out
 
 
 # ---- parity and the main path ----------------------------------------------
@@ -4014,6 +4393,11 @@ def main_path():
 
 
 def main() -> int:
+    global DATA
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    DATA = tempfile.mkdtemp(prefix="chip_smoke_")
     log(f"device: {torch.cuda.get_device_name(0)}, count "
         f"{torch.cuda.device_count()}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}")
@@ -4043,6 +4427,7 @@ def main() -> int:
     check_flow_kernels()
     check_sweep_kernels()
     check_hybrid_kernels()
+    check_fused_kernels()
     times = time_all()
     parity()
     stream_parity()
@@ -4053,6 +4438,7 @@ def main() -> int:
     wide_rows()
     fault_parity()
     hyb_eng = hybrid_parity()
+    hybrid_congested()
     hyb_times = time_hybrid(hyb_eng) if hyb_eng is not None else None
     sweeps = sweep_parity()
     sweep_times = time_sweep(times) if sweeps else None
@@ -4066,8 +4452,9 @@ def main() -> int:
     for batch in sweeps.values():
         for k, v in batch["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    for k, v in hyb["counts"].items():
-        launches[k] = launches.get(k, 0) + v
+    for run in hyb.values():
+        for k, v in run["counts"].items():
+            launches[k] = launches.get(k, 0) + v
     smi = smi_line()
     for line in ptxas:  # again here: the start of a long output is cut
         log(f"ptxas: {line}")
@@ -4098,24 +4485,32 @@ def main() -> int:
         log(f"batched step, {cell}: S = 8 {res['step_ms'][8] * 1e3:.3f} us, "
             f"S = 1 {res['step_ms'][1] * 1e3:.3f} us ({smi})")
     log(f"launches per batched step (fleet): {sweep_times['per_step']}")
-    st = hyb["sync"]
-    log(f"hybrid flagship ({HYB_CHAINS} chains, 1,000 peers, {HYB_SIM_S} sim "
-        f"s): {hyb['rate']:.4f} sim-s/wall-s (loop "
-        f"{hyb['result'].wall_seconds:.3f} s: device_sync_s "
-        f"{st['device_sync_s']:.3f}, syscall_service_s "
-        f"{st['syscall_service_s']:.3f}); device_turns {st['device_turns']}, "
-        f"inject_blocks {st['inject_blocks']}, egress_reads "
-        f"{st['egress_reads']}; clean exits "
-        f"{hyb['result'].counters.get('managed_exit_clean')}, managed TCP "
-        f"bytes {hyb['result'].counters.get('managed_tcp_tx_bytes')} / "
-        f"{hyb['result'].counters.get('managed_tcp_rx_bytes')}, "
-        f"tgen_recv_bytes {hyb['result'].counters.get('tgen_recv_bytes')} "
-        f"({smi})")
+    for law, run in hyb.items():
+        st, res = run["sync"], run["result"]
+        log(f"hybrid flagship, {law} law ({HYB_CHAINS} chains, 1,000 peers, "
+            f"{HYB_SIM_S} sim s, {run['workers']} workers, start-up "
+            f"{run['startup_s']:.3f} s): "
+            f"{run['rate']:.4f} sim-s/wall-s (loop {res.wall_seconds:.3f} s: "
+            f"device_sync_s {st['device_sync_s']:.3f}, syscall_service_s "
+            f"{st['syscall_service_s']:.3f}); device_turns "
+            f"{st['device_turns']} (PR 8: 3,936), fused_dispatches "
+            f"{st['fused_dispatches']}, fused_windows {st['fused_windows']}, "
+            f"turns_saved {st['turns_saved']}, fuse_rollbacks "
+            f"{st['fuse_rollbacks']}, async hits / misses "
+            f"{st['async_dispatch_hits']} / {st['async_dispatch_misses']}, "
+            f"inject_blocks {st['inject_blocks']}, egress_reads "
+            f"{st['egress_reads']}; rounds {res.rounds}, clean exits "
+            f"{res.counters.get('managed_exit_clean')}, managed TCP bytes "
+            f"{res.counters.get('managed_tcp_tx_bytes')} / "
+            f"{res.counters.get('managed_tcp_rx_bytes')}, tgen_recv_bytes "
+            f"{res.counters.get('tgen_recv_bytes')} ({smi})")
     for name, t in hyb_times.items():
         wrapper = name.split(":")[0]
+        law = "one-window" if wrapper == "hybrid_window" else "fused"
         log(f"device us/launch, hybrid {name}: {t['ms'] * 1e3:.3f} (bound "
             f"{t['bound_ms'] * 1e3:.3f}, plain {t['plain_ms'] * 1e3:.1f}); "
-            f"launches on the hybrid path {hyb['counts'][wrapper]} ({smi})")
+            f"launches on the {law} flagship {hyb[law]['counts'][wrapper]} "
+            f"({smi})")
     log(f"device us/launch, rand_u32 ({times['rand_u32']['draws']} draws): "
         f"{times['rand_u32']['ms'] * 1e3:.3f} (bound "
         f"{times['rand_u32']['bound_ms'] * 1e3:.3f}, "
@@ -4195,16 +4590,18 @@ def main() -> int:
     hyb_replaces = {
         "inject_merge": "shadow_tpu/backend/lanes.py:3583",
         "hybrid_window": "shadow_tpu/backend/lanes.py:3647",
+        "hybrid_fused_window": "shadow_tpu/backend/lanes.py:3781",
         "lane_slots:external": "shadow_tpu/backend/lanes.py:944",
         "append_log:egress": "shadow_tpu/backend/lanes.py:2219",
     }
     for name, rep_ in hyb_replaces.items():
         t = hyb_times[name]
+        law = "one-window" if name == "hybrid_window" else "fused"
         rows.append({
             "name": name, "route": "cuda",
             "source": "shadow_tpu_torch/csrc/lanes.cu", "replaces": rep_,
-            "launches": hyb["counts"][name.split(":")[0]],
-            "launches_from": "the hybrid main path",
+            "launches": hyb[law]["counts"][name.split(":")[0]],
+            "launches_from": f"the hybrid flagship, {law} law",
             "max_abs_err": MAX_ERR[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None,
@@ -4221,5 +4618,6 @@ if __name__ == "__main__":
     try:
         code = main()
     finally:
-        shutil.rmtree(DATA, ignore_errors=True)
+        if DATA is not None:
+            shutil.rmtree(DATA, ignore_errors=True)
     sys.exit(code)

@@ -620,13 +620,19 @@ class GpuEngine:
         t = self._init_cols[1]
         return int(t.min()) if t.size else NEVER
 
-    def make_hybrid_fns(self, state: lanes.LaneState):
+    def make_hybrid_fns(self, state: lanes.LaneState, k_cap: int = 1,
+                        ext_slots: int = 0):
         """The hybrid backend's device entry point, bound to ``state``
         (updated in place) and this engine's tables: the
-        ``lanes._build_hybrid_run`` turn function.  Kernel H runs inside it,
-        once per staged block: there is no standalone injection entry."""
+        ``lanes._build_hybrid_run`` turn function at ``k_cap`` 1 (the
+        one-window law), else the fused law's ``lanes.FusedRun`` over
+        ``ext_slots`` schedule slots.  Kernel H runs inside either, once per
+        staged block: there is no standalone injection entry."""
         if not self.params.external_any:
             raise ValueError("make_hybrid_fns needs external lanes")
+        if k_cap >= 2:
+            return lanes.FusedRun(self.params, self.tables, state, k_cap,
+                                  ext_slots)
         return lanes._build_hybrid_run(self.params, self.tables, state)
 
     def current_runahead(self) -> int:

@@ -1,12 +1,12 @@
 """The lane engine's CUDA kernels: build, binding and wrappers.
 
 ``csrc/lanes.cu`` holds the eight lane kernels for Hopper (``sm_90a``) —
-A to G and the hybrid backend's H, with C's hybrid mode beside its plain
-one — the threefry launcher and the shared-memory query behind a plain C
-interface.  At first use on the card it is compiled with ``nvcc`` into
-``build/shadow_tpu_torch/`` at the root of the checkout, keyed by a hash of
-the source, and loaded with ``ctypes``.  Nothing is built or loaded when
-this module is imported.
+A to G and the hybrid backend's H, with C's hybrid and fused modes beside
+its plain one — the threefry launcher and the shared-memory query behind
+a plain C interface.  At first use on the card it is compiled with
+``nvcc`` into ``build/shadow_tpu_torch/`` at the root of the checkout,
+keyed by a hash of the source, and loaded with ``ctypes``.  Nothing is
+built or loaded when this module is imported.
 
 Each wrapper takes a :class:`LaneArgs` — one run's state, tables and
 workspace, checked once (device, dtype, shape, contiguity) when it is
@@ -67,7 +67,7 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "ft_thresh", "ft_all", "ft_seed", "fl_split", "fl_slots",
                "fl_ss", "fl_bs", "n_fl", "merge_global", "split_global",
                "tier_global", "ext_any", "eg_cap", "room_floor", "n_eg",
-               "inj_b", "cxi", "inject_global")
+               "inj_b", "cxi", "inject_global", "k_cap", "ext_slots")
 
 
 class LaneBufs(ctypes.Structure):
@@ -134,6 +134,10 @@ def _lib() -> ctypes.CDLL:
     lib.hybrid_window.argtypes = [vp, vp, c_int, c_int, c_int, c_int, c_int,
                                   vp]
     lib.hybrid_window.restype = ctypes.c_int
+    # (host array, device array, scenarios, first, k_eff, ext_used, stream)
+    lib.hybrid_fused_window.argtypes = [vp, vp, c_int, c_int, c_int, c_int,
+                                        vp]
+    lib.hybrid_fused_window.restype = ctypes.c_int
     # (host array, device array, scenarios, injection block, stream)
     lib.inject_merge.argtypes = [vp, vp, c_int, vp, vp]
     lib.inject_merge.restype = ctypes.c_int
@@ -258,12 +262,14 @@ class LaneArgs:
                          "egress_min_lo")},
             "lane_external": (n,) if ext else (0,),
             "eg_recs": (max(p.egress_slots, 1), 6),
-            "eg_valid": (max(p.egress_slots, 1),), "hyb": (5,),
+            "eg_valid": (max(p.egress_slots, 1),), "hyb": (p.hyb_words,),
+            "ext": (max(p.ext_slots, 1),), "fz": (3,),
         }
         dtypes = {"cd_dropping": torch.bool, "log": i64, "recs": i64,
                   "thresh": i64, "flow_thresh": i64,
                   "lane_stream": torch.bool, "lane_pcap": torch.bool,
-                  "flow_pcap": torch.bool, "eg_recs": i64, "hyb": i64}
+                  "flow_pcap": torch.bool, "eg_recs": i64, "hyb": i64,
+                  "ext": i64}
         if ext:
             dtypes.update(egress=i64, lane_external=torch.bool)
         tensors = {**s._asdict(), **tb._asdict(), **ws._asdict()}
@@ -322,6 +328,7 @@ class LaneArgs:
             room_floor=p.egress_capacity - p.ext_per_iter,
             n_eg=p.egress_slots, inj_b=p.inject_batch, cxi=p.inject_cap,
             inject_global=int(in_global.get("inject merge", False)),
+            k_cap=p.hybrid_k_cap, ext_slots=p.ext_slots,
         )
 
     @functools.cached_property
@@ -577,6 +584,30 @@ def hybrid_window(args, turn: "lanes.HybridTurn") -> None:
         hybrid_window.launches += 1
 
 
+def hybrid_fused_window(args, turn: "lanes.FusedTurn") -> None:
+    """Kernel C in its fused mode: one step of a k-window fused dispatch.
+
+    Replaces ``shadow_tpu/backend/lanes.py:3781-3964``
+    ``_build_hybrid_fused_run`` (with ``egress_refold``, ``:3823``, and
+    ``seg_body``, ``:3905``): the one-window law's condition against the
+    schedule slot the dispatch has reached, the window law of its body,
+    and at a segment's end the consume test against the horizon, the
+    recorded window end, the pointer over the schedule and ``egress_min``
+    re-armed, until ``k_eff`` windows are consumed or the host's schedule
+    runs out; then the ``[6 + k_cap]`` readback.  One block, as C's other
+    modes: the head reduction and the refold (a block min over the egress
+    rows' times and outcomes) use every thread, the segment logic thread
+    0; at most ``k_eff + 1`` passes a step.  The schedule is in the
+    workspace (``ext``, one async copy a dispatch), the pointer, the count
+    and the steps in ``fz``; the host's used latency and ``k_eff`` are
+    kernel parameters.  Bound by bytes: the N head pairs, the schedule, and
+    on a consume the egress rows' times and outcomes."""
+    if _launch("hybrid_fused_window", args,
+               lambda m: lanes.hybrid_fused_window_plain(m.p, m.s, m.ws, turn),
+               int(turn.first), turn.k_eff, turn.ext_used):
+        hybrid_fused_window.launches += 1
+
+
 def inject_merge(args, blk: torch.Tensor) -> None:
     """Kernel H: merge one injection block into the lane queues.
 
@@ -665,8 +696,8 @@ def rand_u32(seed: int, stream: torch.Tensor,
 
 
 WRAPPERS = (lane_slots, exchange_merge, stream_rows_merge, stream_tier,
-            tier_merge, queue_min_window, hybrid_window, append_log,
-            inject_merge, rand_u32)
+            tier_merge, queue_min_window, hybrid_window, hybrid_fused_window,
+            append_log, inject_merge, rand_u32)
 
 
 def reset_launches() -> None:

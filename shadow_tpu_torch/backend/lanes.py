@@ -399,6 +399,11 @@ class LaneParams:
     ext_per_iter: int = 0
     inject_batch: int = 0
     inject_cross: int = 0
+    # the k-window fused hybrid law (kernel C's fused mode): at most
+    # hybrid_k_cap windows a dispatch (0: the one-window law), over a
+    # schedule of ext_slots peeked host event times
+    hybrid_k_cap: int = 0
+    ext_slots: int = 0
 
     @property
     def cross_cap(self) -> int:
@@ -408,6 +413,14 @@ class LaneParams:
     def inject_cap(self) -> int:
         """Cxi: the injected rows a lane takes from one block."""
         return min(self.inject_cross or self.capacity, self.capacity)
+
+    @property
+    def hyb_words(self) -> int:
+        """Words of the turn's readback (``Workspace.hyb``): the
+        ``HYB_*`` slots; with the fused law also the consumed-window count,
+        the k_cap window ends and the dispatch's step count."""
+        return (HYB_WE_BASE + self.hybrid_k_cap + 1 if self.hybrid_k_cap
+                else HYB_K_DONE)
 
     @property
     def egress_slots(self) -> int:
@@ -615,6 +628,11 @@ class LaneParams:
             # the reference's rule: injections land in [N] rows, which the
             # tier would orphan for stream lanes
             raise ValueError("the hybrid backend requires stream_tiered=False")
+        if self.hybrid_k_cap and not (
+                self.external_any and self.ext_slots >= 2):
+            raise ValueError(
+                f"the fused hybrid law needs external lanes and a schedule "
+                f"of at least 2 slots (got ext_slots={self.ext_slots})")
         if self.external_any and (
                 self.inject_batch < 1
                 or self.egress_capacity <= self.ext_per_iter):
@@ -752,11 +770,19 @@ class Workspace(NamedTuple):
     # the hybrid backend ([1, 6] / [1] / [5] otherwise): kernel A's egress
     # candidates, [K*N, 6] int64 rows (slot-major, the reference's append
     # order) and their flags, which D compacts into the state's egress;
-    # and the turn's packed readback, int64 [5] by the HYB_* indices,
-    # which C writes when the turn stops (HYB_DEV_WE < 0 until then)
+    # and the turn's packed readback, int64 [LaneParams.hyb_words] by the
+    # HYB_* indices, which C writes when the turn stops (HYB_DEV_WE < 0
+    # until then)
     eg_recs: torch.Tensor
     eg_valid: torch.Tensor
     hyb: torch.Tensor
+    # the fused hybrid law ([1] / [3] otherwise): the dispatch's schedule,
+    # [ext_slots] int64 host event times (ascending, the horizon in the
+    # last slot, NEVER where there is none), and C's fused-mode registers
+    # across steps, int32 [3]: the schedule pointer, the windows consumed
+    # and the dispatch's live steps (the run flag is ctl[0])
+    ext: torch.Tensor
+    fz: torch.Tensor
 
 
 # bytes of static shared memory the merge kernels keep beside a row
@@ -839,7 +865,9 @@ def make_workspaces(p: LaneParams, device, count: int = 1) -> WorkspaceBatch:
         tier_blk=z(7, max(p.tier_layout[-1], 1)),
         fl_recs=z(n_fl, FLOW_REC_WORDS), fl_valid=z(n_fl),
         m_scratch=z(scratch),
-        eg_recs=z(n_eg, 6, dtype=i64), eg_valid=z(n_eg), hyb=z(5, dtype=i64),
+        eg_recs=z(n_eg, 6, dtype=i64), eg_valid=z(n_eg),
+        hyb=z(p.hyb_words, dtype=i64), ext=z(max(p.ext_slots, 1), dtype=i64),
+        fz=z(3),
     )
     return WorkspaceBatch(ctl, [Workspace(*(t[i] for t in batch))
                                 for i in range(count)])
@@ -2211,6 +2239,12 @@ HYB_DEV_WE = 1
 HYB_MIN_USED = 2
 HYB_EGRESS_COUNT = 3
 HYB_EGRESS_LOST = 4
+# the fused law's readback (the reference's make_hybrid_fused_fn layout):
+# the slots above, the consumed-window count, the consumed window ends at
+# HYB_WE_BASE + i; the port adds one slot after the k_cap ends, the
+# dispatch's live steps (the driver sizes its next first chunk by it)
+HYB_K_DONE = 5
+HYB_WE_BASE = 6
 
 
 def hybrid_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
@@ -2275,6 +2309,110 @@ def hybrid_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
     s.now_we_lo.copy_(torch.where(fresh, c_lo, s.now_we_lo))
     s.rounds.add_(fresh.to(i32))
     ws.ctl.copy_(torch.stack([torch.ones_like(mh), in_window.to(i32), mh, ml]))
+
+
+class FusedTurn(NamedTuple):
+    """What a fused hybrid dispatch's window law takes from the host
+    beside its schedule (``Workspace.ext``): the host side's smallest used
+    latency (NEVER32 when none), the windows it may consume (``k_eff``, at
+    most ``LaneParams.hybrid_k_cap``), and whether this is the dispatch's
+    first step."""
+    ext_used: int
+    k_eff: int
+    first: bool
+
+
+def _hyb_stop(p: LaneParams, s: LaneState, ws: Workspace, m: int) -> None:
+    """The end of a fused dispatch: ``live`` 0 and the packed readback."""
+    ws.ctl[0] = 0
+    ws.ctl[1] = 0
+    used = int(s.min_used_lat) if p.dynamic_runahead else NEVER32
+    ws.hyb[:HYB_WE_BASE] = torch.tensor(
+        [m, int(t_join(s.now_we_hi, s.now_we_lo)), used,
+         int(s.egress_count), int(s.egress_lost), int(ws.fz[1])],
+        dtype=i64)
+    ws.hyb[-1] = ws.fz[2]
+
+
+def egress_refold(p: LaneParams, s: LaneState, thr: int) -> int:
+    """The earliest DELIVERED egress time at or past ``thr`` among this
+    dispatch's rows (NEVER when none): the rows below it were applied on
+    the host with their windows (the reference's ``egress_refold``)."""
+    rows = s.egress[:min(int(s.egress_count), p.egress_capacity)]
+    live = (rows[:, 5] == DELIVERED) & (rows[:, 0] >= thr)
+    return int(rows[live, 0].min()) if bool(live.any()) else NEVER
+
+
+def hybrid_fused_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
+                              turn: FusedTurn) -> None:
+    """Kernel C's fused mode, plain (the reference's
+    ``_build_hybrid_fused_run``: its two nested loops as one step).  The
+    first step resets the egress and the readback, folds ``ext_used`` in
+    and arms the dispatch (schedule pointer and window count 0).  Each step
+    then evaluates the one-window law's stop condition against the
+    schedule slot ``e = ext[min(ptr, slots - 1)]``.  When it holds, the
+    window law runs (A, B and D iterate after it).  When it fails, the
+    segment ends as the reference's ``seg_body`` ends one: the window the
+    host joins below the horizon (the last slot) is consumed — its end
+    recorded, the pointer moved past every slot before it, ``egress_min``
+    re-armed from the rows at or past it — and, while fewer than ``k_eff``
+    windows are consumed, the condition is tried again on the new slot in
+    the same step; otherwise the dispatch stops (``live`` 0) and writes the
+    ``[6 + k_cap + 1]`` readback.  At most ``k_eff + 1`` passes a step."""
+    if turn.first:
+        ws.ctl[0] = 1
+        if p.dynamic_runahead:
+            s.min_used_lat.clamp_(max=turn.ext_used)
+        s.egress_count.zero_()
+        s.egress_lost.zero_()
+        s.egress_min_hi.fill_(NEVER32)
+        s.egress_min_lo.fill_(NEVER32)
+        ws.hyb.zero_()
+        ws.hyb[HYB_DEV_WE] = -1
+        ws.fz.zero_()
+    if not int(ws.ctl[0]):
+        return
+    mh, ml = _pairs.pair_min_lanes(s.q_thi[:, 0], s.q_tlo[:, 0])
+    m = int(t_join(mh, ml))
+    ws.ctl[2] = mh
+    ws.ctl[3] = ml
+    ws.fz[2] += 1
+    ext = ws.ext.tolist()
+    slots, horizon = p.ext_slots, ext[p.ext_slots - 1]
+    stop = p.stop_time
+    while True:
+        we = int(t_join(s.now_we_hi, s.now_we_lo))
+        e = ext[min(int(ws.fz[0]), slots - 1)]
+        bound = min(e, int(t_join(s.egress_min_hi, s.egress_min_lo)))
+        in_window = m < we
+        host_in = bound < we
+        nxt = min(m, bound)
+        room = int(s.egress_count) < p.egress_capacity - p.ext_per_iter
+        if room and (in_window or (not host_in and nxt < stop)):
+            if nxt >= we:  # a fresh window (nxt < stop: the turn is live)
+                if p.netobs:
+                    flush_hist(s, torch.tensor(True))
+                end = min(nxt + int(effective_runahead(p, s.min_used_lat)),
+                          stop)
+                s.now_we_hi.fill_(end >> 31)
+                s.now_we_lo.fill_(end & MASK31)
+                s.rounds.add_(1)
+            ws.ctl[0] = 1
+            ws.ctl[1] = int(in_window)
+            return
+        if not (host_in and room and not in_window and bound < horizon):
+            _hyb_stop(p, s, ws, m)
+            return
+        kd = int(ws.fz[1])
+        ws.hyb[HYB_WE_BASE + min(kd, p.hybrid_k_cap - 1)] = we
+        ws.fz[1] = kd + 1
+        ws.fz[0] = sum(t < we for t in ext)
+        ref = egress_refold(p, s, we)
+        s.egress_min_hi.fill_(NEVER32 if ref == NEVER else ref >> 31)
+        s.egress_min_lo.fill_(NEVER32 if ref == NEVER else ref & MASK31)
+        if kd + 1 >= turn.k_eff:
+            _hyb_stop(p, s, ws, m)
+            return
 
 
 def queue_min_window_plain(p: LaneParams, s: LaneState, ws: Workspace,
@@ -2438,16 +2576,19 @@ def _steps(args, p: LaneParams):
     ``window(advance)``, kernel C, and ``iteration()``, kernels A, B, then
     E in untiered one-to-one stream configs or F and G on a tiered run,
     and, when logging, tracing flows or on a hybrid run, D.  On a hybrid
-    run ``window`` takes the turn's ``HybridTurn``.  Each is one launch of each
+    run ``window`` takes the turn's ``HybridTurn`` (``FusedTurn`` on the fused
+    law).  Each is one launch of each
     kernel, whatever the number of scenarios."""
     from . import kernels
 
     split, tiered = p.split, p.stream_tiered
     logging = bool(p.log_capacity) or p.flowtrace or p.external_any
 
-    def window(advance: bool, turn: HybridTurn = None) -> None:
+    def window(advance: bool, turn=None) -> None:
         if turn is None:
             kernels.queue_min_window(args, advance)
+        elif isinstance(turn, FusedTurn):
+            kernels.hybrid_fused_window(args, turn)
         else:
             kernels.hybrid_window(args, turn)
 
@@ -2602,3 +2743,135 @@ def _build_hybrid_run(p: LaneParams, tb: LaneTables, s: LaneState):
     hybrid_run.steps = 0
     hybrid_run.args = args
     return hybrid_run
+
+
+class FusedDispatch(NamedTuple):
+    """A fused dispatch in flight (``FusedRun.issue``): the event recorded
+    after its readback's copy (None on the CPU), its steps so far, its
+    window limit, and the driver's dispatch number, which ``resolve``
+    checks (a later issue retires every earlier handle)."""
+    event: object
+    steps: int
+    k_eff: int
+    number: int
+
+
+class FusedRun:
+    """The k-window fused device half (the reference's
+    ``_build_hybrid_fused_run`` / ``make_hybrid_fused_fn``), split so that
+    the host can service rounds while it runs.  ``issue(ext, ext_used,
+    inj, k_eff) -> FusedDispatch`` merges each staged injection block of
+    ``inj`` (kernel H; None for none), copies the schedule ``ext``
+    (``ext_slots`` ascending int event times, the horizon last) to the
+    workspace, launches one chunk of steps under kernel C's fused mode and
+    an async copy of the readback into pinned memory, records an event and
+    returns without waiting.  ``resolve(handle) -> list`` waits for that
+    event and, while the dispatch has not stopped, runs further chunks; it
+    returns the ``[6 + k_cap]`` readback by the ``HYB_*`` indices.
+    ``k_cap`` is fixed here; ``k_eff`` <= ``k_cap`` is per dispatch.  The
+    first chunk is one step more than the last dispatch's live steps (4 to
+    ``CHECK_EVERY``), later ones double; steps past the stop are gated
+    no-ops, so no counter depends on it.  ``steps`` counts the steps
+    run."""
+
+    def __init__(self, p: LaneParams, tb: LaneTables, s: LaneState,
+                 k_cap: int, ext_slots: int) -> None:
+        import dataclasses
+
+        from . import kernels
+
+        self.k_cap, self.ext_slots = k_cap, ext_slots
+        p = dataclasses.replace(p, hybrid_k_cap=k_cap, ext_slots=ext_slots)
+        self.dev = s.q_thi.device
+        self.cuda = self.dev.type == "cuda"
+        self.args = kernels.LaneArgs(p, tb, s, make_workspace(p, self.dev))
+        self._window, self._iteration = _steps(self.args, p)
+        self._inject = kernels.inject_merge
+        self.out = torch.empty(p.hyb_words, dtype=i64, pin_memory=self.cuda)
+        self.steps = 0
+        self._number = 0
+        self._first = HYBRID_CHECKS[0]
+
+    def _run(self, turn: FusedTurn, steps: int) -> None:
+        for _ in range(steps):
+            self._window(True, turn)
+            turn = turn._replace(first=False)
+            self._iteration()
+        self.steps += steps
+        self.out.copy_(self.args.ws.hyb, non_blocking=True)
+
+    def issue(self, ext, ext_used: int, inj, k_eff: int) -> FusedDispatch:
+        if not 1 <= k_eff <= self.k_cap or len(ext) != self.ext_slots:
+            raise ValueError(
+                f"fused dispatch: k_eff {k_eff} (k_cap {self.k_cap}), "
+                f"{len(ext)} schedule slots ({self.ext_slots})")
+        for blk in (() if inj is None else inj):
+            self._inject(self.args, blk)
+        sched = torch.tensor(ext, dtype=i64)
+        self.args.ws.ext.copy_(sched.pin_memory() if self.cuda else sched,
+                               non_blocking=True)
+        steps = self._first
+        self._run(FusedTurn(ext_used, k_eff, True), steps)
+        event = None
+        if self.cuda:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.dev))
+        self._number += 1
+        return FusedDispatch(event, steps, k_eff, self._number)
+
+    def resolve(self, h: FusedDispatch) -> list:
+        if h.number != self._number:
+            raise RuntimeError("fused dispatch: a later dispatch retired "
+                               "this handle")
+        if h.event is not None:
+            h.event.synchronize()
+        chunk = h.steps
+        while int(self.out[HYB_DEV_WE]) < 0:
+            chunk = min(2 * chunk, CHECK_EVERY)
+            self._run(FusedTurn(NEVER32, h.k_eff, False), chunk)
+            if self.cuda:
+                torch.cuda.current_stream(self.dev).synchronize()
+        sc = self.out.tolist()
+        self._first = min(max(sc[-1] + 1, HYBRID_CHECKS[0]), CHECK_EVERY)
+        return sc[:-1]
+
+    def __call__(self, ext, ext_used: int, inj, k_eff: int) -> list:
+        """A blocking dispatch: ``issue`` then ``resolve``."""
+        return self.resolve(self.issue(ext, ext_used, inj, k_eff))
+
+
+# the turn's state: every LaneState field a dispatch writes, less the
+# append-only buffers (the log and the flowtrace ring: a rebuild re-appends
+# the same rows at the same places from the saved counts) and the egress
+# buffer, which a dispatch's first step empties
+SNAP_SKIP = ("log", "fl_buf", "egress")
+
+
+def _snap_fields(s: LaneState) -> list:
+    return [f for f in LaneState._fields if f not in SNAP_SKIP]
+
+
+def snapshot(s: LaneState, into: dict = None) -> dict:
+    """Device-to-device copies of the fields a hybrid dispatch writes
+    (``SNAP_SKIP`` aside), into ``into`` when given (the buffers of an
+    earlier snapshot of this state), else into new tensors; queued on the
+    current stream, no host read."""
+    fields = _snap_fields(s)
+    if into is None:
+        into = {f: torch.empty_like(getattr(s, f)) for f in fields}
+    torch._foreach_copy_([into[f] for f in fields],
+                         [getattr(s, f) for f in fields])
+    return into
+
+
+def restore(s: LaneState, snap: dict) -> None:
+    """Put a ``snapshot`` back into ``s`` in place (the counts of the
+    append-only buffers with it, so the next rows land where the snapshot
+    left them)."""
+    fields = _snap_fields(s)
+    torch._foreach_copy_([getattr(s, f) for f in fields],
+                         [snap[f] for f in fields])
+
+
+def snapshot_bytes(snap: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in snap.values())

@@ -15,7 +15,8 @@ trimmed to what the port reads.
                     socket_recv_buffer, strace_logging_mode, use_seccomp,
                     use_vdso_patching, perf_logging, obs_turns, obs_trace,
                     hybrid_workers, hybrid_fuse_k, hybrid_async_dispatch,
-                    tpu_inject_batch, dispatch_retry_max }
+                    tpu_inject_batch, dispatch_retry_max,
+                    worker_heartbeat_s }
     faults:       { events: [ { at, kind, ... } ], watchdog_timeout,
                     failover }
     hosts:
@@ -36,7 +37,7 @@ Unknown keys raise :class:`ConfigError`.  Settings the JAX package
 accepts but the port cannot run yet (device-loop unrolling, the fault
 watchdog and the CPU failover, the sweep command line's sweep_size > 1
 and sweep_spec, more than one device, the observation of runs, and on a
-hybrid run the fused law, worker processes and fault schedules) raise
+hybrid run fault schedules) raise
 :class:`LaneCompatError`, which names the JAX package as the way to run
 them.  ``network_backend: tpu`` selects the lane backend, as there.
 
@@ -156,16 +157,21 @@ class ExperimentalOptions:
     obs_turns: bool = False
     obs_trace: bool = False
     # the hybrid backend (backend/hybrid.py): managed hosts' syscalls on
-    # the host CPU, every packet on the card.  The port runs the serial
-    # engine (hybrid_workers 1) on the one-window law (hybrid_fuse_k 1,
-    # the port's default; the JAX package's is 8, with the same events);
-    # other values raise on a hybrid run.  tpu_inject_batch is B, the
-    # rows of one injection block
+    # the host CPU, every packet on the card.  hybrid_workers: the syscall
+    # worker processes (1: serial, in the engine's process; 0: one per
+    # core); hybrid_fuse_k: the most windows one device dispatch covers (1:
+    # the one-window law; >= 2 the fused law, with the next dispatch
+    # issued eagerly while the host services rounds when
+    # hybrid_async_dispatch); the same events either way.  tpu_inject_batch
+    # is B, the rows of one injection block; dispatch_retry_max the fused
+    # dispatch's retries; worker_heartbeat_s the workers' reply deadline
+    # (wall seconds)
     hybrid_workers: int = 1
-    hybrid_fuse_k: int = 1
+    hybrid_fuse_k: int = 8
     hybrid_async_dispatch: bool = True
     tpu_inject_batch: int = 512
     dispatch_retry_max: int = 2
+    worker_heartbeat_s: float = 30.0
 
 
 @dataclasses.dataclass
@@ -423,6 +429,9 @@ class ConfigOptions:
             raise ConfigError("experimental.hybrid_fuse_k must be >= 1")
         if self.experimental.dispatch_retry_max < 0:
             raise ConfigError("experimental.dispatch_retry_max must be >= 0")
+        if self.experimental.worker_heartbeat_s <= 0:
+            raise ConfigError(
+                "experimental.worker_heartbeat_s must be > 0 (wall seconds)")
         for flag in ("perf_logging", "obs_turns", "obs_trace"):
             if getattr(self.experimental, flag):
                 raise LaneCompatError(
@@ -470,25 +479,11 @@ class ConfigOptions:
 
     def _validate_hybrid(self) -> None:
         """A config with managed processes (real binaries) runs on the
-        hybrid engine, which the port has on its serial, one-window law
-        only, without fault schedules."""
+        hybrid engine, which the port has without fault schedules."""
         from ..models.base import config_has_managed
 
         if not config_has_managed(self):
             return
-        exp = self.experimental
-        if exp.hybrid_fuse_k >= 2:
-            raise LaneCompatError(
-                f"experimental.hybrid_fuse_k={exp.hybrid_fuse_k}: the port's "
-                "hybrid engine runs the one-window law (hybrid_fuse_k: 1, the "
-                "same events); the k-window fused law is not ported yet "
-                "(ROADMAP item 12; use the shadow_tpu package)")
-        if exp.hybrid_workers != 1:
-            raise LaneCompatError(
-                f"experimental.hybrid_workers={exp.hybrid_workers}: the port "
-                "services managed hosts serially (hybrid_workers: 1); the "
-                "syscall worker processes are not ported yet (ROADMAP item "
-                "12; use the shadow_tpu package)")
         if self.faults.events:
             raise LaneCompatError(
                 "faults.events on a hybrid run (backend_stall included): the "

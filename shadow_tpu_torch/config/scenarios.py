@@ -48,8 +48,8 @@ def managed_chain_config(
 
     ``backend="tpu"`` selects the HYBRID engine (managed hosts' syscall
     plane on the host CPU, every packet on the card's lanes);
-    ``hybrid_workers`` picks the syscall-servicing parallelism, which the
-    port has serial only (1; other values raise on validation)."""
+    ``hybrid_workers`` picks the syscall-servicing parallelism (1: serial;
+    0: one worker process per core)."""
     n_clients = chains * clients_per_chain
     hosts = [
         f"""
@@ -146,14 +146,14 @@ def managed_relay_chains_large(
     sim_seconds: int = 10,
     rounds: int = 8,
     size: int = 2048,
-    hybrid_workers: int = 1,
+    hybrid_workers: int = 0,
     seed: int = 42,
 ) -> ConfigOptions:
     """The HYBRID flagship scenario: 100+ managed OS processes (default 151
     = 25 three-relay chains + 75 clients + origin) whose syscall plane
-    runs on the host CPU (serially: ``hybrid_workers`` 1, the port's only
-    setting), over 1k+ lane hosts (default 1000 tgen peers) whose data
-    plane — and every managed packet — rides the card's lanes."""
+    runs across ``hybrid_workers`` processes (0, the default: one per
+    core), over 1k+ lane hosts (default 1000 tgen peers) whose data plane
+    — and every managed packet — rides the card's lanes."""
     return managed_chain_config(
         data_dir,
         chains=chains,

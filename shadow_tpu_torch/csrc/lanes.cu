@@ -2,7 +2,8 @@
 // the lane-TCP stream law they share.  The hybrid backend (managed hosts on
 // the host CPU, their packets here) adds kernel H (the injection merge), an
 // external arm in A whose egress candidates D compacts as a third instance,
-// and a hybrid mode of C (the turn's window law and its packed readback).
+// and a hybrid mode of C (the turn's window law and its packed readback),
+// with a fused mode for the k-window law (up to k windows a dispatch).
 //
 // Plain C interface, bound from shadow_tpu_torch/backend/kernels.py with
 // ctypes.  Every lane launcher takes an array of S LaneBufs blocks, one per
@@ -142,10 +143,13 @@ struct LaneBufs {
   // merges' rows where they do not fit shared memory
   int32_t *fl_recs, *fl_valid, *m_scratch;
   // the hybrid backend: A's egress candidates [K*N, 6] and their flags, and
-  // the turn's packed readback [5] (HYB_*)
+  // the turn's packed readback (HYB_*: [5], or [6 + k_cap + 1] on the fused
+  // law); the fused law's schedule [ext_slots] and its registers (pointer,
+  // windows consumed, live steps)
   int64_t *eg_recs;
   int32_t *eg_valid;
-  int64_t *hyb;
+  int64_t *hyb, *ext;
+  int32_t *fz;
   // the tier's queues [7, 2S, C2] and vectors [TV_COUNT, 2S] (tiered runs)
   int32_t *tier_q, *tier_v;
   // sizes (sw: self block width, K or 2K; words: 5, or 7 with the stream
@@ -179,10 +183,13 @@ struct LaneBufs {
   // the injected rows a lane takes from one, and whether H's rows run in
   // m_scratch
   int64_t ext_any, eg_cap, room_floor, n_eg, inj_b, cxi, inject_global;
+  // the fused hybrid law: the most windows a dispatch consumes (0: the
+  // one-window law) and the schedule's slots
+  int64_t k_cap, ext_slots;
 };
 
 // Up to PARAM_SCENARIOS blocks side by side, passed as one kernel parameter
-// (8 x 1,456 bytes; Hopper takes up to 32,764).
+// (8 x 1,496 bytes; Hopper takes up to 32,764).
 constexpr int PARAM_SCENARIOS = 8;
 struct ParamBufs {
   LaneBufs b[PARAM_SCENARIOS];
@@ -2472,6 +2479,132 @@ __global__ void hybrid_window_kernel(const __grid_constant__ P bufs,
   b.ctl[1] = in_window ? 1 : 0;
 }
 
+// Kernel C's fused mode, one step of a k-window fused dispatch (lanes.py
+// hybrid_fused_window_plain; the reference's _build_hybrid_fused_run): the
+// one-window law's condition against the schedule slot the dispatch has
+// reached (fz[0]); when it fails, the end of a segment: a window the host
+// joins below the horizon (the schedule's last slot) is consumed — its end
+// recorded, the pointer set past every slot before it, egress_min re-armed
+// from this dispatch's DELIVERED rows at or past it (a block min) — and the
+// condition is tried again, until k_eff windows are consumed; otherwise
+// the dispatch stops.  Thread 0 runs the law and tells the block, through
+// shared memory, what comes next.
+constexpr int HYB_K_DONE = 5, HYB_WE_BASE = 6;
+constexpr int FUSED_STEP = 0, FUSED_REFOLD = 1, FUSED_REFOLD_STOP = 2,
+              FUSED_STOP = 3;
+
+// the end of a fused dispatch: live 0 and the readback
+__device__ void fused_stop(const LaneBufs& b, int64_t m) {
+  b.ctl[0] = 0;
+  b.ctl[1] = 0;
+  b.hyb[HYB_LANE_MIN] = m;
+  b.hyb[HYB_DEV_WE] = join_raw(*b.now_we_hi, *b.now_we_lo);
+  b.hyb[HYB_MIN_USED] = b.dyn_runahead ? *b.min_used_lat : NEVER32;
+  b.hyb[HYB_EGRESS_COUNT] = *b.egress_count;
+  b.hyb[HYB_EGRESS_LOST] = *b.egress_lost;
+  b.hyb[HYB_K_DONE] = b.fz[1];
+  b.hyb[HYB_WE_BASE + b.k_cap] = b.fz[2];
+}
+
+// thread 0: one pass of the fused law; *thr is the consumed window's end
+__device__ int fused_pass(const LaneBufs& b, int64_t m, int k_eff,
+                          int64_t* thr) {
+  const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
+  const int32_t ptr = b.fz[0];
+  const int64_t e = b.ext[ptr < b.ext_slots - 1 ? ptr : b.ext_slots - 1];
+  const int64_t egm = join_t(*b.egress_min_hi, *b.egress_min_lo);
+  const int64_t bound = e < egm ? e : egm;
+  const bool in_window = m < we;
+  const bool host_in = bound < we;
+  const int64_t next = m < bound ? m : bound;
+  const bool room = *b.egress_count < b.room_floor;
+  if (room && (in_window || (!host_in && next < b.stop))) {
+    if (next >= we) {  // a fresh window (next < stop: the turn is live)
+      flush_hist(b);
+      const int64_t end = next + runahead_now(b);
+      split(end < b.stop ? end : b.stop, b.now_we_hi, b.now_we_lo);
+      *b.rounds += 1;
+    }
+    b.ctl[0] = 1;
+    b.ctl[1] = in_window ? 1 : 0;
+    return FUSED_STEP;
+  }
+  if (!(host_in && room && !in_window && bound < b.ext[b.ext_slots - 1])) {
+    fused_stop(b, m);
+    return FUSED_STOP;
+  }
+  const int32_t kd = b.fz[1];
+  b.hyb[HYB_WE_BASE + (kd < b.k_cap - 1 ? kd : b.k_cap - 1)] = we;
+  b.fz[1] = kd + 1;
+  int32_t past = 0;  // every slot, the horizon's padding included
+  for (int64_t i = 0; i < b.ext_slots; ++i) past += b.ext[i] < we ? 1 : 0;
+  b.fz[0] = past;
+  *thr = we;
+  return kd + 1 < k_eff ? FUSED_REFOLD : FUSED_REFOLD_STOP;
+}
+
+// the earliest DELIVERED egress time at or past thr among this dispatch's
+// rows (a block min; valid in thread 0)
+__device__ int64_t egress_refold(const LaneBufs& b, int64_t thr) {
+  __shared__ int64_t warp_min[32];
+  int64_t m = NEVER64;
+  const int64_t rows = *b.egress_count < b.eg_cap ? *b.egress_count : b.eg_cap;
+  for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
+    const int64_t* row = b.egress + r * 6;
+    if (row[5] == DELIVERED && row[0] >= thr) m = row[0] < m ? row[0] : m;
+  }
+  for (int s = 16; s > 0; s >>= 1) {
+    const int64_t o = __shfl_down_sync(0xFFFFFFFFu, m, s);
+    m = o < m ? o : m;
+  }
+  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
+      m = warp_min[w] < m ? warp_min[w] : m;
+  }
+  return m;
+}
+
+template <class P>
+__global__ void hybrid_fused_kernel(const __grid_constant__ P bufs, int first,
+                                    int k_eff, int32_t ext_used) {
+  const LaneBufs& b = scenario(bufs, blockIdx.x);
+  if (!first && b.ctl[0] == 0) return;
+  const int64_t m = heads_min(b);
+  __shared__ int cmd;
+  __shared__ int64_t thr;
+  if (threadIdx.x == 0) {
+    if (first) {
+      if (b.dyn_runahead && ext_used < *b.min_used_lat)
+        *b.min_used_lat = ext_used;
+      *b.egress_count = 0;
+      *b.egress_lost = 0;
+      *b.egress_min_hi = NEVER32;
+      *b.egress_min_lo = NEVER32;
+      for (int64_t i = 0; i < HYB_WE_BASE + b.k_cap + 1; ++i) b.hyb[i] = 0;
+      b.hyb[HYB_DEV_WE] = -1;
+      b.fz[0] = b.fz[1] = b.fz[2] = 0;
+    }
+    split(m, &b.ctl[2], &b.ctl[3]);
+    b.fz[2] += 1;
+  }
+  // at most k_eff + 1 passes: each pass but the last consumes a window
+  for (;;) {
+    if (threadIdx.x == 0) cmd = fused_pass(b, m, k_eff, &thr);
+    __syncthreads();
+    const int c = cmd;
+    if (c == FUSED_STEP || c == FUSED_STOP) return;
+    const int64_t r = egress_refold(b, thr);
+    if (threadIdx.x == 0) {
+      split(r, b.egress_min_hi, b.egress_min_lo);
+      if (c == FUSED_REFOLD_STOP) fused_stop(b, m);
+    }
+    if (c == FUSED_REFOLD_STOP) return;
+    __syncthreads();  // cmd is written again by the next pass
+  }
+}
+
 // ---- kernel D: append_log ---------------------------------------------------
 // Compaction of the iteration's valid rows (in buffer order) into a bounded
 // buffer that never wraps, in two instances of one template on the row:
@@ -2779,6 +2912,16 @@ int hybrid_window(const LaneBufs* host, const LaneBufs* dev, int s,
   return with_bufs(host, dev, s, [&](auto bufs) {
     hybrid_window_kernel<<<s, 1024, 0, stream>>>(bufs, first, ext_hi, ext_lo,
                                                  ext_used);
+    return cudaSuccess;
+  });
+}
+
+// a fused dispatch's step of C: its first step arms the dispatch (ungated)
+int hybrid_fused_window(const LaneBufs* host, const LaneBufs* dev, int s,
+                        int first, int k_eff, int ext_used,
+                        cudaStream_t stream) {
+  return with_bufs(host, dev, s, [&](auto bufs) {
+    hybrid_fused_kernel<<<s, 1024, 0, stream>>>(bufs, first, k_eff, ext_used);
     return cudaSuccess;
   });
 }

@@ -9,6 +9,7 @@ port's ``HybridEngine(device="cpu")`` and ``CpuEngine`` against the
 reference's ``HybridEngine`` on the one-window law and its ``CpuEngine``.
 """
 
+import os
 import subprocess
 from pathlib import Path
 
@@ -28,7 +29,8 @@ from shadow_tpu.core import rng as ref_rng
 from shadow_tpu_torch.backend import bridge, lanes
 from shadow_tpu_torch.backend.cpu_engine import CpuEngine
 from shadow_tpu_torch.backend.gpu_engine import GpuEngine, _event_rows
-from shadow_tpu_torch.backend.hybrid import HybridEngine
+from shadow_tpu_torch.backend.hybrid import (HybridEngine, MpHybridEngine,
+                                             make_hybrid_engine)
 from shadow_tpu_torch.config import scenarios
 from shadow_tpu_torch.config.options import ConfigOptions, LaneCompatError
 from shadow_tpu_torch.core import rng
@@ -497,9 +499,26 @@ def test_scalar_threefry_matches_torch_and_reference():
     "obs_turns: true", "perf_logging: true", "obs_trace: true",
 ])
 def test_refused_hybrid_options(edit, tmp_path):
+    """The observation of runs stays refused on a hybrid run; the fused
+    law and the worker processes validate, and ``make_hybrid_engine``
+    picks the reference facade's engine for them (0 workers: one per
+    core, at most one per managed host)."""
     yaml = _mixed(tmp_path).replace("hybrid_fuse_k: 1", edit)
+    cfg = ConfigOptions.from_yaml(yaml)
+    if edit.startswith("hybrid_"):
+        cfg.validate()
+        eng = make_hybrid_engine(cfg, device="cpu")
+        workers = {"hybrid_workers: 2": 2,
+                   "hybrid_workers: 0": min(os.cpu_count() or 1, 2)}
+        if edit in workers:
+            assert isinstance(eng, MpHybridEngine)
+            assert eng.workers == workers[edit] and eng._fuse_k == 8
+        else:
+            assert type(eng) is HybridEngine and eng._fuse_k == 2
+            assert eng._fuse_on and eng._ext_slots == 9
+        return
     with pytest.raises(LaneCompatError, match="item 12"):
-        ConfigOptions.from_yaml(yaml).validate()
+        cfg.validate()
 
 
 @pytest.mark.parametrize("kind", ["link_down", "backend_stall"])
