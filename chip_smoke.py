@@ -2147,6 +2147,261 @@ def check_sweep_kernels():
                 window_passed(cases[:SWEEP_S]), *c_call(True))
 
 
+# ---- kernels B and F on their edge cases -------------------------------------
+
+
+def never_prefix(p, s, rng):
+    """``s`` with popped prefixes as kernel A leaves them: each row's first
+    f columns get the NEVER time and keep their old aux words (in about a
+    third of the rows one aux pair for the whole prefix, so the tie falls
+    to the index), and one row in eight is NEVER throughout."""
+    n, c = p.n_lanes, p.capacity
+    f = rng.integers(0, c + 1, n)
+    f[rng.random(n) < 0.125] = c
+    pre = np.arange(c)[None, :] < f[:, None]
+    tie = (rng.random(n) < 0.3)[:, None] & pre
+    words = {w: getattr(s, w).cpu().numpy() for w in
+             ("q_thi", "q_tlo", "q_auxh", "q_auxl")}
+    out = {w: np.where(pre, lanes.NEVER32, words[w])
+           for w in ("q_thi", "q_tlo")}
+    for w in ("q_auxh", "q_auxl"):
+        out[w] = np.where(tie, words[w][:, :1], words[w])
+    return s._replace(**{w: t32(v) for w, v in out.items()})
+
+
+def hot_exchange(p, ws, rng, hot) -> None:
+    """random_exchange's blocks with every valid outbound entry addressed
+    to one of the lanes ``hot``: groups many times Cx, which the atomic
+    placement leaves in arbitrary order."""
+    random_exchange(p, ws, rng)
+    valid = ws.out_blk[0] != p.n_lanes
+    ws.out_blk[0] = torch.where(
+        valid, t32(rng.choice(hot, tuple(valid.shape))), ws.out_blk[0])
+
+
+def b_case(tag: str, p, tb, s0, ws0) -> None:
+    """B on one case against the plain version."""
+    kern, plain = run_pair(p, tb, s0, ws0, kernels.exchange_merge,
+                           lanes.exchange_merge_plain)
+    check("exchange_merge", tag, kern, plain)
+    cnt = torch.bincount(ws0.out_blk[0].reshape(-1).long(),
+                         minlength=p.n_lanes + 1)[:p.n_lanes]
+    log(f"exchange_merge {tag}: equal on [C {p.capacity} | self "
+        f"{p.lane.self_width} | Cx {p.cross_cap}] x {p.lane.words} words "
+        f"({'narrow' if lanes.merge_in_warp(p.lane.merge_width) else 'wide'}"
+        f", {merge_paths(p)['merge']}); largest group {int(cnt.max())}, "
+        f"shed {int(plain['n_queue'].sum() - s0.n_queue.sum())}")
+
+
+def scratch_zero(tag: str, ws) -> None:
+    """The exchange scratch B and H leave for their next call: zero."""
+    torch.cuda.synchronize()
+    if any(int(t.abs().sum()) for t in (ws.x_cnt, ws.x_fill, ws.x_done)):
+        raise AssertionError(f"{tag}: the exchange scratch is not zero")
+
+
+def tier_prefixes(p, s, rng) -> np.ndarray:
+    """``s``'s tier rows with their popped prefix set: each row's first e
+    columns (e from 1, K_s / 2 and K_s + 1, the last past every column)
+    PACKETs of one instant inside the window (their other words kept),
+    column e a LOCAL at a later instant, so both pop rules stop there.
+    Returns e a row."""
+    s2, ks = 2 * p.s_flows, p.stream_pops
+    q = s.stream.q.cpu().numpy()
+    ends = rng.choice([1, ks // 2, ks + 1], s2)
+    t_in, t_late = T0 + 1_000_000, T0 + 2_000_000
+    src_bits = (1 << lanes.AUX_KIND_SHIFT) - 1
+    for r in range(s2):
+        e = min(int(ends[r]), ks)
+        q[2, r, :e] &= src_bits  # kind PACKET
+        q[0, r, :e], q[1, r, :e] = pairs(t_in)
+        if ends[r] <= ks:
+            q[2, r, e] = lanes.LOCAL << lanes.AUX_KIND_SHIFT | (q[2, r, e]
+                                                            & src_bits)
+            q[0, r, e], q[1, r, e] = pairs(t_late)
+    s.stream.q.copy_(t32(q))
+    return ends
+
+
+@phase("kernels B and F on their edge cases vs plain: B's groups many "
+       "times Cx, NEVER prefixes with old aux words, all-NEVER rows, the "
+       "divert, W = 7 rows, PHOLD's 144-wide rows, rows in m_scratch, S = 1, "
+       "3 and 9, its scratch zero after B, H and B again; F's popped "
+       "prefixes ending at column 0, mid-row and past K_s under both pop "
+       "rules, with a log, pcap and netobs, S = 1 and 8 (tolerance: exact, "
+       "integer)")
+def check_merge_cases():
+    rng = np.random.default_rng(SEED + 10)
+    # B, narrow rows: the flagship's 26 entries, W = 5, with and without a
+    # log; groups in a few lanes, NEVER prefixes
+    eng = GpuEngine(flagship(), log_capacity=60_000)
+    flag_cases = []
+    for log_cap in (0, 60_000):
+        p = dataclasses.replace(eng.params, log_capacity=log_cap)
+        for hot in ([3, 17], list(range(40))):
+            tb = random_tables(eng, rng)
+            s0 = with_log(never_prefix(p, random_state(eng, tb, rng), rng),
+                          log_cap)
+            ws0 = lanes.make_workspace(p, DEV)
+            hot_exchange(p, ws0, rng, hot)
+            b_case(f"flagship L={log_cap} hot={len(hot)}", p, tb, s0, ws0)
+            flag_cases.append((p, tb, s0, ws0))
+    # ... every entry empty: all-NEVER rows and no exchange
+    p, tb, s0, ws0 = flag_cases[0]
+    s1 = s0._replace(q_thi=torch.full_like(s0.q_thi, lanes.NEVER32),
+                     q_tlo=torch.full_like(s0.q_tlo, lanes.NEVER32))
+    ws1 = clone(ws0)
+    ws1.out_blk[0] = p.n_lanes
+    ws1.out_blk[1:3] = lanes.NEVER32
+    ws1.self_blk[:2] = lanes.NEVER32
+    b_case("flagship all NEVER", p, tb, s1, ws1)
+    # ... over S = 3 and S = 9 scenarios in one launch
+    for size in (SWEEP_S, SWEEP_S_ARRAY):
+        cases = []
+        for i in range(size):
+            p_i = dataclasses.replace(flag_cases[2][0], seed=SEED + i)
+            tb = random_tables(eng, rng)
+            s0 = with_log(never_prefix(p_i, random_state(eng, tb, rng), rng),
+                          p_i.log_capacity)
+            ws0 = lanes.make_workspace(p_i, DEV)
+            hot_exchange(p_i, ws0, rng, rng.integers(0, p_i.n_lanes, 1 + i))
+            cases.append((p_i, tb, s0, ws0))
+        check_batch("exchange_merge", f"edge cases S={size}", cases,
+                    kernels.exchange_merge, lanes.exchange_merge_plain)
+    # the divert: the tiered mesh's stream lanes receive groups past Cx
+    eng_t = GpuEngine(mixed_tiered(1), log_capacity=0)
+    stream_lanes = np.nonzero(eng_t.tables.lane_stream.cpu().numpy())[0]
+    for log_cap in (0, 100_000):
+        p, tb, s0 = tier_case(eng_t, rng, True, log_cap)
+        s0 = never_prefix(p.lane, s0, rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        hot_exchange(p.lane, ws0, rng,
+                     np.concatenate([stream_lanes[:5], [0, 1]]))
+        b_case(f"tiered divert L={log_cap}", p, tb, s0, ws0)
+    # W = 7, narrow: the untiered mixed mesh's 28-entry rows, payload words
+    # in the queue rows
+    mixed = GpuEngine(mixed_mesh(1), log_capacity=0)
+    p, tb = mixed.params, mixed.tables
+    s0 = random_state(mixed, tb, rng)
+    live = s0.q_thi != lanes.NEVER32
+    s0 = never_prefix(p, s0._replace(
+        q_phi=torch.where(live, t32(rng.integers(0, 1 << 30, live.shape)), 0),
+        q_plo=torch.where(live, t32(rng.integers(0, 1 << 20, live.shape)), 0)),
+        rng)
+    ws0 = lanes.make_workspace(p, DEV)
+    hot_exchange(p, ws0, rng, [4, 9, 300])
+    ws0.self_blk[5:] = t32(rng.integers(0, 1 << 30, ws0.self_blk[5:].shape))
+    b_case("mixed mesh untiered W=7", p, tb, s0, ws0)
+    # W = 7, wide: the star's stream entries with payload words
+    star = GpuEngine(ConfigOptions.from_dict(star_doc()), log_capacity=0)
+    for log_cap in (0, 100_000):
+        p = dataclasses.replace(star.params, log_capacity=log_cap)
+        tb = star.tables
+        s0 = random_state(star, tb, rng)
+        live = s0.q_thi != lanes.NEVER32
+        s0 = never_prefix(p, s0._replace(
+            q_phi=torch.where(live, t32(rng.integers(0, 1 << 30, live.shape)), 0),
+            q_plo=torch.where(live, t32(rng.integers(0, 1 << 20, live.shape)),
+                              0)), rng)
+        s0 = with_log(s0, log_cap)
+        ws0 = lanes.make_workspace(p, DEV)
+        hot_exchange(p, ws0, rng, [0, 1, 2])
+        ws0.self_blk[5:] = t32(rng.integers(0, 1 << 30, ws0.self_blk[5:].shape))
+        random_stream_block(p, ws0, rng, 2)
+        b_case(f"star W=7 L={log_cap}", p, tb, s0, ws0)
+    # PHOLD's 144-wide rows (C 64 + 2K 16 + Cx 64), wide form
+    eng_p = GpuEngine(phold(stop_time="1s"), log_capacity=0)
+    for log_cap in (0, 1_000_000):
+        p = dataclasses.replace(active_params(eng_p, False),
+                                log_capacity=log_cap)
+        tb = active_tables(eng_p, rng)
+        s0 = with_log(never_prefix(p, active_state(eng_p, tb, rng), rng),
+                      log_cap)
+        ws0 = lanes.make_workspace(p, DEV)
+        hot_exchange(p, ws0, rng, list(range(0, 400, 7)))
+        b_case(f"phold L={log_cap}", p, tb, s0, ws0)
+    # rows in m_scratch: the 40-host mixed mesh at C = Cx = 4096
+    eng_w = GpuEngine(mixed40(0), log_capacity=100_000)
+    p = eng_w.params
+    if not merge_paths(p)["merge"].startswith("global"):
+        raise AssertionError("the C = Cx = 4096 rows are not global")
+    tb = eng_w.tables
+    s0 = with_log(never_prefix(p, random_state(eng_w, tb, rng), rng),
+                  p.log_capacity)
+    ws0 = lanes.make_workspace(p, DEV)
+    hot_exchange(p, ws0, rng, [0, 5])
+    b_case("mixed 40 C=Cx=4096", p, tb, s0, ws0)
+
+    # the scratch: B, H, B on one workspace (the hybrid flagship's shapes),
+    # zero after each, the state as the plain versions' in turn
+    cfg = hybrid_cfg("scratch")
+    ext = external_mask(cfg)
+    heng = GpuEngine(cfg, log_capacity=60_000, external=ext)
+    p, tb = heng.params, heng.tables
+    s0 = random_state(heng, tb, rng)
+    ws0 = lanes.make_workspace(p, DEV)
+    hot_exchange(p, ws0, rng, np.nonzero(ext)[0][:4])
+    blk = hybrid_block(p, rng, 400, np.nonzero(ext)[0][:2], T0)
+    s_k, ws_k, s_p, ws_p = clone(s0), clone(ws0), clone(s0), clone(ws0)
+    args = kernels.LaneArgs(p, tb, s_k, ws_k)
+    steps = (("B", kernels.exchange_merge, lanes.exchange_merge_plain),
+             ("H", lambda a: kernels.inject_merge(a, blk),
+              lambda p_, tb_, s, ws: lanes.inject_merge_plain(p_, tb_, s, blk)),
+             ("B again", kernels.exchange_merge, lanes.exchange_merge_plain))
+    for name, call, plain in steps:
+        call(args)
+        plain(p, tb, s_p, ws_p)
+        scratch_zero(f"after {name}", ws_k)
+        check("exchange_merge" if name.startswith("B") else "inject_merge",
+              f"scratch sequence, after {name}", state_fields(s_k, ws_k),
+              state_fields(s_p, ws_p))
+    log("exchange scratch: zero after B, H and B again on one workspace; "
+        "the state equal to the plain sequence's after each")
+
+    # F: popped prefixes of 1, K_s / 2 and all K_s columns, both pop rules,
+    # with and without a log
+    for wide in (True, False):
+        for log_cap in (0, 200_000):
+            p, tb, s0 = tier_case(eng_t, rng, wide, log_cap)
+            ends = tier_prefixes(p, s0, rng)
+            ws0 = lanes.make_workspace(p, DEV)
+            tag = f"prefixes wide={wide} L={log_cap}"
+            kern, plain = run_pair(p, tb, s0, ws0, kernels.stream_tier,
+                                   lanes.stream_tier_plain)
+            check("stream_tier", tag, kern, plain)
+            popped = (plain["stream.q"][0, :, :p.stream_pops]
+                      != s0.stream.q[0, :, :p.stream_pops]).sum(1).cpu()
+            want = np.minimum(ends, p.stream_pops)
+            log(f"stream_tier {tag}: equal; rows popping 1, K_s/2, K_s "
+                f"columns: {[int((popped == k).sum()) for k in sorted(set(want))]}"
+                f"; {tier_counts(p, s0, plain)}")
+            if not np.array_equal(popped.numpy(), want):
+                raise AssertionError(f"{tag}: the prefixes did not pop as set")
+    # ... with pcap and netobs (and a log)
+    eng_pl = GpuEngine(planes(mixed_tiered(1), "edge"), log_capacity=200_000)
+    for wide in (True, False):
+        p, tb, s0 = tier_case(eng_pl, rng, wide, 200_000)
+        tb = throttling(eng_pl, tb, rng)
+        tb, s0 = seed_planes(p, tb, with_log(s0, 200_000), rng)
+        tier_prefixes(p, s0, rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.stream_tier,
+                               lanes.stream_tier_plain)
+        check("stream_tier", f"prefixes planes wide={wide}", kern, plain)
+        log(f"stream_tier prefixes planes wide={wide}: equal with pcap, "
+            f"netobs and a log; {tier_counts(p, s0, plain)}")
+    # ... over S = 8 scenarios in one launch, a thread a row (a warp a row
+    # above)
+    cases = []
+    for i in range(8):
+        p, tb, s0 = tier_case(eng_t, rng, i % 2 == 0, 0)
+        tier_prefixes(p, s0, rng)
+        cases.append((dataclasses.replace(p, seed=SEED + i), tb, s0,
+                      lanes.make_workspace(p, DEV)))
+    check_batch("stream_tier", "prefixes S=8", cases, kernels.stream_tier,
+                lanes.stream_tier_plain)
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -2222,8 +2477,13 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws, cnt: dict) -> dict:
     x_ent = k * n + (0 if p.split else n_ent)
     b_in = (entries(cnt["b_in"], n * c, words)
             + entries(cnt["self"], n * sw, words) + x_ent * 4 + n * 4)
-    # the selected cross entries (stream entries carry two more words)
-    b_in += int(ws.x_cnt.clamp(max=cx).sum()) * words * 4
+    # the selected cross entries (stream entries carry two more words): the
+    # first Cx of each lane's group of exchanged entries
+    dst = ws.out_blk[0].reshape(-1)
+    if pl.stream_present and not p.split:
+        dst = torch.cat([dst, ws.sx_blk[0]])
+    group = torch.bincount(dst.long(), minlength=n + 1)[:n]
+    b_in += int(group.clamp(max=cx).sum()) * words * 4
     b_out = entries(cnt["b_out"], n * c, words) + n * 4
     if p.log_capacity:
         b_out += rg.split * 4 + tail_rows * 6 * 8
@@ -2310,14 +2570,13 @@ def kernel_bytes(p: lanes.LaneParams, tb, ws, cnt: dict) -> dict:
 
 
 # device kernels of each wrapper, by the names CUPTI gives them with the
-# namespace, template arguments and parameters taken off (kernel_name); the
-# exchange's two scratch memsets ("Memset (Device)") count to B as well
+# namespace, template arguments and parameters taken off (kernel_name)
 KERNEL_PARTS = {
     "lane_slots": ("lane_slots_kernel",),
     "tier_merge": ("tier_merge_kernel",),
-    "stream_tier": ("stream_tier_kernel",),
-    "exchange_merge": ("x_count_kernel", "x_scan_kernel", "x_place_kernel",
-                       "merge_kernel", "Memset"),
+    "stream_tier": ("tier_fill_kernel", "stream_tier_kernel"),
+    "exchange_merge": ("x_count_kernel", "x_place_kernel", "merge_kernel",
+                       "merge_warp_kernel"),
     "stream_rows_merge": ("stream_rows_kernel",),
     "queue_min_window": ("queue_min_kernel",),
     "append_log": ("append_log_kernel",),
@@ -2349,11 +2608,17 @@ def path_kernels(p: lanes.LaneParams) -> list:
     return out
 
 
-def profile_steps(window, iteration, steps: int, p: lanes.LaneParams) -> dict:
+# cell label -> wrapper -> its device kernels' us per step (profile_steps)
+SPLITS: dict = {}
+
+
+def profile_steps(window, iteration, steps: int, p: lanes.LaneParams,
+                  label: str = "") -> dict:
     """Device time per step of each wrapper's kernels, from the profiler's
     CUDA activity over ``steps`` live steps of the device loop (profiled
     again, up to three times, while a kernel's time is missing); {} when
-    the profiler records no device time."""
+    the profiler records no device time.  Each wrapper's split into its
+    device kernels is kept in ``SPLITS[label]``."""
     from torch.profiler import ProfilerActivity, profile
 
     for _attempt in range(3):
@@ -2364,16 +2629,21 @@ def profile_steps(window, iteration, steps: int, p: lanes.LaneParams) -> dict:
                 iteration()
             torch.cuda.synchronize()
         totals = {name: 0.0 for name in path_kernels(p)}
+        parts = {name: {} for name in totals}
         for ev in prof.key_averages():
             us = getattr(ev, "device_time_total", None)
             if us is None:
                 us = getattr(ev, "cuda_time_total", 0.0)
-            name = WRAPPER_OF.get(kernel_name(ev.key))
+            part = kernel_name(ev.key)
+            name = WRAPPER_OF.get(part)
             if name in totals:
                 totals[name] += us
+                parts[name][part] = parts[name].get(part, 0.0) + us / steps
                 log(f"  device {us / steps:9.3f} us/step in {ev.count:5d} "
                     f"launches: {ev.key[:70]}")
         if all(totals.values()):
+            if label:
+                SPLITS[label] = parts
             return {name: us / 1e3 / steps for name, us in totals.items()}
         log(f"profiler device times incomplete: {totals}")
     return {}
@@ -2412,7 +2682,7 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         window(True)
         iteration()
     step_ms = loop_step_ms(window, iteration, ws_, 2)
-    prof_ms = profile_steps(window, iteration, 40, p)
+    prof_ms = profile_steps(window, iteration, 40, p, label)
     window(True)  # the next window, as the loop would open it
     torch.cuda.synchronize()
     snap_s, snap_ws = clone(s), clone(ws_)
@@ -3109,11 +3379,11 @@ def hybrid_bytes(p, s, ws, blk, eg_count: int) -> dict:
     }
 
 
-# device kernels of the hybrid path's wrappers (kernel_name's bare names); H
-# shares B's scan kernel, so the hybrid timing profiles each wrapper alone
+# device kernels of the hybrid path's wrappers (kernel_name's bare names),
+# each wrapper profiled alone
 HYBRID_PARTS = {
-    "inject_merge": ("inj_count_kernel", "x_scan_kernel", "inj_place_kernel",
-                     "inject_merge_kernel", "Memset"),
+    "inject_merge": ("inj_count_kernel", "inj_place_kernel",
+                     "inject_merge_kernel"),
     "lane_slots:external": ("lane_slots_kernel",),
     "hybrid_window": ("hybrid_window_kernel",),
     "hybrid_fused_window": ("hybrid_fused_kernel",),
@@ -4317,7 +4587,8 @@ def time_sweep(times) -> dict:
                 window(True)
                 iteration()
             step_ms[size].append(loop_step_ms(window, iteration, ws_, 2))
-            prof = profile_steps(window, iteration, 40, p)
+            prof = profile_steps(window, iteration, 40, p,
+                                 f"sweep {cell}, S = {size}")
             if not prof:
                 raise AssertionError("the profiler recorded no device time")
             prof_ms[size].append(prof)
@@ -4428,6 +4699,7 @@ def main() -> int:
     check_sweep_kernels()
     check_hybrid_kernels()
     check_fused_kernels()
+    check_merge_cases()
     times = time_all()
     parity()
     stream_parity()
@@ -4471,6 +4743,12 @@ def main() -> int:
             log(f"device us/launch, {cfg_name} {name}: {t['ms'] * 1e3:.3f} "
                 f"(bound {t['bound_ms'] * 1e3:.3f}, plain "
                 f"{t['plain_ms'] * 1e3:.1f}) ({smi})")
+    for label, parts in SPLITS.items():  # B's and F's device kernels
+        for name, split in parts.items():
+            if len(split) > 1:
+                log(f"split, {label} {name}: " + ", ".join(
+                    f"{part} {us:.3f}" for part, us in split.items())
+                    + f" us/step ({smi})")
     for name, batch in sweeps.items():
         log(f"sweep {name}: S = {batch['size']}, batch loop "
             f"{batch['batch_wall_s']:.4f} s, {batch['size']} serial loops "

@@ -67,7 +67,8 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "ft_thresh", "ft_all", "ft_seed", "fl_split", "fl_slots",
                "fl_ss", "fl_bs", "n_fl", "merge_global", "split_global",
                "tier_global", "ext_any", "eg_cap", "room_floor", "n_eg",
-               "inj_b", "cxi", "inject_global", "k_cap", "ext_slots")
+               "inj_b", "cxi", "inject_global", "k_cap", "ext_slots",
+               "merge_warp")
 
 
 class LaneBufs(ctypes.Structure):
@@ -201,7 +202,8 @@ class LaneArgs:
     ``n_eg`` egress candidates, the injection block's ``inj_b`` rows and
     the ``cxi`` a lane takes from one.  On the card each merge takes the path
     ``lanes.merge_in_shared`` gives its rows at the device's opt-in limit:
-    ``*_global`` marks the merges that run in ``m_scratch``."""
+    ``*_global`` marks the merges that run in ``m_scratch``; ``merge_warp``
+    B's narrow form (``lanes.merge_in_warp``)."""
 
     def __init__(self, p: lanes.LaneParams, tb: lanes.LaneTables,
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
@@ -255,6 +257,7 @@ class LaneArgs:
                for f in ("fl_count", "fl_lost")},
             "fl_recs": (n_fl, lanes.FLOW_REC_WORDS), "fl_valid": (n_fl,),
             "x_order": (max(pl.exchange_entries, p.inject_batch),),
+            "x_done": (1,),
             # the hybrid backend's egress (empty [0] int32 off it)
             "egress": (p.egress_capacity, 6) if ext else (0,),
             **{f: () if ext else (0,)
@@ -329,6 +332,7 @@ class LaneArgs:
             n_eg=p.egress_slots, inj_b=p.inject_batch, cxi=p.inject_cap,
             inject_global=int(in_global.get("inject merge", False)),
             k_cap=p.hybrid_k_cap, ext_slots=p.ext_slots,
+            merge_warp=int(lanes.merge_in_warp(pl.merge_width)),
         )
 
     @functools.cached_property
@@ -342,7 +346,7 @@ class LaneArgs:
 _LAUNCH_FIELDS = ("n", "c", "k", "cx", "sw", "words", "n_x", "s_flows",
                   "tier_s", "ks", "c2", "flowtrace", "merge_global",
                   "split_global", "tier_global", "ext_any", "n_eg", "inj_b",
-                  "cxi", "inject_global")
+                  "cxi", "inject_global", "merge_warp")
 
 
 class SweepArgs:
@@ -352,7 +356,8 @@ class SweepArgs:
     memory; at S = 1 the launcher passes ``host[0]`` as the kernels'
     parameter instead).  Their launch shapes must be equal, and their exchange
     scratch (``x_cnt``, ``x_fill``) rows of one ``[S, N]`` block each
-    (``lanes.make_workspaces``), which the launcher clears in one memset.
+    (``lanes.make_workspaces``), zero between calls: the merges of B and H
+    zero each lane's words once they have read them.
     :meth:`retarget` swaps tables and stop times between run segments and
     uploads the array again; the tables it replaces stay referenced here
     until the batch is dropped, so no queued launch reads freed memory."""
@@ -470,18 +475,26 @@ def exchange_merge(args) -> None:
     ``[N, C]`` queue words are read and written once, plus the K*N
     outbound entries and, in star stream configs, the stream block.  The
     TPU's sort-by-destination and barrel-shift gather become a counting
-    sort (atomic counts, one-block scan, atomic placement), and the row
-    sort a rank merge of the whole ``[C | K or 2K | Cx]`` row in one
-    block's shared memory (5 words an entry, 7 with the stream payload), so
-    the row is read from device memory once.  The chain of dependent
-    launches and the one-block scan keep it well above its bound
-    (PERF.md).  On a tiered run the merge block of a stream-endpoint lane
-    also copies its cross entries to the tier block, where kernel G reads
-    them, and gives them the NEVER time in the lane's own merge (the
-    divert, ``lanes.py:1818-1835``).  With flowtrace each tail slot gets
-    a flow flag, and the PACKETs of sampled flows shed there an FT_DROP
-    (CAUSE_QUEUE) record (``:1873-1891``).  A row wider than the device's
-    opt-in shared memory ranks in the workspace's ``m_scratch``."""
+    sort: atomic counts, whose kernel's last block to finish (a ticket)
+    scans them, its thread sums and warp sums by shuffles (two barriers a
+    tile of 12,288 lanes), then atomic placement.  The merge then sorts
+    each lane's group by index and keeps the first Cx (the plain
+    version's stable order), and sorts the whole ``[C | K or 2K | Cx]``
+    row by (key, index) with a bitonic network (5 words an entry, 7 with
+    the stream payload), so the row is read from device memory once.  Its form is fixed before the run
+    (``lanes.merge_in_warp``): a row of at most 32 entries (the flagship's
+    and the tiered mesh's 26) is merged by one warp in its registers,
+    eight lanes a block, with no shared memory and no barrier; a wider one
+    by a block over an index array in shared memory, its runs of 32
+    sorted in registers and merged pairwise by binary search.  Each merge zeroes its lane's counts for the next call, so
+    B issues three kernels and no memset.  On a tiered run the merge of a
+    stream-endpoint lane also copies its cross entries to the tier block,
+    where kernel G reads them, and gives them the NEVER time in the lane's
+    own merge (the divert, ``lanes.py:1818-1835``).  With flowtrace each
+    tail slot gets a flow flag, and the PACKETs of sampled flows shed there
+    an FT_DROP (CAUSE_QUEUE) record (``:1873-1891``).  A wide row past the
+    device's opt-in shared memory sorts in the workspace's
+    ``m_scratch``."""
     if _launch("exchange_merge", args,
                lambda m: lanes.exchange_merge_plain(m.p, m.tb, m.s, m.ws)):
         exchange_merge.launches += 1
@@ -507,19 +520,26 @@ def stream_tier(args) -> None:
 
     Replaces ``shadow_tpu/backend/lanes.py:2300`` ``_stream_tier_iter`` up
     to its merge (``:2328-2680``), on the state of
-    ``shadow_tpu/backend/lanes_stream.py:907`` ``TierState``.  One thread
-    per endpoint row owns the row's flow, its tier vector column and its
-    queue head, and walks its K_s popped columns in order in registers:
-    the pop-prefix rule, the down bucket and CoDel, the delivery-elision
-    gate, the lane-TCP law of kernel A (``__device__``), the control send
-    with its loss draw, the RTO arm and, on client rows, the burst chain.
-    It writes every candidate entry of its row (empty ones canonical) and,
-    when logging, every record slot of its row.  It never touches the
-    peer row: the merge, which reads the peer's control sends, is G.
-    Bound by bytes (the popped columns, the flow rows, the tier vectors and
-    the candidate block written once), but its time is the longest row's
-    serial walk: 2S threads of up to K_s law steps and K_s*B burst units
-    each (PERF.md)."""
+    ``shadow_tpu/backend/lanes_stream.py:907`` ``TierState``, in two
+    launches.  A fill writes the canonical empty entry to every candidate
+    slot and, when logging, every tier record slot the walk may write, with
+    the whole card, coalesced.  Then one warp per endpoint row (one thread
+    where a launch walks more than 264 rows over its scenarios, two warps
+    an SM: a sweep's) owns the row's flow, its tier vector column and its queue
+    head, a warp's lanes in lockstep on the same values (lane j loads
+    column j; shuffles broadcast each), and walks the popped prefix of its
+    K_s columns in order: the
+    pop-prefix rule, the down bucket and CoDel, the delivery-elision gate,
+    the lane-TCP law of kernel A (``__device__``), the control send with
+    its loss draw, the RTO arm and, on client rows, the burst chain.  The
+    walk stops where the popped prefix ends (an unpopped column changes no
+    state and writes only empties); in a warp the 32 loss draws of a
+    stimulus run one a lane before the law and lane u writes burst unit u.
+    Only valid entries and records are written.  It never touches the peer row: the
+    merge, which reads the peer's control sends, is G.  Bound by bytes (the
+    popped columns, the flow rows, the tier vectors and the candidate block
+    written once); its time is the fill's stores and the longest row's
+    serial law (PERF.md)."""
     if _launch("stream_tier", args,
                lambda m: lanes.stream_tier_plain(m.p, m.tb, m.s, m.ws)):
         stream_tier.launches += 1
@@ -616,10 +636,10 @@ def inject_merge(args, blk: torch.Tensor) -> None:
     fan-in Cxi = C, the keyed 4-word merge of ``[C + Cxi]`` rows with the
     stream payload words riding along, the tail and the sheds into
     ``n_queue`` and ``nb_shed``).  ``blk`` is ``[INJ_WORDS, B]`` int32 on
-    the state's device.  B's counting sort (count, one-block scan, place)
+    the state's device.  B's counting sort (count with its scan, place)
     groups the block by destination; one block per lane ranks its group by
-    (time, aux, index), takes the first Cxi, and ranks ``[queue C |
-    injected Cxi]`` in shared memory with B's keyed merge (no overflow
+    (time, aux, index), takes the first Cxi, and sorts ``[queue C |
+    injected Cxi]`` in shared memory with B's block-form merge (no overflow
     records: the reference writes none here).  Bound by bytes: the [N, C]
     queue words read and written once, the block read once.  Not gated
     on ``live``: it runs before the turn's first step arms it."""

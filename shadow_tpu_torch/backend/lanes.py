@@ -744,12 +744,15 @@ class Workspace(NamedTuple):
     recs: torch.Tensor
     rec_valid: torch.Tensor
     # exchange scratch: per-destination counts, starts and fill cursors [N],
-    # and the exchanged entries grouped by destination: the K*N outbound
-    # packets, then (star stream configs) the stream block's entries
+    # the exchanged entries grouped by destination: the K*N outbound
+    # packets, then (star stream configs) the stream block's entries; and
+    # the count kernel's finished blocks [1] (its last one scans).  Zero
+    # between the kernels' calls: they reset what they use.
     x_cnt: torch.Tensor
     x_start: torch.Tensor
     x_fill: torch.Tensor
     x_order: torch.Tensor
+    x_done: torch.Tensor
     # [7, T] int32, tiered runs ([7, 1] otherwise): the tier merge's
     # candidates by LaneParams.tier_layout — kernel F's DELIVERY
     # fallbacks, RTO arms, control sends and bursts, and the cross entries
@@ -799,18 +802,41 @@ def merge_in_shared(entries: int, words: int, extra: int, optin: int) -> bool:
     return 4 * words * entries + extra <= optin - SMEM_STATIC_RESERVE
 
 
+# the widest row B's narrow form merges: one entry a warp lane
+MERGE_WARP_ENTRIES = 32
+
+
+def merge_in_warp(entries: int) -> bool:
+    """B's form, fixed before a run starts: a row of at most 32 entries
+    (the flagship's and the tiered mesh's 26) is merged by one warp in its
+    registers, several lanes a block; a wider one by a block, in shared
+    memory or ``m_scratch`` by :func:`merge_in_shared`."""
+    return entries <= MERGE_WARP_ENTRIES
+
+
+def sort_width(entries: int) -> int:
+    """The length of a merge's sort index array: the smallest power of two
+    that holds the row's entries (the kernels' bitonic network)."""
+    return 1 << max(entries - 1, 0).bit_length()
+
+
 def merge_rows(p: LaneParams) -> dict:
-    """The run's merges: name -> (rows, entries a row, words an entry,
-    extra bytes a row): B's ``[C | self | Cx]`` rows (with Cx selected
-    indices), E's ``[C | W_s]`` rows, G's ``[C2 | W_t]`` rows."""
+    """The run's block-form merges: name -> (rows, entries a row, words an
+    entry, extra bytes a row): B's ``[C | self | Cx]`` rows, E's ``[C |
+    W_s]`` rows and H's ``[C | Cxi]`` rows, each with its sort's index
+    array (B's group selection uses it first), G's ``[C2 | W_t]`` rows.
+    B's narrow form (:func:`merge_in_warp`) keeps its row in registers, and
+    such a row always passes the shared-memory rule, so it never sizes
+    ``m_scratch``."""
     pl = p.lane
-    out = {"merge": (p.n_lanes, pl.merge_width, pl.words, 4 * pl.cross_cap)}
+    out = {"merge": (p.n_lanes, pl.merge_width, pl.words,
+                     4 * sort_width(pl.merge_width))}
     if p.external_any:
-        out["inject merge"] = (p.n_lanes, p.capacity + p.inject_cap,
-                               pl.words, 0)
+        w = p.capacity + p.inject_cap
+        out["inject merge"] = (p.n_lanes, w, pl.words, 4 * sort_width(w))
     if p.split:
-        out["stream merge"] = (2 * p.s_flows,
-                               p.capacity + p.stream_row_width, 7, 0)
+        w = p.capacity + p.stream_row_width
+        out["stream merge"] = (2 * p.s_flows, w, 7, 4 * sort_width(w))
     if p.stream_tiered:
         out["tier merge"] = (2 * p.s_flows,
                              p.stream_capacity + p.tier_width, 7, 0)
@@ -861,7 +887,7 @@ def make_workspaces(p: LaneParams, device, count: int = 1) -> WorkspaceBatch:
         sx_blk=z(8, max(pl.stream_entries, 1)),
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
         x_cnt=z(n), x_start=z(n), x_fill=z(n),
-        x_order=z(max(pl.exchange_entries, p.inject_batch)),
+        x_order=z(max(pl.exchange_entries, p.inject_batch)), x_done=z(1),
         tier_blk=z(7, max(p.tier_layout[-1], 1)),
         fl_recs=z(n_fl, FLOW_REC_WORDS), fl_valid=z(n_fl),
         m_scratch=z(scratch),

@@ -11,8 +11,8 @@
 // workspace, built and checked on the Python side), twice: in host memory,
 // where the launcher reads the launch shape from scenario 0 (equal across
 // the scenarios of a sweep), and in device memory.  The scenario is
-// blockIdx.y (blockIdx.x for the one-block-per-scenario kernels C and the
-// exchange scan).  Each kernel is one template over where a block finds its
+// blockIdx.y (blockIdx.x for kernel C's one block per scenario).  Each
+// kernel is one template over where a block finds its
 // scenario's block (`scenario` below): in the kernel's __grid_constant__
 // parameter up to S = 8 (the one block of every serial run, or up to eight
 // side by side), in the device array past that.  Each launcher takes
@@ -46,11 +46,14 @@
 // record groups and the counters do not exist and nothing is written for
 // them.
 //
-// The merges (B, E, G) rank a row in one block's shared memory, opted in
+// The merges (B, E, H) sort a row by (key, index) with a bitonic network:
+// B's rows of at most 32 entries in one warp's registers (lanes
+// .merge_in_warp), every other row in one block's shared memory, opted in
 // past 48 KB up to the device's sharedMemPerBlockOptin; a row beyond that
 // (a size rule the wrapper fixes before the run, lanes.merge_in_shared)
-// is ranked in global memory instead, in the workspace's m_scratch, by the
-// same code.
+// sorts in global memory instead, in the workspace's m_scratch, by the
+// same code.  G ranks its compacted valid entries by all pairs (key_rank),
+// in shared memory or m_scratch by the same size rule.
 
 #include <algorithm>
 #include <cstdint>
@@ -62,6 +65,7 @@ constexpr int32_t NEVER32 = 0x7FFFFFFF;
 constexpr int64_t NEVER64 = 0x7FFFFFFFFFFFFFFFLL;
 constexpr int64_t MASK31 = 0x7FFFFFFFLL;
 constexpr int32_t CD_UNSET = -2147483647;  // -(1 << 31) + 1
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;  // every lane of a warp
 
 constexpr int32_t PACKET = 0, LOCAL = 1, DELIVERY = 2;
 constexpr int32_t M_NONE = 0, M_PHOLD = 1, M_TGEN_MESH = 2, M_TGEN_CLIENT = 3,
@@ -138,7 +142,8 @@ struct LaneBufs {
   // Workspace
   int32_t *ctl, *self_blk, *out_blk, *sx_blk;
   int64_t *recs;
-  int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order, *tier_blk;
+  int32_t *rec_valid, *x_cnt, *x_start, *x_fill, *x_order, *x_done,
+      *tier_blk;
   // the iteration's flow records [R_f, FL_WORDS] and their flags; the
   // merges' rows where they do not fit shared memory
   int32_t *fl_recs, *fl_valid, *m_scratch;
@@ -186,6 +191,8 @@ struct LaneBufs {
   // the fused hybrid law: the most windows a dispatch consumes (0: the
   // one-window law) and the schedule's slots
   int64_t k_cap, ext_slots;
+  // B's merge form: a warp per lane (rows of at most 32 entries) or a block
+  int64_t merge_warp;
 };
 
 // Up to PARAM_SCENARIOS blocks side by side, passed as one kernel parameter
@@ -1000,6 +1007,30 @@ struct Sends {
   int64_t arr = 0;   // the control send's arrival
 };
 
+// the loss draw of a stimulus's v-th send, at counter seq + v, where it is
+// needed
+struct SerialDraw {
+  const LaneBufs& b;
+  const UpRow& r;
+  int32_t seq;
+  __device__ __forceinline__ bool operator()(int32_t v) const {
+    const uint32_t u = lane_draw(static_cast<uint32_t>(b.seed_lo),
+                                 static_cast<uint32_t>(b.seed_hi),
+                                 static_cast<uint32_t>(r.lane) | LOSS_STREAM,
+                                 static_cast<uint32_t>(wadd(seq, v)));
+    return static_cast<int64_t>(u) < r.thresh;
+  }
+};
+
+// ... read from a warp's ballot of the draws at seq + lane (a stimulus sends
+// at most 1 + PUMP_BURST <= 32 times)
+struct WarpDraw {
+  uint32_t lost;
+  __device__ __forceinline__ bool operator()(int32_t v) const {
+    return (lost >> v) & 1u;
+  }
+};
+
 // The law and the sends of one stimulus at an endpoint row, shared by A's
 // stream arm and F's walk: stim 1 opens a client flow, 2 fires the RTO, 3
 // runs on_segment on the event's payload words, at `now` (= t); the pump
@@ -1008,12 +1039,15 @@ struct Sends {
 // loss at counter = its send sequence number; the RTO arm takes the local
 // sequence.  Burst unit u goes to burst(u, valid, lost, dep, arr, seq, size,
 // phi, plo, retx); the control send and the arm are returned.  Every charge and
-// every byte sent is counted into sl.nb_thr and sl.nb_txb.
-template <class BurstSink>
+// every byte sent is counted into sl.nb_thr and sl.nb_txb.  The loss draws
+// come from `lost_at(v)`, the draw of the stimulus's v-th send (counter =
+// the control send's sequence number + v): SerialDraw computes each where
+// it is needed (A), WarpDraw reads it from draws a warp made beforehand (F).
+template <class BurstSink, class LostAt>
 __device__ __forceinline__ Sends stream_stimulus(
     const LaneBufs& b, Flow& f, int stim, Pair now, int64_t t, int32_t phi,
     int32_t plo, int32_t size, int64_t we, const UpRow& r, StreamLane sl,
-    BurstSink burst) {
+    BurstSink burst, LostAt lost_at) {
   Sends s;
   if (stim == 1) {
     open_flow(f, now, s.em);
@@ -1029,9 +1063,6 @@ __device__ __forceinline__ Sends stream_stimulus(
 
   const int32_t interval = static_cast<int32_t>(b.interval);
   const bool draw = b.has_loss && t >= b.bootstrap_end;
-  const uint32_t seed_lo = static_cast<uint32_t>(b.seed_lo);
-  const uint32_t seed_hi = static_cast<uint32_t>(b.seed_hi);
-  const uint32_t stream = static_cast<uint32_t>(r.lane) | LOSS_STREAM;
   // the control send: up bucket, loss draw, arrival
   s.seq = sl.send_seq;
   if (s.em.send_valid) {
@@ -1041,11 +1072,7 @@ __device__ __forceinline__ Sends stream_stimulus(
                       interval, sl.nb_thr);
     sl.nb_txb = wadd(sl.nb_txb, s.em.send_size);
     s.dep = dep;
-    if (draw) {
-      const uint32_t u = lane_draw(seed_lo, seed_hi, stream,
-                                   static_cast<uint32_t>(s.seq));
-      s.lost = static_cast<int64_t>(u) < r.thresh;
-    }
+    s.lost = draw && lost_at(0);
     if (s.lost) sl.n_loss = wadd(sl.n_loss, 1);
     if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, r.lat);
     s.arr = dep + r.lat;
@@ -1067,12 +1094,7 @@ __device__ __forceinline__ Sends stream_stimulus(
                                        interval, sl.nb_thr);
     sl.nb_txb = wadd(sl.nb_txb, bsize);
     const int32_t bseq = wadd(s.seq, sent0 + u);
-    bool lost = false;
-    if (draw) {
-      const uint32_t d = lane_draw(seed_lo, seed_hi, stream,
-                                   static_cast<uint32_t>(bseq));
-      lost = static_cast<int64_t>(d) < r.thresh;
-    }
+    const bool lost = draw && lost_at(sent0 + u);
     if (lost) sl.n_loss = wadd(sl.n_loss, 1);
     if (b.dyn_runahead) sl.min_lat = imin(sl.min_lat, r.lat);
     int64_t arr = dep + r.lat;
@@ -1137,8 +1159,9 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
     const bool capture = b.flow_pcap[e] != 0;
     const bool smp = ft && flow_sampled(b, lane, peer);
+    const UpRow ur = up_row(b, e);
     sd = stream_stimulus(
-        b, f, stim, Pair{thi, tlo}, t, phi, plo, size, we, up_row(b, e), sl,
+        b, f, stim, Pair{thi, tlo}, t, phi, plo, size, we, ur, sl,
         [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
             int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo,
             bool retx) {
@@ -1154,7 +1177,8 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
             send_flows(b, b.fl_bs + slot * sf + e, gw_b, smp, lost, t, dep,
                        arr, retx ? FT_RETRANSMIT : FT_SEND, lane, peer, bseq,
                        bsize);
-        });
+        },
+        SerialDraw{b, ur, sl.send_seq});
     flow_store(f, frow);
   }
   const Emit& em = sd.em;
@@ -1603,42 +1627,112 @@ __device__ __forceinline__ int32_t x_dst(const LaneBufs& b, int64_t m) {
   return m < nk ? b.out_blk[m] : b.sx_blk[m - nk];
 }
 
+// Exclusive scan of x_cnt into x_start by one block (of any width that is a
+// multiple of 32, up to 1024): tiles of blockDim x SCAN_ITEMS counts, each
+// thread SCAN_ITEMS consecutive ones in registers (16-byte loads and stores
+// where the row is aligned; loads through L2, where the counts' atomics
+// landed), a warp-shuffle scan of the thread sums and one of the warp sums:
+// two barriers a tile, one tile at 10k lanes (the count kernel's blocks).
+constexpr int SCAN_ITEMS = 12;
+constexpr int COUNT_THREADS = 1024;
+
+__device__ void scan_counts(const LaneBufs& b) {
+  __shared__ int32_t warp_sum[32];
+  const int64_t n = b.n;
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const bool vec = ((reinterpret_cast<uintptr_t>(b.x_cnt) |
+                     reinterpret_cast<uintptr_t>(b.x_start)) & 15) == 0;
+  int32_t carry = 0;
+  for (int64_t base = 0; base < n;
+       base += static_cast<int64_t>(blockDim.x) * SCAN_ITEMS) {
+    const int64_t lo = base + threadIdx.x * static_cast<int64_t>(SCAN_ITEMS);
+    const bool whole = vec && lo + SCAN_ITEMS <= n;
+    int32_t v[SCAN_ITEMS];
+    if (whole) {
+#pragma unroll
+      for (int q = 0; q < SCAN_ITEMS; q += 4) {
+        const int4 x = __ldcg(reinterpret_cast<const int4*>(b.x_cnt + lo + q));
+        v[q] = x.x;
+        v[q + 1] = x.y;
+        v[q + 2] = x.z;
+        v[q + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < SCAN_ITEMS; ++q)
+        v[q] = lo + q < n ? __ldcg(b.x_cnt + lo + q) : 0;
+    }
+    int32_t sum = 0;
+#pragma unroll
+    for (int q = 0; q < SCAN_ITEMS; ++q) sum += v[q];
+    int32_t inc = sum;  // inclusive scan over the warp
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t y = __shfl_up_sync(FULL_MASK, inc, d);
+      if (ln >= d) inc += y;
+    }
+    if (ln == 31) warp_sum[wp] = inc;
+    __syncthreads();
+    if (wp == 0) {
+      int32_t ws = ln < nw ? warp_sum[ln] : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int32_t y = __shfl_up_sync(FULL_MASK, ws, d);
+        if (ln >= d) ws += y;
+      }
+      warp_sum[ln] = ws;
+    }
+    __syncthreads();
+    int32_t run = carry + (wp > 0 ? warp_sum[wp - 1] : 0) + inc - sum;
+    carry += warp_sum[nw - 1];
+#pragma unroll
+    for (int q = 0; q < SCAN_ITEMS; ++q) {
+      const int32_t x = v[q];
+      v[q] = run;
+      run += x;
+    }
+    if (whole) {
+#pragma unroll
+      for (int q = 0; q < SCAN_ITEMS; q += 4)
+        *reinterpret_cast<int4*>(b.x_start + lo + q) =
+            make_int4(v[q], v[q + 1], v[q + 2], v[q + 3]);
+    } else {
+#pragma unroll
+      for (int q = 0; q < SCAN_ITEMS; ++q)
+        if (lo + q < n) b.x_start[lo + q] = v[q];
+    }
+    __syncthreads();  // warp_sum is read before the next tile writes it
+  }
+}
+
+// After a block's counts: the scenario's last block to finish (a ticket in
+// x_done, reset for the next call) scans them, so no launch of its own
+// waits for the counts.  Every thread of the block calls it.
+__device__ __forceinline__ void scan_if_last(const LaneBufs& b) {
+  __shared__ bool last;
+  __threadfence();  // this thread's atomics before the block's ticket
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(b.x_done, 1) == static_cast<int32_t>(gridDim.x) - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // every block's counts before the scan reads them
+  scan_counts(b);
+  if (threadIdx.x == 0) *b.x_done = 0;
+}
+
+// count the exchanged entries per destination (atomics), then scan (B)
 template <class P>
 __global__ void x_count_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
-  if (b.ctl[0] == 0) return;
+  if (b.ctl[0] == 0) return;  // every block of the scenario
   const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (m >= b.n_x) return;
-  const int32_t d = x_dst(b, m);
-  if (d < b.n) atomicAdd(&b.x_cnt[d], 1);
-}
-
-// exclusive scan of x_cnt into x_start: one block, contiguous chunks (gated
-// on live in B; not in H, which runs before a hybrid turn arms it)
-template <class P, bool GATED = true>
-__global__ void x_scan_kernel(const __grid_constant__ P bufs) {
-  const LaneBufs& b = scenario(bufs, blockIdx.x);
-  if (GATED && b.ctl[0] == 0) return;
-  __shared__ int32_t part[1024];
-  const int64_t n = b.n;
-  const int64_t chunk = (n + blockDim.x - 1) / blockDim.x;
-  const int64_t lo = threadIdx.x * chunk;
-  const int64_t hi = lo + chunk < n ? lo + chunk : n;
-  int32_t sum = 0;
-  for (int64_t i = lo; i < hi; ++i) sum += b.x_cnt[i];
-  part[threadIdx.x] = sum;
-  __syncthreads();
-  for (unsigned s = 1; s < blockDim.x; s <<= 1) {  // Hillis-Steele
-    const int32_t v = threadIdx.x >= s ? part[threadIdx.x - s] : 0;
-    __syncthreads();
-    part[threadIdx.x] += v;
-    __syncthreads();
+  if (m < b.n_x) {
+    const int32_t d = x_dst(b, m);
+    if (d < b.n) atomicAdd(&b.x_cnt[d], 1);
   }
-  int32_t run = part[threadIdx.x] - sum;
-  for (int64_t i = lo; i < hi; ++i) {
-    b.x_start[i] = run;
-    run += b.x_cnt[i];
-  }
+  scan_if_last(b);
 }
 
 template <class P>
@@ -1671,9 +1765,10 @@ __device__ __forceinline__ void load_queue_row(const LaneBufs& b, int32_t* e,
 }
 
 // The rank of entry x among the n entries of W words at e, by the event
-// key, ties by index: a permutation, stable for equal keys.  The entry's
-// key stays in registers; an entry ranks below it when its key is smaller,
-// or equal at a smaller index.
+// key, ties by index (G's rank of its valid entries, by all pairs): a
+// permutation, stable for equal keys.  The entry's key stays in registers;
+// an entry ranks below it when its key is smaller, or equal at a smaller
+// index.
 template <int W>
 __device__ __forceinline__ int64_t key_rank(const int32_t* e, int64_t n,
                                             int64_t x) {
@@ -1693,119 +1788,382 @@ __device__ __forceinline__ int64_t key_rank(const int32_t* e, int64_t n,
   return rank;
 }
 
-// The keyed row merge, shared by kernels B, E and H: rank each of the w_all
-// entries at e — shared memory, or the row's m_scratch (key_rank) — write
-// the first C to the queue row of `lane`, count the real events past C into
-// *n_tail and, when logging, record them as DROP_QUEUE at recs[rec_base +
-// rank - C]; with flowtrace, the flag of every flow slot fl_base + rank - C
-// and, for the PACKETs of sampled flows among them, an FT_DROP
-// (CAUSE_QUEUE) record at their pair times.  REC off (H): no record.
+// ---- the row sort (B, E, H) -------------------------------------------------
+// A merge ranks its row by sorting it: an entry's key is its four key words,
+// then its index in the row, so (key, index) is a total order and any
+// correct sort gives the plain version's stable order.  A key travels as
+// five unsigned words, most significant first (each int32 key word with its
+// sign bit flipped, so unsigned order is the words' signed order; the index
+// last), and compares as one 160-bit number: a chain of five subtractions
+// whose final borrow is the answer.  Runs of 32 sort in a warp's registers
+// by a bitonic network (shuffle steps, no barrier).  A block-form row of at
+// most one entry a thread then merges its runs pairwise: each entry finds
+// its place in the merged run by a binary search of the partner run (log2
+// of the runs levels, two barriers each); a wider row (the m_scratch rows)
+// runs the network's steps that cross runs over the index array instead,
+// one barrier a step.  B's group selection sorts entry indices the same
+// way.
+constexpr int32_t PAD_INDEX = 0x7FFFFFFF;  // sorts after every entry index
+
+struct Key {
+  uint32_t th, tl, ah, al;  // the time pair and the aux pair, in key order
+  uint32_t x;               // the entry's index
+};
+
+__device__ __forceinline__ uint32_t key_word(int32_t w) {
+  return static_cast<uint32_t>(w) ^ 0x80000000u;
+}
+__device__ __forceinline__ int32_t word_of(uint32_t k) {
+  return static_cast<int32_t>(k ^ 0x80000000u);
+}
+__device__ __forceinline__ Key make_key(int32_t k0, int32_t k1, int32_t k2,
+                                        int32_t k3, int32_t x) {
+  return Key{key_word(k0), key_word(k1), key_word(k2), key_word(k3),
+             static_cast<uint32_t>(x)};
+}
+
+// a < b as 160-bit numbers: the borrow out of a - b
+__device__ __forceinline__ bool lt(const Key& a, const Key& b) {
+  uint32_t borrow;
+  asm("{\n\t"
+      ".reg .u32 d, z;\n\t"
+      "mov.u32 z, 0;\n\t"
+      "sub.cc.u32 d, %1, %6;\n\t"
+      "subc.cc.u32 d, %2, %7;\n\t"
+      "subc.cc.u32 d, %3, %8;\n\t"
+      "subc.cc.u32 d, %4, %9;\n\t"
+      "subc.cc.u32 d, %5, %10;\n\t"
+      "subc.u32 %0, z, z;\n\t"
+      "}"
+      : "=r"(borrow)
+      : "r"(a.x), "r"(a.al), "r"(a.ah), "r"(a.tl), "r"(a.th), "r"(b.x),
+        "r"(b.al), "r"(b.ah), "r"(b.tl), "r"(b.th));
+  return borrow != 0;
+}
+__device__ __forceinline__ bool lt(int32_t a, int32_t b) { return a < b; }
+
+__device__ __forceinline__ Key shfl_xor(const Key& v, int m) {
+  return Key{__shfl_xor_sync(FULL_MASK, v.th, m),
+             __shfl_xor_sync(FULL_MASK, v.tl, m),
+             __shfl_xor_sync(FULL_MASK, v.ah, m),
+             __shfl_xor_sync(FULL_MASK, v.al, m),
+             __shfl_xor_sync(FULL_MASK, v.x, m)};
+}
+__device__ __forceinline__ int32_t shfl_xor(int32_t v, int m) {
+  return __shfl_xor_sync(FULL_MASK, v, m);
+}
+
+// the key of an entry past the row (a pad): after every entry (one whose
+// words are all NEVER32 too, by index)
+__device__ __forceinline__ Key pad_key(int32_t x) {
+  return Key{~0u, ~0u, ~0u, ~0u, static_cast<uint32_t>(x)};
+}
+
+// The network's steps j = j_hi .. 1 of its stage k on one value a lane of a
+// full warp, whose lane holds element i of the sequence: element i takes
+// its partner's value (i ^ j) where that is smaller and i keeps the smaller
+// (its stage ascending and i the lower, or descending and i the upper),
+// or where it is not smaller and i keeps the larger.  Equal values occur
+// only among pads, where either is right.
+template <class T>
+__device__ __forceinline__ T warp_steps(T v, int i, int k, int j_hi) {
+  const bool up = (i & k) == 0;
+#pragma unroll
+  for (int j = j_hi; j > 0; j >>= 1) {
+    const T o = shfl_xor(v, j);
+    const bool keep_min = ((i & j) == 0) == up;
+    if (lt(o, v) == keep_min) v = o;
+  }
+  return v;
+}
+
+// the stages 2 .. len (len a power of two up to 32) on lanes of element i:
+// each run of len ascending where (i & len) is 0, descending elsewhere
+template <class T>
+__device__ __forceinline__ T warp_sort(T v, int i, int len = 32) {
+#pragma unroll
+  for (int k = 2; k <= 32; k <<= 1)
+    if (k <= len) v = warp_steps(v, i, k, k >> 1);
+  return v;
+}
+
+// the smallest power of two >= w (lanes.sort_width)
+__host__ __device__ __forceinline__ int64_t sort_width(int64_t w) {
+  int64_t len = 1;
+  while (len < w) len <<= 1;
+  return len;
+}
+
+// Sort a[0, len) ascending by key_of(value), a Key whose x is the value
+// itself; len is a power of two, and a[n, len) (n <= len) hold values that
+// sort after every other and stay in place.  Every thread of the block calls
+// it after a __syncthreads that completes a[], and every thread sees the
+// sorted array when it returns.
+template <class KeyOf>
+__device__ void block_sort(int32_t* a, int len, int n, KeyOf key_of) {
+  const int ln = threadIdx.x & 31, nt = blockDim.x;
+  const int warps = nt >> 5, wp = threadIdx.x >> 5;
+  const bool merge = n <= nt;  // one entry a thread: merge the runs
+  // the network sorts every run; the merge only those holding entries
+  const int runs = merge ? (n + 31) / 32 : len / 32;
+  // runs of 32 in registers: ascending each (merge), or alternating as the
+  // network's stage 64 takes them
+  for (int r = wp; r < runs; r += warps) {
+    const int i = 32 * r + ln;
+    Key v = i < len ? key_of(a[i]) : pad_key(PAD_INDEX);
+    v = warp_sort(v, merge ? ln : i & 63, len < 32 ? len : 32);
+    if (i < len) a[i] = v.x;
+  }
+  __syncthreads();
+  if (merge) {
+    // each entry's place in the merged pair of runs: its place in its own
+    // run and the count of the partner run's entries below it (at or below
+    // it for an entry of the right run, so equal values keep their order)
+    const int t = threadIdx.x;
+    for (int w = 32; w < n; w <<= 1) {
+      int32_t v = 0;
+      int at = -1;
+      if (t < n) {
+        v = a[t];
+        const Key kv = key_of(v);
+        const int own = t & ~(w - 1), base = t & ~(2 * w - 1);
+        const bool right = (own & w) != 0;
+        int lo = own ^ w, end = lo + w;
+        if (end > n) end = n;
+        if (lo > n) lo = n;
+        const int p0 = lo;
+        while (lo < end) {
+          const int mid = (lo + end) >> 1;
+          const Key km = key_of(a[mid]);
+          if (right ? !lt(kv, km) : lt(km, kv)) {
+            lo = mid + 1;
+          } else {
+            end = mid;
+          }
+        }
+        at = base + (t - own) + (lo - p0);
+      }
+      __syncthreads();
+      if (at >= 0) a[at] = v;
+      __syncthreads();
+    }
+    return;
+  }
+  for (int k = 64; k <= len; k <<= 1) {
+    for (int j = k >> 1; j >= 32; j >>= 1) {
+      for (int t = threadIdx.x; t < len / 2; t += nt) {
+        const int lo = ((t & ~(j - 1)) << 1) | (t & (j - 1)), hi = lo + j;
+        const int32_t x = a[lo], y = a[hi];
+        const bool swap = (lo & k) == 0 ? lt(key_of(y), key_of(x))
+                                        : lt(key_of(x), key_of(y));
+        if (swap) {
+          a[lo] = y;
+          a[hi] = x;
+        }
+      }
+      __syncthreads();
+    }
+    for (int r = wp; r < len / 32; r += warps) {
+      const int i = 32 * r + ln;
+      Key v = warp_steps(key_of(a[i]), i & (2 * k - 1), k, 16);
+      a[i] = v.x;
+    }
+    __syncthreads();
+  }
+}
+
+// The ranked entry p of a keyed row merge (B, E, H): the first C go to the
+// queue row of `lane`; past C a real event is counted (the return value)
+// and, when logging, recorded as DROP_QUEUE at recs[rec_base + p - C]; with
+// flowtrace the flow slot fl_base + p - C gets its flag and, for the
+// PACKETs of sampled flows, an FT_DROP (CAUSE_QUEUE) record at their pair
+// times.  REC off (H): no record.
+template <int W, bool REC>
+__device__ __forceinline__ bool merge_out(const LaneBufs& b,
+                                          const int32_t (&ex)[W], int64_t p,
+                                          int64_t lane, int64_t rec_base,
+                                          int64_t fl_base) {
+  const int64_t c = b.c;
+  if (p < c) {
+    int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                           b.q_phi, b.q_plo};
+#pragma unroll
+    for (int w = 0; w < W; ++w) q[w][lane * c + p] = ex[w];
+    return false;
+  }
+  const bool valid = ex[0] != NEVER32;
+  if (REC && b.log_cap > 0) {
+    const int64_t r = rec_base + (p - c);
+    int64_t* row = b.recs + r * 6;
+    if (valid) {
+      row[0] = join_t(ex[0], ex[1]);
+      row[1] = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
+      row[2] = lane;
+      row[3] = ex[3];
+      row[4] = ex[4];
+      row[5] = DROP_QUEUE;
+    } else {
+      for (int w = 0; w < 6; ++w) row[w] = 0;
+    }
+    b.rec_valid[r] = valid ? 1 : 0;
+  }
+  if (REC && b.flowtrace) {
+    const int32_t src = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
+    const int32_t dst = static_cast<int32_t>(lane);
+    put_flow(b, fl_base + (p - c),
+             valid && (ex[2] >> AUX_KIND_SHIFT) == PACKET &&
+                 flow_sampled(b, src, dst),
+             join_raw(ex[0], ex[1]), FT_DROP, src, dst, ex[3], ex[4],
+             CAUSE_QUEUE);
+  }
+  return valid;
+}
+
+// The keyed row merge of the block form, shared by kernels B (wide rows),
+// E and H: sort the w_all entries at e — shared memory, or the row's
+// m_scratch — through the index array perm (sort_width(w_all) words beside
+// the row), then hand each ranked entry to merge_out; the real events past
+// C add to *n_tail.  The row must be complete (a __syncthreads) before.
 template <int W, bool REC = true>
 __device__ __forceinline__ void merge_row(const LaneBufs& b, const int32_t* e,
-                                          int64_t w_all, int64_t lane,
-                                          int64_t rec_base, int64_t fl_base,
-                                          int32_t* n_tail) {
-  int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
-                         b.q_phi, b.q_plo};
-  const int64_t c = b.c;
+                                          int32_t* perm, int64_t w_all,
+                                          int64_t lane, int64_t rec_base,
+                                          int64_t fl_base, int32_t* n_tail) {
+  const int n = static_cast<int>(w_all), len = static_cast<int>(sort_width(n));
+  for (int x = threadIdx.x; x < len; x += blockDim.x) perm[x] = x;
+  __syncthreads();
+  block_sort(perm, len, n, [&](int32_t v) {
+    if (v >= n) return pad_key(v);
+    const int32_t* ev = e + W * v;
+    return make_key(ev[0], ev[1], ev[2], ev[3], v);
+  });
   int32_t local_tail = 0;
-  for (int64_t x = threadIdx.x; x < w_all; x += blockDim.x) {
-    const int32_t* ex = e + W * x;
-    const int64_t rank = key_rank<W>(e, w_all, x);
-    if (rank < c) {
+  for (int p = threadIdx.x; p < n; p += blockDim.x) {
+    const int32_t* ev = e + W * perm[p];
+    int32_t ex[W];
 #pragma unroll
-      for (int w = 0; w < W; ++w) q[w][lane * c + rank] = ex[w];
-    } else {
-      const bool valid = ex[0] != NEVER32;
-      if (valid) ++local_tail;
-      if (REC && b.log_cap > 0) {
-        const int64_t r = rec_base + (rank - c);
-        int64_t* row = b.recs + r * 6;
-        if (valid) {
-          row[0] = join_t(ex[0], ex[1]);
-          row[1] = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
-          row[2] = lane;
-          row[3] = ex[3];
-          row[4] = ex[4];
-          row[5] = DROP_QUEUE;
-        } else {
-          for (int w = 0; w < 6; ++w) row[w] = 0;
-        }
-        b.rec_valid[r] = valid ? 1 : 0;
-      }
-      if (REC && b.flowtrace) {
-        const int32_t src = (ex[2] >> AUX_SRC_SHIFT) & SRC_MASK;
-        const int32_t dst = static_cast<int32_t>(lane);
-        put_flow(b, fl_base + (rank - c),
-                 valid && (ex[2] >> AUX_KIND_SHIFT) == PACKET &&
-                     flow_sampled(b, src, dst),
-                 join_raw(ex[0], ex[1]), FT_DROP, src, dst, ex[3], ex[4],
-                 CAUSE_QUEUE);
-      }
-    }
+    for (int w = 0; w < W; ++w) ex[w] = ev[w];
+    if (merge_out<W, REC>(b, ex, p, lane, rec_base, fl_base)) ++local_tail;
   }
   if (local_tail) atomicAdd(n_tail, local_tail);
 }
 
-// the row: C + S + Cx entries x W words + Cx selected entry indices, in
-// dynamic shared memory or (merge_global) the block's part of m_scratch
+// one exchanged entry m of W words into ex: an outbound packet (no payload)
+// or a stream block entry
+template <int W>
+__device__ __forceinline__ void load_exchanged(const LaneBufs& b, int64_t m,
+                                               int32_t (&ex)[W]) {
+  const int64_t nk = b.n * b.k;
+  if (m < nk) {
+#pragma unroll
+    for (int w = 0; w < 5; ++w) ex[w] = b.out_blk[(w + 1) * nk + m];
+#pragma unroll
+    for (int w = 5; w < W; ++w) ex[w] = 0;
+  } else {
+    const int64_t n_ent = stream_entries(b);
+#pragma unroll
+    for (int w = 0; w < W; ++w) ex[w] = b.sx_blk[(w + 1) * n_ent + (m - nk)];
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void set_empty(int32_t (&ex)[W]) {
+  ex[0] = NEVER32;
+  ex[1] = NEVER32;
+#pragma unroll
+  for (int w = 2; w < W; ++w) ex[w] = 0;
+}
+
+// the divert of cross slot r (tiered runs): its five words to the endpoint
+// row's cross channel of the tier block (the payload words zero), and the
+// NEVER time in the lane's own merge
+template <int W>
+__device__ __forceinline__ void divert(const LaneBufs& b, int64_t tier_row,
+                                       int64_t r, int32_t (&ex)[W]) {
+  int32_t* t = b.tier_blk + tier_layout(b).cx + tier_row * b.cx + r;
+#pragma unroll
+  for (int w = 0; w < 5; ++w) t[w * b.tier_n] = ex[w];
+  t[5 * b.tier_n] = 0;
+  t[6 * b.tier_n] = 0;
+  ex[0] = NEVER32;
+  ex[1] = NEVER32;
+}
+
+// the endpoint row lane i's cross entries divert to (tiered runs), or -1
+__device__ __forceinline__ int64_t divert_row(const LaneBufs& b, int64_t i) {
+  return b.tier_s > 0 && b.lane_stream[i] ? b.lane_ep_rows[b.lane_ep_start[i]]
+                                          : -1;
+}
+
+// B's selection, block form: the first min(cnt, Cx) indices of the lane's
+// group (seg[0, cnt), in the atomic placement's order) in index order, into
+// sel[0, Cx).  A group that fits the buffer (cap indices) sorts alone, in
+// one pass; a wider one sorts [the Cx smallest so far | the next cap - Cx
+// of the group] until it is consumed.
+__device__ void select_group(int32_t* sel, const int32_t* seg, int32_t cnt,
+                             int64_t cx, int64_t cap) {
+  if (cnt == 0 || cx == 0) return;
+  const auto index_key = [](int32_t m) {
+    return Key{0, 0, 0, static_cast<uint32_t>(m), static_cast<uint32_t>(m)};
+  };
+  if (cnt <= cap) {
+    const int len = static_cast<int>(sort_width(cnt));
+    for (int t = threadIdx.x; t < len; t += blockDim.x)
+      sel[t] = t < cnt ? seg[t] : PAD_INDEX;
+    __syncthreads();
+    block_sort(sel, len, cnt, index_key);
+    return;
+  }
+  const int w = static_cast<int>(cap), keep = static_cast<int>(cx);
+  for (int r0 = 0; r0 < cnt; r0 += w - keep) {
+    for (int t = threadIdx.x; t < w; t += blockDim.x) {
+      if (t >= keep) {
+        const int r = r0 + t - keep;
+        sel[t] = r < cnt ? seg[r] : PAD_INDEX;
+      } else if (r0 == 0) {
+        sel[t] = PAD_INDEX;
+      }
+    }
+    __syncthreads();
+    block_sort(sel, w, w, index_key);
+  }
+}
+
+// Kernel B's merge, the wide form (rows of more than 32 entries): one block
+// per lane.  The row: C + S + Cx entries x W words, then the sort's index
+// array (sort_width of the row's entries; the group selection uses it
+// first), in dynamic shared memory or (merge_global) the block's part of
+// m_scratch.  The block reads the lane's exchange count and zeroes it and
+// the fill cursor for the next call.
 template <int W, class P>
 __global__ void merge_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
   extern __shared__ int32_t sm[];
   const int64_t i = blockIdx.x;
-  const int64_t n = b.n, c = b.c, k = b.k, cx = b.cx, sw = b.sw;
-  const int64_t w_all = c + sw + cx, tail = sw + cx, nk = n * k, nsw = n * sw;
-  const int64_t n_ent = stream_entries(b);
-  int32_t* const row = b.merge_global ? b.m_scratch + i * (W * w_all + cx) : sm;
+  const int64_t n = b.n, c = b.c, cx = b.cx, sw = b.sw;
+  const int64_t w_all = c + sw + cx, tail = sw + cx, nsw = n * sw;
+  const int64_t len = sort_width(w_all);
+  int32_t* const row = b.merge_global ? b.m_scratch + i * (W * w_all + len) : sm;
   int32_t* e = row;                  // [C + S + Cx][W]
-  int32_t* sel = row + W * w_all;    // [Cx]
+  int32_t* perm = row + W * w_all;   // [len]: the selection, then the sort
   __shared__ int32_t n_tail;
 
   const int32_t cnt = b.x_cnt[i];
   const int32_t take = cnt < cx ? cnt : static_cast<int32_t>(cx);
   const int32_t* seg = b.x_order + b.x_start[i];
-  // tiered: the endpoint row this lane's cross entries divert to
-  int64_t tier_row = -1;
-  if (b.tier_s > 0 && b.lane_stream[i])
-    tier_row = b.lane_ep_rows[b.lane_ep_start[i]];
-  if (threadIdx.x == 0) {
-    n_tail = 0;
-    if (cnt <= cx) {
-      // the whole group fits: which slot each entry takes does not change
-      // the merged row (valid entries have distinct keys; empty ones are
-      // identical)
-      for (int32_t r = 0; r < cnt; ++r) sel[r] = seg[r];
-      if (tier_row >= 0) {
-        // but the divert hands the block on as it is: index order, as the
-        // plain version's (the atomic placement's order is arbitrary)
-        for (int32_t r = 1; r < cnt; ++r) {
-          const int32_t m = sel[r];
-          int32_t q = r;
-          for (; q > 0 && sel[q - 1] > m; --q) sel[q] = sel[q - 1];
-          sel[q] = m;
-        }
-      }
-    } else {
-      // overflow: keep the Cx earliest in index order
-      int32_t prev = -1;
-      for (int32_t r = 0; r < take; ++r) {
-        int32_t best = 0x7FFFFFFF;
-        for (int32_t q = 0; q < cnt; ++q) {
-          const int32_t m = seg[q];
-          if (m > prev && m < best) best = m;
-        }
-        sel[r] = best;
-        prev = best;
-      }
-    }
-  }
+  const int64_t tier_row = divert_row(b, i);
+  if (threadIdx.x == 0) n_tail = 0;
   load_queue_row<W>(b, e, i);
-  __syncthreads();
+  __syncthreads();  // every thread has read the count
+  if (threadIdx.x == 0) {
+    b.x_cnt[i] = 0;
+    b.x_fill[i] = 0;
+  }
+  select_group(perm, seg, cnt, cx, len);
 
   for (int64_t x = c + threadIdx.x; x < w_all; x += blockDim.x) {
-    int32_t* ex = e + W * x;
+    int32_t ex[W];
     if (x < c + sw) {
       const int64_t si = i * sw + (x - c);
 #pragma unroll
@@ -1813,36 +2171,17 @@ __global__ void merge_kernel(const __grid_constant__ P bufs) {
     } else {
       const int64_t r = x - c - sw;
       if (r < take) {
-        const int64_t m = sel[r];
-        if (m < nk) {  // an outbound packet: no payload
-#pragma unroll
-          for (int w = 0; w < 5; ++w) ex[w] = b.out_blk[(w + 1) * nk + m];
-#pragma unroll
-          for (int w = 5; w < W; ++w) ex[w] = 0;
-        } else {
-#pragma unroll
-          for (int w = 0; w < W; ++w)
-            ex[w] = b.sx_blk[(w + 1) * n_ent + (m - nk)];
-        }
+        load_exchanged(b, perm[r], ex);
       } else {
-        ex[0] = NEVER32;
-        ex[1] = NEVER32;
-#pragma unroll
-        for (int w = 2; w < W; ++w) ex[w] = 0;
+        set_empty(ex);
       }
-      if (tier_row >= 0) {  // the divert
-        int32_t* t = b.tier_blk + tier_layout(b).cx + tier_row * cx + r;
-#pragma unroll
-        for (int w = 0; w < 5; ++w) t[w * b.tier_n] = ex[w];
-        t[5 * b.tier_n] = 0;
-        t[6 * b.tier_n] = 0;
-        ex[0] = NEVER32;
-        ex[1] = NEVER32;
-      }
+      if (tier_row >= 0) divert(b, tier_row, r, ex);
     }
+#pragma unroll
+    for (int w = 0; w < W; ++w) e[W * x + w] = ex[w];
   }
   __syncthreads();
-  merge_row<W>(b, e, w_all, i, i * tail, i * tail, &n_tail);
+  merge_row<W>(b, e, perm, w_all, i, i * tail, i * tail, &n_tail);
   __syncthreads();
   if (threadIdx.x == 0) {
     const int32_t lost_pre = cnt > cx ? cnt - static_cast<int32_t>(cx) : 0;
@@ -1852,10 +2191,96 @@ __global__ void merge_kernel(const __grid_constant__ P bufs) {
   }
 }
 
+// Kernel B's merge, the narrow form (rows of at most 32 entries, the
+// lanes.merge_in_warp rule): one warp per lane, MERGE_WARPS lanes a block.
+// Warp lane x holds entry x of the row [queue C | self S | cross Cx] in
+// registers; the group's indices sort in registers (a group wider than 32
+// in passes, Cx kept), the row by (key, index), and rank p's words come
+// from their lane by shuffles.
+// No shared memory and no barrier.
+constexpr int MERGE_WARPS = 8;
+
+template <int W, class P>
+__global__ void merge_warp_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  if (b.ctl[0] == 0) return;
+  const int ln = threadIdx.x & 31;
+  const int64_t i =
+      blockIdx.x * static_cast<int64_t>(MERGE_WARPS) + (threadIdx.x >> 5);
+  if (i >= b.n) return;  // the whole warp
+  const int64_t n = b.n, c = b.c, cx = b.cx, sw = b.sw;
+  const int64_t cs = c + sw, w_all = cs + cx, tail = sw + cx;
+  const int32_t cnt = b.x_cnt[i], start = b.x_start[i];
+  const int64_t tier_row = divert_row(b, i);
+
+  int32_t ex[W];  // this lane's entry; the cross slots start empty
+  if (ln < c) {
+    int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                           b.q_phi, b.q_plo};
+#pragma unroll
+    for (int w = 0; w < W; ++w) ex[w] = q[w][i * c + ln];
+  } else if (ln < cs) {
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      ex[w] = b.self_blk[w * n * sw + i * sw + (ln - c)];
+  } else {
+    set_empty(ex);
+  }
+  __syncwarp();  // every lane has read the count
+  if (ln == 0) {
+    b.x_cnt[i] = 0;
+    b.x_fill[i] = 0;
+  }
+
+  // the group in index order: up to 32 sort at once (a network of the
+  // group's width); a wider group in passes, lanes [0, Cx) keeping the Cx
+  // smallest so far and the others taking the next 32 - Cx
+  int32_t sel = PAD_INDEX;
+  if (cnt <= 32) {
+    sel = ln < cnt ? b.x_order[start + ln] : PAD_INDEX;
+    if (cnt > 1) sel = warp_sort(sel, ln, static_cast<int>(sort_width(cnt)));
+  } else {
+    for (int32_t r0 = 0; cx > 0 && r0 < cnt;
+         r0 += static_cast<int32_t>(32 - cx)) {
+      const int32_t r = r0 + ln - static_cast<int32_t>(cx);
+      const int32_t v =
+          ln < cx ? sel : (r < cnt ? b.x_order[start + r] : PAD_INDEX);
+      sel = warp_sort(v, ln);
+    }
+  }
+  const int64_t r = ln - cs;  // this lane's cross slot
+  const int32_t m = __shfl_sync(FULL_MASK, sel, r >= 0 ? static_cast<int>(r) : 0);
+  if (r >= 0 && r < cx) {
+    if (r < cnt) load_exchanged(b, m, ex);
+    if (tier_row >= 0) divert(b, tier_row, r, ex);
+  }
+
+  // rank p = this lane: its key, then the other words from the entry's lane
+  Key kv = ln < w_all ? make_key(ex[0], ex[1], ex[2], ex[3], ln) : pad_key(ln);
+  kv = warp_sort(kv, ln);
+  int32_t out[W];
+  out[0] = word_of(kv.th);
+  out[1] = word_of(kv.tl);
+  out[2] = word_of(kv.ah);
+  out[3] = word_of(kv.al);
+#pragma unroll
+  for (int w = 4; w < W; ++w)
+    out[w] = __shfl_sync(FULL_MASK, ex[w], static_cast<int>(kv.x));
+  const bool shed = ln < w_all && merge_out<W, true>(b, out, ln, i, i * tail,
+                                                      i * tail);
+  const int32_t n_tail = __popc(__ballot_sync(FULL_MASK, shed));
+  if (ln == 0) {
+    const int32_t lost_pre = cnt > cx ? cnt - static_cast<int32_t>(cx) : 0;
+    b.n_queue[i] += n_tail + lost_pre;
+    if (b.netobs) b.nb_shed[i] += lost_pre;
+    if (i == 0) *b.iters += 1;
+  }
+}
+
 // ---- kernel H: inject_merge -------------------------------------------------
 // One host-staged injection block ([INJ_WORDS, B] int32: valid, dst, thi,
 // tlo, auxh, auxl, size) into the lane queues: B's counting sort groups the
-// valid rows by destination (count, the ungated scan, place), then one
+// valid rows by destination (count with its ungated scan, place), then one
 // block per lane ranks its group by (time, aux, index), keeps the first
 // Cxi as the cross entries of its [queue C | injected Cxi] row (the
 // payload words of stream configs zero) and merges the row with B's keyed
@@ -1865,13 +2290,14 @@ __global__ void merge_kernel(const __grid_constant__ P bufs) {
 // first step arms the turn.
 constexpr int INJ_WORDS = 7;
 
+// count the valid rows per destination, then scan (as B's count)
 template <class P>
 __global__ void inj_count_kernel(const __grid_constant__ P bufs,
                                  const int32_t* inj) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
   const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (m >= b.inj_b || inj[m] == 0) return;
-  atomicAdd(&b.x_cnt[inj[b.inj_b + m]], 1);
+  if (m < b.inj_b && inj[m] != 0) atomicAdd(&b.x_cnt[inj[b.inj_b + m]], 1);
+  scan_if_last(b);
 }
 
 template <class P>
@@ -1885,8 +2311,9 @@ __global__ void inj_place_kernel(const __grid_constant__ P bufs,
   b.x_order[pos] = static_cast<int32_t>(m);
 }
 
-// the row: C + Cxi entries x W words, in dynamic shared memory or
-// (inject_global) the block's part of m_scratch
+// the row: C + Cxi entries x W words, then the sort's index array, in
+// dynamic shared memory or (inject_global) the block's part of m_scratch;
+// the block zeroes the lane's exchange count and fill cursor once read
 template <int W, class P>
 __global__ void inject_merge_kernel(const __grid_constant__ P bufs,
                                     const int32_t* inj) {
@@ -1894,7 +2321,9 @@ __global__ void inject_merge_kernel(const __grid_constant__ P bufs,
   extern __shared__ int32_t sm[];
   const int64_t i = blockIdx.x;
   const int64_t c = b.c, cxi = b.cxi, w_all = c + cxi, nb = b.inj_b;
-  int32_t* const e = b.inject_global ? b.m_scratch + i * W * w_all : sm;
+  const int64_t len = sort_width(w_all);
+  int32_t* const e =
+      b.inject_global ? b.m_scratch + i * (W * w_all + len) : sm;
   __shared__ int32_t n_tail;
   const int32_t cnt = b.x_cnt[i];
   const int32_t* seg = b.x_order + b.x_start[i];
@@ -1908,6 +2337,10 @@ __global__ void inject_merge_kernel(const __grid_constant__ P bufs,
     for (int w = 2; w < W; ++w) ex[w] = 0;
   }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    b.x_cnt[i] = 0;
+    b.x_fill[i] = 0;
+  }
   // the group's rank by (time, aux, index): the first Cxi take the slots
   for (int32_t r = threadIdx.x; r < cnt; r += blockDim.x) {
     const int32_t m = seg[r];
@@ -1935,7 +2368,7 @@ __global__ void inject_merge_kernel(const __grid_constant__ P bufs,
     }
   }
   __syncthreads();
-  merge_row<W, false>(b, e, w_all, i, 0, 0, &n_tail);
+  merge_row<W, false>(b, e, e + W * w_all, w_all, i, 0, 0, &n_tail);
   __syncthreads();
   if (threadIdx.x == 0) {
     const int32_t lost_pre = cnt > cxi ? cnt - static_cast<int32_t>(cxi) : 0;
@@ -1962,7 +2395,9 @@ __global__ void stream_rows_kernel(const __grid_constant__ P bufs) {
   const int64_t r = blockIdx.x;
   const int64_t c = b.c, k = b.k, sf = b.s_flows, s2 = 2 * sf;
   const int64_t w_s = 2 * k + k * PUMP_BURST, w_all = c + w_s;
-  int32_t* const sm = b.split_global ? b.m_scratch + r * W * w_all : smem;
+  const int64_t len = sort_width(w_all);
+  int32_t* const sm =
+      b.split_global ? b.m_scratch + r * (W * w_all + len) : smem;
   const int64_t n_ent = stream_entries(b);
   const int64_t lane = b.flow_lanes[r];
   const bool client = r < sf;
@@ -1990,31 +2425,71 @@ __global__ void stream_rows_kernel(const __grid_constant__ P bufs) {
     }
   }
   __syncthreads();
-  merge_row<W>(b, sm, w_all, lane, b.rec_slots - s2 * w_s + r * w_s,
-               b.fl_split + r * w_s, &n_tail);
+  merge_row<W>(b, sm, sm + W * w_all, w_all, lane,
+               b.rec_slots - s2 * w_s + r * w_s, b.fl_split + r * w_s,
+               &n_tail);
   __syncthreads();
   if (threadIdx.x == 0) b.n_queue[lane] += n_tail;  // lanes are distinct
 }
 
 // ---- kernel F: stream_tier -------------------------------------------------
 // The tier's pop and slot walk (the reference's _stream_tier_iter up to its
-// merge).  One thread per endpoint row e owns the row's flow, its column of
-// the tier vectors and its queue head, and walks its first K_s queue columns
-// in order: the pop-prefix rule (a prefix free of LOCALs under the wide rule,
-// else a same-instant prefix of PACKETs, or column 0 alone, inside the
-// window); a PACKET takes the down bucket and CoDel and, delivered inside
-// the window (wide rule only), stimulates the law at once, else becomes a
-// DELIVERY fallback; a start marker opens a client flow, an owned RTO local
-// fires the timer, a segment (at a server row only from its own client)
-// runs on_segment; every stimulus ends with the pump burst.  The control
-// send and, on client rows, the burst charge the up bucket (the burst after
-// its first unit by the chained law), each with its loss draw at its send
-// sequence number; RTO arms take the row's local sequence.  Every candidate
-// entry of the row and, when logging, every record slot of the row is
-// written, valid or not (with tier_pcap, the capture records of the row's
-// sends too); the peer's row is never touched (G reads the control sends
+// merge), in two launches.  The fill writes the canonical empty entry to
+// every slot the walk may write — the candidate block's DELIVERY
+// fallbacks, RTO arms, control sends and bursts (tier_layout up to the
+// cross channel) and, when logging, the tier's record groups with their
+// captures ([rec_tier, rec_ttail)) — with every thread of the card, each
+// word stored once, coalesced.  Then the walk, where one warp (or, when the
+// launch has more rows than TIER_WARP_ROWS, one thread) per endpoint row e
+// owns the row's flow, its column of the tier vectors and its queue head,
+// and walks its first K_s queue columns in order; a warp's lanes run in
+// lockstep on the same values (warp lane j loads column j of the row's
+// seven planes; shuffles broadcast each column): the pop-prefix rule (a
+// prefix free of LOCALs under the wide rule, else a same-instant prefix of
+// PACKETs, or column 0 alone, inside the window); a PACKET takes the down
+// bucket and CoDel and, delivered inside the window (wide rule only),
+// stimulates the law at once, else becomes a DELIVERY fallback; a start
+// marker opens a client flow, an owned RTO local fires the timer, a
+// segment (at a server row only from its own client) runs on_segment;
+// every stimulus ends with the pump burst.  The walk stops where the
+// popped prefix ends: no later column acts, and a column that does not act
+// leaves every state word as it was (the bucket charge and the CoDel offer
+// change nothing inactive) and writes only empties, which the fill wrote.
+// The control send and, on client rows, the burst charge the up bucket (the
+// burst after its first unit by the chained law), each with its loss draw
+// at its send sequence number: a warp draws the 32 counters from the
+// control send's on at once, one a lane, before the law runs, and lane u
+// stores burst unit u's entry and records; lane 0 the rest.  Only valid
+// entries and records are written.  RTO arms take the row's local
+// sequence.  The peer's row is never touched (G reads the control sends
 // across the pair).  With netobs the row's TV_NB_* counters follow every
 // charge, and the popped PACKETs join the window's count.
+static_assert(1 + PUMP_BURST <= 32, "a stimulus's sends fit one warp's draws");
+constexpr int TIER_WARPS = 2;  // rows (a warp each) per block of the walk
+// the most rows a launch walks a warp each: two warps an SM of an H100;
+// past it the walks are many enough to fill the card a thread each, and a
+// warp each would spend its issue slots 32 times over
+constexpr int64_t TIER_WARP_ROWS = 264;
+
+// the fill: the candidate block's seven planes up to the cross channel,
+// then the record groups' int64 words and their flags, each a grid-stride
+// pass of coalesced stores
+template <class P>
+__global__ void tier_fill_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  if (b.ctl[0] == 0) return;
+  const int64_t cx0 = tier_layout(b).cx;
+  const int64_t n_rec = b.log_cap > 0 ? b.rec_ttail - b.rec_tier : 0;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t t0 = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  for (int64_t x = t0; x < cx0; x += step) {
+#pragma unroll
+    for (int w = 0; w < 7; ++w) b.tier_blk[w * b.tier_n + x] = w < 2 ? NEVER32 : 0;
+  }
+  int64_t* const recs = b.recs + 6 * b.rec_tier;
+  for (int64_t x = t0; x < 6 * n_rec; x += step) recs[x] = 0;
+  for (int64_t x = t0; x < n_rec; x += step) b.rec_valid[b.rec_tier + x] = 0;
+}
 
 // the tier vector rows (lanes_stream.py TV_*)
 constexpr int TV_DN_TOK = 0, TV_DN_NRH = 1, TV_DN_NRL = 2, TV_DN_LDH = 3,
@@ -2033,8 +2508,12 @@ __device__ __forceinline__ void tier_put(const LaneBufs& b, int64_t idx,
   put_words(b.tier_blk + idx, b.tier_n, valid, t, auxh, auxl, size, phi, plo);
 }
 
-// row e's walk; returns its popped PACKETs
+// row e's walk by its warp (WARP) or its thread; returns its popped PACKETs
+// (a warp's in lane 0, 0 in the others)
+template <bool WARP>
 __device__ int32_t stream_tier_row(const LaneBufs& b, int64_t e) {
+  const int ln = WARP ? threadIdx.x & 31 : 0;
+  const bool lead = ln == 0;
   const int64_t sf = b.tier_s, s2 = 2 * sf;
   const int64_t ks = b.ks, c2 = b.c2;
   const int32_t interval = static_cast<int32_t>(b.interval);
@@ -2091,25 +2570,44 @@ __device__ int32_t stream_tier_row(const LaneBufs& b, int64_t e) {
   f.last_bytes = b.flow_last[e];
   f.cc = b.flow_cc[e];
 
-  const int32_t head_hi = q[0][0], head_lo = q[1][0];
+  int32_t col[7] = {};  // a warp's lane jl: column j0 + jl of each plane
+  int32_t head_hi = 0, head_lo = 0;
   bool prefix = true;
   for (int64_t j = 0; j < ks; ++j) {
-    const int32_t thi = q[0][j], tlo = q[1][j], auxh = q[2][j];
-    const int32_t auxl = q[3][j], size = q[4][j], phi = q[5][j], plo = q[6][j];
+    int32_t cw[7];  // column j's words
+    if constexpr (WARP) {
+      const int jl = static_cast<int>(j & 31);
+      if (jl == 0) {  // the next 32 columns, one a lane
+#pragma unroll
+        for (int w = 0; w < 7; ++w) col[w] = j + ln < ks ? q[w][j + ln] : 0;
+      }
+#pragma unroll
+      for (int w = 0; w < 7; ++w) cw[w] = __shfl_sync(FULL_MASK, col[w], jl);
+    } else {
+#pragma unroll
+      for (int w = 0; w < 7; ++w) cw[w] = q[w][j];
+    }
+    const int32_t thi = cw[0], tlo = cw[1], auxh = cw[2], auxl = cw[3],
+                  size = cw[4], phi = cw[5], plo = cw[6];
+    if (j == 0) {
+      head_hi = thi;
+      head_lo = tlo;
+    }
     const int32_t kind = auxh >> AUX_KIND_SHIFT;
     const int32_t src = (auxh >> AUX_SRC_SHIFT) & SRC_MASK;
     prefix = prefix && (wide ? kind != LOCAL
                              : (thi == head_hi && tlo == head_lo &&
                                 kind == PACKET));
+    if (!prefix && j > 0) break;  // no later column acts
     const int64_t t = join_t(thi, tlo);
-    const bool act = (prefix || j == 0) && t < we;
-    if (act) {
+    if (t >= we) continue;  // does not act: empties only
+    if (lead) {
       q[0][j] = NEVER32;
       q[1][j] = NEVER32;
     }
 
     // PACKET: the down bucket and CoDel on the compact rows
-    const bool is_pkt = act && kind == PACKET;
+    const bool is_pkt = kind == PACKET;
     const int64_t td = bucket_charge(dn, dn_rate, dn_burst, dn_kfull, dn_kfi,
                                      t, (size + FRAME_OVERHEAD_BYTES) * 8,
                                      is_pkt, interval, nb_thr);
@@ -2127,101 +2625,139 @@ __device__ int32_t stream_tier_row(const LaneBufs& b, int64_t e) {
       nb_rxb = wadd(nb_rxb, size);
     }
     if (is_pkt && drop) n_codel += 1;
-    put_rec(b, trec + j * s2 + e, is_pkt, td, src, lane, auxl, size,
-            drop ? DROP_CODEL : DELIVERED);
+    if (lead && is_pkt)
+      put_rec(b, trec + j * s2 + e, true, td, src, lane, auxl, size,
+              drop ? DROP_CODEL : DELIVERED);
 
     // delivery elision: inside the window (wide rule only) the law runs at
     // once, at the delivery time; else a DELIVERY fallback is inserted
     const bool del_now = wide && deliver && td < we;
-    tier_put(b, j * s2 + e, deliver && !del_now, td,
-             (DELIVERY << AUX_KIND_SHIFT) | (src << AUX_SRC_SHIFT), auxl, size,
-             phi, plo);
+    if (lead && deliver && !del_now)
+      tier_put(b, j * s2 + e, true, td,
+               (DELIVERY << AUX_KIND_SHIFT) | (src << AUX_SRC_SHIFT), auxl,
+               size, phi, plo);
     const int64_t st = del_now ? td : t;
 
     int stim = 0;  // 1 open, 2 RTO, 3 segment
-    if (act && kind == LOCAL && size == -1 && client) {
+    if (kind == LOCAL && size == -1 && client) {
       stim = 1;
-    } else if (act && kind == LOCAL && size == SZ_RTO && plo == clid) {
+    } else if (kind == LOCAL && size == SZ_RTO && plo == clid) {
       stim = 2;
-    } else if ((del_now || (act && kind == DELIVERY)) && (phi | plo) != 0 &&
+    } else if ((del_now || kind == DELIVERY) && (phi | plo) != 0 &&
                (client || src == clid)) {
       stim = 3;
     }
+    if (!stim) continue;
+    // burst unit u: stored where the sink sees it (a thread), or kept by
+    // lane u until the law is done (a warp)
+    bool u_valid = false, u_lost = false;
+    int64_t u_dep = 0, u_arr = 0;
+    int32_t u_seq = 0, u_size = 0, u_phi = 0, u_plo = 0;
+    const auto put_unit = [&](int32_t u) {
+      const int64_t slot = j * PUMP_BURST + u;
+      if (u_valid)
+        tier_put(b, lay.bo + slot * sf + e, true, u_arr, pkt_auxh, u_seq,
+                 u_size, u_phi, u_plo);
+      if (u_lost)
+        put_rec(b, tbrec + slot * sf + e, true, st, lane, peer, u_seq, u_size,
+                DROP_LOSS);
+      if (capture)
+        put_rec(b, b.rec_tbpc + slot * sf + e, true, u_dep, lane, peer, u_seq,
+                u_size, PCAP_TX);
+    };
+    const auto sink = [&](int32_t u, bool valid, bool lost_u, int64_t dep,
+                          int64_t arr, int32_t bseq, int32_t bsize,
+                          int32_t bphi, int32_t bplo, bool /*retx*/) {
+      if (WARP && u != ln) return;
+      u_valid = valid;
+      u_lost = lost_u;
+      u_dep = dep;
+      u_arr = arr;
+      u_seq = bseq;
+      u_size = bsize;
+      u_phi = bphi;
+      u_plo = bplo;
+      if (!WARP) put_unit(u);
+    };
+    Pair now;
+    split(st, &now.hi, &now.lo);
     Sends sd;
-    if (stim) {
-      Pair now;
-      split(st, &now.hi, &now.lo);
-      sd = stream_stimulus(
-          b, f, stim, now, st, phi, plo, size, we, ur, sl,
-          [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
-              int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo,
-              bool /*retx*/) {
-            const int64_t slot = j * PUMP_BURST + u;
-            tier_put(b, lay.bo + slot * sf + e, valid, arr, pkt_auxh, bseq,
-                     bsize, bphi, bplo);
-            put_rec(b, tbrec + slot * sf + e, lost, st, lane, peer, bseq,
-                    bsize, DROP_LOSS);
-            if (b.tier_pcap)
-              put_rec(b, b.rec_tbpc + slot * sf + e, capture, dep, lane, peer,
-                      bseq, bsize, PCAP_TX);
-          });
+    if constexpr (WARP) {
+      // the draws of the stimulus's sends, counters send_seq + lane
+      uint32_t lost = 0;
+      if (b.has_loss && st >= b.bootstrap_end) {
+        const uint32_t d = lane_draw(
+            static_cast<uint32_t>(b.seed_lo),
+            static_cast<uint32_t>(b.seed_hi),
+            static_cast<uint32_t>(lane) | LOSS_STREAM,
+            static_cast<uint32_t>(wadd(send_seq, ln)));
+        lost = __ballot_sync(FULL_MASK, static_cast<int64_t>(d) < ur.thresh);
+      }
+      sd = stream_stimulus(b, f, stim, now, st, phi, plo, size, we, ur, sl,
+                           sink, WarpDraw{lost});
+      if (ln < sd.cnt) put_unit(ln);  // client rows: the burst, a unit a lane
+    } else {
+      sd = stream_stimulus(b, f, stim, now, st, phi, plo, size, we, ur, sl,
+                           sink, SerialDraw{b, ur, send_seq});
     }
     const Emit& em = sd.em;
-    tier_put(b, lay.se + j * s2 + e, em.send_valid && !sd.lost, sd.arr,
-             pkt_auxh, sd.seq, em.send_size,
-             wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
-    put_rec(b, tsrec + j * s2 + e, sd.lost, st, lane, peer, sd.seq,
-            em.send_size, DROP_LOSS);
-    if (b.tier_pcap)
-      put_rec(b, b.rec_tspc + j * s2 + e, em.send_valid && capture, sd.dep,
-              lane, peer, sd.seq, em.send_size, PCAP_TX);
-    // the RTO arm: a LOCAL self-insert at the own row
-    tier_put(b, lay.sa + j * s2 + e, em.rto_valid,
-             join_raw(em.rto_t.hi, em.rto_t.lo), loc_auxh, sd.lseq, SZ_RTO, 0,
-             clid);
-    // the rest of the burst block (client rows), empty
-    for (int32_t u = sd.cnt; client && u < PUMP_BURST; ++u) {
-      const int64_t slot = j * PUMP_BURST + u;
-      tier_put(b, lay.bo + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
-      put_rec(b, tbrec + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
-      if (b.tier_pcap)
-        put_rec(b, b.rec_tbpc + slot * sf + e, false, 0, 0, 0, 0, 0, 0);
+    if (lead) {
+      if (em.send_valid && !sd.lost)
+        tier_put(b, lay.se + j * s2 + e, true, sd.arr, pkt_auxh, sd.seq,
+                 em.send_size,
+                 wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq,
+                 em.send_ack);
+      if (sd.lost)
+        put_rec(b, tsrec + j * s2 + e, true, st, lane, peer, sd.seq,
+                em.send_size, DROP_LOSS);
+      if (em.send_valid && capture)
+        put_rec(b, b.rec_tspc + j * s2 + e, true, sd.dep, lane, peer, sd.seq,
+                em.send_size, PCAP_TX);
+      // the RTO arm: a LOCAL self-insert at the own row
+      if (em.rto_valid)
+        tier_put(b, lay.sa + j * s2 + e, true,
+                 join_raw(em.rto_t.hi, em.rto_t.lo), loc_auxh, sd.lseq,
+                 SZ_RTO, 0, clid);
     }
   }
 
-  flow_store(f, frow);
-  tv[TV_DN_TOK * s2] = dn.tokens;
-  split(dn.nr, &tv[TV_DN_NRH * s2], &tv[TV_DN_NRL * s2]);
-  split(dn.ld, &tv[TV_DN_LDH * s2], &tv[TV_DN_LDL * s2]);
-  tv[TV_UP_TOK * s2] = up.tokens;
-  split(up.nr, &tv[TV_UP_NRH * s2], &tv[TV_UP_NRL * s2]);
-  split(up.ld, &tv[TV_UP_LDH * s2], &tv[TV_UP_LDL * s2]);
-  tv[TV_CD_FATH * s2] = fat_hi;
-  tv[TV_CD_FATL * s2] = fat_lo;
-  split(cd_dn, &tv[TV_CD_DNH * s2], &tv[TV_CD_DNL * s2]);
-  tv[TV_CD_CNT * s2] = dcount;
-  tv[TV_CD_DROP * s2] = dropping;
-  tv[TV_SEND_SEQ * s2] = send_seq;
-  tv[TV_LOCAL_SEQ * s2] = local_seq;
-  tv[TV_N_SENDS * s2] = n_sends;
-  tv[TV_N_LOSS * s2] = n_loss;
-  tv[TV_N_DEL * s2] = n_del;
-  tv[TV_N_CODEL * s2] = n_codel;
-  if (b.netobs) {
-    tv[TV_NB_TXB * s2] = nb_txb;
-    tv[TV_NB_RXB * s2] = nb_rxb;
-    tv[TV_NB_THR * s2] = nb_thr;
+  if (lead) {
+    flow_store(f, frow);
+    tv[TV_DN_TOK * s2] = dn.tokens;
+    split(dn.nr, &tv[TV_DN_NRH * s2], &tv[TV_DN_NRL * s2]);
+    split(dn.ld, &tv[TV_DN_LDH * s2], &tv[TV_DN_LDL * s2]);
+    tv[TV_UP_TOK * s2] = up.tokens;
+    split(up.nr, &tv[TV_UP_NRH * s2], &tv[TV_UP_NRL * s2]);
+    split(up.ld, &tv[TV_UP_LDH * s2], &tv[TV_UP_LDL * s2]);
+    tv[TV_CD_FATH * s2] = fat_hi;
+    tv[TV_CD_FATL * s2] = fat_lo;
+    split(cd_dn, &tv[TV_CD_DNH * s2], &tv[TV_CD_DNL * s2]);
+    tv[TV_CD_CNT * s2] = dcount;
+    tv[TV_CD_DROP * s2] = dropping;
+    tv[TV_SEND_SEQ * s2] = send_seq;
+    tv[TV_LOCAL_SEQ * s2] = local_seq;
+    tv[TV_N_SENDS * s2] = n_sends;
+    tv[TV_N_LOSS * s2] = n_loss;
+    tv[TV_N_DEL * s2] = n_del;
+    tv[TV_N_CODEL * s2] = n_codel;
+    if (b.netobs) {
+      tv[TV_NB_TXB * s2] = nb_txb;
+      tv[TV_NB_RXB * s2] = nb_rxb;
+      tv[TV_NB_THR * s2] = nb_thr;
+    }
+    if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
   }
-  if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
-  return pkts;
+  return lead ? pkts : 0;
 }
 
-template <class P>
+template <bool WARP, class P>
 __global__ void stream_tier_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
-  const int64_t e = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  const int32_t pkts = e < 2 * b.tier_s ? stream_tier_row(b, e) : 0;
+  const int64_t e =
+      WARP ? blockIdx.x * static_cast<int64_t>(TIER_WARPS) + (threadIdx.x >> 5)
+           : blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  const int32_t pkts = e < 2 * b.tier_s ? stream_tier_row<WARP>(b, e) : 0;
   if (b.netobs) block_add(pkts, b.nb_win);
 }
 
@@ -2815,29 +3351,37 @@ int lane_slots(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
-// The exchange scratch (x_cnt, x_fill) of the s scenarios is one [s, N]
-// block each (the Python side checks it), so two memsets clear it for all.
+// Kernel B: count (its last block scans), place, merge.  The exchange
+// scratch (x_cnt, x_fill, x_done) is zero at entry: the workspace starts
+// zeroed, each merge block (B's or H's) zeroes its lane's words once it has
+// read them, and the scanning block its ticket.  The
+// merge takes its narrow or wide form by merge_warp (lanes.merge_in_warp).
 int exchange_merge(const LaneBufs* host, const LaneBufs* dev, int s,
                    cudaStream_t stream) {
   const LaneBufs* b = host;
   return with_bufs(host, dev, s, [&](auto bufs) {
     using P = decltype(bufs);
     const int64_t m = b->n_x;
-    const size_t scratch = static_cast<size_t>(s) * b->n * sizeof(int32_t);
-    cudaError_t err = cudaMemsetAsync(b->x_cnt, 0, scratch, stream);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(b->x_fill, 0, scratch, stream);
-    if (err != cudaSuccess) return err;
-    x_count_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs);
-    x_scan_kernel<<<s, 1024, 0, stream>>>(bufs);
+    x_count_kernel<<<dim3(blocks_for(m, COUNT_THREADS), s), COUNT_THREADS, 0,
+                     stream>>>(bufs);
     x_place_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs);
+    if (b->merge_warp) {
+      const dim3 grid(blocks_for(b->n, MERGE_WARPS), s);
+      if (b->words == 7) {
+        merge_warp_kernel<7, P><<<grid, 32 * MERGE_WARPS, 0, stream>>>(bufs);
+      } else {
+        merge_warp_kernel<5, P><<<grid, 32 * MERGE_WARPS, 0, stream>>>(bufs);
+      }
+      return cudaSuccess;
+    }
     const int64_t w_all = b->c + b->sw + b->cx;
-    const int64_t bytes = (b->words * w_all + b->cx) * sizeof(int32_t);
+    const int64_t bytes = (b->words * w_all + sort_width(w_all)) * sizeof(int32_t);
     int smem = 0;
-    err = b->words == 7 ? merge_smem(merge_kernel<7, P>, b->merge_global != 0,
-                                     bytes, &smem)
-                        : merge_smem(merge_kernel<5, P>, b->merge_global != 0,
-                                     bytes, &smem);
+    const cudaError_t err =
+        b->words == 7 ? merge_smem(merge_kernel<7, P>, b->merge_global != 0,
+                                   bytes, &smem)
+                      : merge_smem(merge_kernel<5, P>, b->merge_global != 0,
+                                   bytes, &smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(b->n), s);
     if (b->words == 7) {
@@ -2856,9 +3400,9 @@ int stream_rows_merge(const LaneBufs* host, const LaneBufs* dev, int s,
     using P = decltype(bufs);
     const int64_t w_all = b->c + 2 * b->k + b->k * PUMP_BURST;
     int smem = 0;
-    const cudaError_t err =
-        merge_smem(stream_rows_kernel<P>, b->split_global != 0,
-                   7 * w_all * sizeof(int32_t), &smem);
+    const cudaError_t err = merge_smem(
+        stream_rows_kernel<P>, b->split_global != 0,
+        (7 * w_all + sort_width(w_all)) * sizeof(int32_t), &smem);
     if (err != cudaSuccess) return err;
     stream_rows_kernel<<<dim3(static_cast<unsigned>(2 * b->s_flows), s),
                          merge_threads(w_all), smem, stream>>>(bufs);
@@ -2866,14 +3410,29 @@ int stream_rows_merge(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
+// kernel F: the fill, then the walk: a warp per row, TIER_WARPS rows a
+// block, up to TIER_WARP_ROWS rows over the launch's scenarios; a thread per
+// row, one warp a block, past that (the rows' serial walks spread over the
+// SMs)
 int stream_tier(const LaneBufs* host, const LaneBufs* dev, int s,
                 cudaStream_t stream) {
   return with_bufs(host, dev, s, [&](auto bufs) {
-    // one warp per block: the rows' serial walks spread over the SMs
+    using P = decltype(bufs);
     const int64_t rows = 2 * host->tier_s;
-    if (rows > 0)
-      stream_tier_kernel<<<dim3(blocks_for(rows, 32), s), 32, 0, stream>>>(
-          bufs);
+    if (rows == 0) return cudaSuccess;
+    const int64_t n_rec =
+        host->log_cap > 0 ? host->rec_ttail - host->rec_tier : 0;
+    const int64_t cx0 = 3 * host->ks * rows + host->ks * PUMP_BURST * host->tier_s;
+    const unsigned fill =
+        std::min(blocks_for(cx0 > 6 * n_rec ? cx0 : 6 * n_rec, 256), 1024u);
+    tier_fill_kernel<<<dim3(fill, s), 256, 0, stream>>>(bufs);
+    if (rows * s <= TIER_WARP_ROWS) {
+      stream_tier_kernel<true, P><<<dim3(blocks_for(rows, TIER_WARPS), s),
+                                    32 * TIER_WARPS, 0, stream>>>(bufs);
+    } else {
+      stream_tier_kernel<false, P><<<dim3(blocks_for(rows, 32), s), 32, 0,
+                                     stream>>>(bufs);
+    }
     return cudaSuccess;
   });
 }
@@ -2927,31 +3486,27 @@ int hybrid_fused_window(const LaneBufs* host, const LaneBufs* dev, int s,
 }
 
 // kernel H over one injection block `inj` ([INJ_WORDS, inj_b] int32 on the
-// device): the two memsets, count, the ungated scan, place, the merge
+// device): count with the ungated scan, place, the merge (the scratch zero
+// at entry, as in B)
 int inject_merge(const LaneBufs* host, const LaneBufs* dev, int s,
                  const int32_t* inj, cudaStream_t stream) {
   const LaneBufs* b = host;
   return with_bufs(host, dev, s, [&](auto bufs) {
     using P = decltype(bufs);
     const int64_t m = b->inj_b;
-    const size_t scratch = static_cast<size_t>(s) * b->n * sizeof(int32_t);
-    cudaError_t err = cudaMemsetAsync(b->x_cnt, 0, scratch, stream);
-    if (err == cudaSuccess)
-      err = cudaMemsetAsync(b->x_fill, 0, scratch, stream);
-    if (err != cudaSuccess) return err;
-    inj_count_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs,
-                                                                      inj);
-    x_scan_kernel<P, false><<<s, 1024, 0, stream>>>(bufs);
+    inj_count_kernel<<<dim3(blocks_for(m, COUNT_THREADS), s), COUNT_THREADS,
+                       0, stream>>>(bufs, inj);
     inj_place_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs,
                                                                       inj);
     const int64_t w_all = b->c + b->cxi;
-    const int64_t bytes = b->words * w_all * sizeof(int32_t);
+    const int64_t bytes = (b->words * w_all + sort_width(w_all)) * sizeof(int32_t);
     int smem = 0;
-    err = b->words == 7
-              ? merge_smem(inject_merge_kernel<7, P>, b->inject_global != 0,
-                           bytes, &smem)
-              : merge_smem(inject_merge_kernel<5, P>, b->inject_global != 0,
-                           bytes, &smem);
+    const cudaError_t err =
+        b->words == 7
+            ? merge_smem(inject_merge_kernel<7, P>, b->inject_global != 0,
+                         bytes, &smem)
+            : merge_smem(inject_merge_kernel<5, P>, b->inject_global != 0,
+                         bytes, &smem);
     if (err != cudaSuccess) return err;
     const dim3 grid(static_cast<unsigned>(b->n), s);
     if (b->words == 7) {
