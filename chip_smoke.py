@@ -90,7 +90,20 @@ plain loop, then again with one scenario done (its words unchanged); the
 stream groups again at S = 9, where the blocks no longer fit the kernel
 parameter and the kernels read them from the device array.
 Phase 6 also times the tiered mixed mesh with netobs, with a log, and
-with netobs, pcap and a log, and the untiered one with flowtrace on.
+with netobs, pcap and a log, and the untiered one with flowtrace on, and
+beside kernels C and D one PyTorch call each on the same inputs (the
+profiler's device time; ``library_ms``): ``torch.amin`` over column 0 of
+the queue times, boolean-mask selection of the records (and of the
+egress rows, with the min of their DELIVERED times).  Just before 6,
+kernels B and F on their edge cases (``check_merge_cases``), then D and C
+on theirs (``check_compact_cases``): D's flags only in the last cluster
+block's slice or on slice boundaries, all, none, the capacity inside a
+slice, the start past it, the log, the ring and the egress in one launch
+with the egress minimum in block 5, S = 1, 3, 8 and 9; C's min head in
+the last block or a tier row, every head NEVER, ties, heads at the stop
+time, with and without advance, dynamic runahead and the netobs flush,
+S = 1, 3, 8 and 9, its hybrid mode's first and later steps and its fused
+mode's refold passes — exact.
 Between the wide rows and 9: fault schedules card = CPU (step and device)
 on six twins of ``tests/test_torch_faults.py``'s configurations and on
 the lossy flagship at 10,000 hosts for 1 sim s with a latency epoch (10 to
@@ -227,8 +240,8 @@ def smi_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def flagship(sim_seconds=10, packet_loss=0.0):
-    cfg = flagship_mesh_config(N_FLAG, sim_seconds=sim_seconds,
+def flagship(sim_seconds=10, packet_loss=0.0, n_hosts=N_FLAG):
+    cfg = flagship_mesh_config(n_hosts, sim_seconds=sim_seconds,
                                queue_capacity=C_FLAG, pops_per_round=K_FLAG)
     cfg.experimental.tpu_cross_capacity = CX_FLAG
     if packet_loss:
@@ -2402,6 +2415,369 @@ def check_merge_cases():
                 lanes.stream_tier_plain)
 
 
+# ---- kernels D and C on their edge cases ----------------------------------
+
+D_CLUSTER = lanes.LOG_CLUSTER  # D's blocks an instance
+
+
+def d_slices(n: int) -> list:
+    """D's slices of ``n`` flags over its cluster: whole runs of 32 flags
+    a block (csrc/lanes.cu append_rows), the last ones short or empty."""
+    per = -(-n // (D_CLUSTER * 32)) * 32
+    return [(min(n, r * per), min(n, r * per + per))
+            for r in range(D_CLUSTER)]
+
+
+def d_flags(case: str, n: int, rng) -> np.ndarray:
+    """[n] valid flags: only in the last block's slice, only on the
+    slices' boundaries (each slice's first and last flag), all, none, or
+    random (about a third)."""
+    v = np.zeros(n, bool)
+    sl = [s for s in d_slices(n) if s[1] > s[0]]
+    if case == "last_slice":
+        lo, hi = sl[-1]
+        v[lo:hi] = rng.random(hi - lo) < 0.5
+        v[hi - 1] = True
+    elif case == "boundaries":
+        for lo, hi in sl:
+            v[lo] = v[hi - 1] = True
+    elif case == "all":
+        v[:] = True
+    elif case == "random":
+        v = rng.random(n) < 0.3
+    return v
+
+
+def d_case(p, s, ws, case: str, where: str, rng):
+    """Params, state and workspace for D with ``case``'s flags in the log's
+    and the ring's (and the egress's) flag arrays, the log's and the ring's
+    count starting with room to spare ("room"), with the capacity inside
+    the valid rows of block 7's slice ("mid"), inside that slice's second
+    tile where it has one ("late"; else as "mid"), or past it ("past"); the
+    egress's (its buffer E rows, past every flag) with room, its rows'
+    times past T0 + 10."""
+    caps = {}
+    starts = {}
+    arrays = [("log", ws.rec_valid, ws.recs)]
+    if p.flowtrace:
+        arrays.append(("ring", ws.fl_valid, ws.fl_recs))
+    if p.external_any:
+        arrays.append(("egress", ws.eg_valid, ws.eg_recs))
+    for inst, flags, recs in arrays:
+        v = d_flags(case, flags.numel(), rng)
+        flags.copy_(t32(v))
+        if recs.dtype == torch.int64:
+            rows = rng.integers(0, 1 << 40, tuple(recs.shape))
+            rows[:, 0] += T0 + 10
+            rows[:, 5] = rng.choice([lanes.DELIVERED, lanes.DROP_CODEL],
+                                    recs.shape[0])
+            recs.copy_(torch.as_tensor(rows, device=DEV))
+        else:
+            recs.copy_(t32(rng.integers(-(1 << 31), 1 << 31,
+                                        tuple(recs.shape))))
+        start, total = int(rng.integers(0, 1000)), int(v.sum())
+        if inst == "egress":
+            cap = p.egress_capacity
+        elif where == "room":
+            cap = start + total + 5
+        elif where == "past":
+            cap, start = start + 7, start + 10
+        else:
+            lo, hi = d_slices(v.size)[7]
+            if where == "late" and hi - lo > lanes.LOG_TILE:
+                cap = start + int(v[:(lo + lanes.LOG_TILE + hi) // 2].sum())
+            else:
+                cap = start + int(v[:lo].sum()) + max(
+                    1, int(v[lo:hi].sum()) // 2)
+        caps[inst], starts[inst] = cap, start
+    p = dataclasses.replace(p, log_capacity=caps["log"],
+                            **({"flow_capacity": caps["ring"]}
+                               if "ring" in caps else {}))
+    s = s._replace(
+        log=torch.zeros((caps["log"], 6), dtype=torch.int64, device=DEV),
+        log_count=t32(starts["log"]).reshape(()))
+    if "ring" in caps:
+        s = with_ring(s, caps["ring"])
+        s.fl_count.fill_(starts["ring"])
+    if "egress" in caps:
+        s = s._replace(egress=torch.zeros_like(s.egress),
+                       egress_count=t32(starts["egress"]).reshape(()))
+    return p, s, ws
+
+
+def heads_case(p, s, case: str, rng):
+    """``s`` with the queue heads of ``case`` (column 0 of every [N] row
+    and of every tier row, the rest NEVER): the min in the last lane (the
+    cluster's last block) or in the last tier row, every head NEVER, tied
+    minima in blocks 0, N/2 and the last (and a tier row; one more head
+    ties on the high word with a larger low word), or every head at the
+    stop time.  Returns the state and the min head (NEVER when none)."""
+    n, c = p.n_lanes, p.capacity
+    s2 = 2 * p.s_flows if p.stream_tiered else 0
+    head = T0 + 1 + rng.integers(0, 50_000_000, n + s2)
+    never = rng.random(n + s2) < 0.3
+    want = T0
+    if case == "last_lane":
+        head[n - 1], never[n - 1] = T0, False
+    elif case == "tier_row":
+        head[n + s2 - 1], never[n + s2 - 1] = T0, False
+    elif case == "all_never":
+        never[:] = True
+        want = lanes.NEVER
+    elif case == "ties":
+        for i in (1, n // 2, n - 1) + ((n + 1,) if s2 else ()):
+            head[i], never[i] = T0, False
+        head[3], never[3] = T0 + 1, False
+    elif case == "at_stop":
+        head[:], never[:] = p.stop_time, False
+        never[::3] = True
+        want = p.stop_time
+    hi = np.where(never, lanes.NEVER32, head >> 31)
+    lo = np.where(never, lanes.NEVER32, head & lanes.MASK31)
+    q_hi = np.full((n, c), lanes.NEVER32)
+    q_lo = np.full((n, c), lanes.NEVER32)
+    q_hi[:, 0], q_lo[:, 0] = hi[:n], lo[:n]
+    s = s._replace(q_thi=t32(q_hi), q_tlo=t32(q_lo))
+    if s2:
+        q = s.stream.q.clone()
+        q[0:2] = lanes.NEVER32
+        q[0, :, 0], q[1, :, 0] = t32(hi[n:]), t32(lo[n:])
+        s = s._replace(stream=s.stream._replace(q=q))
+    return s, want
+
+
+def set_window(s, we: int):
+    s = clone(s)
+    s.now_we_hi.fill_(we >> 31)
+    s.now_we_lo.fill_(we & lanes.MASK31)
+    return s
+
+
+def pair_time(hi, lo) -> int:
+    """The time of an int32 (hi, lo) pair; NEVER for a NEVER32 high word."""
+    hi, lo = int(hi), int(lo)
+    return lanes.NEVER if hi == lanes.NEVER32 else hi << 31 | lo
+
+
+HEAD_CASES = ("last_lane", "tier_row", "all_never", "ties", "at_stop")
+
+
+@phase("kernels D and C on their edge cases vs plain: D's flags only in the "
+       "last block's slice or on slice boundaries, all, none, the capacity "
+       "inside a slice, the start past it, slices of two tiles (48,000 "
+       "hosts), the log, ring and egress in one "
+       "launch with the egress minimum in block 5, S = 1, 3, 8, 9; C's min "
+       "head in the last block or a tier row, all NEVER, ties, at the stop "
+       "time, advance on and off, dynamic runahead, the netobs flush, its "
+       "hybrid mode's first and later steps and its fused mode's refold "
+       "passes, S = 1, 3, 8, 9 (tolerance: exact, integer)")
+def check_compact_cases():
+    rng = np.random.default_rng(SEED + 11)
+    # D at the flagship's log (120,000 flags, 16 slices of 7,520) with the
+    # ring turned on beside it
+    eng = GpuEngine(flagship(), log_capacity=60_000)
+    p0 = traced(eng.params, 1.0, 1)
+    s_base = with_ring(eng.initial_state(), 1)
+    cases = []
+    for case, where in (("last_slice", "room"), ("boundaries", "room"),
+                        ("all", "room"), ("none", "room"),
+                        ("random", "mid"), ("random", "past")):
+        ws0 = lanes.make_workspace(p0, DEV)
+        p, s0, ws0 = d_case(p0, clone(s_base), ws0, case, where, rng)
+        kern, plain = run_pair(p, eng.tables, s0, ws0, kernels.append_log,
+                               d_plain)
+        check("append_log", f"compact {case} {where}", kern, plain)
+        log(f"append_log compact {case} {where}: equal; log {int(s0.log_count)}"
+            f" -> {int(plain['log_count'])} (lost "
+            f"{int(plain['log_lost'])}, cap {p.log_capacity}), ring "
+            f"{int(s0.fl_count)} -> {int(plain['fl_count'])} (lost "
+            f"{int(plain['fl_lost'])}, cap {p.flow_capacity}) of "
+            f"{ws0.rec_valid.numel()} and {ws0.fl_valid.numel()} flags")
+        cases.append((p, eng.tables, s0, ws0))
+    # ... and past one tile a slice: the flagship mesh at 48,000 hosts
+    # (576,000 log flags, 16 slices of 36,000, each a tile of LOG_TILE =
+    # 32,768 flags and a second one), its later tiles counted before the
+    # cluster's barrier and scanned, staged and copied after it; the
+    # capacity inside a second tile, and a start past the capacity
+    big = GpuEngine(flagship(sim_seconds=1, n_hosts=48_000),
+                    log_capacity=60_000)
+    pb = traced(big.params, 1.0, 1)
+    n_big = pb.rec_offsets.end
+    if min(hi - lo for lo, hi in d_slices(n_big)) <= lanes.LOG_TILE:
+        raise AssertionError(f"{n_big} log flags: a slice of one tile")
+    sb = with_ring(big.initial_state(), 1)
+    for case, where in (("all", "room"), ("random", "room"),
+                        ("random", "late"), ("random", "past")):
+        ws0 = lanes.make_workspace(pb, DEV)
+        p, s0, ws0 = d_case(pb, clone(sb), ws0, case, where, rng)
+        kern, plain = run_pair(p, big.tables, s0, ws0, kernels.append_log,
+                               d_plain)
+        check("append_log", f"compact two tiles {case} {where}", kern, plain)
+        log(f"append_log two tiles a slice, {case} {where}: equal; log "
+            f"{int(s0.log_count)} -> {int(plain['log_count'])} (lost "
+            f"{int(plain['log_lost'])}, cap {p.log_capacity}), ring "
+            f"{int(s0.fl_count)} -> {int(plain['fl_count'])} (lost "
+            f"{int(plain['fl_lost'])}, cap {p.flow_capacity}) of {n_big} "
+            f"and {ws0.fl_valid.numel()} flags")
+    del big, sb
+    # ... over S = 3, 8 and 9 scenarios in one launch, each its own case
+    for size in (3, 8, 9):
+        batch = [cases[i % len(cases)] for i in range(size)]
+        kern, want, _ = run_batch(batch, kernels.append_log, d_plain)
+        for i in range(size):
+            check("append_log", f"compact S={size} scenario {i}", kern[i],
+                  want[i])
+        log(f"append_log compact: S = {size} in one launch equal to the "
+            "plain loop")
+    # the log, the ring and the egress in one launch (the hybrid flagship's
+    # shapes): the earliest DELIVERED egress time in block 5's slice, an
+    # earlier CoDel drop and an earlier invalid row in block 0's
+    cfg = hybrid_cfg("compact")
+    heng = GpuEngine(cfg, log_capacity=60_000, external=external_mask(cfg))
+    ph = traced(heng.params, 1.0, 1)
+    sh = with_ring(random_state(heng, heng.tables, rng), 1)
+    for case in ("random", "boundaries"):
+        ws0 = lanes.make_workspace(ph, DEV)
+        p, s0, ws0 = d_case(ph, clone(sh), ws0, case, "room", rng)
+        n_eg = ws0.eg_valid.numel()
+        (lo0, _), (lo5, hi5) = d_slices(n_eg)[0], d_slices(n_eg)[5]
+        ws0.eg_valid[lo0:lo0 + 2] = t32([1, 0])
+        ws0.eg_valid[lo5] = 1
+        ws0.eg_recs[lo0, 0], ws0.eg_recs[lo0, 5] = T0, lanes.DROP_CODEL
+        ws0.eg_recs[lo0 + 1, 0], ws0.eg_recs[lo0 + 1, 5] = T0, lanes.DELIVERED
+        ws0.eg_recs[lo5, 0], ws0.eg_recs[lo5, 5] = T0 + 5, lanes.DELIVERED
+        for t in (s0.egress_min_hi, s0.egress_min_lo):
+            t.fill_(lanes.NEVER32)
+        kern, plain = run_pair(p, heng.tables, s0, ws0, kernels.append_log,
+                               d_plain)
+        check("append_log:egress", f"compact three instances {case}", kern,
+              plain)
+        got = pair_time(plain["egress_min_hi"], plain["egress_min_lo"])
+        if got != T0 + 5:
+            raise AssertionError(f"the egress minimum {got} is not block "
+                                 f"5's {T0 + 5}")
+        log(f"append_log three instances {case}: equal; log "
+            f"{int(plain['log_count'])}, ring {int(plain['fl_count'])}, "
+            f"egress {int(plain['egress_count'])} rows, minimum from block 5")
+
+    # C: the flagship (10 blocks), PHOLD (C = 64), the tiered mesh with
+    # netobs (its tier rows), the hybrid flagship (2 blocks)
+    adv, no_adv = c_call(True), c_call(False)
+    seen = {"live": 0, "done": 0, "fresh": 0}
+    c_cases = []
+    engines = (("flagship", eng, False),
+               ("phold", GpuEngine(phold(stop_time="10s"), log_capacity=0),
+                False),
+               ("tiered netobs", GpuEngine(netobs_only(mixed_tiered(10)),
+                                           log_capacity=0), True))
+    for label, e, tiered in engines:
+        for dyn in (False, True):
+            p = dataclasses.replace(e.params, dynamic_runahead=dyn)
+            base = e.initial_state()
+            if p.netobs:
+                base.nb_win.fill_(37)
+            base.min_used_lat.fill_(700_000 if dyn else lanes.NEVER32)
+            for case in HEAD_CASES:
+                if case == "tier_row" and not tiered:
+                    continue
+                s1, want = heads_case(p, base, case, rng)
+                ws0 = lanes.make_workspace(p, DEV)
+                for we, (call, plain_fn), tag in (
+                        (T0 - 1_000, adv, "advance, fresh"),
+                        (T0, adv, "advance, at the head"),
+                        (T0 + 5_000_000, adv, "advance, inside"),
+                        (T0 - 1_000, no_adv, "no advance")):
+                    s2 = set_window(s1, we)
+                    kern, plain = run_pair(p, e.tables, s2, ws0, call,
+                                           plain_fn)
+                    check("queue_min_window", f"compact {label} dyn={dyn} "
+                          f"{case} {tag}", kern, plain)
+                    head = pair_time(plain["ctl"][2], plain["ctl"][3])
+                    if head != want:
+                        raise AssertionError(f"{label} {case}: min head "
+                                             f"{head}, not {want}")
+                    seen["live" if int(plain["ctl"][0]) else "done"] += 1
+                    seen["fresh"] += int(plain["rounds"]) > int(s2.rounds)
+                c_cases.append((p, e.tables, set_window(s1, T0 - 1_000), ws0))
+    log(f"queue_min_window compact: equal on every case {seen}")
+    if min(seen.values()) == 0:
+        raise AssertionError(f"queue_min_window: a path was missed {seen}")
+    # ... over S = 3, 8 and 9 scenarios in one launch (the flagship's cases)
+    flag_cases = [c for c in c_cases if c[0].n_lanes == N_FLAG
+                  and not c[0].stream_tiered and c[0].capacity == C_FLAG]
+    for size in (3, 8, 9):
+        batch = [flag_cases[i % len(flag_cases)] for i in range(size)]
+        kern, want, _ = run_batch(batch, adv[0], adv[1])
+        for i in range(size):
+            check("queue_min_window", f"compact S={size} scenario {i}",
+                  kern[i], want[i])
+        log(f"queue_min_window compact: S = {size} in one launch equal to "
+            "the plain loop")
+
+    # C's hybrid mode on the hybrid flagship's heads: the turn's first step
+    # and a later one, the host's next event absent or inside the window
+    p = dataclasses.replace(heng.params, dynamic_runahead=True)
+    sh = random_state(heng, heng.tables, rng)
+    stops = 0
+    for case in HEAD_CASES:
+        if case == "tier_row":
+            continue
+        s1, want = heads_case(p, sh, case, rng)
+        ws0 = lanes.make_workspace(p, DEV)
+        for first in (True, False):
+            for ext_t in (lanes.NEVER, T0 + 500):
+                eh, el = ((lanes.NEVER32, lanes.NEVER32)
+                          if ext_t >= lanes.NEVER
+                          else (ext_t >> 31, ext_t & lanes.MASK31))
+                turn = lanes.HybridTurn(eh, el, 900_000, first)
+                kern, plain = run_pair(
+                    p, heng.tables, set_window(s1, T0 + 2_000), ws0,
+                    lambda a, t_=turn: kernels.hybrid_window(a, t_),
+                    lambda p_, tb_, s, ws, t_=turn:
+                        lanes.hybrid_window_plain(p_, s, ws, t_))
+                check("hybrid_window", f"compact {case} first={first} "
+                      f"ext={ext_t}", kern, plain)
+                head = pair_time(plain["ctl"][2], plain["ctl"][3])
+                if head != want:
+                    raise AssertionError(f"hybrid {case}: min head {head}, "
+                                         f"not {want}")
+                stops += int(plain["ctl"][0]) == 0
+    log(f"hybrid_window compact: equal; {stops} of 16 steps stopped")
+    # C's fused mode: the window ends below the heads and the host takes
+    # part in it, so each step consumes windows and refolds the guard over
+    # 900 egress rows, up to k_eff
+    pf = dataclasses.replace(heng.params, dynamic_runahead=True,
+                             hybrid_k_cap=FUSE_K, ext_slots=FUSE_SLOTS)
+    sf = clone(sh)
+    sf.egress.copy_(egress_rows(pf, rng, 900, T0))
+    sf.egress_count.fill_(900)
+    refolds = 0
+    for case in ("last_lane", "ties", "all_never"):
+        s1, _want = heads_case(pf, sf, case, rng)
+        for first in (True, False):
+            we = T0 - 1_000_000
+            ws0 = lanes.make_workspace(pf, DEV)
+            ws0.ext.copy_(torch.tensor(fused_schedule(
+                [we - 500_000] + list(we + np.arange(1, 14) * 900_000)),
+                dtype=torch.int64))
+            turn = lanes.FusedTurn(900_000, FUSE_K, first)
+            s2 = set_window(s1, we)
+            s2.egress_min_hi.fill_(lanes.NEVER32)
+            s2.egress_min_lo.fill_(lanes.NEVER32)
+            kern, plain = run_pair(
+                pf, heng.tables, s2, ws0,
+                lambda a, t_=turn: kernels.hybrid_fused_window(a, t_),
+                lambda p_, tb_, s, ws, t_=turn:
+                    lanes.hybrid_fused_window_plain(p_, s, ws, t_))
+            check("hybrid_fused_window", f"compact {case} first={first}",
+                  kern, plain)
+            refolds += int(plain["fz"][1])
+    log(f"hybrid_fused_window compact: equal; {refolds} windows consumed "
+        "(a refold pass each)")
+    if refolds == 0:
+        raise AssertionError("hybrid_fused_window: no refold pass ran")
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -2418,6 +2794,70 @@ def _event_ms(fn, restore, reps: int) -> float:
         b.synchronize()
         total += a.elapsed_time(b)
     return total / reps
+
+
+def library_ms(fn, reps: int = 20) -> tuple:
+    """Device time of one PyTorch call ``fn`` (a yardstick the port never
+    calls) and where it came from: the profiler's device activity
+    (kernels, memsets, copies) over ``reps`` calls, per call (profiled
+    again, up to three times, while the profiler records no device time,
+    as ``profile_steps`` does), "profiler"; else CUDA events around the
+    calls, which count the gaps between its kernels too, "events"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm up
+    torch.cuda.synchronize()
+    for _attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(ev.time_range.elapsed_us() for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA)
+        if us:
+            return us / 1e3 / reps, "profiler"
+        log(f"library_ms: no device time in {len(prof.events())} events")
+    # the profiler recorded none: CUDA events around the calls instead
+    # (device time and the gaps between its kernels)
+    ms = _event_ms(fn, lambda: None, reps)
+    log(f"library_ms: {ms:.5f} ms from CUDA events, not the profiler")
+    return ms, "events"
+
+
+def head_amin(s):
+    """C's reduction as one PyTorch call: ``torch.amin`` over column 0 of
+    an int64 [N, C] copy of the queue times (NEVER where empty), a strided
+    view that reads the same sectors as C's heads; the window law is not in
+    it (nor the tier's heads)."""
+    t = torch.where(s.q_thi == lanes.NEVER32, lanes.NEVER,
+                    (s.q_thi.to(torch.int64) << 31) | s.q_tlo.to(torch.int64))
+    return lambda: torch.amin(t[:, 0])
+
+
+def selections(p, ws):
+    """D's compaction as PyTorch calls: boolean-mask selection (rows kept
+    in index order) of the log's records and the ring's flow records
+    (without the ring's window stamp), and on a hybrid run of the egress
+    candidates, with ``torch.amin`` over their DELIVERED times; the masks
+    are made before the timing."""
+    calls = []
+    if p.log_capacity:
+        recs, mask = ws.recs, ws.rec_valid.bool()
+        calls.append(lambda: recs[mask])
+    if p.flowtrace:
+        fl, fmask = ws.fl_recs, ws.fl_valid.bool()
+        calls.append(lambda: fl[fmask])
+    if p.external_any:
+        eg, emask = ws.eg_recs, ws.eg_valid.bool()
+
+        def egress():
+            sel = eg[emask]
+            return torch.amin(torch.where(sel[:, 5] == lanes.DELIVERED,
+                                          sel[:, 0], lanes.NEVER))
+        calls.append(egress)
+    return lambda: [c() for c in calls]
 
 
 def kernel_bytes(p: lanes.LaneParams, tb, ws, cnt: dict) -> dict:
@@ -2762,6 +3202,12 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
         plan["append_log"] = (lambda: restore(snap_mid),
                               lambda: kernels.append_log(args),
                               lambda: lanes.append_log_plain(p, s, ws_))
+    # one PyTorch call each for C's reduction and D's compaction, on the
+    # same inputs (their device time from the profiler)
+    restore(snap_mid)
+    library = {"queue_min_window": library_ms(head_amin(snap_s))}
+    if log_cap or p.flowtrace:
+        library["append_log"] = library_ms(selections(p, ws_))
     times = {}
     for name, (rst, kern, plain) in plan.items():
         _event_ms(kern, rst, 5)  # warm up
@@ -2779,12 +3225,16 @@ def time_kernels(label: str, cfg, log_cap: int, warm: int) -> dict:
             "ms": prof_ms.get(name, event_ms), "event_ms": event_ms,
             "plain_ms": float(np.mean(plain_ms)), "bound_ms": bound,
             "bound_by": "bytes", "bytes": nbytes[name],
+            "library_ms": library.get(name, (None, None))[0],
+            "library_by": library.get(name, (None, None))[1],
         }
+        lib, lib_by = library.get(name, (None, None))
         log(f"{label} {name}: device {prof_ms.get(name, float('nan')):.5f} "
             f"ms/launch (profiler, 40 live steps), {event_ms:.5f} ms (events "
             f"around one launch, mean of {2 * reps}), plain "
             f"{times[name]['plain_ms']:.4f} ms, bound {bound:.6f} ms "
-            f"({nbytes[name]} B / 3.35 TB/s)")
+            f"({nbytes[name]} B / 3.35 TB/s)"
+            + (f", library {lib:.5f} ms ({lib_by})" if lib else ""))
     busy = sum(prof_ms.values()) / step_ms if prof_ms else float("nan")
     times["loop"] = {"step_ms": step_ms, "busy": busy}
     log(f"{label}: loop {step_ms * 1e3:.3f} us/step (64 live steps), "
@@ -3498,8 +3948,17 @@ def time_hybrid(eng) -> dict:
         restore_f, lambda: kernels.hybrid_fused_window(argsf, fturn),
         lambda: lanes.hybrid_fused_window_plain(pf, state, wsf, fturn),
         hbytes["hybrid_fused_window"])
+    # one PyTorch call for C's reduction and D's compaction (made on the
+    # restored inputs)
+    library = {"hybrid_window": lambda: head_amin(state),
+               "hybrid_fused_window": lambda: head_amin(state),
+               "append_log:egress": lambda: selections(p, ws)}
     out = {}
     for name, (rst, kern, plain, nb) in plan.items():
+        lib = lib_by = None
+        if name in library:
+            rst()
+            lib, lib_by = library_ms(library[name]())
         _event_ms(kern, rst, 5)  # warm up
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3517,12 +3976,16 @@ def time_hybrid(eng) -> dict:
         out[name] = {"ms": dev_us / 1e3 / 20 if dev_us else event_ms,
                      "event_ms": event_ms, "plain_ms": plain_ms,
                      "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
-                     "bound_by": "bytes", "bytes": nb}
+                     "bound_by": "bytes", "bytes": nb, "library_ms": lib,
+                     "library_by": lib_by}
         log(f"hybrid {name}: device {out[name]['ms']:.5f} ms/launch "
-            f"(profiler, 20 launches), {event_ms:.5f} ms (events around one "
+            + ("(profiler, 20 launches)" if dev_us else
+               "(the profiler recorded none: events)")
+            + f", {event_ms:.5f} ms (events around one "
             f"launch, mean of 50), plain {plain_ms:.4f} ms, bound "
-            f"{out[name]['bound_ms']:.6f} ms ({nb} B / 3.35 TB/s); "
-            f"nvidia-smi: {smi_line()}")
+            f"{out[name]['bound_ms']:.6f} ms ({nb} B / 3.35 TB/s)"
+            + (f", library {lib:.5f} ms ({lib_by})" if lib else "")
+            + f"; nvidia-smi: {smi_line()}")
     restore()
     return out
 
@@ -4700,6 +5163,7 @@ def main() -> int:
     check_hybrid_kernels()
     check_fused_kernels()
     check_merge_cases()
+    check_compact_cases()
     times = time_all()
     parity()
     stream_parity()
@@ -4740,9 +5204,12 @@ def main() -> int:
                 log(f"device busy, {cfg_name}: {t['busy']:.4f} of "
                     f"{t['step_ms'] * 1e3:.3f} us/step ({smi})")
                 continue
+            lib = t.get("library_ms")
             log(f"device us/launch, {cfg_name} {name}: {t['ms'] * 1e3:.3f} "
                 f"(bound {t['bound_ms'] * 1e3:.3f}, plain "
-                f"{t['plain_ms'] * 1e3:.1f}) ({smi})")
+                f"{t['plain_ms'] * 1e3:.1f}"
+                + (f", library {lib * 1e3:.3f} ({t['library_by']})" if lib
+                   else "") + f") ({smi})")
     for label, parts in SPLITS.items():  # B's and F's device kernels
         for name, split in parts.items():
             if len(split) > 1:
@@ -4785,8 +5252,11 @@ def main() -> int:
     for name, t in hyb_times.items():
         wrapper = name.split(":")[0]
         law = "one-window" if wrapper == "hybrid_window" else "fused"
+        lib = t.get("library_ms")
         log(f"device us/launch, hybrid {name}: {t['ms'] * 1e3:.3f} (bound "
-            f"{t['bound_ms'] * 1e3:.3f}, plain {t['plain_ms'] * 1e3:.1f}); "
+            f"{t['bound_ms'] * 1e3:.3f}, plain {t['plain_ms'] * 1e3:.1f}"
+            + (f", library {lib * 1e3:.3f} ({t['library_by']})" if lib
+               else "") + "); "
             f"launches on the {law} flagship {hyb[law]['counts'][wrapper]} "
             f"({smi})")
     log(f"device us/launch, rand_u32 ({times['rand_u32']['draws']} draws): "
@@ -4818,7 +5288,8 @@ def main() -> int:
             "source": "shadow_tpu_torch/csrc/lanes.cu", "replaces": rep_,
             "launches": launches[name], "max_abs_err": MAX_ERR[name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "library_by": t.get("library_by"),
         }
         if name == "lane_slots":
             # the threefry draw and the lane-TCP law run fused in A
@@ -4882,7 +5353,8 @@ def main() -> int:
             "launches_from": f"the hybrid flagship, {law} law",
             "max_abs_err": MAX_ERR[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None,
+            "bound_by": t["bound_by"], "library_ms": t.get("library_ms"),
+            "library_by": t.get("library_by"),
         })
     print(json.dumps({"kernels": rows}))
     print(smi_line())

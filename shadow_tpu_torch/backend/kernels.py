@@ -68,7 +68,7 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "fl_ss", "fl_bs", "n_fl", "merge_global", "split_global",
                "tier_global", "ext_any", "eg_cap", "room_floor", "n_eg",
                "inj_b", "cxi", "inject_global", "k_cap", "ext_slots",
-               "merge_warp")
+               "merge_warp", "c_blocks")
 
 
 class LaneBufs(ctypes.Structure):
@@ -203,7 +203,8 @@ class LaneArgs:
     the ``cxi`` a lane takes from one.  On the card each merge takes the path
     ``lanes.merge_in_shared`` gives its rows at the device's opt-in limit:
     ``*_global`` marks the merges that run in ``m_scratch``; ``merge_warp``
-    B's narrow form (``lanes.merge_in_warp``)."""
+    B's narrow form (``lanes.merge_in_warp``); ``c_blocks`` the blocks of
+    kernel C's cluster (``lanes.heads_blocks``)."""
 
     def __init__(self, p: lanes.LaneParams, tb: lanes.LaneTables,
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
@@ -296,6 +297,13 @@ class LaneArgs:
             shapes["m_scratch"] = (lanes.merge_scratch_words(p, optin),)
         for f in _PTR_FIELDS:
             _check(f, tensors[f], dev, dtypes.get(f, i32), shapes[f])
+        if self.on_cuda:
+            # kernel D copies a log or egress row as three 16-byte pieces, a
+            # ring row as five 8-byte ones
+            for f, align in (("recs", 16), ("log", 16), ("eg_recs", 16),
+                             ("egress", 16), ("fl_recs", 8), ("fl_buf", 8)):
+                if tensors[f].data_ptr() % align:
+                    raise ValueError(f"{f}: not {align}-byte aligned")
         seed_lo, seed_hi = rng_mod.split_seed(p.seed)
         rg, tg, fg = p.rec_offsets, p.tier_rec_offsets, p.flow_offsets
         logging = bool(p.log_capacity)
@@ -333,6 +341,7 @@ class LaneArgs:
             inject_global=int(in_global.get("inject merge", False)),
             k_cap=p.hybrid_k_cap, ext_slots=p.ext_slots,
             merge_warp=int(lanes.merge_in_warp(pl.merge_width)),
+            c_blocks=lanes.heads_blocks(n + (2 * sf if tiered else 0)),
         )
 
     @functools.cached_property
@@ -346,7 +355,7 @@ class LaneArgs:
 _LAUNCH_FIELDS = ("n", "c", "k", "cx", "sw", "words", "n_x", "s_flows",
                   "tier_s", "ks", "c2", "flowtrace", "merge_global",
                   "split_global", "tier_global", "ext_any", "n_eg", "inj_b",
-                  "cxi", "inject_global", "merge_warp")
+                  "cxi", "inject_global", "merge_warp", "c_blocks")
 
 
 class SweepArgs:
@@ -572,11 +581,18 @@ def queue_min_window(args, advance: bool) -> None:
     ``lanes_pairs.py:28`` ``pair_min_lanes`` and the window law of
     ``_build_round`` /
     ``_build_full_run`` (``lanes.py:3346-3356``, ``:3505-3526``).  Its bytes
-    (N head pairs, 80 KB at 10k lanes) bound it at tens of nanoseconds, so
-    launch and one block's latency set its time.  One block per scenario
-    reduces and applies the window law under that scenario's stop, so the
-    flags stay on the device and the host reads them only when it chooses
-    to.  On a tiered run the heads of the
+    (N head pairs, 80 KB at 10k lanes) bound it at tens of nanoseconds; but
+    each head is two strided int32 words, two 32-byte L2 sectors, so one
+    SM's share of that traffic set the time of the one-block kernel it
+    replaces.  One thread-block cluster per scenario (``c_blocks`` blocks
+    from ``lanes.heads_blocks``, launched with ``cudaLaunchKernelEx``)
+    spreads the heads over as many SMs, each thread issuing all its loads
+    before its min; the blocks' minima meet in rank 0 through distributed
+    shared memory between two ``cluster.sync()``, and rank 0 applies the
+    window law under that scenario's stop, so the flags stay on the device
+    and the host reads them only when it chooses to.  No global scratch
+    word, atomic or memset: nothing waits to be cleared for the next call,
+    and nothing reads back to the host.  On a tiered run the heads of the
     tier's endpoint rows count too (``lanes.py:2264-2270``)."""
     if _launch("queue_min_window", args,
                lambda m: lanes.queue_min_window_plain(m.p, m.s, m.ws, advance),
@@ -591,8 +607,9 @@ def hybrid_window(args, turn: "lanes.HybridTurn") -> None:
     ``_build_hybrid_run``: its ``cond``, evaluated before each iteration,
     the window law of its ``body`` with the host side's bound in the
     global min, the egress reset and the ``ext_used`` fold at the turn's
-    start, and the packed ``[5]`` readback.  The same block as
-    ``queue_min_window`` (the head reduction is shared); the host side's
+    start, and the packed ``[5]`` readback.  The same cluster as
+    ``queue_min_window`` (the head reduction is shared; rank 0's thread 0
+    runs the law); the host side's
     next event time and used latency arrive as kernel parameters, so
     forming them reads nothing from the device.  A step whose stop
     condition fails clears ``live`` and writes the readback; the gated
@@ -614,10 +631,11 @@ def hybrid_fused_window(args, turn: "lanes.FusedTurn") -> None:
     and at a segment's end the consume test against the horizon, the
     recorded window end, the pointer over the schedule and ``egress_min``
     re-armed, until ``k_eff`` windows are consumed or the host's schedule
-    runs out; then the ``[6 + k_cap]`` readback.  One block, as C's other
-    modes: the head reduction and the refold (a block min over the egress
-    rows' times and outcomes) use every thread, the segment logic thread
-    0; at most ``k_eff + 1`` passes a step.  The schedule is in the
+    runs out; then the ``[6 + k_cap]`` readback.  The cluster of C's other
+    modes reduces the heads; rank 0's block alone goes on: the refold (a
+    block min over the egress rows' times and outcomes) uses its every
+    thread, the segment logic its thread 0; at most ``k_eff + 1`` passes a
+    step.  The schedule is in the
     workspace (``ext``, one async copy a dispatch), the pointer, the count
     and the steps in ``fz``; the host's used latency and ``k_eff`` are
     kernel parameters.  Bound by bytes: the N head pairs, the schedule, and
@@ -659,18 +677,31 @@ def append_log(args) -> None:
 
     Replaces ``shadow_tpu/backend/lanes.py:2056`` ``_append_log`` and
     ``:2117`` ``_append_flow`` (with ``:2160`` ``_flow_group`` and
-    ``:2177`` ``_concat_flow_groups``): one template on the row, two
-    instances, a block each in one launch — the ``[L, 6]`` int64 log and
-    the ``[FL, 10]`` int32 ring, whose rows take the window's end as they
-    go in.  Bound by bytes: the valid flags of every slot are read once
-    and only the valid rows are copied.  One block scans tile by tile,
-    which keeps the reference's row order with no second pass but runs on
-    one SM — far above its bound, and only on logging or tracing runs
-    (PERF.md).  The egress instance (``lanes.py:2219`` ``_append_egress``,
-    called from ``_process_slot`` at ``:944-959``) is a third block: A's
-    ``[K*N]`` candidates in slot-major order, the reference's append order,
-    into the ``[E, 6]`` int64 buffer, and a block min of the DELIVERED
-    times into ``egress_min``."""
+    ``:2177`` ``_concat_flow_groups``): one template on the row, in one
+    launch — the ``[L, 6]`` int64 log and the ``[FL, 10]`` int32 ring,
+    whose rows take the window's end as they go in.  The egress instance
+    (``lanes.py:2219`` ``_append_egress``, called from ``_process_slot`` at
+    ``:944-959``) is the third: A's ``[K*N]`` candidates in slot-major
+    order, the reference's append order, into the ``[E, 6]`` int64 buffer,
+    and the min of their DELIVERED times into ``egress_min``.  Bound by
+    bytes: the valid flags of every slot are read once and only the valid
+    rows are copied.  Each instance of each scenario is one thread-block
+    cluster of ``lanes.LOG_CLUSTER`` (16) blocks (``cudaLaunchKernelEx``):
+    a block owns one contiguous slice of the flags, a thread 32 of them as
+    a mask (int4 loads, all in flight), and the block scans the masks'
+    counts and stages its valid indices in shared memory (a slice past
+    ``lanes.LOG_TILE`` flags only counts its later tiles here).  Once
+    every block of the cluster has started (the wait of a barrier each
+    arrived at as it began), each block writes its count (and egress
+    minimum) into every block's shared memory (distributed shared memory);
+    after one ``cluster.sync()`` each block forms its offset from its own
+    copy, so no block reads another's memory after it, and copies its rows
+    in order from the count, its threads on consecutive 16-byte (log) or
+    8-byte (ring) pieces of consecutive rows, then scans, stages and
+    copies its later tiles one at a time; rank 0 writes the count, the
+    losses past the capacity and the egress minimum once.  No global
+    ticket, fence, memset or workspace word: nothing is left for the next
+    call to clear, and nothing reads back to the host."""
     if _launch("append_log", args,
                lambda m: lanes.append_log_plain(m.p, m.s, m.ws)):
         append_log.launches += 1

@@ -814,6 +814,33 @@ def merge_in_warp(entries: int) -> bool:
     return entries <= MERGE_WARP_ENTRIES
 
 
+# kernel C's head reduction: threads a block (csrc/lanes.cu HEAD_THREADS)
+# and the most blocks of its cluster (16: the non-portable cluster size
+# Hopper allows)
+HEAD_THREADS = 1024
+HEAD_CLUSTER_MAX = 16
+
+
+def heads_blocks(n_heads: int) -> int:
+    """Kernel C's cluster, fixed before a run starts: the blocks its head
+    reduction spreads over — one head a thread, so ``ceil(n_heads /
+    1024)``, at least one and at most 16 (a thread then loads several,
+    all before its min).  The flagships' 10,000 heads take 10 blocks; the
+    hybrid flagship's 1,151 two; up to 1,024 heads one block, a cluster of
+    one.  ``n_heads``: the [N] lanes and, on a tiered run, the tier's 2S
+    endpoint rows."""
+    return max(1, min(HEAD_CLUSTER_MAX, -(-n_heads // HEAD_THREADS)))
+
+
+# kernel D's compaction (csrc/lanes.cu): the blocks of an instance's
+# cluster, the flags a thread takes as one mask, and a block's tile (its
+# 1,024 threads' masks); a slice past one tile scans its later tiles one at
+# a time
+LOG_CLUSTER = 16
+LOG_BITS = 32
+LOG_TILE = 1024 * LOG_BITS
+
+
 def sort_width(entries: int) -> int:
     """The length of a merge's sort index array: the smallest power of two
     that holds the row's entries (the kernels' bitonic network)."""

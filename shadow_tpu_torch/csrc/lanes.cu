@@ -11,9 +11,10 @@
 // workspace, built and checked on the Python side), twice: in host memory,
 // where the launcher reads the launch shape from scenario 0 (equal across
 // the scenarios of a sweep), and in device memory.  The scenario is
-// blockIdx.y (blockIdx.x for kernel C's one block per scenario).  Each
-// kernel is one template over where a block finds its
-// scenario's block (`scenario` below): in the kernel's __grid_constant__
+// blockIdx.y; kernels C and D launch thread-block clusters along x (C's
+// head reduction, D's compaction of each instance), through
+// cudaLaunchKernelEx.  Each kernel is one template over where a block finds
+// its scenario's block (`scenario` below): in the kernel's __grid_constant__
 // parameter up to S = 8 (the one block of every serial run, or up to eight
 // side by side), in the device array past that.  Each launcher takes
 // PyTorch's current stream, launches without synchronising, and returns
@@ -56,8 +57,11 @@
 // in shared memory or m_scratch by the same size rule.
 
 #include <algorithm>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -193,10 +197,13 @@ struct LaneBufs {
   int64_t k_cap, ext_slots;
   // B's merge form: a warp per lane (rows of at most 32 entries) or a block
   int64_t merge_warp;
+  // kernel C's cluster: the blocks its head reduction spreads over
+  // (lanes.heads_blocks)
+  int64_t c_blocks;
 };
 
 // Up to PARAM_SCENARIOS blocks side by side, passed as one kernel parameter
-// (8 x 1,496 bytes; Hopper takes up to 32,764).
+// (8 x 1,512 bytes; Hopper takes up to 32,764).
 constexpr int PARAM_SCENARIOS = 8;
 struct ParamBufs {
   LaneBufs b[PARAM_SCENARIOS];
@@ -2876,38 +2883,109 @@ __global__ void tier_merge_kernel(const __grid_constant__ P bufs) {
 }
 
 // ---- kernel C: queue_min_window ---------------------------------------------
-// One block: the lexicographic minimum of the queue heads (column 0 of every
-// sorted row, the tier's rows too), then the window law and the live flag.
+// One cluster of c_blocks blocks per scenario (grid (c_blocks, S), cluster
+// (c_blocks, 1, 1)): the lexicographic minimum of the queue heads (column 0
+// of every sorted row, the tier's rows too), then the window law and the
+// live flag.  The heads are strided int32 pairs, two 32-byte sectors each,
+// so one SM's share of the L2 traffic set the old one-block kernel's time;
+// the cluster spreads them over c_blocks SMs (lanes.heads_blocks: a
+// thread's worth of heads a thread, up to 16 blocks, one block where the
+// heads fit one), each thread issuing all its loads (and the live word's)
+// before its min.  Once every block has started, each writes its minimum
+// into rank 0's shared memory (distributed shared memory); after
+// cluster.sync() only rank 0 goes on, to the law.  No global scratch, no
+// atomics: nothing is left for a later call to clear.
 // With dynamic runahead the window is the smallest latency sent over so
 // far, never below the floor (the static runahead until the first send).
 // A window advance first folds the finished window into the netobs
 // histogram (one thread: a scalar step).
-// The block's min head: valid in thread 0.
-__device__ int64_t heads_min(const LaneBufs& b) {
-  __shared__ int64_t warp_min[32];
-  int64_t m = NEVER64;
-  for (int64_t i = threadIdx.x; i < b.n; i += blockDim.x) {
-    const int64_t t = join_t(b.q_thi[i * b.c], b.q_tlo[i * b.c]);
-    m = t < m ? t : m;
-  }
-  // tiered: the heads of the tier's endpoint rows
-  const int64_t tier_plane = 2 * b.tier_s * b.c2;
-  for (int64_t r = threadIdx.x; r < 2 * b.tier_s; r += blockDim.x) {
-    const int64_t t =
-        join_t(b.tier_q[r * b.c2], b.tier_q[tier_plane + r * b.c2]);
-    m = t < m ? t : m;
-  }
+constexpr int HEAD_THREADS = 1024;
+constexpr int HEAD_CLUSTER_MAX = 16;  // lanes.HEAD_CLUSTER_MAX
+constexpr int HEAD_UNROLL = 4;  // heads a thread loads before its min
+
+// The warp's min of m: valid in lane 0.
+__device__ __forceinline__ int64_t warp_min(int64_t m) {
   for (int s = 16; s > 0; s >>= 1) {
-    const int64_t o = __shfl_down_sync(0xFFFFFFFFu, m, s);
+    const int64_t o = __shfl_down_sync(FULL_MASK, m, s);
     m = o < m ? o : m;
   }
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
-      m = warp_min[w] < m ? warp_min[w] : m;
-  }
   return m;
+}
+
+// The block's min of m: valid in thread 0.
+__device__ __forceinline__ int64_t block_min(int64_t m) {
+  __shared__ int64_t warp_mins[32];
+  m = warp_min(m);
+  if ((threadIdx.x & 31) == 0) warp_mins[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32)
+    m = warp_min(threadIdx.x < (blockDim.x + 31) / 32 ? warp_mins[threadIdx.x]
+                                                     : NEVER64);
+  return m;
+}
+
+// The cluster barrier in its two halves (PTX barrier.cluster): a block
+// arrives early, as soon as it has started, and waits only where it first
+// touches another block's shared memory, so the wait for the cluster's
+// last block overlaps the block's own loads.  Every thread of every block
+// calls both, in the same order.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The cluster's min head, valid in rank 0's thread 0 (`*lead` there);
+// false, for the whole cluster, when `gated` and the scenario is done
+// (ctl[0] 0, loaded beside the heads).  Every block of the cluster calls
+// it: each pushes its block minimum into rank 0's shared memory between
+// the halves of one barrier and the whole of a second.
+__device__ __forceinline__ bool heads_min(const LaneBufs& b, bool gated,
+                                          int64_t* out, bool* lead) {
+  __shared__ int64_t blk_min[HEAD_CLUSTER_MAX];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank(), blocks = cluster.num_blocks();
+  const int32_t live = gated ? b.ctl[0] : 1;
+  const int64_t n_heads = b.n + 2 * b.tier_s;
+  const int64_t tier_plane = 2 * b.tier_s * b.c2;
+  const int64_t stride = static_cast<int64_t>(blocks) * blockDim.x;
+  int64_t m = NEVER64;
+  for (int64_t i0 = rank * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+       i0 < n_heads; i0 += HEAD_UNROLL * stride) {
+    int32_t hi[HEAD_UNROLL], lo[HEAD_UNROLL];
+#pragma unroll
+    for (int u = 0; u < HEAD_UNROLL; ++u) {
+      const int64_t i = i0 + u * stride;
+      hi[u] = NEVER32;
+      lo[u] = NEVER32;
+      if (i < b.n) {
+        hi[u] = b.q_thi[i * b.c];
+        lo[u] = b.q_tlo[i * b.c];
+      } else if (i < n_heads) {  // tiered: the tier's endpoint rows
+        const int64_t r = i - b.n;
+        hi[u] = b.tier_q[r * b.c2];
+        lo[u] = b.tier_q[tier_plane + r * b.c2];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < HEAD_UNROLL; ++u) {
+      const int64_t t = join_t(hi[u], lo[u]);
+      m = t < m ? t : m;
+    }
+  }
+  if (live == 0) return false;  // the same word for the whole cluster
+  cluster_arrive_relaxed();
+  m = block_min(m);
+  cluster_wait();  // every block has started: rank 0's memory is there
+  if (threadIdx.x == 0) cluster.map_shared_rank(blk_min, 0)[rank] = m;
+  cluster.sync();  // every block minimum is in rank 0
+  if (rank == 0 && threadIdx.x < 32)
+    m = warp_min(threadIdx.x < blocks ? blk_min[threadIdx.x] : NEVER64);
+  *lead = rank == 0 && threadIdx.x == 0;
+  *out = m;
+  return true;
 }
 
 // netobs: the finished window's PACKET count into the histogram, at bucket
@@ -2934,15 +3012,22 @@ __device__ __forceinline__ int64_t runahead_now(const LaneBufs& b) {
 }
 
 template <class P>
-__global__ void queue_min_kernel(const __grid_constant__ P bufs,
-                                 int advance) {
-  const LaneBufs& b = scenario(bufs, blockIdx.x);
-  if (b.ctl[0] == 0) return;
-  const int64_t m = heads_min(b);
-  if (threadIdx.x != 0) return;
+__global__ void __launch_bounds__(HEAD_THREADS)
+    queue_min_kernel(const __grid_constant__ P bufs, int advance) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  // the window's end, loaded while the heads are (only this kernel's lead
+  // thread writes it)
+  int32_t we_hi = 0, we_lo = 0;
+  if (threadIdx.x == 0) {
+    we_hi = *b.now_we_hi;
+    we_lo = *b.now_we_lo;
+  }
+  int64_t m;
+  bool lead;
+  if (!heads_min(b, true, &m, &lead) || !lead) return;
 
   const bool live = m < b.stop;
-  int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
+  int64_t we = join_raw(we_hi, we_lo);
   if (advance && live && m >= we) {
     flush_hist(b);
     const int64_t end = m + runahead_now(b);
@@ -2970,13 +3055,14 @@ constexpr int HYB_LANE_MIN = 0, HYB_DEV_WE = 1, HYB_MIN_USED = 2,
               HYB_EGRESS_COUNT = 3, HYB_EGRESS_LOST = 4;
 
 template <class P>
-__global__ void hybrid_window_kernel(const __grid_constant__ P bufs,
-                                     int first, int32_t ext_hi,
-                                     int32_t ext_lo, int32_t ext_used) {
-  const LaneBufs& b = scenario(bufs, blockIdx.x);
-  if (!first && b.ctl[0] == 0) return;
-  const int64_t m = heads_min(b);
-  if (threadIdx.x != 0) return;
+__global__ void __launch_bounds__(HEAD_THREADS)
+    hybrid_window_kernel(const __grid_constant__ P bufs, int first,
+                         int32_t ext_hi, int32_t ext_lo, int32_t ext_used) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  // the turn's first step is not gated: it arms the turn
+  int64_t m;
+  bool lead;
+  if (!heads_min(b, !first, &m, &lead) || !lead) return;
   if (first) {
     if (b.dyn_runahead && ext_used < *b.min_used_lat)
       *b.min_used_lat = ext_used;
@@ -3023,8 +3109,10 @@ __global__ void hybrid_window_kernel(const __grid_constant__ P bufs,
 // recorded, the pointer set past every slot before it, egress_min re-armed
 // from this dispatch's DELIVERED rows at or past it (a block min) — and the
 // condition is tried again, until k_eff windows are consumed; otherwise
-// the dispatch stops.  Thread 0 runs the law and tells the block, through
-// shared memory, what comes next.
+// the dispatch stops.  The cluster reduces the heads as in C's other modes;
+// then rank 0's block alone goes on: its thread 0 runs the law and tells
+// the block, through shared memory, what comes next (the refolds are few:
+// at most the egress buffer's rows, k_eff times).
 constexpr int HYB_K_DONE = 5, HYB_WE_BASE = 6;
 constexpr int FUSED_STEP = 0, FUSED_REFOLD = 1, FUSED_REFOLD_STOP = 2,
               FUSED_STOP = 3;
@@ -3082,32 +3170,26 @@ __device__ int fused_pass(const LaneBufs& b, int64_t m, int k_eff,
 // the earliest DELIVERED egress time at or past thr among this dispatch's
 // rows (a block min; valid in thread 0)
 __device__ int64_t egress_refold(const LaneBufs& b, int64_t thr) {
-  __shared__ int64_t warp_min[32];
   int64_t m = NEVER64;
   const int64_t rows = *b.egress_count < b.eg_cap ? *b.egress_count : b.eg_cap;
   for (int64_t r = threadIdx.x; r < rows; r += blockDim.x) {
     const int64_t* row = b.egress + r * 6;
     if (row[5] == DELIVERED && row[0] >= thr) m = row[0] < m ? row[0] : m;
   }
-  for (int s = 16; s > 0; s >>= 1) {
-    const int64_t o = __shfl_down_sync(0xFFFFFFFFu, m, s);
-    m = o < m ? o : m;
-  }
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
-      m = warp_min[w] < m ? warp_min[w] : m;
-  }
-  return m;
+  return block_min(m);
 }
 
 template <class P>
-__global__ void hybrid_fused_kernel(const __grid_constant__ P bufs, int first,
-                                    int k_eff, int32_t ext_used) {
-  const LaneBufs& b = scenario(bufs, blockIdx.x);
-  if (!first && b.ctl[0] == 0) return;
-  const int64_t m = heads_min(b);
+__global__ void __launch_bounds__(HEAD_THREADS)
+    hybrid_fused_kernel(const __grid_constant__ P bufs, int first, int k_eff,
+                        int32_t ext_used) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  // the dispatch's first step is not gated: it arms the dispatch
+  int64_t m;
+  bool lead;
+  if (!heads_min(b, !first, &m, &lead)) return;
+  // rank 0's block runs the law (its thread 0) and the refolds
+  if (cg::this_cluster().block_rank() != 0) return;
   __shared__ int cmd;
   __shared__ int64_t thr;
   if (threadIdx.x == 0) {
@@ -3143,143 +3225,286 @@ __global__ void hybrid_fused_kernel(const __grid_constant__ P bufs, int first,
 
 // ---- kernel D: append_log ---------------------------------------------------
 // Compaction of the iteration's valid rows (in buffer order) into a bounded
-// buffer that never wraps, in two instances of one template on the row:
-// the records of recs into the [L, 6] int64 log, and the flow records of
+// buffer that never wraps, in three instances of one template on the row:
+// the records of recs into the [L, 6] int64 log, the flow records of
 // fl_recs into the [FL, 10] int32 flowtrace ring, each stamped with the
-// current window's end (C set it before A; D runs before the next C).  One
-// block an instance: tiles of ITEMS entries per thread, a block scan of the
-// per-thread counts, then each thread copies its valid rows to their
-// positions; rows past the end are counted as lost.
+// current window's end (C set it before A; D runs before the next C), and
+// on a hybrid run A's egress candidates into the [E, 6] int64 egress
+// buffer, whose earliest DELIVERED time lowers egress_min.
+//
+// One cluster of LOG_CLUSTER blocks per instance and scenario (grid
+// (instances x LOG_CLUSTER, S)).  Each block owns one contiguous slice of
+// the flags, whole runs of LOG_BITS, and a thread one run: it loads the run
+// (int4 loads where the flags are 16-byte aligned, all in flight) into a
+// 32-bit mask.  The block scans the masks' counts and stages its valid
+// indices in shared memory.  Then, once every block of the cluster has
+// started (the wait of a barrier each block arrived at as it began), each
+// block writes its count (and, for the egress, its minimum) into every
+// block's shared memory (distributed shared memory); after cluster.sync()
+// each block forms its offset from its own copy of the counts, and rank 0
+// the total (and the minimum).  Nothing is read from another block after
+// that barrier, so no block waits for another to finish.  Each block then
+// copies its rows from `*count` + its offset, the block's threads on
+// consecutive pieces of consecutive destination rows (a log row as three
+// 16-byte stores, a ring row as five 8-byte ones), rows past the capacity
+// not copied but counted as lost; rank 0 writes the count, the losses and
+// the egress minimum once.  A slice past one tile of LOG_TILE flags scans
+// its later tiles after the barrier, one at a time.  No global ticket,
+// fence, memset or workspace word: nothing is left for a later call to
+// clear.
 constexpr int LOG_THREADS = 1024;
-constexpr int LOG_ITEMS = 8;
+constexpr int LOG_BITS = 32;  // flags a thread takes in a tile (one mask);
+                              // lanes.LOG_BITS
+constexpr int64_t LOG_TILE = static_cast<int64_t>(LOG_THREADS) * LOG_BITS;
+// dynamic shared memory: a tile's valid flag indices
+constexpr int LOG_SMEM = static_cast<int>(LOG_TILE * sizeof(uint32_t));
+constexpr int LOG_CLUSTER = 16;  // lanes.LOG_CLUSTER
 
-// the log's rows: six int64 words, copied as they are
+// the log's (and the egress's) rows: six int64 words, copied as they are,
+// three 16-byte pieces a row (kernels.LaneArgs checks the alignment)
 struct LogRows {
   const int64_t* src;
   int64_t* dst;
-  __device__ void copy(int64_t r, int64_t pos) const {
-    for (int w = 0; w < 6; ++w) dst[pos * 6 + w] = src[r * 6 + w];
+  // the rows idx[0, n) (n <= LOG_TILE) to dst rows [pos, pos + n), the
+  // block's threads on consecutive pieces
+  __device__ __forceinline__ void copy(const uint32_t* idx, int n,
+                                      int64_t pos) const {
+    const longlong2* s2 = reinterpret_cast<const longlong2*>(src);
+    longlong2* d2 = reinterpret_cast<longlong2*>(dst);
+    for (int q = threadIdx.x; q < 3 * n; q += blockDim.x) {
+      const int j = q / 3, w = q - 3 * j;
+      d2[(pos + j) * 3 + w] = s2[static_cast<int64_t>(idx[j]) * 3 + w];
+    }
   }
 };
 
-// the ring's rows: a flow record's eight int32 words around the window stamp
+// the ring's rows: a flow record's eight int32 words around the window
+// stamp, five 8-byte pieces a row (the record's first pair, the stamp, its
+// other three pairs; kernels.LaneArgs checks the alignment)
 struct FlowRows {
   const int32_t* src;
   int32_t* dst;
   int32_t we_hi, we_lo;
-  __device__ void copy(int64_t r, int64_t pos) const {
-    const int32_t* x = src + r * FL_WORDS;
-    int32_t* y = dst + pos * FT_COLS;
-    y[0] = x[0];
-    y[1] = x[1];
-    y[2] = we_hi;
-    y[3] = we_lo;
-    for (int w = 2; w < FL_WORDS; ++w) y[w + 2] = x[w];
+  __device__ __forceinline__ void copy(const uint32_t* idx, int n,
+                                      int64_t pos) const {
+    const int2* s2 = reinterpret_cast<const int2*>(src);
+    int2* d2 = reinterpret_cast<int2*>(dst);
+    for (int q = threadIdx.x; q < 5 * n; q += blockDim.x) {
+      const int j = q / 5, w = q - 5 * j;
+      d2[(pos + j) * 5 + w] =
+          w == 1 ? make_int2(we_hi, we_lo)
+                 : s2[static_cast<int64_t>(idx[j]) * 4 + (w ? w - 1 : 0)];
+    }
   }
 };
 
-template <class Rows>
-__device__ void append_rows(const int32_t* valid, int64_t n_rec,
-                            const Rows& rows, int32_t* count, int32_t* lost,
-                            int64_t cap) {
-  __shared__ int32_t warp_sum[32];
-  __shared__ int32_t tile_total;
-  const int64_t start = *count;
-  int64_t base = start;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int64_t t0 = 0; t0 < n_rec; t0 += LOG_THREADS * LOG_ITEMS) {
-    const int64_t e0 = t0 + threadIdx.x * static_cast<int64_t>(LOG_ITEMS);
-    int32_t cnt = 0;
-    for (int u = 0; u < LOG_ITEMS; ++u)
-      if (e0 + u < n_rec && valid[e0 + u]) ++cnt;
-    // inclusive scan within the warp, then across warps
-    int32_t incl = cnt;
-    for (int s = 1; s < 32; s <<= 1) {
-      const int32_t v = __shfl_up_sync(0xFFFFFFFFu, incl, s);
-      if (lane >= s) incl += v;
-    }
-    if (lane == 31) warp_sum[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int32_t ws = warp_sum[lane];
-      for (int s = 1; s < 32; s <<= 1) {
-        const int32_t v = __shfl_up_sync(0xFFFFFFFFu, ws, s);
-        if (lane >= s) ws += v;
-      }
-      warp_sum[lane] = ws;  // inclusive prefix over warps
-      if (lane == 31) tile_total = ws;
-    }
-    __syncthreads();
-    int64_t pos = base + (warp > 0 ? warp_sum[warp - 1] : 0) + incl - cnt;
-    for (int u = 0; u < LOG_ITEMS; ++u) {
-      const int64_t r = e0 + u;
-      if (r < n_rec && valid[r]) {
-        if (pos < cap) rows.copy(r, pos);
-        ++pos;
-      }
-    }
-    base += tile_total;
-    __syncthreads();  // warp_sum / tile_total are rewritten by the next tile
+// The flags [i, i + LOG_BITS) below hi as a mask (bit u: flag i + u).
+__device__ __forceinline__ uint32_t flag_mask(const int32_t* valid, int64_t i,
+                                              int64_t hi, bool vec) {
+  uint32_t m = 0;
+  if (vec && i + LOG_BITS <= hi) {
+    const int4* v = reinterpret_cast<const int4*>(valid + i);
+    int4 w[LOG_BITS / 4];
+#pragma unroll
+    for (int u = 0; u < LOG_BITS / 4; ++u) w[u] = __ldg(v + u);
+#pragma unroll
+    for (int u = 0; u < LOG_BITS / 4; ++u)
+      m |= (w[u].x != 0 ? 1u : 0u) << (4 * u) |
+           (w[u].y != 0 ? 2u : 0u) << (4 * u) |
+           (w[u].z != 0 ? 4u : 0u) << (4 * u) |
+           (w[u].w != 0 ? 8u : 0u) << (4 * u);
+  } else {
+#pragma unroll 8
+    for (int u = 0; u < LOG_BITS; ++u)
+      if (i + u < hi && __ldg(valid + i + u)) m |= 1u << u;
   }
-  if (threadIdx.x == 0) {
-    const int64_t n_valid = base - start;
+  return m;
+}
+
+// The exclusive prefix of v over the block's threads in order, and the
+// block's total in *total.
+__device__ __forceinline__ int32_t block_scan(int32_t v, int32_t* total) {
+  __shared__ int32_t warp_sum[32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int32_t incl = v;
+  for (int s = 1; s < 32; s <<= 1) {
+    const int32_t o = __shfl_up_sync(FULL_MASK, incl, s);
+    if (lane >= s) incl += o;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int32_t ws = lane < static_cast<int>(blockDim.x >> 5) ? warp_sum[lane] : 0;
+    for (int s = 1; s < 32; s <<= 1) {
+      const int32_t o = __shfl_up_sync(FULL_MASK, ws, s);
+      if (lane >= s) ws += o;
+    }
+    warp_sum[lane] = ws;  // inclusive prefix over the warps
+  }
+  __syncthreads();
+  *total = warp_sum[31];
+  const int32_t excl = (warp > 0 ? warp_sum[warp - 1] : 0) + incl - v;
+  __syncthreads();  // warp_sum is written again by the next scan
+  return excl;
+}
+
+// the thread's valid flags (mask m over [i, i + LOG_BITS)) into idx from
+// position p, in order
+__device__ __forceinline__ void stage(uint32_t* idx, int32_t p, uint32_t m,
+                                      int64_t i) {
+  while (m) {
+    idx[p++] = static_cast<uint32_t>(i + __ffs(m) - 1);
+    m &= m - 1;
+  }
+}
+
+// of a tile's n rows, those that fit the room left (none when it is
+// negative)
+__device__ __forceinline__ int kept_rows(int n, int64_t room) {
+  return room <= 0 ? 0 : n < room ? n : static_cast<int>(room);
+}
+
+// what a block shows the cluster: its valid count and, for the egress, the
+// earliest DELIVERED time among its valid rows
+struct LogPart {
+  int64_t n, tmin;
+};
+
+// One instance over the cluster: the valid rows of `valid` [n_flags]
+// appended in order from *count (see the head of this section); with
+// `eg_rows`, the egress instance's minimum over them lowers the pair.
+// Nothing, for the whole cluster, when the scenario is done (`live` 0).
+template <class Rows>
+__device__ __forceinline__ void append_rows(
+    int32_t live, const int32_t* valid, int64_t n_flags, const Rows& rows,
+    int32_t* count, int32_t* lost, int64_t cap, const int64_t* eg_rows,
+    int32_t* eg_hi, int32_t* eg_lo) {
+  extern __shared__ uint32_t idx[];  // [LOG_TILE]
+  __shared__ LogPart parts[LOG_CLUSTER];  // every block's, by rank
+  __shared__ int64_t offset, blk_tmin;
+  __shared__ LogPart all;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank(), blocks = cluster.num_blocks();
+  const int64_t start = *count;
+  // this block's slice, whole runs of LOG_BITS flags
+  const int64_t per = (n_flags + blocks * LOG_BITS - 1) /
+                      (blocks * LOG_BITS) * LOG_BITS;
+  const int64_t lo = rank * per < n_flags ? rank * per : n_flags;
+  const int64_t hi = lo + per < n_flags ? lo + per : n_flags;
+  // int4 loads where the flags start 16-byte aligned (a workspace row of a
+  // batch may not)
+  const bool vec = (reinterpret_cast<uintptr_t>(valid) & 15) == 0;
+  const int64_t mine = threadIdx.x * static_cast<int64_t>(LOG_BITS);
+  const uint32_t m0 = flag_mask(valid, lo + mine, hi, vec);
+  if (live == 0) return;  // the same word for the whole cluster
+  cluster_arrive_relaxed();
+  // the first tile: the block scan and the staged indices before the
+  // barrier; a later tile's flags only counted here
+  int32_t n0;
+  const int32_t excl0 = block_scan(__popc(m0), &n0);
+  stage(idx, excl0, m0, lo + mine);
+  int64_t n_blk = n0;
+  for (int64_t t0 = lo + LOG_TILE; t0 < hi; t0 += LOG_TILE) {
+    int32_t nt;
+    block_scan(__popc(flag_mask(valid, t0 + mine, hi, vec)), &nt);
+    n_blk += nt;
+  }
+  int64_t tmin = NEVER64;
+  if (eg_rows) {  // the egress: every valid row's time, DELIVERED ones
+    for (int64_t t0 = lo; t0 < hi; t0 += LOG_TILE) {
+      uint32_t m = t0 == lo ? m0 : flag_mask(valid, t0 + mine, hi, vec);
+      while (m) {
+        const int64_t* row = eg_rows + (t0 + mine + __ffs(m) - 1) * 6;
+        m &= m - 1;
+        if (row[5] == DELIVERED) tmin = row[0] < tmin ? row[0] : tmin;
+      }
+    }
+    tmin = block_min(tmin);
+    if (threadIdx.x == 0) blk_tmin = tmin;  // thread 0's, to the pushers
+    __syncthreads();
+    tmin = blk_tmin;
+  }
+  cluster_wait();  // every block has started: their memory is there
+  // this block's part into every block's parts[rank]
+  if (threadIdx.x < blocks) {
+    LogPart* to = cluster.map_shared_rank(parts, threadIdx.x) + rank;
+    to->n = n_blk;
+    to->tmin = tmin;
+  }
+  cluster.sync();  // every part in place, in every block
+  if (threadIdx.x < 32) {
+    const unsigned r = threadIdx.x;
+    const int64_t n_r = r < blocks ? parts[r].n : 0;
+    int64_t before = r < rank ? n_r : 0, sum = n_r;
+    for (int s = 16; s > 0; s >>= 1) {
+      before += __shfl_down_sync(FULL_MASK, before, s);
+      sum += __shfl_down_sync(FULL_MASK, sum, s);
+    }
+    const int64_t mn = warp_min(r < blocks ? parts[r].tmin : NEVER64);
+    if (r == 0) {
+      offset = before;
+      all.n = sum;
+      all.tmin = mn;
+    }
+  }
+  __syncthreads();
+  if (rank == 0 && threadIdx.x == 0) {
+    const int64_t n_valid = all.n;
     int64_t room = cap - start;
     room = room < 0 ? 0 : room;
     const int64_t kept = n_valid < room ? n_valid : room;
     *count = static_cast<int32_t>(start + n_valid);
     *lost += static_cast<int32_t>(n_valid - kept);
+    if (eg_rows && all.tmin < join_t(*eg_hi, *eg_lo))
+      split(all.tmin, eg_hi, eg_lo);
+  }
+  int64_t pos = start + offset;
+  // the first tile's rows, staged before the barriers
+  rows.copy(idx, kept_rows(n0, cap - pos), pos);
+  pos += n0;
+  for (int64_t t0 = lo + LOG_TILE; t0 < hi; t0 += LOG_TILE) {
+    __syncthreads();  // idx is staged again
+    const uint32_t m = flag_mask(valid, t0 + mine, hi, vec);
+    int32_t nt;
+    const int32_t excl = block_scan(__popc(m), &nt);
+    stage(idx, excl, m, t0 + mine);
+    __syncthreads();
+    rows.copy(idx, kept_rows(nt, cap - pos), pos);
+    pos += nt;
   }
 }
 
-// The egress instance's second pass: the earliest DELIVERED time among the
-// iteration's egress rows lowers egress_min (a block min).
-__device__ void egress_min(const LaneBufs& b) {
-  __shared__ int64_t warp_min[32];
-  int64_t m = NEVER64;
-  for (int64_t r = threadIdx.x; r < b.n_eg; r += blockDim.x) {
-    const int64_t* row = b.eg_recs + r * 6;
-    if (b.eg_valid[r] && row[5] == DELIVERED) m = row[0] < m ? row[0] : m;
-  }
-  for (int s = 16; s > 0; s >>= 1) {
-    const int64_t o = __shfl_down_sync(0xFFFFFFFFu, m, s);
-    m = o < m ? o : m;
-  }
-  if ((threadIdx.x & 31) == 0) warp_min[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x != 0) return;
-  for (unsigned w = 1; w < (blockDim.x + 31) / 32; ++w)
-    m = warp_min[w] < m ? warp_min[w] : m;
-  if (m < join_t(*b.egress_min_hi, *b.egress_min_lo))
-    split(m, b.egress_min_hi, b.egress_min_lo);
-}
-
-// one block for each instance that runs, in this order: the log (when
-// logging), the ring (with flowtrace), the egress (hybrid)
+// a cluster for each instance that runs, in this order: the log (when
+// logging), the ring (with flowtrace), the egress (hybrid); one block an SM
+// (its 128 KB of shared memory), which the launch bound says, so that
+// ptxas may give a thread up to 64 registers (it spills at 32 without)
 template <class P>
-__global__ void append_log_kernel(const __grid_constant__ P bufs) {
+__global__ void __launch_bounds__(LOG_THREADS, 1)
+    append_log_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
-  if (b.ctl[0] == 0) return;
-  unsigned inst = blockIdx.x;
+  const int32_t live = b.ctl[0];  // loaded beside the first flags
+  unsigned inst = blockIdx.x / LOG_CLUSTER;
   if (b.log_cap > 0) {
     if (inst == 0) {
-      append_rows(b.rec_valid, b.n_rec, LogRows{b.recs, b.log}, b.log_count,
-                  b.log_lost, b.log_cap);
+      append_rows(live, b.rec_valid, b.n_rec, LogRows{b.recs, b.log},
+                  b.log_count, b.log_lost, b.log_cap, nullptr, nullptr,
+                  nullptr);
       return;
     }
     --inst;
   }
   if (b.flowtrace) {
     if (inst == 0) {
-      append_rows(b.fl_valid, b.n_fl,
+      append_rows(live, b.fl_valid, b.n_fl,
                   FlowRows{b.fl_recs, b.fl_buf, *b.now_we_hi, *b.now_we_lo},
-                  b.fl_count, b.fl_lost, b.ft_cap);
+                  b.fl_count, b.fl_lost, b.ft_cap, nullptr, nullptr, nullptr);
       return;
     }
     --inst;
   }
-  append_rows(b.eg_valid, b.n_eg, LogRows{b.eg_recs, b.egress},
-              b.egress_count, b.egress_lost, b.eg_cap);
-  egress_min(b);
+  append_rows(live, b.eg_valid, b.n_eg, LogRows{b.eg_recs, b.egress},
+              b.egress_count, b.egress_lost, b.eg_cap, b.eg_recs,
+              b.egress_min_hi, b.egress_min_lo);
 }
 
 // ---- rand_u32: the threefry draw alone, one thread per draw -----------------
@@ -3327,6 +3552,40 @@ int with_bufs(const LaneBufs* host, const LaneBufs* dev, int s,
     err = launch(dev);
   }
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// A launch of `kernel` in clusters of `cluster` blocks along x, through
+// cudaLaunchKernelEx.  The first launch of each instance (*ready false)
+// allows the non-portable sizes past eight blocks and opts in to `smem`
+// bytes of dynamic shared memory past the default 48 KB.  A launch the
+// device refuses (no room for the cluster, say) returns its error; nothing
+// falls back to another form.
+template <class... Params, class... Args>
+cudaError_t launch_cluster(void (*kernel)(Params...), bool* ready, dim3 grid,
+                           unsigned threads, unsigned cluster, int smem,
+                           cudaStream_t stream, Args... args) {
+  if (!*ready) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err == cudaSuccess && smem > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    *ready = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
 unsigned merge_threads(int64_t w_all) {
@@ -3455,12 +3714,16 @@ int tier_merge(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
-// one block per scenario, each with its own stop and window
+// kernel C: a cluster of c_blocks blocks per scenario, each scenario with
+// its own stop and window
 int queue_min_window(const LaneBufs* host, const LaneBufs* dev, int s,
                      int advance, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(host->c_blocks);
   return with_bufs(host, dev, s, [&](auto bufs) {
-    queue_min_kernel<<<s, 1024, 0, stream>>>(bufs, advance);
-    return cudaSuccess;
+    static bool ready = false;
+    return launch_cluster(queue_min_kernel<decltype(bufs)>, &ready,
+                          dim3(blocks, s), HEAD_THREADS, blocks, 0, stream,
+                          bufs, advance);
   });
 }
 
@@ -3468,10 +3731,14 @@ int queue_min_window(const LaneBufs* host, const LaneBufs* dev, int s,
 int hybrid_window(const LaneBufs* host, const LaneBufs* dev, int s,
                   int first, int ext_hi, int ext_lo, int ext_used,
                   cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(host->c_blocks);
   return with_bufs(host, dev, s, [&](auto bufs) {
-    hybrid_window_kernel<<<s, 1024, 0, stream>>>(bufs, first, ext_hi, ext_lo,
-                                                 ext_used);
-    return cudaSuccess;
+    static bool ready = false;
+    return launch_cluster(hybrid_window_kernel<decltype(bufs)>, &ready,
+                          dim3(blocks, s), HEAD_THREADS, blocks, 0, stream,
+                          bufs, first, static_cast<int32_t>(ext_hi),
+                          static_cast<int32_t>(ext_lo),
+                          static_cast<int32_t>(ext_used));
   });
 }
 
@@ -3479,9 +3746,12 @@ int hybrid_window(const LaneBufs* host, const LaneBufs* dev, int s,
 int hybrid_fused_window(const LaneBufs* host, const LaneBufs* dev, int s,
                         int first, int k_eff, int ext_used,
                         cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>(host->c_blocks);
   return with_bufs(host, dev, s, [&](auto bufs) {
-    hybrid_fused_kernel<<<s, 1024, 0, stream>>>(bufs, first, k_eff, ext_used);
-    return cudaSuccess;
+    static bool ready = false;
+    return launch_cluster(hybrid_fused_kernel<decltype(bufs)>, &ready,
+                          dim3(blocks, s), HEAD_THREADS, blocks, 0, stream,
+                          bufs, first, k_eff, static_cast<int32_t>(ext_used));
   });
 }
 
@@ -3522,15 +3792,17 @@ int inject_merge(const LaneBufs* host, const LaneBufs* dev, int s,
 
 int append_log(const LaneBufs* host, const LaneBufs* dev, int s,
                cudaStream_t stream) {
+  // a cluster of LOG_CLUSTER blocks for each instance that runs: the log,
+  // the flowtrace ring, the egress
+  const unsigned inst = (host->log_cap > 0 ? 1u : 0u) +
+                        (host->flowtrace ? 1u : 0u) +
+                        (host->ext_any ? 1u : 0u);
   return with_bufs(host, dev, s, [&](auto bufs) {
-    // one block for each instance that runs: the log, the flowtrace ring,
-    // the egress
-    const unsigned blocks = (host->log_cap > 0 ? 1u : 0u) +
-                            (host->flowtrace ? 1u : 0u) +
-                            (host->ext_any ? 1u : 0u);
-    if (blocks > 0)
-      append_log_kernel<<<dim3(blocks, s), LOG_THREADS, 0, stream>>>(bufs);
-    return cudaSuccess;
+    static bool ready = false;
+    if (inst == 0) return cudaSuccess;
+    return launch_cluster(append_log_kernel<decltype(bufs)>, &ready,
+                          dim3(inst * LOG_CLUSTER, s), LOG_THREADS,
+                          LOG_CLUSTER, LOG_SMEM, stream, bufs);
   });
 }
 
