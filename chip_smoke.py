@@ -103,7 +103,16 @@ with the egress minimum in block 5, S = 1, 3, 8 and 9; C's min head in
 the last block or a tier row, every head NEVER, ties, heads at the stop
 time, with and without advance, dynamic runahead and the netobs flush,
 S = 1, 3, 8 and 9, its hybrid mode's first and later steps and its fused
-mode's refold passes — exact.
+mode's refold passes — exact; then A and G on theirs
+(``check_slot_cases``): A at 1, 31, 32, 33, 63, 64 and 65 lanes (around
+its groups' warp and block boundaries) at K = 2, 3, 8 and 40 (a warp's
+columns twice over), at 10,000 and 48,000 lanes, every column popped,
+none and ties, the send, draw, local and mesh-offset counters wrapping
+past the int32 top mid-row, passive, active and stream lanes side by
+side (a star lane of 40 rows), the external arm, S = 1, 3, 8 and 9; G on
+empty rows, exactly C2 valid, C2 + 1, every candidate valid, keys tied
+between the queue and the candidates, an unsorted queue, the wide row in
+``m_scratch``, S = 1, 3, 8 and 9 — exact.
 Between the wide rows and 9: fault schedules card = CPU (step and device)
 on six twins of ``tests/test_torch_faults.py``'s configurations and on
 the lossy flagship at 10,000 hosts for 1 sim s with a latency epoch (10 to
@@ -2778,6 +2787,322 @@ def check_compact_cases():
         raise AssertionError("hybrid_fused_window: no refold pass ran")
 
 
+# ---- kernels A and G: edge cases -------------------------------------------
+
+TOP31 = (1 << 31) - 1
+
+
+def slot_state(eng: GpuEngine, tb, rng, case: str, pkt_lanes=None):
+    """A seeded state for kernel A's edge cases, over active_tables' mixed
+    models: ``all`` — every lane's first K columns pop (passive lanes K
+    timer ticks inside the window, active lanes a same-instant PACKET
+    prefix, both sides of the bootstrap end); ``none`` — every head at or
+    past the window end (T0 + 10 ms); ``mixed`` — active_state's ties.
+    ``pkt_lanes`` (a mask) take PACKETs as the active lanes do.  The send,
+    draw, local and mesh-offset counters sit at the int32 top, so the
+    walks' prefixes wrap mid-row."""
+    p = eng.params
+    n, c, k = p.n_lanes, p.capacity, p.pops_per_iter
+    s = active_state(eng, tb, rng)
+    if case != "mixed":
+        lane = np.arange(n)[:, None]
+        col = np.arange(c)[None, :]
+        model = tb.model.cpu().numpy()[:, None]
+        passive = np.isin(model, sorted(lanes.PASSIVE_MODELS))
+        if pkt_lanes is not None:
+            passive = passive & ~pkt_lanes[:, None]
+        if case == "all":
+            start = T0 + rng.integers(0, 9, (n, 1)) * 1_000_000
+            times = np.where(col < k, start + np.where(passive, col * 1000, 0),
+                             T0 + 20_000_000 + col)
+        else:
+            times = T0 + 10_000_000 + rng.integers(0, 3, (n, c)) * 1_000_000
+        kind = np.where(passive & (col < k), lanes.LOCAL, lanes.PACKET)
+        src = np.where(kind == lanes.LOCAL, lane, rng.integers(0, n, (n, c)))
+        auxh = (kind << lanes.AUX_KIND_SHIFT) | (src << lanes.AUX_SRC_SHIFT)
+        auxl = col + rng.integers(0, 1 << 20, (n, 1)) * c
+        size = np.where(kind == lanes.LOCAL, 0, rng.integers(28, 1500, (n, c)))
+        rows = sorted_rows(times, auxh.astype(np.int32), auxl.astype(np.int32),
+                           size.astype(np.int32))
+        s = s._replace(q_thi=t32(rows[0]), q_tlo=t32(rows[1]),
+                       q_auxh=t32(rows[2]), q_auxl=t32(rows[3]),
+                       q_size=t32(rows[4]))
+    near = TOP31 - rng.integers(0, k + 1, n)
+    return s._replace(
+        send_seq=t32(np.where(rng.random(n) < 0.5, near,
+                              rng.integers(0, 99, n))),
+        app_draws=t32(np.where(rng.random(n) < 0.5, near, 7)),
+        local_seq=t32(np.where(rng.random(n) < 0.5, near, 3)),
+        m_peer_offset=t32(np.where(rng.random(n) < 0.5, near, 11)),
+        m_sent=t32(rng.integers(0, 1000, n)))
+
+
+def slot_engine(doc_fn, n: int, k: int):
+    """An engine of ``n`` hosts with K = ``k``, its config ``doc_fn(n)``."""
+    cfg = doc_fn(n)
+    cfg.experimental.tpu_events_per_round = k
+    cfg.experimental.tpu_lane_queue_capacity = max(
+        cfg.experimental.tpu_lane_queue_capacity, k + 8)
+    return GpuEngine(cfg, log_capacity=0)
+
+
+def slot_case(eng, rng, case: str, log_cap: int, dyn: bool):
+    p = dataclasses.replace(active_params(eng, dyn), log_capacity=log_cap)
+    tb = active_tables(eng, rng)
+    s0 = slot_state(eng, tb, rng, case)
+    if log_cap:
+        s0 = s0._replace(log=torch.zeros((log_cap, 6), dtype=torch.int64,
+                                         device=DEV))
+    ws0 = lanes.make_workspace(p, DEV)
+    ws0.ctl[0] = 1
+    return p, tb, s0, ws0
+
+
+def a_plain(p_, tb_, s, ws):
+    lanes.lane_slots_plain(p_, tb_, s, ws)
+
+
+def a_counts(p, s0, plain) -> dict:
+    k = p.pops_per_iter
+    return {"popped": int((s0.q_thi[:, :k] != plain["q_thi"][:, :k]).sum()),
+            **{f: int((plain[f].long() - s0._asdict()[f].long()).sum())
+               for f in ("n_sends", "n_loss", "n_hops", "n_delivered")}}
+
+
+def stream_side_by_side(eng, rng, log_cap: int):
+    """stream_case's state with the lanes that own no endpoint row turned
+    into phold, ping, tgen and empty lanes over one graph node, counters at
+    the int32 top: passive, active and stream lanes side by side."""
+    p, tb, s0 = stream_case(eng, rng)
+    n = p.n_lanes
+    stream = np.zeros(n, bool)
+    stream[tb.flow_lanes.cpu().numpy()] = True
+    model = np.where(stream, tb.model.cpu().numpy(), rng.choice(
+        [lanes.M_PHOLD, lanes.M_PING_CLIENT, lanes.M_PING_SERVER,
+         lanes.M_TGEN_MESH, lanes.M_NONE], n))
+    p = dataclasses.replace(p, models_present=tuple(range(9)),
+                            log_capacity=log_cap)
+    tb = tb._replace(model=t32(model), p_count=t32(rng.integers(0, 9, n)))
+    near = TOP31 - rng.integers(0, p.pops_per_iter + 1, n)
+    s0 = s0._replace(send_seq=t32(np.where(stream, s0.send_seq.cpu().numpy(),
+                                           near)),
+                     app_draws=t32(near))
+    if log_cap:
+        s0 = s0._replace(log=torch.zeros((log_cap, 6), dtype=torch.int64,
+                                         device=DEV))
+    ws0 = lanes.make_workspace(p, DEV)
+    ws0.ctl[0] = 1
+    return p, tb, s0, ws0
+
+
+G_CASES = ("empty", "exact", "over1", "all", "ties", "unsorted", "random")
+
+
+def g_inputs(p, s, ws, rng, cases=G_CASES) -> dict:
+    """Kernel G's inputs, one case a row (in turn): the queue rows of
+    ``s.stream.q`` and the candidate block of ``ws.tier_blk``.  ``empty``:
+    no valid entry; ``exact``: C2 valid in all; ``over1``: C2 + 1;
+    ``all``: every candidate valid and the queue full; ``ties``:
+    candidates with the keys of queue entries; ``unsorted``: the queue's
+    valid entries out of key order (no F leaves that: G's fallback);
+    ``random``: some of each.  Invalid entries keep stale words.  Returns
+    the valid entries by case."""
+    sf, c2, ks, cx = p.s_flows, p.stream_capacity, p.stream_pops, p.cross_cap
+    s2, wt, nb = 2 * sf, p.tier_width, ks * lanes.PUMP_BURST
+    sa0, se0, bo0, cx0, _end = p.tier_layout
+    q = rng.integers(-(1 << 31), 1 << 31, (7, s2, c2))
+    q[:2] = lanes.NEVER32
+    cand = rng.integers(-(1 << 31), 1 << 31, (7, s2, wt))
+    cand[:2] = lanes.NEVER32
+    seen = {}
+
+    def keys(m: int):
+        t = T0 + rng.integers(0, 40, m) * 250_000
+        kind = rng.choice([lanes.PACKET, lanes.DELIVERY, lanes.LOCAL], m)
+        auxh = kind << 29 | rng.integers(0, p.n_lanes, m) << 12
+        return np.stack([t >> 31, t & lanes.MASK31, auxh,
+                         rng.integers(-(1 << 31), 1 << 31, m),
+                         rng.integers(28, 1500, m),
+                         rng.integers(-(1 << 31), 1 << 31, m),
+                         rng.integers(-(1 << 31), 1 << 31, m)])
+
+    for r in range(s2):
+        case = cases[r % len(cases)]
+        slots = np.arange(wt)
+        if r < sf:  # a client row's bursts are empty
+            slots = slots[(slots < 3 * ks) | (slots >= 3 * ks + nb)]
+        n_q = {"empty": 0, "exact": c2 // 2, "over1": c2 // 2, "all": c2,
+               "ties": c2 // 2, "unsorted": c2 // 2}.get(
+            case, int(rng.integers(0, c2 + 1)))
+        n_c = {"empty": 0, "exact": c2 - n_q, "over1": c2 - n_q + 1,
+               "all": len(slots), "ties": min(24, len(slots)),
+               "unsorted": 20}.get(case, int(rng.integers(0, 40)))
+        qk = keys(n_q)
+        order = np.lexsort((qk[3].astype(np.int32), qk[2].astype(np.int32),
+                            (qk[0] << 31) | qk[1]))
+        qk = qk[:, order]
+        if case == "unsorted" and n_q > 1:
+            qk = qk[:, ::-1]
+        q[:, r, :n_q] = qk
+        ck = keys(n_c)
+        if case == "ties" and n_q:
+            pick = rng.integers(0, n_q, n_c)
+            ck[:4] = qk[:4, pick]
+        cand[:, r, rng.choice(slots, n_c, replace=False)] = ck
+        seen[case] = seen.get(case, 0) + n_q + n_c
+    # the candidate block, as _tier_candidates reads it
+    blk = ws.tier_blk.cpu().numpy().copy()
+    rows = np.arange(s2)
+    peer = np.where(rows < sf, rows + sf, rows - sf)
+    for x in range(ks):
+        blk[:, x * s2 + rows] = cand[:, :, x]
+        blk[:, sa0 + x * s2 + rows] = cand[:, :, ks + x]
+        blk[:, se0 + x * s2 + peer] = cand[:, :, 2 * ks + x]
+    for x in range(nb):
+        blk[:, bo0 + x * sf + rows[sf:] - sf] = cand[:, sf:, 3 * ks + x]
+    for x in range(cx):
+        blk[:, cx0 + rows * cx + x] = cand[:, :, 3 * ks + nb + x]
+    ws.tier_blk.copy_(t32(blk))
+    s.stream.q.copy_(t32(q))
+    return seen
+
+
+def g_plain(p_, tb_, s, ws):
+    lanes.tier_merge_plain(p_, tb_, s, ws)
+
+
+@phase("kernels A and G on their edge cases vs plain: A at 1, 31, 32, 33, 63, "
+       "64, 65, 10,000 and 48,000 lanes, K = 2, 3, 8 and 40 (two rounds of a "
+       "warp), every column popped and none, counters at the int32 wrap, "
+       "passive, active and stream lanes side by side (a star lane of 40 "
+       "rows), the external arm, S = 1, 3, 8, 9; G on empty rows, exactly "
+       "C2, C2 + 1, every candidate valid, ties between the queue and the "
+       "candidates, an unsorted queue, the wide row in m_scratch, S = 1, 3, "
+       "8, 9 (tolerance: exact, integer)")
+def check_slot_cases():
+    rng = np.random.default_rng(SEED + 12)
+    # A: lane counts around the groups' warp and block boundaries
+    for n in (1, 31, 32, 33, 63, 64, 65):
+        for label, fn, k in (("flagship", lambda m: flagship(1, n_hosts=m), 2),
+                             ("phold", lambda m: phold(n_hosts=m), 8),
+                             ("phold", lambda m: phold(n_hosts=m), 3),
+                             ("phold", lambda m: phold(n_hosts=m), 40)):
+            eng = slot_engine(fn, n, k)
+            for case in ("all", "none", "mixed"):
+                for log_cap in (0, 4_000):
+                    p, tb, s0, ws0 = slot_case(eng, rng, case, log_cap,
+                                               dyn=log_cap > 0)
+                    tag = f"{label} N={n} K={k} {case} L={log_cap}"
+                    kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots,
+                                           a_plain)
+                    check("lane_slots", tag, kern, plain)
+                    got = a_counts(p, s0, plain)
+                    if case == "none" and got["popped"]:
+                        raise AssertionError(f"{tag}: popped {got}")
+                    if case == "all" and got["popped"] != n * k:
+                        raise AssertionError(f"{tag}: popped {got}")
+        log(f"lane_slots N={n}: equal at K = 2, 3, 8, 40, every column "
+            "popped, none, and ties")
+    # the full widths, every column popped, and S = 1, 3, 8, 9 in one launch
+    for n in (N_FLAG, 48_000):
+        eng = slot_engine(lambda m: flagship(1, n_hosts=m), n, K_FLAG)
+        for case in ("all", "none", "mixed"):
+            p, tb, s0, ws0 = slot_case(eng, rng, case, 100_000, dyn=True)
+            kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots, a_plain)
+            check("lane_slots", f"N={n} {case}", kern, plain)
+            log(f"lane_slots N={n} {case}: equal; {a_counts(p, s0, plain)}")
+    eng = slot_engine(lambda m: flagship(1, n_hosts=m), 1000, K_FLAG)
+    for size in (1, 3, 8, 9):
+        cases = [slot_case(eng, rng, ("all", "mixed", "none")[i % 3], 0,
+                           dyn=False) for i in range(size)]
+        kern, want, _inputs = run_batch(cases, kernels.lane_slots, a_plain,
+                                        done=1 if size > 1 else None)
+        for i in range(size):
+            check("lane_slots", f"sweep S={size} scenario {i}", kern[i],
+                  want[i])
+        log(f"lane_slots S={size}: one launch equal to the plain loop"
+            + (" (scenario 1 done)" if size > 1 else ""))
+    # passive, active and stream lanes side by side; a star lane of 40 rows
+    for name, doc in (("mixed", None),
+                      ("star", star_doc(servers=2, fan_in=40))):
+        seng = (GpuEngine(mixed_mesh(1), log_capacity=0) if doc is None
+                else GpuEngine(ConfigOptions.from_dict(doc), log_capacity=0))
+        for log_cap in (0, 1_000_000):
+            p, tb, s0, ws0 = stream_side_by_side(seng, rng, log_cap)
+            kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots, a_plain)
+            check("lane_slots", f"side by side {name} L={log_cap}", kern,
+                  plain)
+            got = sx_counts(p, plain["sx_blk"])
+            log(f"lane_slots side by side {name} L={log_cap}: equal; "
+                f"{a_counts(p, s0, plain)}, stream block {got}")
+            if not (got["sends"] or got["rto_arms"]):
+                raise AssertionError(f"{name}: no stream emit")
+    # the external arm, every column popped and none
+    cfg = hybrid_cfg("slots")
+    ext = external_mask(cfg)
+    heng = GpuEngine(cfg, log_capacity=60_000, external=ext)
+    for case in ("all", "none"):
+        p = heng.params
+        tb = heng.tables
+        s0 = slot_state(heng, tb, rng, case, pkt_lanes=ext)
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.lane_slots, a_plain)
+        check("lane_slots:external", f"slot case {case}", kern, plain)
+        n_eg = int(plain["eg_valid"].sum())
+        log(f"lane_slots external {case}: equal; {n_eg} egress rows")
+        if (n_eg > 0) != (case == "all"):
+            raise AssertionError(f"external {case}: {n_eg} egress rows")
+
+    # G: a case a row at the tiered mixed mesh's shapes, S = 1, 3, 8, 9
+    geng = GpuEngine(mixed_tiered(1), log_capacity=0)
+
+    def g_case(log_cap: int):
+        p, tb, s0 = tier_case(geng, rng, True, log_cap)
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        seen = g_inputs(p, s0, ws0, rng)
+        return (p, tb, s0, ws0), seen
+
+    for log_cap in (0, 200_000):
+        (p, tb, s0, ws0), seen = g_case(log_cap)
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.tier_merge, g_plain)
+        check("tier_merge", f"slot cases L={log_cap}", kern, plain)
+        over = (plain["stream.v"][lstr.TV_N_QUEUE]
+                - s0.stream.v[lstr.TV_N_QUEUE]).tolist()
+        log(f"tier_merge cases L={log_cap}: equal on {2 * p.s_flows} rows; "
+            f"valid entries by case {seen}; overflow by row (first 7) "
+            f"{over[:7]}")
+        if over[2] != 1 or over[1] != 0 or over[3] == 0:
+            raise AssertionError(f"tier merge cases: overflow {over[:7]}")
+    for size in (3, 8, 9):
+        cases = [g_case(100_000)[0] for _ in range(size)]
+        kern, want, _inputs = run_batch(cases, kernels.tier_merge, g_plain,
+                                        done=1)
+        for i in range(size):
+            check("tier_merge", f"sweep S={size} scenario {i}", kern[i],
+                  want[i])
+        log(f"tier_merge S={size}: one launch equal to the plain loop "
+            "(scenario 1 done)")
+    # the wide row: C2 = 8,400, its rows in m_scratch
+    weng = GpuEngine(wide_pair(True), log_capacity=0)
+    p = dataclasses.replace(weng.params, log_capacity=100_000)
+    paths = merge_paths(p)
+    if not paths["tier merge"].startswith("global"):
+        raise AssertionError(f"the wide tier row is not global: {paths}")
+    for cases in (("all",), ("random",), ("unsorted",)):
+        s0 = weng.initial_state()._replace(
+            log=torch.zeros((100_000, 6), dtype=torch.int64, device=DEV))
+        ws0 = lanes.make_workspace(p, DEV)
+        ws0.ctl[0] = 1
+        seen = g_inputs(p, s0, ws0, rng, cases)
+        kern, plain = run_pair(p, weng.tables, s0, ws0, kernels.tier_merge,
+                               g_plain)
+        check("tier_merge", f"wide {cases[0]}", kern, plain)
+        log(f"tier_merge wide {cases[0]}: equal in m_scratch "
+            f"({paths['tier merge']}); valid {seen}")
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -5164,6 +5489,7 @@ def main() -> int:
     check_fused_kernels()
     check_merge_cases()
     check_compact_cases()
+    check_slot_cases()
     times = time_all()
     parity()
     stream_parity()

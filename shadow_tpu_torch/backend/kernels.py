@@ -68,7 +68,7 @@ _INT_FIELDS = ("n", "c", "k", "cx", "sw", "g", "log_cap", "stop", "runahead",
                "fl_ss", "fl_bs", "n_fl", "merge_global", "split_global",
                "tier_global", "ext_any", "eg_cap", "room_floor", "n_eg",
                "inj_b", "cxi", "inject_global", "k_cap", "ext_slots",
-               "merge_warp", "c_blocks")
+               "merge_warp", "c_blocks", "slot_group")
 
 
 class LaneBufs(ctypes.Structure):
@@ -204,7 +204,8 @@ class LaneArgs:
     ``lanes.merge_in_shared`` gives its rows at the device's opt-in limit:
     ``*_global`` marks the merges that run in ``m_scratch``; ``merge_warp``
     B's narrow form (``lanes.merge_in_warp``); ``c_blocks`` the blocks of
-    kernel C's cluster (``lanes.heads_blocks``)."""
+    kernel C's cluster (``lanes.heads_blocks``); ``slot_group`` kernel A's
+    threads a lane (``lanes.slot_group``)."""
 
     def __init__(self, p: lanes.LaneParams, tb: lanes.LaneTables,
                  s: lanes.LaneState, ws: lanes.Workspace) -> None:
@@ -342,6 +343,7 @@ class LaneArgs:
             k_cap=p.hybrid_k_cap, ext_slots=p.ext_slots,
             merge_warp=int(lanes.merge_in_warp(pl.merge_width)),
             c_blocks=lanes.heads_blocks(n + (2 * sf if tiered else 0)),
+            slot_group=lanes.slot_group(k),
         )
 
     @functools.cached_property
@@ -355,7 +357,8 @@ class LaneArgs:
 _LAUNCH_FIELDS = ("n", "c", "k", "cx", "sw", "words", "n_x", "s_flows",
                   "tier_s", "ks", "c2", "flowtrace", "merge_global",
                   "split_global", "tier_global", "ext_any", "n_eg", "inj_b",
-                  "cxi", "inject_global", "merge_warp", "c_blocks")
+                  "cxi", "inject_global", "merge_warp", "c_blocks",
+                  "slot_group")
 
 
 class SweepArgs:
@@ -456,20 +459,31 @@ def lane_slots(args) -> None:
     ``:566``, ``on_segment_vec`` ``:604``, ``pump_epilogue_vec`` ``:462``
     and their helpers) as ``__device__`` functions.  Bound on the card by
     bytes: each lane reads its K head slots, ~35 state words and its table
-    row, and writes them back with the emit blocks — no reuse, so one
-    thread per lane keeps the whole K-slot walk in registers and touches
-    each word once.  The thread also owns its lane's flow endpoint rows (a
-    lane -> rows table): at most one is stimulated per slot, so that row's
-    33 words live in registers for the slot and no atomics are needed; the
-    stream block's entries go to fixed positions.  The threefry draw (about
-    80 integer operations) is computed in registers where it is needed,
-    never stored.  One kernel serves passive, active and stream runs: a
-    passive-only variant saved nothing measurable end to end (PERF.md).
-    With flowtrace (``lanes.py:1470-1501`` and the group build of
-    ``iter_body``, ``:3195-3318``) the thread also writes, per slot, the
-    flags of its seven [N] flow groups and its rows' stream groups, and
-    the records of the sampled flows (``flow_hash``, ``:2086``, in
-    registers): stores to fixed slots, coalesced across the lanes."""
+    row, and writes them back with the emit blocks.  Its time was the
+    serial chain of dependent loads and draws one thread ran K times over,
+    so the walk decides first, then walks: a lane takes a group of
+    ``lanes.slot_group(K)`` threads of one warp (about K / 2, each taking
+    every L-th column), 128 threads a block (the lanes spread over every
+    SM).  Each thread loads the lane's state and its columns at once,
+    decides from the group's ballots whether each column acts, whether it
+    sends, to whom and at which send and re-arm sequence numbers
+    (exclusive prefix counts), and issues the gathers (``node_of``,
+    ``lat``, ``thresh``) and the threefry draws of every column together;
+    only the two buckets and CoDel chain from column to column, walked by
+    the group in lockstep on shuffled values before each thread writes its
+    columns' emits.  A lane that owns flow
+    endpoint rows (untiered streams) takes a warp of its own, in blocks
+    after the groups' (one warp per endpoint row, the walk on a lane's
+    first row: no table beyond ``lane_ep_start``/``lane_ep_rows``): the
+    warp walks every column in lockstep with the stream arm, whose loss
+    draws are made a warp lane each beforehand and whose burst unit u —
+    its entry or the canonical empty, its loss record, capture row and
+    flow flags — warp lane u writes.  The stream arm is compiled only into
+    the instance for runs with streams.  With flowtrace
+    (``lanes.py:1470-1501`` and the group build of ``iter_body``,
+    ``:3195-3318``) each column's thread also writes the flags of its seven
+    [N] flow groups and the records of the sampled flows (``flow_hash``,
+    ``:2086``, in registers): stores to fixed slots."""
     if _launch("lane_slots", args,
                lambda m: lanes.lane_slots_plain(m.p, m.tb, m.s, m.ws)):
         lane_slots.launches += 1
@@ -558,17 +572,18 @@ def tier_merge(args) -> None:
     """Kernel G: the tier merge.
 
     Replaces ``shadow_tpu/backend/lanes.py:2682-2786`` (the merge and the
-    overflow records of ``_stream_tier_iter``).  One block per endpoint
-    row gathers its ``C2 + W_t`` entries (queue, DELIVERY fallbacks, RTO
-    arms, the peer's control sends, the client's bursts, the diverted
-    cross entries), compacts the valid ones into shared memory with a
-    block prefix sum in index order, ranks only those by (key, index), and
-    writes the first C2 with canonical empties after them; the rest are
-    counted into ``TV_N_QUEUE`` and recorded as DROP_QUEUE.  Most of a
-    row's candidates are empty (a client row's burst block always), so
-    ranking only the valid ones keeps the compares far below a rank of the
-    whole row.  Bound by bytes: the queue rows and the candidate block
-    read once, the rows written once."""
+    overflow records of ``_stream_tier_iter``).  A warp per endpoint row
+    (a block each): it flags its row's ``C2 + W_t`` entries valid 32 at a
+    time by ballots (every time word loaded before the ballots), gathers
+    only the valid ones in index order, and ranks each by (key, index) as
+    a merge of sorted runs — the queue's valid entries, one run in key
+    order already (checked), and the candidates in runs of 32 sorted in
+    registers — its place in its run plus a binary search of every other
+    run.  The first C2 go to the row with canonical empties after them;
+    the rest are counted into ``TV_N_QUEUE`` and recorded as DROP_QUEUE.
+    No barrier and no all-pairs rank.  Bound by bytes: the queue rows and
+    the candidate block read once, the rows written once; a row past the
+    opt-in shared memory works in ``m_scratch``."""
     if _launch("tier_merge", args,
                lambda m: lanes.tier_merge_plain(m.p, m.tb, m.s, m.ws)):
         tier_merge.launches += 1

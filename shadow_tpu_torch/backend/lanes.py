@@ -832,6 +832,30 @@ def heads_blocks(n_heads: int) -> int:
     return max(1, min(HEAD_CLUSTER_MAX, -(-n_heads // HEAD_THREADS)))
 
 
+# kernel A's widest group: a warp (csrc/lanes.cu SLOT_GROUP_MAX)
+SLOT_GROUP_MAX = 32
+
+
+def slot_group(k: int) -> int:
+    """Kernel A's form, fixed before a run starts: the threads of one
+    warp that walk one lane, each taking the columns ``gl``, ``gl + L``, ...
+    — two columns a thread from K = 4 on (the smallest power of two >= K /
+    2), 2 at K = 2 and 3, 1 at K = 1, at most 32; 128 threads a block, and
+    on a run with streams a warp for each stream lane after the groups.
+    Measured on the H100 (``scripts/gpu_slot_probe.py``): the flagship's
+    and the tiered mesh's K = 2 fastest at 2, the untiered mesh's K = 4 at
+    2, PHOLD's K = 8 at 4 (a thread a column, or one a lane, slower on
+    each)."""
+    return min(SLOT_GROUP_MAX, sort_width(max(k // 2, min(k, 2))))
+
+
+def tier_row_words(entries: int) -> int:
+    """int32 words of G's working memory for a row of ``entries``: the
+    valid entries' seven words and their order, and two words a chunk of
+    32 (its valid mask and the valid entries before it)."""
+    return 8 * entries + 2 * -(-entries // 32)
+
+
 # kernel D's compaction (csrc/lanes.cu): the blocks of an instance's
 # cluster, the flags a thread takes as one mask, and a block's tile (its
 # 1,024 threads' masks); a slice past one tile scans its later tiles one at
@@ -851,7 +875,8 @@ def merge_rows(p: LaneParams) -> dict:
     """The run's block-form merges: name -> (rows, entries a row, words an
     entry, extra bytes a row): B's ``[C | self | Cx]`` rows, E's ``[C |
     W_s]`` rows and H's ``[C | Cxi]`` rows, each with its sort's index
-    array (B's group selection uses it first), G's ``[C2 | W_t]`` rows.
+    array (B's group selection uses it first), G's ``[C2 | W_t]`` rows
+    with their order and chunk words (:func:`tier_row_words`).
     B's narrow form (:func:`merge_in_warp`) keeps its row in registers, and
     such a row always passes the shared-memory rule, so it never sizes
     ``m_scratch``."""
@@ -865,8 +890,9 @@ def merge_rows(p: LaneParams) -> dict:
         w = p.capacity + p.stream_row_width
         out["stream merge"] = (2 * p.s_flows, w, 7, 4 * sort_width(w))
     if p.stream_tiered:
-        out["tier merge"] = (2 * p.s_flows,
-                             p.stream_capacity + p.tier_width, 7, 0)
+        w = p.stream_capacity + p.tier_width
+        out["tier merge"] = (2 * p.s_flows, w, 7,
+                             4 * (tier_row_words(w) - 7 * w))
     return out
 
 

@@ -53,8 +53,9 @@
 // past 48 KB up to the device's sharedMemPerBlockOptin; a row beyond that
 // (a size rule the wrapper fixes before the run, lanes.merge_in_shared)
 // sorts in global memory instead, in the workspace's m_scratch, by the
-// same code.  G ranks its compacted valid entries by all pairs (key_rank),
-// in shared memory or m_scratch by the same size rule.
+// same code.  G merges a row a warp: the queue's run and the candidates'
+// runs of 32, each entry ranked by binary searches of the other runs, in
+// shared memory or m_scratch by the same size rule.
 
 #include <algorithm>
 #include <cooperative_groups.h>
@@ -200,6 +201,8 @@ struct LaneBufs {
   // kernel C's cluster: the blocks its head reduction spreads over
   // (lanes.heads_blocks)
   int64_t c_blocks;
+  // kernel A's threads a lane (lanes.slot_group)
+  int64_t slot_group;
 };
 
 // Up to PARAM_SCENARIOS blocks side by side, passed as one kernel parameter
@@ -215,7 +218,8 @@ namespace {
 // ParamBufs (S <= 8) or the [S] array in device memory.  From the parameter
 // a field is read from the constant bank where it is used; through the
 // array it is a load whose value the compiler keeps in a register (kernel
-// A: 159 registers at S = 1, 168 at S <= 8, 246 past that).
+// A's instance for runs with streams: 216 registers at S = 1, 242 at S <=
+// 8, 254 past that).
 __device__ __forceinline__ const LaneBufs& scenario(const LaneBufs& one,
                                                     unsigned) {
   return one;
@@ -1116,43 +1120,67 @@ __device__ __forceinline__ Sends stream_stimulus(
 }
 
 // The stream arm of slot j for lane i (the reference's _process_slot stream
-// tier and compacted channels): the lane's endpoint row that this popped
-// event stimulates — a start marker opens a client flow, an RTO local owned
-// by the row's flow fires its timer, a stream segment (non-zero payload; at
-// a server row only from its own client) runs on_segment — takes
-// stream_stimulus on the lane's up bucket and counters.  Every entry of the
-// stream block and every stream loss record (and with stream_pcap every
-// capture record, with flowtrace every flow record flag of the control-send
-// and burst groups) of the lane's rows for slot j is written, valid or not.
-__device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
-                            int32_t kind, int32_t src, int32_t size,
-                            int32_t phi, int32_t plo, int32_t thi,
-                            int32_t tlo, int64_t we, StreamLane sl) {
-  const int32_t r0 = b.lane_ep_start[i], r1 = b.lane_ep_start[i + 1];
-  if (r0 == r1) return;  // no flow endpoint on this lane
+// tier and compacted channels), run by the lane's warp in lockstep: every
+// warp lane holds the same popped event and the same lane state.  The
+// lane's endpoint row that the event stimulates — a start marker opens a
+// client flow, an RTO local owned by the row's flow fires its timer, a
+// stream segment (non-zero payload; at a server row only from its own
+// client) runs on_segment — takes stream_stimulus on the lane's up bucket
+// and counters, its loss draws made beforehand one a warp lane (counters
+// send_seq + lane, as F's walk draws them).  Every entry of the stream block
+// and every stream loss record (and with stream_pcap every capture record,
+// with flowtrace every flow record flag of the control-send and burst
+// groups) of the lane's rows for slot j is written, valid or not: a row's
+// control send and RTO arm by warp lane (row - r0) % 32, and on a client row
+// burst unit u — its entry or the canonical empty, its loss record, capture
+// row and flow flags — by warp lane u.  [r0, r1): the lane's rows in
+// lane_ep_rows.
+__device__ void stream_slot_warp(const LaneBufs& b, int64_t i, int64_t j,
+                                 int32_t r0, int32_t r1, bool act,
+                                 int32_t kind, int32_t src, int32_t size,
+                                 int32_t phi, int32_t plo, int32_t thi,
+                                 int32_t tlo, int64_t we, StreamLane sl) {
+  const int ln = threadIdx.x & 31;
   const int64_t sf = b.s_flows, s2 = 2 * sf, k = b.k;
   const int64_t n_ent = 4 * k * sf + k * PUMP_BURST * sf;
   const int32_t lane = static_cast<int32_t>(i);
   const int64_t t = join_raw(thi, tlo);
   const bool ft = b.flowtrace != 0;
   const int64_t gw_s = k * s2, gw_b = k * PUMP_BURST * sf;  // flow groups
+  const int32_t auxh_pkt = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+  const int32_t auxh_loc = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
 
-  // the stimulated row (at most one per lane and slot)
+  // the stimulated row (at most one per lane and slot): the first of the
+  // lane's rows the event stimulates, the rows tested a warp lane each
   int32_t e = -1, stim = 0;  // 1 open, 2 RTO, 3 segment
-  for (int32_t r = r0; act && r < r1 && e < 0; ++r) {
-    const int32_t row = b.lane_ep_rows[r];
-    const bool cl = row < sf;
-    if (kind == LOCAL && size == -1 && cl) {
-      e = row, stim = 1;
-    } else if (kind == LOCAL && size == SZ_RTO && plo == b.flow_clid[row]) {
-      e = row, stim = 2;
-    } else if (kind == DELIVERY && (phi | plo) != 0 &&
-               (cl || src == b.flow_clid[row])) {
-      e = row, stim = 3;
+  for (int32_t rb = r0; act && rb < r1 && e < 0; rb += 32) {
+    int32_t row = 0, st = 0;
+    if (rb + ln < r1) {
+      row = b.lane_ep_rows[rb + ln];
+      const bool cl = row < sf;
+      if (kind == LOCAL && size == -1 && cl) {
+        st = 1;
+      } else if (kind == LOCAL && size == SZ_RTO && plo == b.flow_clid[row]) {
+        st = 2;
+      } else if (kind == DELIVERY && (phi | plo) != 0 &&
+                 (cl || src == b.flow_clid[row])) {
+        st = 3;
+      }
+    }
+    const unsigned hit = __ballot_sync(FULL_MASK, st != 0);
+    if (hit) {
+      const int at = __ffs(hit) - 1;
+      e = __shfl_sync(FULL_MASK, row, at);
+      stim = __shfl_sync(FULL_MASK, st, at);
     }
   }
 
+  // burst unit ln of the stimulated row, as the law hands it to the sink
+  bool u_valid = false, u_lost = false, u_retx = false;
+  int64_t u_dep = 0, u_arr = 0;
+  int32_t u_seq = 0, u_size = 0, u_phi = 0, u_plo = 0;
   Sends sd;
+  bool smp = false, capture = false;
   if (e >= 0) {
     int32_t* frow = b.stream + static_cast<int64_t>(e) * N_COLS;
     Flow f;
@@ -1162,72 +1190,83 @@ __device__ void stream_slot(const LaneBufs& b, int64_t i, int64_t j, bool act,
     f.mss = b.flow_mss[e];
     f.last_bytes = b.flow_last[e];
     f.cc = b.flow_cc[e];
-    const int32_t peer = b.flow_peers[e];
-    const int32_t pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-    const bool capture = b.flow_pcap[e] != 0;
-    const bool smp = ft && flow_sampled(b, lane, peer);
+    capture = b.flow_pcap[e] != 0;
+    smp = ft && flow_sampled(b, lane, b.flow_peers[e]);
     const UpRow ur = up_row(b, e);
+    uint32_t lost = 0;  // the draws of the stimulus's sends
+    if (b.has_loss && t >= b.bootstrap_end) {
+      const uint32_t d = lane_draw(static_cast<uint32_t>(b.seed_lo),
+                                   static_cast<uint32_t>(b.seed_hi),
+                                   static_cast<uint32_t>(lane) | LOSS_STREAM,
+                                   static_cast<uint32_t>(wadd(sl.send_seq, ln)));
+      lost = __ballot_sync(FULL_MASK, static_cast<int64_t>(d) < ur.thresh);
+    }
     sd = stream_stimulus(
         b, f, stim, Pair{thi, tlo}, t, phi, plo, size, we, ur, sl,
-        [&](int32_t u, bool valid, bool lost, int64_t dep, int64_t arr,
+        [&](int32_t u, bool valid, bool lost_u, int64_t dep, int64_t arr,
             int32_t bseq, int32_t bsize, int32_t bphi, int32_t bplo,
             bool retx) {
-          const int64_t slot = j * PUMP_BURST + u;
-          put_entry(b, n_ent, 4 * k * sf + slot * sf + e, valid, peer, arr,
-                    pkt_auxh, bseq, bsize, bphi, bplo);
-          put_loss(b, b.rec_brec + slot * sf + e, lost, t, lane, peer, bseq,
-                   bsize);
-          if (b.stream_pcap)
-            put_rec(b, b.rec_bpc + slot * sf + e, capture, dep, lane, peer,
-                    bseq, bsize, PCAP_TX);
-          if (ft)
-            send_flows(b, b.fl_bs + slot * sf + e, gw_b, smp, lost, t, dep,
-                       arr, retx ? FT_RETRANSMIT : FT_SEND, lane, peer, bseq,
-                       bsize);
+          if (u != ln) return;
+          u_valid = valid;
+          u_lost = lost_u;
+          u_dep = dep;
+          u_arr = arr;
+          u_seq = bseq;
+          u_size = bsize;
+          u_phi = bphi;
+          u_plo = bplo;
+          u_retx = retx;
         },
-        SerialDraw{b, ur, sl.send_seq});
-    flow_store(f, frow);
+        WarpDraw{lost});
+    if (ln == 0) flow_store(f, frow);
   }
   const Emit& em = sd.em;
-  const int32_t cnt = sd.cnt;
 
-  // the lane's rows: control sends, RTO arms, the rest of the bursts, and
-  // the control sends' loss records
-  for (int32_t r = r0; r < r1; ++r) {
-    const int32_t row = b.lane_ep_rows[r];
-    const bool me = row == e;
-    const int32_t peer = b.flow_peers[row];
-    const int32_t auxh_pkt = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-    const int32_t auxh_loc = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-    const bool se_v = me && em.send_valid;
-    put_entry(b, n_ent, j * s2 + row, se_v && !sd.lost, peer, sd.arr,
-              auxh_pkt, sd.seq, em.send_size,
-              wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
-    put_loss(b, b.rec_srec + j * s2 + row, se_v && sd.lost, t, lane, peer,
-             sd.seq, em.send_size);
-    if (b.stream_pcap)
-      put_rec(b, b.rec_spc + j * s2 + row, se_v && b.flow_pcap[row] != 0,
-              sd.dep, lane, peer, sd.seq, em.send_size, PCAP_TX);
-    if (ft)
-      send_flows(b, b.fl_ss + j * s2 + row, gw_s,
-                 se_v && flow_sampled(b, lane, peer), sd.lost, t, sd.dep,
-                 sd.arr, em.send_retx ? FT_RETRANSMIT : FT_SEND, lane, peer,
-                 sd.seq, em.send_size);
-    const bool sa_v = me && em.rto_valid;
-    put_entry(b, n_ent, k * s2 + j * s2 + row, sa_v, lane,
-              join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, sd.lseq, SZ_RTO,
-              0, b.flow_clid[row]);
-    if (row < sf) {
-      for (int32_t u = me ? cnt : 0; u < PUMP_BURST; ++u) {
-        const int64_t slot = j * PUMP_BURST + u;
-        put_entry(b, n_ent, 4 * k * sf + slot * sf + row, false, 0, 0, 0, 0,
-                  0, 0, 0);
-        put_loss(b, b.rec_brec + slot * sf + row, false, 0, 0, 0, 0, 0);
+  // the lane's rows, a warp lane each: control sends, their loss records
+  // (and captures, flow groups), RTO arms; then each client row's bursts
+  for (int32_t rb = r0; rb < r1; rb += 32) {
+    const int32_t r = rb + ln;
+    int32_t row = 0, peer = 0;
+    if (r < r1) {
+      row = b.lane_ep_rows[r];
+      peer = b.flow_peers[row];
+      const bool se_v = row == e && em.send_valid;
+      put_entry(b, n_ent, j * s2 + row, se_v && !sd.lost, peer, sd.arr,
+                auxh_pkt, sd.seq, em.send_size,
+                wshl(em.send_flags, PAY_SEQ_BITS) | em.send_seq, em.send_ack);
+      put_loss(b, b.rec_srec + j * s2 + row, se_v && sd.lost, t, lane, peer,
+               sd.seq, em.send_size);
+      if (b.stream_pcap)
+        put_rec(b, b.rec_spc + j * s2 + row, se_v && b.flow_pcap[row] != 0,
+                sd.dep, lane, peer, sd.seq, em.send_size, PCAP_TX);
+      if (ft)
+        send_flows(b, b.fl_ss + j * s2 + row, gw_s,
+                   se_v && flow_sampled(b, lane, peer), sd.lost, t, sd.dep,
+                   sd.arr, em.send_retx ? FT_RETRANSMIT : FT_SEND, lane, peer,
+                   sd.seq, em.send_size);
+      put_entry(b, n_ent, k * s2 + j * s2 + row, row == e && em.rto_valid,
+                lane, join_raw(em.rto_t.hi, em.rto_t.lo), auxh_loc, sd.lseq,
+                SZ_RTO, 0, b.flow_clid[row]);
+    }
+    for (unsigned cl = __ballot_sync(FULL_MASK, r < r1 && row < sf); cl;
+         cl &= cl - 1) {
+      const int at = __ffs(cl) - 1;
+      const int32_t crow = __shfl_sync(FULL_MASK, row, at);
+      const int32_t cpeer = __shfl_sync(FULL_MASK, peer, at);
+      if (ln < PUMP_BURST) {  // burst unit ln of this client row
+        const bool mine = crow == e && ln < sd.cnt;
+        const int64_t slot = j * PUMP_BURST + ln;
+        put_entry(b, n_ent, 4 * k * sf + slot * sf + crow, mine && u_valid,
+                  cpeer, u_arr, auxh_pkt, u_seq, u_size, u_phi, u_plo);
+        put_loss(b, b.rec_brec + slot * sf + crow, mine && u_lost, t, lane,
+                 cpeer, u_seq, u_size);
         if (b.stream_pcap)
-          put_rec(b, b.rec_bpc + slot * sf + row, false, 0, 0, 0, 0, 0, 0);
+          put_rec(b, b.rec_bpc + slot * sf + crow, mine && capture, u_dep,
+                  lane, cpeer, u_seq, u_size, PCAP_TX);
         if (ft)
-          send_flows(b, b.fl_bs + slot * sf + row, gw_b, false, false, 0, 0,
-                     0, 0, 0, 0, 0, 0);
+          send_flows(b, b.fl_bs + slot * sf + crow, gw_b, mine && smp, u_lost,
+                     t, u_dep, u_arr, u_retx ? FT_RETRANSMIT : FT_SEND, lane,
+                     cpeer, u_seq, u_size);
       }
     }
   }
@@ -1249,23 +1288,335 @@ __device__ __forceinline__ void block_add(int32_t v, int32_t* dst) {
 }
 
 // ---- kernel A: lane_slots ---------------------------------------------------
-// One thread per lane walks its first K queue columns in registers: the
-// co-pop rule, then the slot law on each popped column — down bucket +
-// CoDel for PACKET pops, delivered inline on passive lanes or as a DELIVERY
-// self-insert on active ones; the app sends (tgen ticks, phold hops to a
-// threefry peer, ping requests and echoes) with the up bucket, the latency
-// gather and the threefry loss draw, and with pcap a capturing lane's
-// PCAP_TX record at the send's departure; the timer re-arms; and on stream
-// lanes the stream arm (stream_slot), whose endpoint rows the thread owns.
+// Each lane pops its first K queue columns under the co-pop rule and runs
+// the slot law on each popped column: down bucket + CoDel for PACKET pops,
+// delivered inline on passive lanes or as a DELIVERY self-insert on active
+// ones; the app sends (tgen ticks, phold hops to a threefry peer, ping
+// requests and echoes) with the up bucket, the latency gather and the
+// threefry loss draw, and with pcap a capturing lane's PCAP_TX record at the
+// send's departure; the timer re-arms; and on stream lanes the stream arm.
 // With netobs the lane's byte and throttle counters follow every charge, and
 // the block's popped PACKETs join the window's count (one atomic a block).
 // With flowtrace each slot writes the flags of its seven [N] flow groups —
 // the send, its up-bucket wait, loss and queue entry; the arrival's
-// down-bucket wait, CoDel drop or delivery — and the records of the
-// sampled flows.  Returns the lane's popped PACKETs.
-__device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
-  const int64_t n = b.n;
-  const int64_t c = b.c, k = b.k, sw = b.sw;
+// down-bucket wait, CoDel drop or delivery — and the records of the sampled
+// flows.
+//
+// Decide, then walk.  A lane's walk is a group of L threads of one warp
+// (L = lanes.slot_group(K): about K / 2, at most 32), thread gl taking the
+// columns gl, gl + L, ... a round each, SLOT_THREADS a block, so the lanes
+// spread over every SM.  Every thread of the group loads the lane's state
+// and table row (one request a sector) and its round's column, all before
+// any use.  What a column does depends only on its words and on counters
+// that step with the popped kinds — whether it acts (the co-pop prefixes),
+// whether it sends and to whom (the mesh peer at m_peer_offset, the phold
+// peer's APP_STREAM draw at app_draws, ping's budget m_sent), its send
+// sequence number and its re-arm's local sequence — so each thread decides
+// its column at once from the group's ballots (exclusive prefix counts),
+// and issues its gathers (node_of, lat, thresh) and its draws (APP, LOSS)
+// beside the others': a round's threefry evaluations in flight together,
+// not in a row.  Only the two buckets and CoDel chain from column to
+// column: the group walks them over the acting columns in lockstep, on
+// values shuffled from each column's thread, with no load left in the chain
+// but CoDel's divisor table; then each thread writes its column's emits and
+// group lane 0 the lane's state.  Every counter ends where the serial walk
+// ends it.
+//
+// A lane that owns flow endpoint rows (the stream models on an untiered
+// run: b.s_flows > 0) takes a warp of its own instead, in blocks after the
+// groups' (one warp per first row of a lane in lane_ep_rows): the stream arm
+// shares the up bucket and the send counters with the slot law, so its warp
+// walks every column in order, in lockstep, and runs the arm of each
+// (stream_slot_warp) with a burst unit a warp lane.  Only the instance for
+// runs with streams (STREAMS) compiles the arm; the groups never wait in a
+// warp behind a stream lane.
+constexpr int SLOT_THREADS = 128;
+constexpr int SLOT_GROUP_MAX = 32;  // lanes.SLOT_GROUP_MAX
+
+// a lane's group of L threads within its warp: this thread's column offset
+// gl, the group's first warp lane and its lanes' mask.  Every ballot and
+// shuffle is the whole warp's (each group reads its own segment), made by
+// every thread at a warp-uniform point: a group's own mask would let the
+// groups of a warp part at the first intrinsic and run one after another
+// from there (measured: the lanes' time grew with the groups a warp)
+struct Group {
+  int gl, L, base;
+  unsigned own;
+  __device__ __forceinline__ unsigned lower() const {
+    return ((1u << gl) - 1u) << base;
+  }
+  __device__ __forceinline__ unsigned bits(bool p) const {
+    return __ballot_sync(FULL_MASK, p) & own;
+  }
+  template <class T>
+  __device__ __forceinline__ T from(T v, int x) const {
+    return __shfl_sync(FULL_MASK, v, x, L);
+  }
+  // the minimum over the group
+  __device__ __forceinline__ int32_t min(int32_t v) const {
+    for (int d = 1; d < L; d <<= 1) {
+      const int32_t o = __shfl_xor_sync(FULL_MASK, v, d, L);
+      v = o < v ? o : v;
+    }
+    return v;
+  }
+};
+
+// a lane's table row and model flags
+struct LaneLaw {
+  int32_t dn_rate, dn_burst, dn_kfull, dn_kfi, up_rate, up_burst, up_kfull,
+      up_kfi, recv_mult, p_size, p_count, p_peer, p_stride, my_node;
+  int64_t p_int;
+  bool passive, ext, capture, mesh, client, phold, ping_cl, ping_sv, stream;
+};
+
+__device__ __forceinline__ LaneLaw lane_law(const LaneBufs& b, int64_t i) {
+  LaneLaw w;
+  w.dn_rate = b.dn_rate[i];
+  w.dn_burst = b.dn_burst[i];
+  w.dn_kfull = b.dn_kfull[i];
+  w.dn_kfi = b.dn_kfi[i];
+  w.up_rate = b.up_rate[i];
+  w.up_burst = b.up_burst[i];
+  w.up_kfull = b.up_kfull[i];
+  w.up_kfi = b.up_kfi[i];
+  w.recv_mult = b.recv_mult[i];
+  w.p_size = b.p_size[i];
+  w.p_count = b.p_count[i];
+  w.p_peer = b.p_peer[i];
+  w.p_stride = b.p_stride[i];
+  w.my_node = b.node_of[i];
+  w.p_int = join_raw(b.p_int_hi[i], b.p_int_lo[i]);
+  const int32_t model = b.model[i];
+  w.passive = model == M_NONE || model == M_TGEN_MESH ||
+              model == M_TGEN_CLIENT || model == M_TGEN_SERVER;
+  // hybrid: an external lane's packets neither deliver inline nor insert;
+  // their outcomes go to the egress candidates
+  w.ext = b.ext_any && b.lane_external[i] != 0;
+  w.capture = b.pcap && b.lane_pcap[i] != 0;
+  w.mesh = model == M_TGEN_MESH;
+  w.client = model == M_TGEN_CLIENT;
+  w.phold = model == M_PHOLD;
+  w.ping_cl = model == M_PING_CLIENT;
+  w.ping_sv = model == M_PING_SERVER;
+  w.stream = model == M_STREAM_CLIENT || model == M_STREAM_SERVER;
+  return w;
+}
+
+// a lane's state words in registers
+struct LaneVars {
+  Bucket dn, up;
+  int32_t fat_hi, fat_lo;
+  int64_t cd_dn;
+  int32_t dcount;
+  uint8_t dropping;
+  int32_t send_seq, local_seq, app_draws, m_sent, peer_off, n_del, n_codel,
+      n_loss, n_hops, recv, n_sends, nb_txb, nb_rxb, nb_thr, min_lat;
+};
+
+__device__ __forceinline__ LaneVars lane_vars(const LaneBufs& b, int64_t i) {
+  LaneVars v;
+  v.dn = Bucket{b.dn_tokens[i], join_raw(b.dn_nr_hi[i], b.dn_nr_lo[i]),
+                join_raw(b.dn_ld_hi[i], b.dn_ld_lo[i])};
+  v.up = Bucket{b.up_tokens[i], join_raw(b.up_nr_hi[i], b.up_nr_lo[i]),
+                join_raw(b.up_ld_hi[i], b.up_ld_lo[i])};
+  v.fat_hi = b.cd_fat_hi[i];
+  v.fat_lo = b.cd_fat_lo[i];
+  v.cd_dn = join_raw(b.cd_dnext_hi[i], b.cd_dnext_lo[i]);
+  v.dcount = b.cd_drop_count[i];
+  v.dropping = b.cd_dropping[i];
+  v.send_seq = b.send_seq[i];
+  v.local_seq = b.local_seq[i];
+  v.app_draws = b.app_draws[i];
+  v.m_sent = b.m_sent[i];
+  v.peer_off = b.m_peer_offset[i];
+  v.n_del = b.n_delivered[i];
+  v.n_codel = b.n_codel[i];
+  v.n_loss = b.n_loss[i];
+  v.n_hops = b.n_hops[i];
+  v.recv = b.recv_bytes[i];
+  v.n_sends = b.n_sends[i];
+  v.nb_txb = v.nb_rxb = v.nb_thr = 0;
+  if (b.netobs) {
+    v.nb_txb = b.nb_txb[i];
+    v.nb_rxb = b.nb_rxb[i];
+    v.nb_thr = b.nb_thr[i];
+  }
+  v.min_lat = NEVER32;
+  return v;
+}
+
+__device__ __forceinline__ void store_vars(const LaneBufs& b, int64_t i,
+                                           const LaneVars& v) {
+  b.dn_tokens[i] = v.dn.tokens;
+  split(v.dn.nr, &b.dn_nr_hi[i], &b.dn_nr_lo[i]);
+  split(v.dn.ld, &b.dn_ld_hi[i], &b.dn_ld_lo[i]);
+  b.up_tokens[i] = v.up.tokens;
+  split(v.up.nr, &b.up_nr_hi[i], &b.up_nr_lo[i]);
+  split(v.up.ld, &b.up_ld_hi[i], &b.up_ld_lo[i]);
+  b.cd_fat_hi[i] = v.fat_hi;
+  b.cd_fat_lo[i] = v.fat_lo;
+  split(v.cd_dn, &b.cd_dnext_hi[i], &b.cd_dnext_lo[i]);
+  b.cd_drop_count[i] = v.dcount;
+  b.cd_dropping[i] = v.dropping;
+  b.send_seq[i] = v.send_seq;
+  b.local_seq[i] = v.local_seq;
+  b.m_sent[i] = v.m_sent;
+  b.m_peer_offset[i] = v.peer_off;
+  b.n_delivered[i] = v.n_del;
+  b.n_codel[i] = v.n_codel;
+  b.recv_bytes[i] = v.recv;
+  b.n_sends[i] = v.n_sends;
+  b.app_draws[i] = v.app_draws;
+  b.n_loss[i] = v.n_loss;
+  b.n_hops[i] = v.n_hops;
+  if (b.netobs) {
+    b.nb_txb[i] = v.nb_txb;
+    b.nb_rxb[i] = v.nb_rxb;
+    b.nb_thr[i] = v.nb_thr;
+  }
+  // the smallest latency sent over (exact: min is order-free)
+  if (v.min_lat < NEVER32) atomicMin(b.min_used_lat, v.min_lat);
+}
+
+// one queue column of a lane as its thread holds it: the popped words, the
+// decision, the gathers and draws, and the walk's results
+struct Slot {
+  int32_t thi, tlo, auxh, seq, size, phi, plo, kind, src;
+  int64_t t, td, dep;
+  bool act, is_pkt, do_send, rearm, lost, drop;
+  int32_t dst, lat, out_size, snd_seq, arm_seq;
+  int64_t thresh;
+};
+
+// Slot j's emits, by its thread: the pop, the egress candidate, the
+// DELIVERY insert and the re-arm in the self block, the outbound packet,
+// the slot's record, the send's capture and the slot's flow groups.
+__device__ void slot_emit(const LaneBufs& b, int64_t i, int64_t j,
+                          const LaneLaw& w, const Slot& s, int64_t we) {
+  const int64_t n = b.n, k = b.k, sw = b.sw, nk = n * k, nsw = n * sw;
+  const int32_t lane = static_cast<int32_t>(i);
+  const bool streams = b.s_flows > 0;
+  const bool drop = s.drop, lost = s.lost, do_send = s.do_send;
+  const bool deliver = s.is_pkt && !drop;
+  const int64_t qi = i * b.c + j, oi = j * n + i;
+  if (s.act) {
+    b.q_thi[qi] = NEVER32;
+    b.q_tlo[qi] = NEVER32;
+  }
+  // external lanes egress (CoDel drops too), slot-major as the reference
+  // appends
+  if (b.ext_any) {
+    const bool eg = s.is_pkt && w.ext;
+    int64_t* row = b.eg_recs + oi * 6;
+    row[0] = eg ? s.td : 0;
+    row[1] = eg ? s.src : 0;
+    row[2] = eg ? lane : 0;
+    row[3] = eg ? s.seq : 0;
+    row[4] = eg ? s.size : 0;
+    row[5] = eg ? (drop ? DROP_CODEL : DELIVERED) : 0;
+    b.eg_valid[oi] = eg ? 1 : 0;
+  }
+  // active lanes get a DELIVERY self-insert keyed by the packet's (src,
+  // seq); passive lanes counted the delivery inline
+  if (!b.all_passive) {
+    const int64_t si = i * sw + j;
+    const bool ins = deliver && !w.passive && !w.ext;
+    int32_t ins_hi = NEVER32, ins_lo = NEVER32;
+    if (ins) split(s.td, &ins_hi, &ins_lo);
+    b.self_blk[0 * nsw + si] = ins_hi;
+    b.self_blk[1 * nsw + si] = ins_lo;
+    b.self_blk[2 * nsw + si] =
+        ins ? (DELIVERY << AUX_KIND_SHIFT) | (s.src << AUX_SRC_SHIFT) : 0;
+    b.self_blk[3 * nsw + si] = ins ? s.seq : 0;
+    b.self_blk[4 * nsw + si] = ins ? s.size : 0;
+    if (streams) {  // stream segments keep their payload words
+      b.self_blk[5 * nsw + si] = ins ? s.phi : 0;
+      b.self_blk[6 * nsw + si] = ins ? s.plo : 0;
+    }
+  }
+  // the timer re-arm
+  const int64_t ai = i * sw + (b.all_passive ? 0 : k) + j;
+  int32_t arm_hi = NEVER32, arm_lo = NEVER32;
+  if (s.rearm) split(s.t + w.p_int, &arm_hi, &arm_lo);
+  b.self_blk[0 * nsw + ai] = arm_hi;
+  b.self_blk[1 * nsw + ai] = arm_lo;
+  b.self_blk[2 * nsw + ai] = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
+  b.self_blk[3 * nsw + ai] = s.arm_seq;
+  b.self_blk[4 * nsw + ai] = 0;
+  if (streams) {
+    b.self_blk[5 * nsw + ai] = 0;
+    b.self_blk[6 * nsw + ai] = 0;
+  }
+  // outbound packet: arrival = max(depart + latency, window end), unless
+  // the loss draw lost it
+  int64_t arr = 0;
+  if (do_send) {
+    arr = s.dep + s.lat;
+    if (arr < we) arr = we;
+  }
+  const bool out = do_send && !lost;
+  int32_t a_hi = NEVER32, a_lo = NEVER32;
+  if (out) split(arr, &a_hi, &a_lo);
+  b.out_blk[0 * nk + oi] = out ? s.dst : static_cast<int32_t>(n);
+  b.out_blk[1 * nk + oi] = a_hi;
+  b.out_blk[2 * nk + oi] = a_lo;
+  b.out_blk[3 * nk + oi] =
+      out ? (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT) : 0;
+  b.out_blk[4 * nk + oi] = out ? s.snd_seq : 0;
+  b.out_blk[5 * nk + oi] = out ? s.out_size : 0;
+  // one record: the popped packet's outcome, or the send's loss
+  if (b.log_cap > 0) {
+    const int64_t r = b.rec_slots + oi;
+    int64_t* row = b.recs + r * 6;
+    if (s.is_pkt) {
+      row[0] = s.td;
+      row[1] = s.src;
+      row[2] = lane;
+      row[3] = s.seq;
+      row[4] = s.size;
+      row[5] = drop ? DROP_CODEL : DELIVERED;
+    } else if (lost) {
+      row[0] = s.t;
+      row[1] = lane;
+      row[2] = s.dst;
+      row[3] = s.snd_seq;
+      row[4] = s.out_size;
+      row[5] = DROP_LOSS;
+    } else {
+      for (int x = 0; x < 6; ++x) row[x] = 0;
+    }
+    b.rec_valid[r] = (s.is_pkt || lost) ? 1 : 0;
+  }
+  // the send's capture, at its departure and before the loss draw
+  if (b.pcap)
+    put_rec(b, b.rec_pc + oi, do_send && w.capture, s.dep, lane, s.dst,
+            s.snd_seq, s.out_size, PCAP_TX);
+  // the slot's flow groups: the send (lane -> dst), the arrival (src ->
+  // lane) at the down bucket's departure
+  if (b.flowtrace) {
+    const int64_t r = b.fl_slots + oi;
+    send_flows(b, r, nk, do_send && flow_sampled(b, lane, s.dst), lost, s.t,
+               s.dep, arr, FT_SEND, lane, s.dst, s.snd_seq, s.out_size);
+    const bool ar = s.is_pkt && flow_sampled(b, s.src, lane);
+    put_flow(b, r + 4 * nk, ar && s.td != s.t, s.td, FT_TB_WAIT, s.src, lane,
+             s.seq, s.size, TB_DN);
+    put_flow(b, r + 5 * nk, ar && drop, s.td, FT_DROP, s.src, lane, s.seq,
+             s.size, CAUSE_CODEL);
+    put_flow(b, r + 6 * nk, ar && !drop, s.td, FT_DELIVERY, s.src, lane, s.seq,
+             s.size, 0);
+  }
+}
+
+// The walk of lane i by its group g (STREAM: a stream lane's warp, the
+// stream arm in every column; [r0, r1) its rows).  A group that is not
+// `live` (past the last lane, or a stream lane's, walked by its warp) walks
+// beside the others, storing nothing.  Returns the lane's popped PACKETs
+// on group lane 0, 0 on the others.
+template <bool STREAM>
+__device__ int32_t lane_walk(const LaneBufs& b, int64_t i, bool live,
+                             const Group& g, int32_t r0, int32_t r1) {
+  const int64_t n = b.n, c = b.c, k = b.k;
   const bool streams = b.s_flows > 0;
   const int32_t interval = static_cast<int32_t>(b.interval);
   const int64_t we = join_raw(*b.now_we_hi, *b.now_we_lo);
@@ -1275,330 +1626,271 @@ __device__ int32_t lane_slots_lane(const LaneBufs& b, int64_t i) {
   const bool dyn = b.dyn_runahead != 0;
   const uint32_t seed_lo = static_cast<uint32_t>(b.seed_lo);
   const uint32_t seed_hi = static_cast<uint32_t>(b.seed_hi);
-
-  Bucket dn{b.dn_tokens[i], join_raw(b.dn_nr_hi[i], b.dn_nr_lo[i]),
-            join_raw(b.dn_ld_hi[i], b.dn_ld_lo[i])};
-  Bucket up{b.up_tokens[i], join_raw(b.up_nr_hi[i], b.up_nr_lo[i]),
-            join_raw(b.up_ld_hi[i], b.up_ld_lo[i])};
-  int32_t fat_hi = b.cd_fat_hi[i], fat_lo = b.cd_fat_lo[i];
-  int64_t cd_dn = join_raw(b.cd_dnext_hi[i], b.cd_dnext_lo[i]);
-  int32_t dcount = b.cd_drop_count[i];
-  uint8_t dropping = b.cd_dropping[i];
-  int32_t send_seq = b.send_seq[i], local_seq = b.local_seq[i];
-  int32_t app_draws = b.app_draws[i];
-  int32_t m_sent = b.m_sent[i], peer_off = b.m_peer_offset[i];
-  int32_t n_del = b.n_delivered[i], n_codel = b.n_codel[i];
-  int32_t n_loss = b.n_loss[i], n_hops = b.n_hops[i];
-  int32_t recv = b.recv_bytes[i], n_sends = b.n_sends[i];
-  int32_t min_lat = NEVER32;
-  int32_t nb_txb = 0, nb_rxb = 0, nb_thr = 0, pkts = 0;
-  if (b.netobs) {
-    nb_txb = b.nb_txb[i];
-    nb_rxb = b.nb_rxb[i];
-    nb_thr = b.nb_thr[i];
-  }
-  const bool capture = b.pcap && b.lane_pcap[i] != 0;
-
-  const int32_t model = b.model[i];
-  const bool passive = model == M_NONE || model == M_TGEN_MESH ||
-                       model == M_TGEN_CLIENT || model == M_TGEN_SERVER;
-  // hybrid: an external lane's packets neither deliver inline nor insert;
-  // their outcomes go to the egress candidates
-  const bool ext = b.ext_any && b.lane_external[i] != 0;
-  const int32_t recv_mult = b.recv_mult[i];
-  const int32_t p_size = b.p_size[i];
-  const int32_t p_count = b.p_count[i];
-  const int64_t p_int = join_raw(b.p_int_hi[i], b.p_int_lo[i]);
-  const int32_t my_node = b.node_of[i];
-  const bool mesh = model == M_TGEN_MESH, client = model == M_TGEN_CLIENT;
-  const bool phold = model == M_PHOLD;
-  const bool ping_cl = model == M_PING_CLIENT;
-  const bool ping_sv = model == M_PING_SERVER;
-  const bool stream_lane = model == M_STREAM_CLIENT || model == M_STREAM_SERVER;
-  const int32_t lane_pkt_auxh = (PACKET << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-  const int32_t lane_loc_auxh = (LOCAL << AUX_KIND_SHIFT) | (lane << AUX_SRC_SHIFT);
-  const int64_t rec_base = b.rec_slots;
-  const int64_t nk = n * k, nsw = n * sw;
-  const int64_t arm0 = all_passive ? 0 : k;  // first re-arm column
-
+  const int32_t nm1 = n > 1 ? static_cast<int32_t>(n - 1) : 1;
+  const LaneLaw w = lane_law(b, i);
+  LaneVars v = lane_vars(b, i);
   // co-pop rule: passive lanes pop any prefix inside the window; active
   // lanes only a same-instant prefix of PACKETs, or column 0 alone; with
   // the wide rule, stream lanes also a prefix free of LOCALs (one-to-one)
-  // or a PACKET-only or DELIVERY-only prefix (star)
-  const int32_t head_hi = b.q_thi[i * c], head_lo = b.q_tlo[i * c];
-  bool pkt_prefix = true, no_local_prefix = true, del_prefix = true;
-  const bool wide = b.wide_pop && stream_lane;
+  // or a PACKET-only or DELIVERY-only prefix (star).  The prefixes of the
+  // columns before this round of the group:
+  const bool ruled = !all_passive && !w.passive;
+  const bool wide = b.wide_pop && w.stream;
+  bool pkt_pre = true, nol_pre = true, del_pre = true;
+  int32_t head_hi = 0, head_lo = 0, pkts = 0;
 
-  for (int64_t j = 0; j < k; ++j) {
-    const int64_t qi = i * c + j;
-    const int32_t thi = b.q_thi[qi], tlo = b.q_tlo[qi];
-    const int64_t t = join_t(thi, tlo);
-    const int32_t auxh = b.q_auxh[qi], seq = b.q_auxl[qi], size = b.q_size[qi];
-    const int32_t kind = auxh >> AUX_KIND_SHIFT;
-    const int32_t src = (auxh >> AUX_SRC_SHIFT) & SRC_MASK;
-    bool allowed = true;
-    if (!all_passive && !passive) {
-      pkt_prefix = pkt_prefix && kind == PACKET;
-      no_local_prefix = no_local_prefix && kind != LOCAL;
-      del_prefix = del_prefix && kind == DELIVERY;
-      allowed = j == 0 || (thi == head_hi && tlo == head_lo && pkt_prefix);
-      if (wide)
-        allowed = allowed || (b.one_to_one ? no_local_prefix
-                                           : (pkt_prefix || del_prefix));
-    }
-    const bool act = allowed && t < we;
-    if (act) {
-      b.q_thi[qi] = NEVER32;
-      b.q_tlo[qi] = NEVER32;
-    }
-
-    // PACKET: down bucket, CoDel
-    const bool is_pkt = act && kind == PACKET;
-    const int64_t td = bucket_charge(dn, b.dn_rate[i], b.dn_burst[i],
-                                     b.dn_kfull[i], b.dn_kfi[i], t,
-                                     (size + FRAME_OVERHEAD_BYTES) * 8, is_pkt,
-                                     interval, nb_thr);
-    if (is_pkt) pkts += 1;
-    int64_t sojourn = 0;
-    if (is_pkt) {
-      sojourn = td - t;
-      if (sojourn > NEVER32) sojourn = NEVER32;
-    }
-    const bool drop = codel_offer(fat_hi, fat_lo, cd_dn, dcount, dropping, td,
-                                  sojourn, is_pkt, b.codel_div);
-    const bool deliver = is_pkt && !drop;
-    if (is_pkt && drop) n_codel += 1;
-    if (deliver) {
-      n_del += 1;
-      nb_rxb = wadd(nb_rxb, size);
-    }
-    // passive lanes count inline; active lanes get a DELIVERY self-insert
-    // keyed by the packet's (src, seq); external lanes egress (CoDel drops
-    // too), slot-major as the reference appends
-    if (deliver && passive && !ext) recv += size * recv_mult;
-    if (b.ext_any) {
-      const int64_t r = j * n + i;
-      const bool eg = is_pkt && ext;
-      int64_t* row = b.eg_recs + r * 6;
-      row[0] = eg ? td : 0;
-      row[1] = eg ? src : 0;
-      row[2] = eg ? lane : 0;
-      row[3] = eg ? seq : 0;
-      row[4] = eg ? size : 0;
-      row[5] = eg ? (drop ? DROP_CODEL : DELIVERED) : 0;
-      b.eg_valid[r] = eg ? 1 : 0;
-    }
-    if (!all_passive) {
-      const int64_t si = i * sw + j;
-      const bool ins = deliver && !passive && !ext;
-      int32_t ins_hi = NEVER32, ins_lo = NEVER32;
-      if (ins) split(td, &ins_hi, &ins_lo);
-      b.self_blk[0 * nsw + si] = ins_hi;
-      b.self_blk[1 * nsw + si] = ins_lo;
-      b.self_blk[2 * nsw + si] =
-          ins ? (DELIVERY << AUX_KIND_SHIFT) | (src << AUX_SRC_SHIFT) : 0;
-      b.self_blk[3 * nsw + si] = ins ? seq : 0;
-      b.self_blk[4 * nsw + si] = ins ? size : 0;
-      if (streams) {  // stream segments keep their payload words
-        b.self_blk[5 * nsw + si] = ins ? b.q_phi[qi] : 0;
-        b.self_blk[6 * nsw + si] = ins ? b.q_plo[qi] : 0;
+  for (int64_t j0 = 0; j0 < k; j0 += g.L) {
+    const int64_t j = j0 + g.gl;
+    const bool mine = j < k;
+    Slot s;
+    s.thi = s.tlo = NEVER32;
+    s.auxh = s.seq = s.size = s.phi = s.plo = 0;
+    if (mine) {  // this thread's column, loaded beside the lane's state
+      const int64_t qi = i * c + j;
+      s.thi = b.q_thi[qi];
+      s.tlo = b.q_tlo[qi];
+      s.auxh = b.q_auxh[qi];
+      s.seq = b.q_auxl[qi];
+      s.size = b.q_size[qi];
+      if (streams) {
+        s.phi = b.q_phi[qi];
+        s.plo = b.q_plo[qi];
       }
     }
+    s.t = join_t(s.thi, s.tlo);
+    s.kind = s.auxh >> AUX_KIND_SHIFT;
+    s.src = (s.auxh >> AUX_SRC_SHIFT) & SRC_MASK;
+    if (j0 == 0) {
+      head_hi = g.from(s.thi, 0);
+      head_lo = g.from(s.tlo, 0);
+    }
+    const unsigned upto = g.lower() | (1u << (g.base + g.gl));
+    const unsigned not_pkt = g.bits(mine && s.kind != PACKET);
+    const unsigned local = g.bits(mine && s.kind == LOCAL);
+    const unsigned not_del = g.bits(mine && s.kind != DELIVERY);
+    bool allowed = true;
+    if (ruled) {
+      const bool pp = pkt_pre && !(not_pkt & upto);
+      const bool nl = nol_pre && !(local & upto);
+      const bool dp = del_pre && !(not_del & upto);
+      allowed = j == 0 || (s.thi == head_hi && s.tlo == head_lo && pp);
+      if (wide) allowed = allowed || (b.one_to_one ? nl : (pp || dp));
+    }
+    pkt_pre = pkt_pre && !not_pkt;
+    nol_pre = nol_pre && !local;
+    del_pre = del_pre && !not_del;
+    s.act = mine && allowed && s.t < we;
 
-    // DELIVERY: phold sends on, the ping server echoes
-    const bool is_del = act && kind == DELIVERY;
-    const bool del_send_phold = is_del && phold;
-    const bool del_send_echo = is_del && ping_sv;
-    if (del_send_phold) n_hops += 1;
+    // decide: kinds, sends, re-arms
+    const bool is_del = s.act && s.kind == DELIVERY;
+    const bool is_loc = s.act && s.kind == LOCAL;
+    const bool is_start = is_loc && s.size == -1;
+    const bool is_timer = is_loc && s.size >= 0;
+    s.is_pkt = s.act && s.kind == PACKET;
+    const bool del_phold = is_del && w.phold;  // phold sends on
+    const bool echo = is_del && w.ping_sv;     // the ping server echoes
+    const bool mesh_tick = is_timer && w.mesh && n > 1;
+    const bool client_tick = is_timer && w.client;
+    // a ping tick while m_sent is under p_count: the first p_count - m_sent
+    // timers of the walk
+    const unsigned lo = g.lower();
+    const int32_t timers_before = __popc(g.bits(is_timer) & lo);
+    const bool ping_tick =
+        is_timer && w.ping_cl &&
+        static_cast<int64_t>(v.m_sent) + timers_before < w.p_count;
+    // (phold's initial messages are size-0 timers that send)
+    const bool send_phold = del_phold || (is_timer && w.phold);
+    s.do_send = send_phold || echo || mesh_tick || client_tick || ping_tick;
+    s.rearm = (is_start && (w.mesh || w.client || w.ping_cl)) || mesh_tick ||
+              client_tick || ping_tick || (is_timer && w.mesh && n == 1);
+    const unsigned m_pkt = g.bits(s.is_pkt), m_send = g.bits(s.do_send);
+    const unsigned m_arm = g.bits(s.rearm), m_phold = g.bits(send_phold);
+    const unsigned m_mesh = g.bits(mesh_tick);
+    s.snd_seq = wadd(v.send_seq, __popc(m_send & lo));
+    s.arm_seq = wadd(v.local_seq, __popc(m_arm & lo));
 
-    // LOCAL: start markers, anchors, timer ticks (phold's initial messages
-    // are size-0 timers that send)
-    const bool is_loc = act && kind == LOCAL;
-    const bool is_start = is_loc && size == -1;
-    const bool is_timer = is_loc && size >= 0;
-    const bool mesh_tick = is_timer && mesh && n > 1;
-    const bool client_tick = is_timer && client;
-    const bool ping_tick = is_timer && ping_cl && m_sent < p_count;
-    const bool send_phold = del_send_phold || (is_timer && phold);
-    const bool do_send =
-        send_phold || del_send_echo || mesh_tick || client_tick || ping_tick;
-
-    const int32_t nm1 = n > 1 ? static_cast<int32_t>(n - 1) : 1;
-    int32_t off = peer_off % nm1;
-    if (off < 0) off += nm1;  // floor modulo, as the reference's %
-    int32_t dst = b.p_peer[i];
+    // the destination: the phold peer (an APP_STREAM draw at its counter),
+    // the echo's source, the mesh peer at its offset
+    s.dst = w.p_peer;
     if (send_phold) {
-      // phold peer: an APP_STREAM draw at counter app_draws
       if (n == 1) {
-        dst = lane;
+        s.dst = lane;
       } else {
-        const uint32_t u = lane_draw(seed_lo, seed_hi,
-                                     static_cast<uint32_t>(lane) | APP_STREAM,
-                                     static_cast<uint32_t>(app_draws));
+        const uint32_t u = lane_draw(
+            seed_lo, seed_hi, static_cast<uint32_t>(lane) | APP_STREAM,
+            static_cast<uint32_t>(wadd(v.app_draws, __popc(m_phold & lo))));
         const int64_t r = static_cast<int64_t>(
             (static_cast<uint64_t>(u) * static_cast<uint64_t>(nm1)) >> 32);
-        dst = static_cast<int32_t>((i + 1 + r) % n);
+        s.dst = static_cast<int32_t>((i + 1 + r) % n);
       }
-      app_draws += 1;
-    } else if (del_send_echo) {
-      dst = src;
+    } else if (echo) {
+      s.dst = s.src;
     } else if (mesh_tick) {
-      dst = static_cast<int32_t>((i + 1 + off) % n);
+      const int32_t off_raw =
+          wadd(v.peer_off, wmul(w.p_stride, __popc(m_mesh & lo)));
+      int32_t off = off_raw % nm1;
+      if (off < 0) off += nm1;  // floor modulo, as the reference's %
+      s.dst = static_cast<int32_t>((i + 1 + off) % n);
     }
-    if (mesh_tick) peer_off += b.p_stride[i];
-    if (client_tick || ping_tick) m_sent += 1;
-    const int32_t out_size = del_send_echo ? size : p_size;
-    const int32_t snd_seq = send_seq;
-    if (do_send) {
-      send_seq += 1;
-      n_sends += 1;
+    s.out_size = echo ? s.size : w.p_size;
+    // the send's gathers and its LOSS_STREAM draw at counter snd_seq (never
+    // before bootstrap_end); a stream lane draws in the walk, where its
+    // sequence numbers are known
+    s.lat = 0;
+    s.thresh = 0;
+    s.lost = false;
+    const bool draw = has_loss && s.t >= b.bootstrap_end;
+    if (s.do_send) {
+      const int64_t pair =
+          static_cast<int64_t>(w.my_node) * b.g + b.node_of[s.dst];
+      s.lat = b.lat[pair];
+      if (draw) s.thresh = b.thresh[pair];
+      if (!STREAM && draw)
+        s.lost = static_cast<int64_t>(lane_draw(
+                     seed_lo, seed_hi, static_cast<uint32_t>(lane) | LOSS_STREAM,
+                     static_cast<uint32_t>(s.snd_seq))) < s.thresh;
     }
-    const int64_t dep = bucket_charge(up, b.up_rate[i], b.up_burst[i],
-                                      b.up_kfull[i], b.up_kfi[i], t,
-                                      (out_size + FRAME_OVERHEAD_BYTES) * 8,
-                                      do_send, interval, nb_thr);
-    if (do_send) nb_txb = wadd(nb_txb, out_size);
 
-    // timer re-arm
-    const bool rearm = (is_start && (mesh || client || ping_cl)) || mesh_tick ||
-                       client_tick || ping_tick || (is_timer && mesh && n == 1);
-    const int64_t ai = i * sw + arm0 + j;
-    int32_t arm_hi = NEVER32, arm_lo = NEVER32;
-    if (rearm) split(t + p_int, &arm_hi, &arm_lo);
-    b.self_blk[0 * nsw + ai] = arm_hi;
-    b.self_blk[1 * nsw + ai] = arm_lo;
-    b.self_blk[2 * nsw + ai] = lane_loc_auxh;
-    b.self_blk[3 * nsw + ai] = local_seq;
-    b.self_blk[4 * nsw + ai] = 0;
-    if (streams) {
-      b.self_blk[5 * nsw + ai] = 0;
-      b.self_blk[6 * nsw + ai] = 0;
-    }
-    if (rearm) local_seq += 1;
-
-    // outbound packet: arrival = max(depart + latency, window end), unless
-    // the LOSS_STREAM draw at counter snd_seq loses it (never before
-    // bootstrap_end)
-    const int64_t oi = j * n + i;
-    bool lost = false;
-    int64_t arr = 0;
-    if (do_send) {
-      const int64_t pair = static_cast<int64_t>(my_node) * b.g + b.node_of[dst];
-      const int32_t lat = b.lat[pair];
-      if (dyn) min_lat = lat < min_lat ? lat : min_lat;
-      if (has_loss && t >= b.bootstrap_end) {
-        const uint32_t u = lane_draw(seed_lo, seed_hi,
-                                     static_cast<uint32_t>(lane) | LOSS_STREAM,
-                                     static_cast<uint32_t>(snd_seq));
-        lost = static_cast<int64_t>(u) < b.thresh[pair];
+    // walk the chain: the buckets and CoDel, column by column
+    s.td = s.t;
+    s.dep = s.t;
+    s.drop = false;
+    const int xn = static_cast<int>(k - j0 < g.L ? k - j0 : g.L);
+    for (int x = 0; x < xn; ++x) {
+      const unsigned bit = 1u << (g.base + x);
+      const bool x_pkt = (m_pkt & bit) != 0, x_send = (m_send & bit) != 0;
+      const int64_t xt = g.from(s.t, x);
+      const int32_t xs = g.from(s.size, x), xo = g.from(s.out_size, x);
+      const int32_t xl = g.from(s.lat, x);
+      // a column that neither receives nor sends changes no chained word
+      if (!STREAM && !x_pkt && !x_send) continue;
+      int64_t td = xt, dep = xt;
+      bool drop = false, lost = false;
+      int32_t snd_seq = 0, arm_seq = 0;
+      if (x_pkt) {
+        td = bucket_charge(v.dn, w.dn_rate, w.dn_burst, w.dn_kfull, w.dn_kfi,
+                           xt, (xs + FRAME_OVERHEAD_BYTES) * 8, true, interval,
+                           v.nb_thr);
+        int64_t sojourn = td - xt;
+        if (sojourn > NEVER32) sojourn = NEVER32;
+        drop = codel_offer(v.fat_hi, v.fat_lo, v.cd_dn, v.dcount, v.dropping,
+                           td, sojourn, true, b.codel_div);
+        if (drop) {
+          v.n_codel = wadd(v.n_codel, 1);
+        } else {
+          v.n_del = wadd(v.n_del, 1);
+          v.nb_rxb = wadd(v.nb_rxb, xs);
+          // passive lanes count inline (each counting app on the host)
+          if (w.passive && !w.ext) v.recv = wadd(v.recv, wmul(xs, w.recv_mult));
+        }
       }
-      if (lost) n_loss += 1;
-      arr = dep + lat;
-      if (arr < we) arr = we;
-      int32_t a_hi, a_lo;
-      split(arr, &a_hi, &a_lo);
-      b.out_blk[0 * nk + oi] = lost ? static_cast<int32_t>(n) : dst;
-      b.out_blk[1 * nk + oi] = lost ? NEVER32 : a_hi;
-      b.out_blk[2 * nk + oi] = lost ? NEVER32 : a_lo;
-      b.out_blk[3 * nk + oi] = lost ? 0 : lane_pkt_auxh;
-      b.out_blk[4 * nk + oi] = lost ? 0 : snd_seq;
-      b.out_blk[5 * nk + oi] = lost ? 0 : out_size;
-    } else {
-      b.out_blk[0 * nk + oi] = static_cast<int32_t>(n);
-      b.out_blk[1 * nk + oi] = NEVER32;
-      b.out_blk[2 * nk + oi] = NEVER32;
-      b.out_blk[3 * nk + oi] = 0;
-      b.out_blk[4 * nk + oi] = 0;
-      b.out_blk[5 * nk + oi] = 0;
-    }
-
-    // one record: the popped packet's outcome, or the send's loss
-    if (b.log_cap > 0) {
-      const int64_t r = rec_base + oi;
-      int64_t* row = b.recs + r * 6;
-      if (is_pkt) {
-        row[0] = td;
-        row[1] = src;
-        row[2] = lane;
-        row[3] = seq;
-        row[4] = size;
-        row[5] = drop ? DROP_CODEL : DELIVERED;
-      } else if (lost) {
-        row[0] = t;
-        row[1] = lane;
-        row[2] = dst;
-        row[3] = snd_seq;
-        row[4] = out_size;
-        row[5] = DROP_LOSS;
-      } else {
-        for (int w = 0; w < 6; ++w) row[w] = 0;
+      if constexpr (STREAM) {
+        snd_seq = v.send_seq;
+        arm_seq = v.local_seq;
+        if (x_send) {
+          v.send_seq = wadd(v.send_seq, 1);
+          v.n_sends = wadd(v.n_sends, 1);
+        }
       }
-      b.rec_valid[r] = (is_pkt || lost) ? 1 : 0;
-    }
-    // the send's capture, at its departure and before the loss draw
-    if (b.pcap)
-      put_rec(b, b.rec_pc + oi, do_send && capture, dep, lane, dst, snd_seq,
-              out_size, PCAP_TX);
-    // the slot's flow groups: the send (lane -> dst), the arrival (src ->
-    // lane) at the down bucket's departure
-    if (b.flowtrace) {
-      const int64_t r = b.fl_slots + oi;
-      send_flows(b, r, nk, do_send && flow_sampled(b, lane, dst), lost, t,
-                 dep, arr, FT_SEND, lane, dst, snd_seq, out_size);
-      const bool ar = is_pkt && flow_sampled(b, src, lane);
-      put_flow(b, r + 4 * nk, ar && td != t, td, FT_TB_WAIT, src, lane, seq,
-               size, TB_DN);
-      put_flow(b, r + 5 * nk, ar && drop, td, FT_DROP, src, lane, seq, size,
-               CAUSE_CODEL);
-      put_flow(b, r + 6 * nk, ar && !drop, td, FT_DELIVERY, src, lane, seq,
-               size, 0);
+      int64_t xth = 0;
+      if constexpr (STREAM) xth = g.from(s.thresh, x);
+      if (x_send) {
+        dep = bucket_charge(v.up, w.up_rate, w.up_burst, w.up_kfull, w.up_kfi,
+                            xt, (xo + FRAME_OVERHEAD_BYTES) * 8, true, interval,
+                            v.nb_thr);
+        v.nb_txb = wadd(v.nb_txb, xo);
+        if constexpr (STREAM) {
+          if (dyn) v.min_lat = xl < v.min_lat ? xl : v.min_lat;
+          if (has_loss && xt >= b.bootstrap_end)
+            lost = static_cast<int64_t>(lane_draw(
+                       seed_lo, seed_hi, static_cast<uint32_t>(lane) | LOSS_STREAM,
+                       static_cast<uint32_t>(snd_seq))) < xth;
+          if (lost) v.n_loss = wadd(v.n_loss, 1);
+        }
+      }
+      if (x == g.gl) {
+        s.td = td;
+        s.dep = dep;
+        s.drop = drop;
+        if constexpr (STREAM) {
+          s.snd_seq = snd_seq;
+          s.arm_seq = arm_seq;
+          s.lost = lost;
+        }
+      }
+      if constexpr (STREAM) {
+        if (m_arm & bit) v.local_seq = wadd(v.local_seq, 1);
+        const bool x_act = g.from(static_cast<int32_t>(s.act), x) != 0;
+        const int32_t x_phi = g.from(s.phi, x), x_plo = g.from(s.plo, x);
+        stream_slot_warp(
+            b, i, j0 + x, r0, r1, x_act, g.from(s.kind, x), g.from(s.src, x),
+            xs, x_act ? x_phi : 0, x_act ? x_plo : 0, g.from(s.thi, x),
+            g.from(s.tlo, x), we,
+            StreamLane{v.up, v.send_seq, v.local_seq, v.n_sends, v.n_loss,
+                       v.min_lat, v.nb_txb, v.nb_thr});
+      }
     }
 
-    if (streams)
-      stream_slot(b, i, j, act, kind, src, size,
-                  act ? b.q_phi[qi] : 0, act ? b.q_plo[qi] : 0, thi, tlo, we,
-                  StreamLane{up, send_seq, local_seq, n_sends, n_loss,
-                             min_lat, nb_txb, nb_thr});
+    // the counters that step with the decided kinds
+    pkts += __popc(m_pkt);
+    v.app_draws = wadd(v.app_draws, __popc(m_phold));
+    v.peer_off = wadd(v.peer_off, wmul(w.p_stride, __popc(m_mesh)));
+    v.m_sent = wadd(v.m_sent, __popc(g.bits(client_tick || ping_tick)));
+    v.n_hops = wadd(v.n_hops, __popc(g.bits(del_phold)));
+    if constexpr (!STREAM) {
+      v.send_seq = wadd(v.send_seq, __popc(m_send));
+      v.n_sends = wadd(v.n_sends, __popc(m_send));
+      v.local_seq = wadd(v.local_seq, __popc(m_arm));
+      v.n_loss = wadd(v.n_loss, __popc(g.bits(s.lost)));
+      if (dyn) {  // every send counts, lost or not
+        const int32_t ml = g.min(s.do_send ? s.lat : NEVER32);
+        v.min_lat = ml < v.min_lat ? ml : v.min_lat;
+      }
+    }
+    if (live && mine) slot_emit(b, i, j, w, s, we);
   }
-
-  b.dn_tokens[i] = dn.tokens;
-  split(dn.nr, &b.dn_nr_hi[i], &b.dn_nr_lo[i]);
-  split(dn.ld, &b.dn_ld_hi[i], &b.dn_ld_lo[i]);
-  b.up_tokens[i] = up.tokens;
-  split(up.nr, &b.up_nr_hi[i], &b.up_nr_lo[i]);
-  split(up.ld, &b.up_ld_hi[i], &b.up_ld_lo[i]);
-  b.cd_fat_hi[i] = fat_hi;
-  b.cd_fat_lo[i] = fat_lo;
-  split(cd_dn, &b.cd_dnext_hi[i], &b.cd_dnext_lo[i]);
-  b.cd_drop_count[i] = dcount;
-  b.cd_dropping[i] = dropping;
-  b.send_seq[i] = send_seq;
-  b.local_seq[i] = local_seq;
-  b.m_sent[i] = m_sent;
-  b.m_peer_offset[i] = peer_off;
-  b.n_delivered[i] = n_del;
-  b.n_codel[i] = n_codel;
-  b.recv_bytes[i] = recv;
-  b.n_sends[i] = n_sends;
-  b.app_draws[i] = app_draws;
-  b.n_loss[i] = n_loss;
-  b.n_hops[i] = n_hops;
-  if (b.netobs) {
-    b.nb_txb[i] = nb_txb;
-    b.nb_rxb[i] = nb_rxb;
-    b.nb_thr[i] = nb_thr;
-  }
-  // the smallest latency sent over (exact: min is order-free)
-  if (min_lat < NEVER32) atomicMin(b.min_used_lat, min_lat);
+  if (!live || g.gl != 0) return 0;
+  store_vars(b, i, v);
   return pkts;
 }
 
-template <class P>
-__global__ void lane_slots_kernel(const __grid_constant__ P bufs) {
+// Every lane's walk: blocks [0, lane_blocks) hold the groups (one lane a
+// group, a lane that owns endpoint rows skipped there when STREAMS), the
+// blocks after them a warp per endpoint row r, whose lane walks there when
+// r is its first row.
+template <bool STREAMS, class P>
+__global__ void __launch_bounds__(SLOT_THREADS)
+    lane_slots_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  const int32_t pkts = i < b.n ? lane_slots_lane(b, i) : 0;
+  const int L = static_cast<int>(b.slot_group);
+  const int ln = threadIdx.x & 31;
+  const int64_t lane_blocks =
+      (b.n * L + SLOT_THREADS - 1) / SLOT_THREADS;
+  int32_t pkts = 0;
+  if (!STREAMS || blockIdx.x < lane_blocks) {
+    // every thread of the warp walks (see Group); a group past the last
+    // lane walks the last lane's words, storing nothing
+    int64_t i = (blockIdx.x * static_cast<int64_t>(SLOT_THREADS) +
+                 threadIdx.x) / L;
+    bool live = i < b.n;
+    if (!live) i = b.n - 1;
+    if (STREAMS && live) live = b.lane_ep_start[i] == b.lane_ep_start[i + 1];
+    const int base = ln & ~(L - 1);
+    const Group g{ln - base, L, base,
+                  L == 32 ? FULL_MASK : ((1u << L) - 1u) << base};
+    pkts = lane_walk<false>(b, i, live, g, 0, 0);
+  } else if constexpr (STREAMS) {
+    const int64_t r = (blockIdx.x - lane_blocks) * (SLOT_THREADS / 32) +
+                      (threadIdx.x >> 5);
+    if (r < 2 * b.s_flows) {
+      const int64_t i = b.flow_lanes[b.lane_ep_rows[r]];
+      const int32_t r0 = b.lane_ep_start[i];
+      if (r0 == r)  // the whole warp
+        pkts = lane_walk<true>(b, i, true, Group{ln, 32, 0, FULL_MASK}, r0,
+                               b.lane_ep_start[i + 1]);
+    }
+  }
   if (b.netobs) block_add(pkts, b.nb_win);
 }
 
@@ -1769,30 +2061,6 @@ __device__ __forceinline__ void load_queue_row(const LaneBufs& b, int32_t* e,
 #pragma unroll
     for (int w = 0; w < W; ++w) e[W * x + w] = q[w][lane * b.c + x];
   }
-}
-
-// The rank of entry x among the n entries of W words at e, by the event
-// key, ties by index (G's rank of its valid entries, by all pairs): a
-// permutation, stable for equal keys.  The entry's key stays in registers;
-// an entry ranks below it when its key is smaller, or equal at a smaller
-// index.
-template <int W>
-__device__ __forceinline__ int64_t key_rank(const int32_t* e, int64_t n,
-                                            int64_t x) {
-  const int32_t* ex = e + W * x;
-  const int32_t k0 = ex[0], k1 = ex[1], k2 = ex[2], k3 = ex[3];
-  int64_t rank = 0;
-  for (int64_t y = 0; y < n; ++y) {
-    const int32_t* ey = e + W * y;
-    const int32_t a0 = ey[0], a1 = ey[1], a2 = ey[2], a3 = ey[3];
-    const bool less = a0 != k0   ? a0 < k0
-                      : a1 != k1 ? a1 < k1
-                      : a2 != k2 ? a2 < k2
-                                 : a3 < k3;
-    const bool same = a0 == k0 && a1 == k1 && a2 == k2 && a3 == k3;
-    if (less || (same && y < x)) ++rank;
-  }
-  return rank;
 }
 
 // ---- the row sort (B, E, H) -------------------------------------------------
@@ -2769,18 +3037,28 @@ __global__ void stream_tier_kernel(const __grid_constant__ P bufs) {
 }
 
 // ---- kernel G: tier_merge --------------------------------------------------
-// The tier merge (the reference's _stream_tier_iter merge): one block per
-// endpoint row r merges its queue [C2] with its W_t = 3K_s + K_s*B + Cx
-// candidates — its DELIVERY fallbacks [K_s], its RTO arms [K_s], its peer's
-// control sends [K_s], on server rows its client's bursts [K_s*B]
-// (slot-major; a client row's are empty), its diverted cross entries [Cx].
-// Most entries are empty, so the valid ones (time word != NEVER32) are first
-// compacted into shared memory in index order (per-thread counts over
-// contiguous chunks, a block scan), then only those are ranked by (key,
-// index).  The first C2 go to the row, canonical empties after them; the rest
-// are counted into TV_N_QUEUE and recorded as DROP_QUEUE in the tier's tail
-// group [2S, W_t] at their rank past C2.
-constexpr int TIER_THREADS = 128;
+// The tier merge (the reference's _stream_tier_iter merge): endpoint row r
+// merges its queue [C2] with its W_t = 3K_s + K_s*B + Cx candidates — its
+// DELIVERY fallbacks [K_s], its RTO arms [K_s], its peer's control sends
+// [K_s], on server rows its client's bursts [K_s*B] (slot-major; a client
+// row's are empty), its diverted cross entries [Cx].  A warp a row, a block
+// a warp (several rows a block, their candidate planes' time words staged a
+// tile of rows at a time, measured slower on the H100: PERF.md).  With a
+// log the warp first zeroes its row's tail records, 16 bytes a store.  It
+// finds the valid entries (time word != NEVER32) 32 at a time with
+// __ballot_sync (every chunk's time word loaded before any ballot), then
+// gathers only those, in index order, into its working memory: shared
+// memory, or (tier_global) its part of m_scratch.  Most candidates are
+// empty, and the queue's valid entries are one run in key order already (F
+// only pops a prefix of a row G sorted; the warp checks it): the row is the
+// queue's run and the candidates in runs of 32, each sorted by (key, index)
+// in registers (B's warp_sort), and an entry's rank is its place in its own
+// run plus, for every other run, the count of that run's entries below it
+// (a binary search).  No barrier and no all-pairs rank.  The first C2 go to
+// the row, canonical empties after them; the rest are counted into
+// TV_N_QUEUE and recorded as DROP_QUEUE in the tier's tail group [2S, W_t]
+// at their rank past C2.
+constexpr int TIER_UNROLL = 16;  // chunks of 32 a lane loads before ballots
 
 // entry x of row r's [queue C2 | W_t candidates]: its first word and the
 // stride between its words, or nullptr for a client row's (empty) burst
@@ -2806,79 +3084,225 @@ __device__ __forceinline__ const int32_t* tier_entry(const LaneBufs& b,
   return b.tier_blk + lay.cx + r * b.cx + (x - ks * PUMP_BURST);
 }
 
+// the position of the k-th (from 0) set bit of m
+__device__ __forceinline__ int nth_bit(unsigned m, int k) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (k >= c) {
+      k -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// the key of the compacted entry at position p: its four key words and p
+// (positions are in index order, so p breaks ties as the index does)
+__device__ __forceinline__ Key tier_key(const int32_t* ent, int32_t p) {
+  const int32_t* e = ent + 7 * p;
+  return make_key(e[0], e[1], e[2], e[3], p);
+}
+
+// the count of run [lo, hi) of ord (sorted by key) whose keys are below kv
+__device__ __forceinline__ int32_t count_below(const int32_t* ent,
+                                               const int32_t* ord, int32_t lo,
+                                               int32_t hi, const Key& kv) {
+  const int32_t p0 = lo;
+  while (lo < hi) {
+    const int32_t mid = (lo + hi) >> 1;
+    if (lt(tier_key(ent, ord[mid]), kv)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo - p0;
+}
+
+// a row's working memory, int32 words (lanes.tier_row_words): the valid
+// entries [total][7], their order [total], the chunks' valid masks and the
+// valid entries before each chunk
+__host__ __device__ __forceinline__ int64_t tier_row_words(int64_t total) {
+  return 8 * total + 2 * ((total + 31) / 32);
+}
+
+
+
+// records [first, first + count) and their flags zeroed by a warp, 16
+// bytes a store (a record is three; recs is 16-byte aligned)
+__device__ __forceinline__ void zero_recs(const LaneBufs& b, int64_t first,
+                                          int64_t count) {
+  const int ln = threadIdx.x & 31;
+  int4* const w = reinterpret_cast<int4*>(b.recs + first * 6);
+  for (int64_t x = ln; x < 3 * count; x += 32) w[x] = make_int4(0, 0, 0, 0);
+  for (int64_t x = ln; x < count; x += 32) b.rec_valid[first + x] = 0;
+}
+
 template <class P>
 __global__ void tier_merge_kernel(const __grid_constant__ P bufs) {
   const LaneBufs& b = scenario(bufs, blockIdx.y);
   if (b.ctl[0] == 0) return;
-  // the valid entries, [n_valid][7]: in shared memory, or (tier_global) the
-  // block's part of m_scratch
   extern __shared__ int32_t smem[];
-  __shared__ int32_t part[TIER_THREADS];
+  const int ln = threadIdx.x & 31;
   const int64_t r = blockIdx.x;
   const int64_t s2 = 2 * b.tier_s, c2 = b.c2;
   const int64_t wt = 3 * b.ks + b.ks * PUMP_BURST + b.cx, total = c2 + wt;
-  int32_t* const sm = b.tier_global ? b.m_scratch + r * 7 * total : smem;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int64_t chunk = (total + nt - 1) / nt;
-  const int64_t lo = tid * chunk;
-  const int64_t hi = lo + chunk < total ? lo + chunk : total;
+  const int64_t chunks = (total + 31) / 32, words = tier_row_words(total);
+  int32_t* const mem = b.tier_global ? b.m_scratch + r * words : smem;
+  // the row's tail group empty, before the valid records are written
+  if (b.log_cap > 0) {
+    zero_recs(b, b.rec_ttail + r * wt, wt);
+    __syncwarp();
+  }
+  int32_t* const ent = mem;                   // [total][7]
+  int32_t* const ord = mem + 7 * total;       // [total]
+  int32_t* const vmask = ord + total;         // [chunks]
+  int32_t* const cbase = vmask + chunks;      // [chunks]
+  const unsigned below = (1u << ln) - 1u;
 
-  // compaction: count, scan, copy in index order
-  int32_t cnt = 0;
-  for (int64_t x = lo; x < hi; ++x) {
-    int64_t stride;
-    const int32_t* p = tier_entry(b, r, x, stride);
-    if (p && p[0] != NEVER32) ++cnt;
-  }
-  part[tid] = cnt;
-  __syncthreads();
-  for (int s = 1; s < nt; s <<= 1) {  // Hillis-Steele
-    const int32_t v = tid >= s ? part[tid - s] : 0;
-    __syncthreads();
-    part[tid] += v;
-    __syncthreads();
-  }
-  const int64_t n_valid = part[nt - 1];
-  int64_t pos = part[tid] - cnt;
-  for (int64_t x = lo; x < hi; ++x) {
-    int64_t stride;
-    const int32_t* p = tier_entry(b, r, x, stride);
-    if (p && p[0] != NEVER32) {
+  // the valid flags, a chunk of 32 entries a ballot: every chunk's time
+  // words of a pass loaded before its ballots
+  for (int64_t m0 = 0; m0 < chunks; m0 += TIER_UNROLL) {
+    int32_t hi[TIER_UNROLL];
 #pragma unroll
-      for (int w = 0; w < 7; ++w) sm[7 * pos + w] = p[w * stride];
-      ++pos;
+    for (int u = 0; u < TIER_UNROLL; ++u) {
+      const int64_t x = (m0 + u) * 32 + ln;
+      hi[u] = NEVER32;
+      if (x < total) {
+        int64_t stride;
+        const int32_t* p = tier_entry(b, r, x, stride);
+        if (p) hi[u] = *p;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < TIER_UNROLL; ++u) {
+      const unsigned m = __ballot_sync(FULL_MASK, hi[u] != NEVER32);
+      if (ln == 0 && m0 + u < chunks) vmask[m0 + u] = static_cast<int32_t>(m);
     }
   }
-  __syncthreads();
+  __syncwarp();
+  // the valid entries before each chunk (an exclusive scan, 32 chunks a
+  // pass), and those of the queue
+  int32_t n_valid = 0, n_q = 0;
+  for (int64_t m0 = 0; m0 < chunks; m0 += 32) {
+    const int64_t m = m0 + ln;
+    const unsigned bits = m < chunks ? static_cast<unsigned>(vmask[m]) : 0u;
+    const int32_t cnt = __popc(bits);
+    int32_t inc = cnt;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t y = __shfl_up_sync(FULL_MASK, inc, d);
+      if (ln >= d) inc += y;
+    }
+    if (m < chunks) cbase[m] = n_valid + inc - cnt;
+    // the queue's entries: indices below C2
+    const int64_t q_left = c2 - m * 32;
+    const unsigned qbits =
+        q_left >= 32 ? bits : (q_left > 0 ? bits & ((1u << q_left) - 1u) : 0u);
+    n_q += __reduce_add_sync(FULL_MASK, static_cast<unsigned>(__popc(qbits)));
+    n_valid += __shfl_sync(FULL_MASK, inc, 31);
+  }
+  __syncwarp();
+  // gather the valid entries' words into ent, in index order: a lane an
+  // entry, each lane's entries' words loaded before they are stored
+  for (int32_t p0 = 0; p0 < n_valid; p0 += 32 * 4) {
+    int32_t words7[4][7];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int32_t p = p0 + u * 32 + ln;
+      if (p < n_valid) {
+        int32_t lo = 0, hi = static_cast<int32_t>(chunks) - 1;
+        while (lo < hi) {  // the last chunk whose base is <= p
+          const int32_t mid = (lo + hi + 1) >> 1;
+          if (cbase[mid] <= p) {
+            lo = mid;
+          } else {
+            hi = mid - 1;
+          }
+        }
+        const int64_t x = static_cast<int64_t>(lo) * 32 +
+                          nth_bit(static_cast<unsigned>(vmask[lo]),
+                                  p - cbase[lo]);
+        int64_t stride;
+        const int32_t* e = tier_entry(b, r, x, stride);
+#pragma unroll
+        for (int w = 0; w < 7; ++w) words7[u][w] = e[w * stride];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int32_t p = p0 + u * 32 + ln;
+      if (p < n_valid) {
+#pragma unroll
+        for (int w = 0; w < 7; ++w) ent[7 * p + w] = words7[u][w];
+      }
+    }
+  }
+  __syncwarp();
 
-  // rank the valid entries by (key, index); the row takes the first C2
+  // the runs: the queue's valid entries, one run if they are in key order
+  // (else runs of 32 like the candidates'), then runs of 32
+  bool q_sorted = true;
+  for (int32_t a0 = 0; a0 + 1 < n_q; a0 += 32) {
+    const int32_t a = a0 + ln;
+    const bool bad = a + 1 < n_q && lt(tier_key(ent, a + 1), tier_key(ent, a));
+    if (__any_sync(FULL_MASK, bad)) q_sorted = false;
+  }
+  const int32_t first = q_sorted ? n_q : 0;  // [0, first): one run as it is
+  for (int32_t a = ln; a < first; a += 32) ord[a] = a;
+  for (int32_t s0 = first; s0 < n_valid; s0 += 32) {
+    const int32_t p = s0 + ln;
+    if (s0 + 1 == n_valid) {  // a run of one
+      if (ln == 0) ord[p] = p;
+      continue;
+    }
+    Key kv = p < n_valid ? tier_key(ent, p) : pad_key(PAD_INDEX);
+    kv = warp_sort(kv, ln);
+    if (p < n_valid) ord[p] = static_cast<int32_t>(kv.x);
+  }
+  __syncwarp();
+
+  // each entry's rank: its place in its run, plus the entries below it in
+  // every other run; the row takes the first C2
   int32_t* q[7];
 #pragma unroll
   for (int w = 0; w < 7; ++w) q[w] = b.tier_q + w * s2 * c2 + r * c2;
   const int64_t ttail = b.rec_ttail + r * wt;
   const int32_t lane = b.flow_lanes[r];
-  for (int64_t y = tid; y < n_valid; y += nt) {
-    const int32_t* ey = sm + 7 * y;
-    const int64_t rank = key_rank<7>(sm, n_valid, y);
+  for (int32_t p = ln; p < n_valid; p += 32) {
+    const int32_t at = ord[p];
+    const Key kv = tier_key(ent, at);
+    const int32_t own = p < first ? 0 : first + (p - first) / 32 * 32;
+    int32_t rank = p - own;
+    if (own != 0 || first == 0) {
+      if (first > 0) rank += count_below(ent, ord, 0, first, kv);
+    }
+    for (int32_t s0 = first; s0 < n_valid; s0 += 32) {
+      if (s0 == own) continue;
+      const int32_t s1 = s0 + 32 < n_valid ? s0 + 32 : n_valid;
+      rank += count_below(ent, ord, s0, s1, kv);
+    }
+    const int32_t* e = ent + 7 * at;
     if (rank < c2) {
 #pragma unroll
-      for (int w = 0; w < 7; ++w) q[w][rank] = ey[w];
+      for (int w = 0; w < 7; ++w) q[w][rank] = e[w];
     } else {
-      put_rec(b, ttail + (rank - c2), true, join_raw(ey[0], ey[1]),
-              (ey[2] >> AUX_SRC_SHIFT) & SRC_MASK, lane, ey[3], ey[4],
+      put_rec(b, ttail + (rank - c2), true, join_raw(e[0], e[1]),
+              (e[2] >> AUX_SRC_SHIFT) & SRC_MASK, lane, e[3], e[4],
               DROP_QUEUE);
     }
   }
-  for (int64_t x = n_valid + tid; x < c2; x += nt) {  // canonical empties
+  for (int64_t x = n_valid + ln; x < c2; x += 32) {  // canonical empties
     q[0][x] = NEVER32;
     q[1][x] = NEVER32;
 #pragma unroll
     for (int w = 2; w < 7; ++w) q[w][x] = 0;
   }
   const int64_t over = n_valid > c2 ? n_valid - c2 : 0;
-  for (int64_t p = over + tid; p < wt; p += nt)  // tail slots left empty
-    put_rec(b, ttail + p, false, 0, 0, 0, 0, 0, 0);
-  if (tid == 0 && over)
+  if (ln == 0 && over)
     b.tier_v[TV_N_QUEUE * s2 + r] += static_cast<int32_t>(over);
 }
 
@@ -3601,11 +4025,23 @@ unsigned merge_threads(int64_t w_all) {
 
 extern "C" {
 
+// kernel A: the lanes' groups (slot_group threads a lane), then on runs
+// with streams a warp per endpoint row in the instance with the stream arm
 int lane_slots(const LaneBufs* host, const LaneBufs* dev, int s,
                cudaStream_t stream) {
+  const unsigned lane_blocks =
+      blocks_for(host->n * host->slot_group, SLOT_THREADS);
+  const int64_t rows = 2 * host->s_flows;
   return with_bufs(host, dev, s, [&](auto bufs) {
-    lane_slots_kernel<<<dim3(blocks_for(host->n, 128), s), 128, 0, stream>>>(
-        bufs);
+    using P = decltype(bufs);
+    if (rows > 0) {
+      const unsigned blocks = lane_blocks + blocks_for(rows, SLOT_THREADS / 32);
+      lane_slots_kernel<true, P><<<dim3(blocks, s), SLOT_THREADS, 0, stream>>>(
+          bufs);
+    } else {
+      lane_slots_kernel<false, P>
+          <<<dim3(lane_blocks, s), SLOT_THREADS, 0, stream>>>(bufs);
+    }
     return cudaSuccess;
   });
 }
@@ -3696,20 +4132,27 @@ int stream_tier(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
+// kernel G: a warp a row, its working memory in shared memory (opted in
+// once past 48 KB) or in m_scratch
 int tier_merge(const LaneBufs* host, const LaneBufs* dev, int s,
                cudaStream_t stream) {
   const LaneBufs* b = host;
   return with_bufs(host, dev, s, [&](auto bufs) {
     using P = decltype(bufs);
+    static int opted = 48 * 1024;  // the dynamic shared memory allowed
+    if (b->tier_s == 0) return cudaSuccess;
     const int64_t total = b->c2 + 3 * b->ks + b->ks * PUMP_BURST + b->cx;
-    int smem = 0;
-    const cudaError_t err =
-        merge_smem(tier_merge_kernel<P>, b->tier_global != 0,
-                   7 * total * sizeof(int32_t), &smem);
-    if (err != cudaSuccess) return err;
-    if (b->tier_s > 0)
-      tier_merge_kernel<<<dim3(static_cast<unsigned>(2 * b->tier_s), s),
-                          TIER_THREADS, smem, stream>>>(bufs);
+    const int smem = b->tier_global ? 0
+        : static_cast<int>(tier_row_words(total) * sizeof(int32_t));
+    if (smem > opted) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          tier_merge_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          smem);
+      if (err != cudaSuccess) return err;
+      opted = smem;
+    }
+    tier_merge_kernel<<<dim3(static_cast<unsigned>(2 * b->tier_s), s), 32,
+                        smem, stream>>>(bufs);
     return cudaSuccess;
   });
 }
