@@ -112,7 +112,15 @@ past the int32 top mid-row, passive, active and stream lanes side by
 side (a star lane of 40 rows), the external arm, S = 1, 3, 8 and 9; G on
 empty rows, exactly C2 valid, C2 + 1, every candidate valid, keys tied
 between the queue and the candidates, an unsorted queue, the wide row in
-``m_scratch``, S = 1, 3, 8 and 9 — exact.
+``m_scratch``, S = 1, 3, 8 and 9 — exact; then E and H on theirs
+(``check_row_cases``): E's unsorted queue rows, non-canonical empties on
+both sides (canonical keys with payload words among them), keys tied
+across the queue and the candidates, overflow with a log and flowtrace,
+all-empty rows, one and four rows a block, C = 8,400 in ``m_scratch``,
+S = 1, 3 and 9; H's groups of 0, 1, 31, 32, 33, Cxi, Cxi + 1 and 400
+rows, ties broken by the row index, empty groups over rows that must
+shift (consumed entries) and rows that must not, unsorted rows, S = 1, 3
+and 9 — exact.
 Between the wide rows and 9: fault schedules card = CPU (step and device)
 on six twins of ``tests/test_torch_faults.py``'s configurations and on
 the lossy flagship at 10,000 hosts for 1 sim s with a latency epoch (10 to
@@ -3103,6 +3111,247 @@ def check_slot_cases():
             f"({paths['tier merge']}); valid {seen}")
 
 
+# ---- kernels E and H on their edge cases -----------------------------------
+
+ROW_CASES = ("unsorted", "noncanonical", "ties", "overflow", "empty",
+             "random")
+
+
+def split_source(p, r: int, x: int) -> int:
+    """The stream block entry candidate x of endpoint row r takes, or -1
+    (a client row's padding): csrc/lanes.cu split_source."""
+    k, sf = p.pops_per_iter, p.s_flows
+    s2 = 2 * sf
+    if x < k:
+        return x * s2 + (r + sf if r < sf else r - sf)
+    if x < 2 * k:
+        return k * s2 + (x - k) * s2 + r
+    return -1 if r < sf else 4 * k * sf + (x - 2 * k) * sf + (r - sf)
+
+
+def row_entries(rng, m: int) -> np.ndarray:
+    """``m`` valid entries [7, m] at a few instants: PACKETs, DELIVERYs and
+    LOCALs, aux words that tie now and then, payload words."""
+    t = T0 + rng.integers(0, 6, m) * 250_000
+    kind = rng.choice([lanes.PACKET, lanes.DELIVERY, lanes.LOCAL], m)
+    return np.stack([t >> 31, t & lanes.MASK31,
+                     kind << 29 | rng.integers(0, 12, m) << 12,
+                     rng.integers(-3, 3, m), rng.integers(28, 1500, m),
+                     rng.integers(0, 1 << 30, m), rng.integers(0, 1 << 20, m)])
+
+
+def key_sorted(e: np.ndarray) -> np.ndarray:
+    """Entries [W, m] in (key, index) order."""
+    order = np.lexsort((e[3].astype(np.int32), e[2].astype(np.int32),
+                        (e[0].astype(np.int64) << 31) | e[1]))
+    return e[:, order]
+
+
+EMPTY7 = np.array([lanes.NEVER32, lanes.NEVER32, 0, 0, 0, 0, 0])[:, None]
+
+
+def stale(rng, m: int) -> np.ndarray:
+    """``m`` consumed entries as A leaves them: the NEVER time, their aux,
+    size and payload words kept (keyed above the canonical empty)."""
+    e = row_entries(rng, m)
+    e[:2] = lanes.NEVER32
+    e[2] = (lanes.PACKET << 29) | rng.integers(1, 12, m) << 12
+    return key_sorted(e)
+
+
+def e_inputs(p, tb, s, ws, case: str, rng) -> None:
+    """E's inputs by ``case`` (as tests/test_torch_row_merge.py's): each
+    endpoint lane's queue row and the stream block entries the static
+    layout gives its row."""
+    c, w_s, s2 = p.capacity, p.stream_row_width, 2 * p.s_flows
+    el = tb.flow_lanes.tolist()
+    sx = np.empty(tuple(ws.sx_blk.shape), np.int64)
+    sx[0] = p.n_lanes
+    sx[1:] = EMPTY7
+    q = [w.cpu().numpy().astype(np.int64) for w in lanes._queue_words(p, s)]
+    for r in range(s2):
+        n_q = {"empty": 0, "overflow": c - 3, "unsorted": c // 2}.get(
+            case, int(rng.integers(0, c + 1)))
+        row = np.repeat(EMPTY7, c, axis=1)
+        qe = key_sorted(row_entries(rng, n_q))
+        if case == "unsorted":
+            qe = qe[:, ::-1]
+        row[:, :n_q] = qe
+        if case == "noncanonical":
+            row[:, n_q:] = stale(rng, c - n_q)
+        for w in range(7):
+            q[w][el[r]] = row[w]
+        slots = [x for x in range(w_s) if split_source(p, r, x) >= 0]
+        n_c = min({"empty": 0, "overflow": len(slots), "ties": 12}.get(
+            case, int(rng.integers(0, len(slots) + 1))), len(slots))
+        ce = row_entries(rng, n_c)
+        if case == "ties" and n_q:
+            ce[:4] = qe[:4, rng.integers(0, n_q, n_c)]
+        if case == "noncanonical":
+            # NEVER entries with their words, and canonical keys with size
+            # and payload words
+            ce[:2, : n_c // 3] = lanes.NEVER32
+            ce[:4, n_c // 3: 2 * n_c // 3] = EMPTY7[:4]
+        for x, e in zip(rng.choice(slots, n_c, replace=False), ce.T):
+            idx = split_source(p, r, x)
+            sx[0, idx] = el[r]
+            sx[1:, idx] = e
+    ws.sx_blk.copy_(t32(sx))
+    for w, plane in zip(q, lanes._queue_words(p, s)):
+        plane.copy_(t32(w))
+
+
+def e_case(eng, rng, case: str, log_cap: int, sample: float = 0.0):
+    """E's params (with a log and, at ``sample`` > 0, flowtrace), tables,
+    state and workspace for ``case``."""
+    p = dataclasses.replace(eng.params, log_capacity=log_cap)
+    if sample:
+        p = traced(p, sample)
+    s0 = with_log(eng.initial_state(), log_cap)
+    if sample:
+        s0 = with_ring(s0, p.flow_capacity)
+    ws0 = lanes.make_workspace(p, DEV)
+    ws0.ctl[0] = 1
+    e_inputs(p, eng.tables, s0, ws0, case, rng)
+    return p, eng.tables, s0, ws0
+
+
+def e_plain(p_, tb_, s, ws):
+    lanes.stream_rows_merge_plain(p_, tb_, s, ws)
+
+
+def h_groups_block(p, rng, sizes: dict, t0: int, ties: bool) -> torch.Tensor:
+    """An injection block on the card whose lane ``i`` takes ``sizes[i]``
+    rows at shuffled positions, the rest invalid, at a few instants; with
+    ``ties`` the aux words tie too (the row index decides)."""
+    b = p.inject_batch
+    total = sum(sizes.values())
+    valid = np.zeros(b, bool)
+    dst = np.zeros(b, np.int64)
+    at = rng.permutation(b)[:total]
+    valid[at] = True
+    dst[at] = np.repeat(list(sizes), list(sizes.values()))
+    t = t0 + rng.integers(0, 3, b) * 1_000_000
+    src = rng.integers(0, 4 if ties else p.n_lanes, b)
+    blk = np.stack([
+        valid, dst, np.where(valid, t >> 31, lanes.NEVER32),
+        np.where(valid, t & lanes.MASK31, lanes.NEVER32),
+        (lanes.PACKET << lanes.AUX_KIND_SHIFT) | (src << lanes.AUX_SRC_SHIFT),
+        rng.integers(0, 4, b) if ties else (1 << 22) + np.arange(b),
+        rng.integers(60, 1500, b)])
+    return t32(blk)
+
+
+def h_state(eng, tb, rng, stale_lanes, unsorted_lanes):
+    """A hybrid state whose queue rows of ``stale_lanes`` end in consumed
+    entries and whose rows of ``unsorted_lanes`` are reversed."""
+    s = random_state(eng, tb, rng)
+    c = eng.params.capacity
+    q = [w.cpu().numpy().astype(np.int64)
+         for w in (s.q_thi, s.q_tlo, s.q_auxh, s.q_auxl, s.q_size)]
+    for i in stale_lanes:
+        free = int((q[0][i] == lanes.NEVER32).sum())
+        m = max(free // 2, 1)
+        e = stale(rng, m)
+        for w in range(5):
+            q[w][i, c - m:] = e[w]
+    for i in unsorted_lanes:
+        for w in q:
+            w[i] = w[i][::-1]
+    return s._replace(**{f: t32(w) for f, w in zip(
+        ("q_thi", "q_tlo", "q_auxh", "q_auxl", "q_size"), q)})
+
+
+@phase("kernels E and H on their edge cases vs plain: E's unsorted queue "
+       "rows (the fallback), non-canonical empties on both sides, keys "
+       "equal across them, overflow with a log and flowtrace, all-empty "
+       "rows, C = 8,400 in m_scratch, S = 1, 3 and 9; H's groups of 0, "
+       "1, 31, 32, 33, Cxi, Cxi + 1 and 400 rows, ties broken by the row index, empty groups over rows that must "
+       "shift and rows that must not, unsorted rows, S = 1, 3 and 9 "
+       "(tolerance: exact, integer)")
+def check_row_cases():
+    rng = np.random.default_rng(SEED + 13)
+    eng = GpuEngine(mixed_mesh(1), log_capacity=0)
+    for case in ROW_CASES:
+        for log_cap, sample in ((0, 0.0), (200_000, 0.0), (200_000, 1.0)):
+            p, tb, s0, ws0 = e_case(eng, rng, case, log_cap, sample)
+            tag = f"{case} L={log_cap} flowtrace={sample}"
+            kern, plain = run_pair(p, tb, s0, ws0, kernels.stream_rows_merge,
+                                   e_plain)
+            check("stream_rows_merge", tag, kern, plain)
+            el = tb.flow_lanes.long()
+            over = int((plain["n_queue"][el] - s0.n_queue[el]).sum())
+            if log_cap and sample:
+                log(f"stream_rows_merge {tag}: equal; overflow {over}, "
+                    f"flow sheds {int(plain['fl_valid'].sum())}")
+            if case == "overflow" and not over:
+                raise AssertionError(f"E {tag}: no overflow")
+    moving = [c for c in ROW_CASES if c != "empty"]  # check_batch's rule
+    for size in (3, 9):
+        cases = [e_case(eng, rng, moving[i % len(moving)], 100_000)
+                 for i in range(size)]
+        check_batch("stream_rows_merge", f"row cases S={size}", cases,
+                    kernels.stream_rows_merge, e_plain)
+    # the wide rows: C = 8,400, E's rows in m_scratch
+    weng = GpuEngine(wide_pair(False), log_capacity=0)
+    paths = merge_paths(weng.params)
+    if not paths["stream merge"].startswith("global"):
+        raise AssertionError(f"the wide stream rows are not global: {paths}")
+    for case in ("random", "unsorted", "overflow", "noncanonical"):
+        p, tb, s0, ws0 = e_case(weng, rng, case, 100_000)
+        kern, plain = run_pair(p, tb, s0, ws0, kernels.stream_rows_merge,
+                               e_plain)
+        check("stream_rows_merge", f"wide {case}", kern, plain)
+    log(f"stream_rows_merge: equal on every row case, S = 3 and 9, and "
+        f"C = 8,400 ({paths['stream merge']})")
+
+    # H at the hybrid flagship's shapes (C = Cxi = 64)
+    cfg = hybrid_cfg("rows")
+    ext = np.nonzero(external_mask(cfg))[0]
+    heng = GpuEngine(cfg, log_capacity=0, external=external_mask(cfg))
+    p, tb = heng.params, heng.tables
+    cxi = p.inject_cap
+    sizes = [1, 31, 32, 33, cxi, cxi + 1]
+    group_lanes = ext[1:1 + len(sizes)]
+    blocks = {"groups": dict(zip(group_lanes.tolist(), sizes)),
+              "400 to one lane": {int(ext[0]): 400}}
+    stale_lanes = [int(ext[0]), int(group_lanes[2]), int(ext[-1]),
+                   int(ext[-2])]
+    unsorted_lanes = [int(group_lanes[4]), int(ext[-3])]
+    for name, grp in blocks.items():
+        for ties in (False, True):
+            s0 = h_state(heng, tb, rng, stale_lanes, unsorted_lanes)
+            ws0 = lanes.make_workspace(p, DEV)
+            blk = h_groups_block(p, rng, grp, T0, ties)
+            tag = f"{name} ties={ties}"
+            kern, plain = run_pair(
+                p, tb, s0, ws0, lambda a, b_=blk: kernels.inject_merge(a, b_),
+                lambda p_, tb_, s, ws, b_=blk:
+                    lanes.inject_merge_plain(p_, tb_, s, b_))
+            check("inject_merge", tag, kern, plain)
+            moved = ((plain["q_thi"] != s0.q_thi)
+                     | (plain["q_auxh"] != s0.q_auxh)).any(dim=1)
+            for i in stale_lanes + unsorted_lanes:
+                if i not in grp and not bool(moved[i]):
+                    raise AssertionError(f"H {tag}: lane {i} did not move")
+    log(f"inject_merge: equal on groups {sizes} and 400, with and without "
+        "ties, stale and unsorted rows")
+    for size in (3, 9):
+        blk = h_groups_block(p, rng, blocks["groups"], T0, True)
+        cases = []
+        for _ in range(size):
+            s0 = h_state(heng, tb, rng, stale_lanes, unsorted_lanes)
+            cases.append((p, tb, s0, lanes.make_workspace(p, DEV)))
+        kern, want, _inputs = run_batch(
+            cases, lambda a, b_=blk: kernels.inject_merge(a, b_),
+            lambda p_, tb_, s, ws, b_=blk:
+                lanes.inject_merge_plain(p_, tb_, s, b_))
+        for i in range(size):
+            check("inject_merge", f"sweep S={size} scenario {i}", kern[i],
+                  want[i])
+        log(f"inject_merge S={size}: one launch equal to the plain loop")
+
+
 # ---- timing ----------------------------------------------------------------
 
 
@@ -3407,8 +3656,9 @@ def profile_steps(window, iteration, steps: int, p: lanes.LaneParams,
                 log(f"  device {us / steps:9.3f} us/step in {ev.count:5d} "
                     f"launches: {ev.key[:70]}")
         if all(totals.values()):
-            if label:
-                SPLITS[label] = parts
+            if label:  # the wrappers of more than one device kernel
+                SPLITS[label] = {name: split for name, split in parts.items()
+                                 if len(KERNEL_PARTS[name]) > 1}
             return {name: us / 1e3 / steps for name, us in totals.items()}
         log(f"profiler device times incomplete: {totals}")
     return {}
@@ -4157,8 +4407,7 @@ def hybrid_bytes(p, s, ws, blk, eg_count: int) -> dict:
 # device kernels of the hybrid path's wrappers (kernel_name's bare names),
 # each wrapper profiled alone
 HYBRID_PARTS = {
-    "inject_merge": ("inj_count_kernel", "inj_place_kernel",
-                     "inject_merge_kernel"),
+    "inject_merge": ("inject_merge_kernel",),
     "lane_slots:external": ("lane_slots_kernel",),
     "hybrid_window": ("hybrid_window_kernel",),
     "hybrid_fused_window": ("hybrid_fused_kernel",),
@@ -4291,14 +4540,18 @@ def time_hybrid(eng) -> dict:
                 rst()
                 kern()
             torch.cuda.synchronize()
-        dev_us = sum(
-            getattr(ev, "device_time_total", None)
-            or getattr(ev, "cuda_time_total", 0.0)
-            for ev in prof.key_averages()
-            if kernel_name(ev.key) in HYBRID_PARTS[name])
+        parts = {}  # the wrapper's device kernels, us a launch
+        for ev in prof.key_averages():
+            part = kernel_name(ev.key)
+            if part in HYBRID_PARTS[name]:
+                parts[part] = parts.get(part, 0.0) + (
+                    getattr(ev, "device_time_total", None)
+                    or getattr(ev, "cuda_time_total", 0.0)) / 20
+        dev_us = sum(parts.values())
+        SPLITS.setdefault("hybrid", {})[name] = parts
         event_ms = _event_ms(kern, rst, 50)
         plain_ms = float(np.mean([_event_ms(plain, rst, 5) for _ in range(2)]))
-        out[name] = {"ms": dev_us / 1e3 / 20 if dev_us else event_ms,
+        out[name] = {"ms": dev_us / 1e3 if dev_us else event_ms,
                      "event_ms": event_ms, "plain_ms": plain_ms,
                      "bound_ms": nb / HBM_BYTES_PER_S * 1e3,
                      "bound_by": "bytes", "bytes": nb, "library_ms": lib,
@@ -5490,6 +5743,7 @@ def main() -> int:
     check_merge_cases()
     check_compact_cases()
     check_slot_cases()
+    check_row_cases()
     times = time_all()
     parity()
     stream_parity()
@@ -5536,12 +5790,11 @@ def main() -> int:
                 f"{t['plain_ms'] * 1e3:.1f}"
                 + (f", library {lib * 1e3:.3f} ({t['library_by']})" if lib
                    else "") + f") ({smi})")
-    for label, parts in SPLITS.items():  # B's and F's device kernels
+    for label, parts in SPLITS.items():
         for name, split in parts.items():
-            if len(split) > 1:
-                log(f"split, {label} {name}: " + ", ".join(
-                    f"{part} {us:.3f}" for part, us in split.items())
-                    + f" us/step ({smi})")
+            log(f"split, {label} {name}: " + ", ".join(
+                f"{part} {us:.3f}" for part, us in split.items())
+                + f" us/step ({smi})")
     for name, batch in sweeps.items():
         log(f"sweep {name}: S = {batch['size']}, batch loop "
             f"{batch['batch_wall_s']:.4f} s, {batch['size']} serial loops "

@@ -258,7 +258,7 @@ class LaneArgs:
             **{f: () if p.flowtrace else (0,)
                for f in ("fl_count", "fl_lost")},
             "fl_recs": (n_fl, lanes.FLOW_REC_WORDS), "fl_valid": (n_fl,),
-            "x_order": (max(pl.exchange_entries, p.inject_batch),),
+            "x_order": (pl.exchange_entries,),
             "x_done": (1,),
             # the hybrid backend's egress (empty [0] int32 off it)
             "egress": (p.egress_capacity, 6) if ext else (0,),
@@ -368,8 +368,8 @@ class SweepArgs:
     memory; at S = 1 the launcher passes ``host[0]`` as the kernels'
     parameter instead).  Their launch shapes must be equal, and their exchange
     scratch (``x_cnt``, ``x_fill``) rows of one ``[S, N]`` block each
-    (``lanes.make_workspaces``), zero between calls: the merges of B and H
-    zero each lane's words once they have read them.
+    (``lanes.make_workspaces``), zero between calls: B's merges zero each
+    lane's words once they have read them (H does not touch them).
     :meth:`retarget` swaps tables and stop times between run segments and
     uploads the array again; the tables it replaces stay referenced here
     until the batch is dropped, so no queued launch reads freed memory."""
@@ -527,11 +527,13 @@ def stream_rows_merge(args) -> None:
     """Kernel E: the split stream exchange of one-to-one stream configs.
 
     Replaces ``shadow_tpu/backend/lanes.py:1924`` ``_merge_stream_rows``.
-    One block per endpoint row builds its ``[C + W_s]`` row — its lane's
-    queue row and the ``W_s = 2K + K*B`` stream entries that the static
-    layout sends it — and merges it with B's keyed-merge device function,
-    so the row is read from device memory once and written once, and with
-    flowtrace B's FT_DROP records of its tail (``:2024-2036``).  Bound by
+    A warp per endpoint row merges its lane's queue row (one sorted run,
+    checked; else runs of 32) with the ``W_s = 2K + K*B`` stream entries
+    that the static layout sends it: the canonical empties among them are
+    counted, not sorted, the rest sorted in runs of 32, and each entry
+    ranked by binary searches of the other runs, so the row is read from
+    device memory once and only its moved entries written back; with
+    flowtrace the FT_DROP records of its tail (``:2024-2036``).  Bound by
     bytes: 2S queue rows and the stream block."""
     if _launch("stream_rows_merge", args,
                lambda m: lanes.stream_rows_merge_plain(m.p, m.tb, m.s, m.ws)):
@@ -669,13 +671,16 @@ def inject_merge(args, blk: torch.Tensor) -> None:
     fan-in Cxi = C, the keyed 4-word merge of ``[C + Cxi]`` rows with the
     stream payload words riding along, the tail and the sheds into
     ``n_queue`` and ``nb_shed``).  ``blk`` is ``[INJ_WORDS, B]`` int32 on
-    the state's device.  B's counting sort (count with its scan, place)
-    groups the block by destination; one block per lane ranks its group by
-    (time, aux, index), takes the first Cxi, and sorts ``[queue C |
-    injected Cxi]`` in shared memory with B's block-form merge (no overflow
-    records: the reference writes none here).  Bound by bytes: the [N, C]
-    queue words read and written once, the block read once.  Not gated
-    on ``live``: it runs before the turn's first step arms it."""
+    the state's device.  One launch: a warp per lane over all N lanes
+    finds its group by ballots over the block's valid and destination
+    words, sorts it by (time, aux, index) in registers (a group past 32
+    in batches that keep the Cxi smallest), and merges that run and the
+    canonical empties after it with the queue row by binary searches (no
+    overflow records: the reference writes none here); a lane with no
+    group writes only when its row holds entries keyed above the
+    canonical empty.  Bound by bytes: the block read once, the rows of
+    the lanes it lands on read and written once.  Not gated on ``live``:
+    it runs before the turn's first step arms it."""
     lanes_p = args.p if isinstance(args, LaneArgs) else args.members[0].p
     _check("injection block", blk, args.device, torch.int32,
            (lanes.INJ_WORDS, lanes_p.inject_batch))

@@ -871,12 +871,37 @@ def sort_width(entries: int) -> int:
     return 1 << max(entries - 1, 0).bit_length()
 
 
+def split_row_words(capacity: int, width: int) -> int:
+    """int32 words of E's working memory for a row of a ``capacity``-wide
+    queue and ``width`` candidates: the queue's and the non-canonical
+    candidates' seven words and their order, and a canonical-empty mask a
+    chunk of 32 candidates (``split_row_words`` in csrc/lanes.cu)."""
+    return 8 * (capacity + width) + -(-width // 32)
+
+
+# kernel H's selection entry: the key's four words, the block row, the size
+INJ_SEL_WORDS = 6
+
+
+def inject_row_words(capacity: int, cross: int, batch: int) -> int:
+    """int32 words of H's working memory for a lane of a
+    ``capacity``-wide queue taking up to ``cross`` rows of a ``batch``-row
+    injection block: the queue's and the group run's seven words and their
+    order, the group's mask and base a chunk of 32 block rows, the
+    selection's two runs of ``cross`` and its batch of 32
+    (``inject_row_words`` in csrc/lanes.cu)."""
+    return (8 * (capacity + cross) + 2 * -(-batch // 32)
+            + INJ_SEL_WORDS * (2 * cross + 32))
+
+
 def merge_rows(p: LaneParams) -> dict:
-    """The run's block-form merges: name -> (rows, entries a row, words an
-    entry, extra bytes a row): B's ``[C | self | Cx]`` rows, E's ``[C |
-    W_s]`` rows and H's ``[C | Cxi]`` rows, each with its sort's index
-    array (B's group selection uses it first), G's ``[C2 | W_t]`` rows
-    with their order and chunk words (:func:`tier_row_words`).
+    """The run's merges: name -> (rows, entries a row, words an entry,
+    extra bytes a row): B's ``[C | self | Cx]`` rows with their sort's
+    index array (its group selection uses it first); E's ``[C | W_s]``
+    and H's ``[C | Cxi]`` rows as their warps' working memory
+    (:func:`split_row_words`, :func:`inject_row_words`: eight words an
+    entry, the rest as extra bytes); G's ``[C2 | W_t]`` rows with their
+    order and chunk words (:func:`tier_row_words`).
     B's narrow form (:func:`merge_in_warp`) keeps its row in registers, and
     such a row always passes the shared-memory rule, so it never sizes
     ``m_scratch``."""
@@ -884,11 +909,14 @@ def merge_rows(p: LaneParams) -> dict:
     out = {"merge": (p.n_lanes, pl.merge_width, pl.words,
                      4 * sort_width(pl.merge_width))}
     if p.external_any:
-        w = p.capacity + p.inject_cap
-        out["inject merge"] = (p.n_lanes, w, pl.words, 4 * sort_width(w))
+        c, cxi = p.capacity, p.inject_cap
+        w = c + cxi
+        out["inject merge"] = (p.n_lanes, w, 8, 4 * (
+            inject_row_words(c, cxi, p.inject_batch) - 8 * w))
     if p.split:
-        w = p.capacity + p.stream_row_width
-        out["stream merge"] = (2 * p.s_flows, w, 7, 4 * sort_width(w))
+        c, ws = p.capacity, p.stream_row_width
+        out["stream merge"] = (2 * p.s_flows, c + ws, 8, 4 * (
+            split_row_words(c, ws) - 8 * (c + ws)))
     if p.stream_tiered:
         w = p.stream_capacity + p.tier_width
         out["tier merge"] = (2 * p.s_flows, w, 7,
@@ -940,7 +968,7 @@ def make_workspaces(p: LaneParams, device, count: int = 1) -> WorkspaceBatch:
         sx_blk=z(8, max(pl.stream_entries, 1)),
         recs=z(n_rec, 6, dtype=i64), rec_valid=z(n_rec),
         x_cnt=z(n), x_start=z(n), x_fill=z(n),
-        x_order=z(max(pl.exchange_entries, p.inject_batch)), x_done=z(1),
+        x_order=z(pl.exchange_entries), x_done=z(1),
         tier_blk=z(7, max(p.tier_layout[-1], 1)),
         fl_recs=z(n_fl, FLOW_REC_WORDS), fl_valid=z(n_fl),
         m_scratch=z(scratch),

@@ -2552,161 +2552,6 @@ __global__ void merge_warp_kernel(const __grid_constant__ P bufs) {
   }
 }
 
-// ---- kernel H: inject_merge -------------------------------------------------
-// One host-staged injection block ([INJ_WORDS, B] int32: valid, dst, thi,
-// tlo, auxh, auxl, size) into the lane queues: B's counting sort groups the
-// valid rows by destination (count with its ungated scan, place), then one
-// block per lane ranks its group by (time, aux, index), keeps the first
-// Cxi as the cross entries of its [queue C | injected Cxi] row (the
-// payload words of stream configs zero) and merges the row with B's keyed
-// merge, without records; the rest of the group and the tail past C count
-// into n_queue (the sheds into nb_shed too, with netobs).  Not gated on
-// live: the host launches it only with rows to inject, before the turn's
-// first step arms the turn.
-constexpr int INJ_WORDS = 7;
-
-// count the valid rows per destination, then scan (as B's count)
-template <class P>
-__global__ void inj_count_kernel(const __grid_constant__ P bufs,
-                                 const int32_t* inj) {
-  const LaneBufs& b = scenario(bufs, blockIdx.y);
-  const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (m < b.inj_b && inj[m] != 0) atomicAdd(&b.x_cnt[inj[b.inj_b + m]], 1);
-  scan_if_last(b);
-}
-
-template <class P>
-__global__ void inj_place_kernel(const __grid_constant__ P bufs,
-                                 const int32_t* inj) {
-  const LaneBufs& b = scenario(bufs, blockIdx.y);
-  const int64_t m = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (m >= b.inj_b || inj[m] == 0) return;
-  const int32_t d = inj[b.inj_b + m];
-  const int32_t pos = b.x_start[d] + atomicAdd(&b.x_fill[d], 1);
-  b.x_order[pos] = static_cast<int32_t>(m);
-}
-
-// the row: C + Cxi entries x W words, then the sort's index array, in
-// dynamic shared memory or (inject_global) the block's part of m_scratch;
-// the block zeroes the lane's exchange count and fill cursor once read
-template <int W, class P>
-__global__ void inject_merge_kernel(const __grid_constant__ P bufs,
-                                    const int32_t* inj) {
-  const LaneBufs& b = scenario(bufs, blockIdx.y);
-  extern __shared__ int32_t sm[];
-  const int64_t i = blockIdx.x;
-  const int64_t c = b.c, cxi = b.cxi, w_all = c + cxi, nb = b.inj_b;
-  const int64_t len = sort_width(w_all);
-  int32_t* const e =
-      b.inject_global ? b.m_scratch + i * (W * w_all + len) : sm;
-  __shared__ int32_t n_tail;
-  const int32_t cnt = b.x_cnt[i];
-  const int32_t* seg = b.x_order + b.x_start[i];
-  if (threadIdx.x == 0) n_tail = 0;
-  load_queue_row<W>(b, e, i);
-  for (int64_t x = c + threadIdx.x; x < w_all; x += blockDim.x) {
-    int32_t* ex = e + W * x;
-    ex[0] = NEVER32;
-    ex[1] = NEVER32;
-#pragma unroll
-    for (int w = 2; w < W; ++w) ex[w] = 0;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    b.x_cnt[i] = 0;
-    b.x_fill[i] = 0;
-  }
-  // the group's rank by (time, aux, index): the first Cxi take the slots
-  for (int32_t r = threadIdx.x; r < cnt; r += blockDim.x) {
-    const int32_t m = seg[r];
-    const int32_t k0 = inj[2 * nb + m], k1 = inj[3 * nb + m];
-    const int32_t k2 = inj[4 * nb + m], k3 = inj[5 * nb + m];
-    int64_t rank = 0;
-    for (int32_t q = 0; q < cnt; ++q) {
-      const int32_t y = seg[q];
-      const int32_t a0 = inj[2 * nb + y], a1 = inj[3 * nb + y];
-      const int32_t a2 = inj[4 * nb + y], a3 = inj[5 * nb + y];
-      const bool less = a0 != k0   ? a0 < k0
-                        : a1 != k1 ? a1 < k1
-                        : a2 != k2 ? a2 < k2
-                        : a3 != k3 ? a3 < k3
-                                   : y < m;
-      if (less) ++rank;
-    }
-    if (rank < cxi) {
-      int32_t* ex = e + W * (c + rank);
-      ex[0] = k0;
-      ex[1] = k1;
-      ex[2] = k2;
-      ex[3] = k3;
-      ex[4] = inj[6 * nb + m];
-    }
-  }
-  __syncthreads();
-  merge_row<W, false>(b, e, e + W * w_all, w_all, i, 0, 0, &n_tail);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    const int32_t lost_pre = cnt > cxi ? cnt - static_cast<int32_t>(cxi) : 0;
-    b.n_queue[i] += n_tail + lost_pre;
-    if (b.netobs) b.nb_shed[i] += lost_pre;
-  }
-}
-
-// ---- kernel E: stream_rows_merge ----------------------------------------------
-// The split exchange of one-to-one stream configs (the reference's
-// _merge_stream_rows): one block per endpoint row r builds [its lane's queue
-// row C | W_s candidates] by the static layout — a client row takes its
-// server's control sends [K], its own RTO arms [K] and K*B empty entries; a
-// server row its client's control sends, its own RTO arms and its client's
-// bursts [K*B], slot-major — and merges it with merge_row, in shared memory
-// or (split_global) the block's part of m_scratch.
-template <class P>
-__global__ void stream_rows_kernel(const __grid_constant__ P bufs) {
-  const LaneBufs& b = scenario(bufs, blockIdx.y);
-  if (b.ctl[0] == 0) return;
-  constexpr int W = 7;  // stream rows always carry the payload words
-  extern __shared__ int32_t smem[];
-  __shared__ int32_t n_tail;
-  const int64_t r = blockIdx.x;
-  const int64_t c = b.c, k = b.k, sf = b.s_flows, s2 = 2 * sf;
-  const int64_t w_s = 2 * k + k * PUMP_BURST, w_all = c + w_s;
-  const int64_t len = sort_width(w_all);
-  int32_t* const sm =
-      b.split_global ? b.m_scratch + r * (W * w_all + len) : smem;
-  const int64_t n_ent = stream_entries(b);
-  const int64_t lane = b.flow_lanes[r];
-  const bool client = r < sf;
-  if (threadIdx.x == 0) n_tail = 0;
-  load_queue_row<W>(b, sm, lane);
-  for (int64_t x = c + threadIdx.x; x < w_all; x += blockDim.x) {
-    int32_t* ex = sm + W * x;
-    const int64_t q = x - c;
-    int64_t idx = -1;
-    if (q < k) {  // the peer endpoint's control send of slot q
-      idx = q * s2 + (client ? r + sf : r - sf);
-    } else if (q < 2 * k) {  // the row's own RTO arm of slot q - K
-      idx = k * s2 + (q - k) * s2 + r;
-    } else if (!client) {  // the client's burst entry (slot, unit)
-      idx = 4 * k * sf + (q - 2 * k) * sf + (r - sf);
-    }
-    if (idx >= 0) {
-#pragma unroll
-      for (int w = 0; w < W; ++w) ex[w] = b.sx_blk[(w + 1) * n_ent + idx];
-    } else {
-      ex[0] = NEVER32;
-      ex[1] = NEVER32;
-#pragma unroll
-      for (int w = 2; w < W; ++w) ex[w] = 0;
-    }
-  }
-  __syncthreads();
-  merge_row<W>(b, sm, sm + W * w_all, w_all, lane,
-               b.rec_slots - s2 * w_s + r * w_s, b.fl_split + r * w_s,
-               &n_tail);
-  __syncthreads();
-  if (threadIdx.x == 0) b.n_queue[lane] += n_tail;  // lanes are distinct
-}
-
 // ---- kernel F: stream_tier -------------------------------------------------
 // The tier's pop and slot walk (the reference's _stream_tier_iter up to its
 // merge), in two launches.  The fill writes the canonical empty entry to
@@ -3304,6 +3149,554 @@ __global__ void tier_merge_kernel(const __grid_constant__ P bufs) {
   const int64_t over = n_valid > c2 ? n_valid - c2 : 0;
   if (ln == 0 && over)
     b.tier_v[TV_N_QUEUE * s2 + r] += static_cast<int32_t>(over);
+}
+
+// ---- kernels E and H: a warp a row ------------------------------------------
+// E (the split stream exchange) and H (an injection block into the lane
+// queues) each merge a lane's queue row [C] with a few candidates and keep
+// the first C by (key, index).  Most of such a row is known before it is
+// read: the queue row is one sorted run (B, E or H left it so), and most
+// candidates are canonical empties (NEVER32, NEVER32, 0, 0), which form one
+// run in index order by themselves.  So a warp takes a row with no
+// block-wide sort: it gathers the queue row and the other candidates into
+// its working memory (shared memory, or m_scratch past the opt-in limit),
+// checks that the queue row is one run (else sorts it in runs of 32, as G
+// does), sorts the rest in runs of 32 unless they already form one, and
+// ranks each entry as its place in its own run plus the entries below it
+// in every other run (binary searches; G's count_below).  The canonical
+// empties are counted, not stored: every one is below an entry whose key
+// words are above the canonical ones and above none other (the queue's,
+// at lower indices, go first on equal keys; no other candidate has their
+// key), so the j-th of them takes rank base + j, base being the entries at
+// or below the canonical key.  A queue entry whose rank is its own index
+// is not written again.  Every ballot and shuffle is the whole warp's, at
+// warp-uniform points.
+constexpr int ROW_UNROLL = 4;  // chunks of 32 a lane loads before its stores
+
+// the canonical empty's key with the largest index: an entry's key is
+// below it iff its four key words are at or below the canonical ones
+__device__ __forceinline__ Key canon_probe() {
+  return make_key(NEVER32, NEVER32, 0, 0, -1);
+}
+
+__device__ __forceinline__ bool canon_key(const int32_t* w) {
+  return w[0] == NEVER32 && w[1] == NEVER32 && w[2] == 0 && w[3] == 0;
+}
+
+// The runs of a row's working memory ent ([n][7], an entry's index its
+// position there): the queue [0, n0) and the rest [n0, n), each one run as
+// it stands (one0, one1) or runs of 32 sorted through ord.
+struct Runs {
+  int32_t n0, n;
+  bool one0, one1;
+};
+
+__device__ __forceinline__ int32_t run_start(const Runs& rs, int32_t p) {
+  if (p < rs.n0) return rs.one0 ? 0 : p & ~31;
+  return rs.one1 ? rs.n0 : rs.n0 + ((p - rs.n0) & ~31);
+}
+
+// the entries below kv in every run but the one starting at `own` (-1: all)
+__device__ __forceinline__ int32_t below_runs(const int32_t* ent,
+                                              const int32_t* ord,
+                                              const Runs& rs, const Key& kv,
+                                              int32_t own) {
+  int32_t cnt = 0;
+  for (int32_t s0 = 0; s0 < rs.n;) {
+    const bool q = s0 < rs.n0;
+    const int32_t end = q ? rs.n0 : rs.n;
+    const int32_t s1 = (q ? rs.one0 : rs.one1) ? end : min(s0 + 32, end);
+    if (s0 != own) cnt += count_below(ent, ord, s0, s1, kv);
+    s0 = s1;
+  }
+  return cnt;
+}
+
+// are ent's entries [lo, hi) in key order?  (the whole warp)
+__device__ __forceinline__ bool one_run(const int32_t* ent, int32_t lo,
+                                        int32_t hi) {
+  const int ln = threadIdx.x & 31;
+  bool ok = true;
+  for (int32_t a0 = lo; a0 + 1 < hi; a0 += 32) {
+    const int32_t a = a0 + ln;
+    const bool bad = a + 1 < hi && lt(tier_key(ent, a + 1), tier_key(ent, a));
+    if (__any_sync(FULL_MASK, bad)) ok = false;
+  }
+  return ok;
+}
+
+// ord for the runs: the identity on a one-run part, each run of 32 of the
+// other part sorted in registers (the whole warp)
+__device__ __forceinline__ void order_runs(const int32_t* ent, int32_t* ord,
+                                           const Runs& rs) {
+  const int ln = threadIdx.x & 31;
+  for (int part = 0; part < 2; ++part) {
+    const int32_t lo = part ? rs.n0 : 0, hi = part ? rs.n : rs.n0;
+    if (part ? rs.one1 : rs.one0) {
+      for (int32_t a = lo + ln; a < hi; a += 32) ord[a] = a;
+      continue;
+    }
+    for (int32_t s0 = lo; s0 < hi; s0 += 32) {
+      const int32_t p = s0 + ln;
+      Key kv = p < hi ? tier_key(ent, p) : pad_key(PAD_INDEX);
+      kv = warp_sort(kv, ln);
+      if (p < hi) ord[p] = static_cast<int32_t>(kv.x);
+    }
+  }
+  __syncwarp();
+}
+
+// A ranked entry's words e: rank p < C to the queue row of `lane`; past C a
+// valid one is counted (the return value) and, with REC, recorded as
+// DROP_QUEUE at rec_base + p - C and, with flowtrace, a sampled flow's
+// PACKET gets its FT_DROP (CAUSE_QUEUE) flow record at fl_base + p - C.  The
+// tail's records and flow flags were zeroed before.
+template <int W, bool REC>
+__device__ __forceinline__ bool row_put(const LaneBufs& b, const int32_t* e,
+                                        int32_t p, int64_t lane,
+                                        int64_t rec_base, int64_t fl_base) {
+  const int64_t c = b.c;
+  if (p < c) {
+    int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                           b.q_phi, b.q_plo};
+#pragma unroll
+    for (int w = 0; w < W; ++w) q[w][lane * c + p] = e[w];
+    return false;
+  }
+  if (e[0] == NEVER32) return false;
+  const int32_t src = (e[2] >> AUX_SRC_SHIFT) & SRC_MASK;
+  const int32_t dst = static_cast<int32_t>(lane);
+  if (REC && b.log_cap > 0)
+    put_rec(b, rec_base + (p - c), true, join_raw(e[0], e[1]), src, dst,
+            e[3], e[4], DROP_QUEUE);
+  if (REC && b.flowtrace && (e[2] >> AUX_KIND_SHIFT) == PACKET &&
+      flow_sampled(b, src, dst))
+    put_flow(b, fl_base + (p - c), true, join_raw(e[0], e[1]), FT_DROP, src,
+             dst, e[3], e[4], CAUSE_QUEUE);
+  return true;
+}
+
+// Rank every stored entry of the runs (n_e canonical empties counted
+// beside them) and write it out; returns this warp lane's count of valid
+// entries past C.  Stores the canonical empties' base in *base.
+template <int W, bool REC>
+__device__ __forceinline__ int32_t place_runs(const LaneBufs& b,
+                                              const int32_t* ent,
+                                              const int32_t* ord,
+                                              const Runs& rs, int32_t n_e,
+                                              int64_t lane, int64_t rec_base,
+                                              int64_t fl_base,
+                                              int32_t* base) {
+  const int ln = threadIdx.x & 31;
+  const Key probe = canon_probe();
+  *base = below_runs(ent, ord, rs, probe, -1);
+  int32_t tail = 0;
+  for (int32_t p = ln; p < rs.n; p += 32) {
+    const int32_t at = ord[p];
+    const Key kv = tier_key(ent, at);
+    const int32_t own = run_start(rs, p);
+    const int32_t rank = p - own + below_runs(ent, ord, rs, kv, own) +
+                         (lt(probe, kv) ? n_e : 0);
+    if (at < rs.n0 && rank == at) continue;  // a queue entry that stays
+    if (row_put<W, REC>(b, ent + 7 * at, rank, lane, rec_base, fl_base))
+      ++tail;
+  }
+  return tail;
+}
+
+// Load the queue row of `lane` ([C] entries of W words) into ent[0, C), a
+// batch of ROW_UNROLL / 2 chunks a lane loaded before it is stored; words
+// past W zero.  Returns whether it is one run.
+template <int W>
+__device__ __forceinline__ bool load_queue_run(const LaneBufs& b,
+                                               int32_t* ent, int64_t lane) {
+  const int ln = threadIdx.x & 31;
+  const int64_t c = b.c;
+  const int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                               b.q_phi, b.q_plo};
+  constexpr int U = ROW_UNROLL / 2;
+  for (int64_t x0 = 0; x0 < c; x0 += 32 * U) {
+    int32_t w7[U][W];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t x = x0 + u * 32 + ln;
+      if (x < c) {
+#pragma unroll
+        for (int w = 0; w < W; ++w) w7[u][w] = q[w][lane * c + x];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t x = x0 + u * 32 + ln;
+      if (x < c) {
+#pragma unroll
+        for (int w = 0; w < 7; ++w) ent[7 * x + w] = w < W ? w7[u][w] : 0;
+      }
+    }
+  }
+  __syncwarp();
+  return one_run(ent, 0, static_cast<int32_t>(c));
+}
+
+// ---- kernel E: stream_rows_merge ----------------------------------------------
+// The split exchange of one-to-one stream configs (the reference's
+// _merge_stream_rows): a warp per endpoint row r, SPLIT_ROWS rows a block,
+// merges its lane's queue row [C] with the W_s = 2K + K*B candidates of the
+// static layout — a client row its server's control sends [K], its own RTO
+// arms [K] and K*B empties; a server row its client's control sends, its own
+// RTO arms and its client's bursts [K*B], slot-major.  The candidates are
+// loaded a lane each, 32 at a time: the canonical empties (their key words
+// alone decide) are counted, a mask a chunk, and the rest compacted into ent
+// after the queue row.  The row's tail group [rec_slots - 2S*W_s + r*W_s,
+// W_s] is zeroed, records and flow flags, before its valid entries are
+// written.  A canonical empty that ranks below C is written from its own
+// words (the key's, then its size and payload words at their source).
+// Working memory a row (split_row_words): ent [C + W_s][7], ord [C + W_s],
+// the canonical masks [chunks of W_s].
+
+// the stream block entry candidate x of row r takes, or -1 (a client row's
+// padding)
+__device__ __forceinline__ int64_t split_source(const LaneBufs& b, int64_t r,
+                                                int64_t x) {
+  const int64_t k = b.k, sf = b.s_flows, s2 = 2 * sf;
+  const bool client = r < sf;
+  if (x < k) return x * s2 + (client ? r + sf : r - sf);  // the peer's send
+  if (x < 2 * k) return k * s2 + (x - k) * s2 + r;         // own RTO arm
+  return client ? -1 : 4 * k * sf + (x - 2 * k) * sf + (r - sf);  // burst
+}
+
+// rows (a warp each) a block: two the fastest on the H100 on the untiered
+// mixed mesh's states, traced or not (one 3 % slower, four 4 %, eight 20 %)
+constexpr int SPLIT_ROWS = 2;
+
+__host__ __device__ __forceinline__ int64_t split_row_words(int64_t c,
+                                                            int64_t w_s) {
+  return 8 * (c + w_s) + (w_s + 31) / 32;
+}
+
+template <class P>
+__global__ void stream_rows_kernel(const __grid_constant__ P bufs) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  if (b.ctl[0] == 0) return;
+  extern __shared__ int32_t smem[];
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) + wp;
+  const int64_t c = b.c, k = b.k, s2 = 2 * b.s_flows;
+  if (r >= s2) return;  // the whole warp
+  const int64_t w_s = 2 * k + k * PUMP_BURST, words = split_row_words(c, w_s);
+  int32_t* const mem = b.split_global ? b.m_scratch + r * words
+                                      : smem + wp * words;
+  int32_t* const ent = mem;                  // [C + W_s][7]
+  int32_t* const ord = mem + 7 * (c + w_s);  // [C + W_s]
+  int32_t* const cmask = ord + (c + w_s);    // [chunks]
+  const int64_t n_ent = stream_entries(b);
+  const int64_t lane = b.flow_lanes[r];
+  const int64_t rec_base = b.rec_slots - s2 * w_s + r * w_s;
+  const int64_t fl_base = b.fl_split + r * w_s;
+  const unsigned below = (1u << ln) - 1u;
+  // the tail group empty, before its valid entries are written
+  if (b.log_cap > 0) zero_recs(b, rec_base, w_s);
+  if (b.flowtrace)
+    for (int64_t x = ln; x < w_s; x += 32) b.fl_valid[fl_base + x] = 0;
+
+  // the queue row, then the candidates, a lane each: canonical empties
+  // counted, the rest after the queue
+  const bool q_run = load_queue_run<7>(b, ent, lane);
+  const int32_t chunks = static_cast<int32_t>((w_s + 31) / 32);
+  int32_t n_rest = 0, n_canon = 0;
+  for (int32_t m0 = 0; m0 < chunks; m0 += ROW_UNROLL) {
+    int32_t w7[ROW_UNROLL][7];
+#pragma unroll
+    for (int u = 0; u < ROW_UNROLL; ++u) {
+      const int64_t x = (m0 + u) * 32 + ln;
+      const int64_t idx = x < w_s ? split_source(b, r, x) : -1;
+      if (idx >= 0) {
+#pragma unroll
+        for (int w = 0; w < 7; ++w) w7[u][w] = b.sx_blk[(w + 1) * n_ent + idx];
+      } else {
+        w7[u][0] = w7[u][1] = NEVER32;
+#pragma unroll
+        for (int w = 2; w < 7; ++w) w7[u][w] = 0;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < ROW_UNROLL; ++u) {
+      if (m0 + u >= chunks) break;  // warp-uniform
+      const bool in = (m0 + u) * 32 + ln < w_s;
+      const bool canon = in && canon_key(w7[u]);
+      const unsigned rest = __ballot_sync(FULL_MASK, in && !canon);
+      const unsigned cm = __ballot_sync(FULL_MASK, canon);
+      if (ln == 0) cmask[m0 + u] = static_cast<int32_t>(cm);
+      if (in && !canon) {
+        int32_t* e = ent + 7 * (c + n_rest + __popc(rest & below));
+#pragma unroll
+        for (int w = 0; w < 7; ++w) e[w] = w7[u][w];
+      }
+      n_rest += __popc(rest);
+      n_canon += __popc(cm);
+    }
+  }
+  __syncwarp();
+  const int32_t n0 = static_cast<int32_t>(c);
+  const Runs rs{n0, n0 + n_rest, q_run, one_run(ent, n0, n0 + n_rest)};
+  order_runs(ent, ord, rs);
+  int32_t base;
+  int32_t tail = place_runs<7, true>(b, ent, ord, rs, n_canon, lane, rec_base,
+                                     fl_base, &base);
+  // the canonical empties that rank below C: the j-th at base + j, with its
+  // own size and payload words
+  int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                         b.q_phi, b.q_plo};
+  const int32_t room = n0 - base;
+  for (int32_t m = 0, seen = 0; m < chunks && seen < room; ++m) {
+    const unsigned cm = static_cast<unsigned>(cmask[m]);
+    const int32_t j = seen + __popc(cm & below);
+    if (((cm >> ln) & 1u) && j < room) {
+      const int64_t idx = split_source(b, r, m * 32 + ln);
+      const int64_t at = lane * c + base + j;
+      q[0][at] = NEVER32;
+      q[1][at] = NEVER32;
+      q[2][at] = 0;
+      q[3][at] = 0;
+#pragma unroll
+      for (int w = 4; w < 7; ++w)
+        q[w][at] = idx >= 0 ? b.sx_blk[(w + 1) * n_ent + idx] : 0;
+    }
+    seen += __popc(cm);
+  }
+  tail = __reduce_add_sync(FULL_MASK, static_cast<unsigned>(tail));
+  if (ln == 0 && tail) b.n_queue[lane] += tail;  // lanes are distinct
+}
+
+// ---- kernel H: inject_merge -------------------------------------------------
+// One host-staged injection block ([INJ_WORDS, B] int32: valid, dst, thi,
+// tlo, auxh, auxl, size) into the lane queues, a warp per lane over all N
+// lanes, INJ_WARPS lanes a block, in one launch.  A lane's group — the
+// block's valid rows addressed to it — comes from ballots over the block's
+// valid and dst words, 32 rows a ballot, in index order, the block's words
+// and the row's keys read before the first store (B's counting sort, count
+// with its scan and place before a merge that reads the group, measured
+// 1.6x slower: PERF.md); x_cnt, x_fill and x_order are not touched.  The
+// group's first Cxi by (time, aux, index) become one sorted run: up to 32
+// in one warp sort, a wider group in batches of 32, each sorted and merged
+// into the Cxi smallest so far.  That run (the payload words of stream
+// configs zero) and Cxi - min(cnt, Cxi) canonical empties merge with the
+// queue row as E's; no record.  A lane with no group still takes Cxi
+// canonical empties, which push out past C every queue entry keyed above
+// them (consumed entries keep their aux words): a warp whose row is sorted
+// and holds none writes nothing.  The rest of the group and the valid
+// entries past C count into n_queue (the sheds into nb_shed too, with
+// netobs).  Not gated on live: the host launches it only with rows to
+// inject, before the turn's first step arms the turn.  Working memory a
+// lane (inject_row_words): ent [C + Cxi][7], ord [C + Cxi], the group's
+// masks and bases [2 x chunks of B], the selection's two runs of Cxi and
+// its batch of 32 (six words an entry: the key's four, the row index, the
+// size).
+constexpr int INJ_WORDS = 7;
+constexpr int INJ_WARPS = 4;
+constexpr int INJ_BALLOTS = 16;  // chunks of 32 block rows read before ballots
+constexpr int SEL_WORDS = 6;
+
+__host__ __device__ __forceinline__ int64_t inject_row_words(int64_t c,
+                                                             int64_t cxi,
+                                                             int64_t nb) {
+  return 8 * (c + cxi) + 2 * ((nb + 31) / 32) + SEL_WORDS * (2 * cxi + 32);
+}
+
+// a selection entry: its key (row index m as x) and size
+__device__ __forceinline__ Key sel_key(const int32_t* s, int32_t j) {
+  const int32_t* e = s + SEL_WORDS * j;
+  return Key{static_cast<uint32_t>(e[0]), static_cast<uint32_t>(e[1]),
+             static_cast<uint32_t>(e[2]), static_cast<uint32_t>(e[3]),
+             static_cast<uint32_t>(e[4])};
+}
+
+__device__ __forceinline__ void sel_put(int32_t* s, int32_t j, const Key& k,
+                                        int32_t size) {
+  int32_t* e = s + SEL_WORDS * j;
+  e[0] = static_cast<int32_t>(k.th);
+  e[1] = static_cast<int32_t>(k.tl);
+  e[2] = static_cast<int32_t>(k.ah);
+  e[3] = static_cast<int32_t>(k.al);
+  e[4] = static_cast<int32_t>(k.x);
+  e[5] = size;
+}
+
+// the count of sel[0, n) (sorted) below kv
+__device__ __forceinline__ int32_t sel_below(const int32_t* s, int32_t n,
+                                             const Key& kv) {
+  int32_t lo = 0;
+  while (lo < n) {
+    const int32_t mid = (lo + n) >> 1;
+    if (lt(sel_key(s, mid), kv)) {
+      lo = mid + 1;
+    } else {
+      n = mid;
+    }
+  }
+  return lo;
+}
+
+template <int W, class P>
+__global__ void inject_merge_kernel(const __grid_constant__ P bufs,
+                                    const int32_t* inj) {
+  const LaneBufs& b = scenario(bufs, blockIdx.y);
+  extern __shared__ int32_t smem[];
+  const int ln = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x >> 5) + wp;
+  if (i >= b.n) return;  // the whole warp
+  const int64_t c = b.c, cxi = b.cxi, nb = b.inj_b;
+  const int64_t words = inject_row_words(c, cxi, nb);
+  int32_t* const mem = b.inject_global ? b.m_scratch + i * words
+                                       : smem + wp * words;
+  int32_t* const ent = mem;                      // [C + Cxi][7]
+  int32_t* const ord = ent + 7 * (c + cxi);      // [C + Cxi]
+  int32_t* const gmask = ord + (c + cxi);        // [chunks]
+  const int32_t chunks = static_cast<int32_t>((nb + 31) / 32);
+  int32_t* const gbase = gmask + chunks;         // [chunks]
+  int32_t* sel = gbase + chunks;                 // [Cxi][6]
+  int32_t* sel2 = sel + SEL_WORDS * cxi;         // [Cxi][6]
+  int32_t* const batch = sel2 + SEL_WORDS * cxi; // [32][6]
+
+  // whether the row moves without a group: an entry keyed above the
+  // canonical empty, or the row out of order (this warp lane's part)
+  const auto row_moves = [&]() {
+    const Key probe = canon_probe();
+    const auto key_at = [&](int64_t x) {
+      const int64_t at = i * c + x;
+      return make_key(b.q_thi[at], b.q_tlo[at], b.q_auxh[at], b.q_auxl[at],
+                      static_cast<int32_t>(x));
+    };
+    bool moves = false;
+    for (int64_t x = ln; x < c; x += 32) {
+      const Key kx = key_at(x);
+      moves |= lt(probe, kx) || (x + 1 < c && lt(key_at(x + 1), kx));
+    }
+    return moves;
+  };
+  // the group: its size, and the block row of its member r; the block's
+  // words and the row's keys are read before the first store, so all are
+  // in flight together
+  int32_t cnt = 0;
+  bool moves = false;
+  for (int32_t m0 = 0; m0 < chunks; m0 += INJ_BALLOTS) {
+    int32_t valid[INJ_BALLOTS], dst[INJ_BALLOTS];
+#pragma unroll
+    for (int u = 0; u < INJ_BALLOTS; ++u) {
+      const int64_t m = (m0 + u) * 32 + ln;
+      valid[u] = m < nb ? __ldg(inj + m) : 0;
+      dst[u] = m < nb ? __ldg(inj + nb + m) : -1;
+    }
+    if (m0 == 0) moves = row_moves();
+#pragma unroll
+    for (int u = 0; u < INJ_BALLOTS; ++u) {
+      if (m0 + u >= chunks) break;  // warp-uniform
+      const unsigned g = __ballot_sync(FULL_MASK, valid[u] != 0 && dst[u] == i);
+      if (ln == 0) {
+        gmask[m0 + u] = static_cast<int32_t>(g);
+        gbase[m0 + u] = cnt;
+      }
+      cnt += __popc(g);
+    }
+  }
+  __syncwarp();
+  // no group: a sorted row moves only its entries keyed above the
+  // canonical empty
+  if (cnt == 0 && !__any_sync(FULL_MASK, moves)) return;
+  const auto member = [&](int32_t r) -> int32_t {
+    int32_t lo = 0, hi = chunks - 1;
+    while (lo < hi) {  // the last chunk whose base is <= r
+      const int32_t mid = (lo + hi + 1) >> 1;
+      if (gbase[mid] <= r) {
+        lo = mid;
+      } else {
+        hi = mid - 1;
+      }
+    }
+    return lo * 32 + nth_bit(static_cast<unsigned>(gmask[lo]), r - gbase[lo]);
+  };
+  const int32_t take = cnt < cxi ? cnt : static_cast<int32_t>(cxi);
+
+  // the group's first Cxi by (time, aux, index) into ent[C, C + take)
+  const auto load_batch = [&](int32_t r0) {
+    const int32_t r = r0 + ln;
+    Key kv = pad_key(PAD_INDEX);
+    if (r < cnt) {
+      const int32_t m = member(r);
+      kv = make_key(inj[2 * nb + m], inj[3 * nb + m], inj[4 * nb + m],
+                    inj[5 * nb + m], m);
+    }
+    return warp_sort(kv, ln);
+  };
+  if (cnt <= 32) {
+    const Key kv = load_batch(0);
+    if (ln < take) {
+      int32_t* e = ent + 7 * (c + ln);
+      e[0] = word_of(kv.th);
+      e[1] = word_of(kv.tl);
+      e[2] = word_of(kv.ah);
+      e[3] = word_of(kv.al);
+      e[4] = inj[6 * nb + kv.x];
+      e[5] = e[6] = 0;
+    }
+  } else {
+    // batches of 32, each merged into the Cxi smallest so far (sel)
+    int32_t kept = 0;
+    for (int32_t r0 = 0; r0 < cnt; r0 += 32) {
+      const Key kv = load_batch(r0);
+      const int32_t nbat = min(32, cnt - r0);
+      if (ln < nbat) sel_put(batch, ln, kv, inj[6 * nb + kv.x]);
+      __syncwarp();
+      for (int32_t j = ln; j < kept; j += 32) {
+        const Key kj = sel_key(sel, j);
+        const int32_t p = j + sel_below(batch, nbat, kj);
+        if (p < cxi) {
+          int32_t* e = sel + SEL_WORDS * j;
+          sel_put(sel2, p, kj, e[5]);
+        }
+      }
+      if (ln < nbat) {
+        const int32_t p = ln + sel_below(sel, kept, kv);
+        if (p < cxi) sel_put(sel2, p, kv, batch[SEL_WORDS * ln + 5]);
+      }
+      kept = min(kept + nbat, static_cast<int32_t>(cxi));
+      int32_t* t = sel;
+      sel = sel2;
+      sel2 = t;
+      __syncwarp();
+    }
+    for (int32_t j = ln; j < take; j += 32) {
+      const int32_t* s = sel + SEL_WORDS * j;
+      int32_t* e = ent + 7 * (c + j);
+      for (int w = 0; w < 4; ++w) e[w] = word_of(static_cast<uint32_t>(s[w]));
+      e[4] = s[5];
+      e[5] = e[6] = 0;
+    }
+  }
+  // (load_queue_run's barrier orders these stores before every read)
+  const int32_t n0 = static_cast<int32_t>(c);
+  const bool q_run = load_queue_run<W>(b, ent, i);
+  const Runs rs{n0, n0 + take, q_run, true};
+  order_runs(ent, ord, rs);
+  const int32_t n_e = static_cast<int32_t>(cxi) - take;
+  int32_t base;
+  int32_t tail = place_runs<W, false>(b, ent, ord, rs, n_e, i, 0, 0, &base);
+  // the canonical empties that rank below C, base + j
+  int32_t* const q[7] = {b.q_thi, b.q_tlo, b.q_auxh, b.q_auxl, b.q_size,
+                         b.q_phi, b.q_plo};
+  const int64_t end = base + n_e < c ? base + n_e : c;
+  for (int64_t x = base + ln; x < end; x += 32) {
+    q[0][i * c + x] = NEVER32;
+    q[1][i * c + x] = NEVER32;
+#pragma unroll
+    for (int w = 2; w < W; ++w) q[w][i * c + x] = 0;
+  }
+  tail = __reduce_add_sync(FULL_MASK, static_cast<unsigned>(tail));
+  if (ln == 0) {
+    const int32_t lost_pre = cnt - take;
+    if (tail + lost_pre) b.n_queue[i] += tail + lost_pre;
+    if (b.netobs && lost_pre) b.nb_shed[i] += lost_pre;
+  }
 }
 
 // ---- kernel C: queue_min_window ---------------------------------------------
@@ -4017,6 +4410,39 @@ unsigned merge_threads(int64_t w_all) {
   return static_cast<unsigned>(threads < 256 ? threads : 256);
 }
 
+// A warp-a-row merge's rows a block (E, H): `rows`, halved while their
+// working memory passes the device's opt-in limit (any number on the
+// global path)
+int fit_rows(int64_t rows, int64_t row_bytes, bool global) {
+  static int optin = 0;
+  if (!global && optin == 0) {
+    int device = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                           device);
+  }
+  while (!global && rows > 1 && rows * row_bytes > optin) rows >>= 1;
+  return static_cast<int>(rows);
+}
+
+// kernel H over one injection block `inj` ([INJ_WORDS, inj_b] int32 on the
+// device): a warp a lane, INJ_WARPS lanes a block
+template <int W, class P>
+cudaError_t inject_launch(const LaneBufs* b, P bufs, int s, const int32_t* inj,
+                          cudaStream_t stream) {
+  const bool global = b->inject_global != 0;
+  const int64_t bytes =
+      inject_row_words(b->c, b->cxi, b->inj_b) * sizeof(int32_t);
+  const int rows = fit_rows(INJ_WARPS, bytes, global);
+  int smem = 0;
+  const cudaError_t err =
+      merge_smem(inject_merge_kernel<W, P>, global, rows * bytes, &smem);
+  if (err == cudaSuccess)
+    inject_merge_kernel<W, P><<<dim3(blocks_for(b->n, rows), s), 32 * rows,
+                                smem, stream>>>(bufs, inj);
+  return err;
+}
+
 }  // namespace
 
 // Every lane launcher: `host` and `dev` are the same [s] LaneBufs array in
@@ -4048,8 +4474,8 @@ int lane_slots(const LaneBufs* host, const LaneBufs* dev, int s,
 
 // Kernel B: count (its last block scans), place, merge.  The exchange
 // scratch (x_cnt, x_fill, x_done) is zero at entry: the workspace starts
-// zeroed, each merge block (B's or H's) zeroes its lane's words once it has
-// read them, and the scanning block its ticket.  The
+// zeroed, each merge block zeroes its lane's words once it has read them
+// (H does not touch them), and the scanning block its ticket.  The
 // merge takes its narrow or wide form by merge_warp (lanes.merge_in_warp).
 int exchange_merge(const LaneBufs* host, const LaneBufs* dev, int s,
                    cudaStream_t stream) {
@@ -4088,19 +4514,22 @@ int exchange_merge(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
+// kernel E: a warp a row, SPLIT_ROWS rows a block
 int stream_rows_merge(const LaneBufs* host, const LaneBufs* dev, int s,
                       cudaStream_t stream) {
   const LaneBufs* b = host;
   return with_bufs(host, dev, s, [&](auto bufs) {
     using P = decltype(bufs);
-    const int64_t w_all = b->c + 2 * b->k + b->k * PUMP_BURST;
+    const bool global = b->split_global != 0;
+    const int64_t bytes =
+        split_row_words(b->c, 2 * b->k + b->k * PUMP_BURST) * sizeof(int32_t);
+    const int rows = fit_rows(SPLIT_ROWS, bytes, global);
     int smem = 0;
-    const cudaError_t err = merge_smem(
-        stream_rows_kernel<P>, b->split_global != 0,
-        (7 * w_all + sort_width(w_all)) * sizeof(int32_t), &smem);
+    const cudaError_t err =
+        merge_smem(stream_rows_kernel<P>, global, rows * bytes, &smem);
     if (err != cudaSuccess) return err;
-    stream_rows_kernel<<<dim3(static_cast<unsigned>(2 * b->s_flows), s),
-                         merge_threads(w_all), smem, stream>>>(bufs);
+    stream_rows_kernel<<<dim3(blocks_for(2 * b->s_flows, rows), s), 32 * rows,
+                         smem, stream>>>(bufs);
     return cudaSuccess;
   });
 }
@@ -4198,38 +4627,13 @@ int hybrid_fused_window(const LaneBufs* host, const LaneBufs* dev, int s,
   });
 }
 
-// kernel H over one injection block `inj` ([INJ_WORDS, inj_b] int32 on the
-// device): count with the ungated scan, place, the merge (the scratch zero
-// at entry, as in B)
+// kernel H over one injection block (inject_launch)
 int inject_merge(const LaneBufs* host, const LaneBufs* dev, int s,
                  const int32_t* inj, cudaStream_t stream) {
-  const LaneBufs* b = host;
   return with_bufs(host, dev, s, [&](auto bufs) {
-    using P = decltype(bufs);
-    const int64_t m = b->inj_b;
-    inj_count_kernel<<<dim3(blocks_for(m, COUNT_THREADS), s), COUNT_THREADS,
-                       0, stream>>>(bufs, inj);
-    inj_place_kernel<<<dim3(blocks_for(m, 256), s), 256, 0, stream>>>(bufs,
-                                                                      inj);
-    const int64_t w_all = b->c + b->cxi;
-    const int64_t bytes = (b->words * w_all + sort_width(w_all)) * sizeof(int32_t);
-    int smem = 0;
-    const cudaError_t err =
-        b->words == 7
-            ? merge_smem(inject_merge_kernel<7, P>, b->inject_global != 0,
-                         bytes, &smem)
-            : merge_smem(inject_merge_kernel<5, P>, b->inject_global != 0,
-                         bytes, &smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid(static_cast<unsigned>(b->n), s);
-    if (b->words == 7) {
-      inject_merge_kernel<7, P>
-          <<<grid, merge_threads(w_all), smem, stream>>>(bufs, inj);
-    } else {
-      inject_merge_kernel<5, P>
-          <<<grid, merge_threads(w_all), smem, stream>>>(bufs, inj);
-    }
-    return cudaSuccess;
+    return host->words == 7
+               ? inject_launch<7>(host, bufs, s, inj, stream)
+               : inject_launch<5>(host, bufs, s, inj, stream);
   });
 }
 
