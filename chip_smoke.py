@@ -161,11 +161,39 @@ and fused modes and D timed on the card run's state at the cut; after
 the main paths, the flagship itself: 25 three-relay chains, 75 tcpecho
 clients and the origin beside the 1,000 peers, 10 sim s, device mode,
 strict, at the defaults (a worker process per core: none of them may
-hold a CUDA context) and on the serial one-window law — 76 clean exits,
+hold a CUDA context) and on the one-window law with as many workers — 76
+clean exits,
 4,216 rounds, no egress row lost, no process error, the two runs equal,
 each with its sim-s/wall-s,
 the device turns' and the syscall service's seconds, the fused law's
 counters and the kernels' launches.
+
+Last, the command line (``python -m shadow_tpu_torch``, each run in a
+child process that runs the package's ``__main__`` as ``-m`` does and
+reports its wrappers' launch counts, every kernel of its path launched):
+(a) the tiered mixed mesh (``mixed_flagship_config(10000)`` as a config
+file), 1 sim s, device mode, ``--netobs --event-log``: its
+``sim-stats.json`` counters and rounds, ``event-log.tsv`` rows and
+``NETOBS_*.json`` totals equal an in-process ``GpuEngine.run("device")``
+of the same config; (b) ``flagship_mesh_config(10000)``, 1 sim s,
+``--perf-logging --run-control`` with stdin ``n``, ``n``, ``stats``,
+``c``: two pauses, one ``[window-agg]`` line a round, the closed form;
+(c) the same two flags on the 100-host flagship, card and ``--device
+cpu``, side by side: the ``[window-agg]`` lines equal byte for byte;
+(d) PHOLD 10k, 1 sim s, ``--determinism-check`` (a 9,000,000-row log):
+exit 0.  After (a), in process and with nothing beside it, the flagship
+(10 sim s) in device mode, in step mode and in step mode with perf
+logging, three times in turns: the price of the per-window seam; its
+sim-s/wall-s and (a)'s beside the in-process runs are printed before the
+``kernels`` line.  (b) and (c)'s two commands run side by side, then
+(e)'s two; none of them times anything.  (d) starts once the kernels are
+built and runs beside the kernel checks; the run waits for it before 6.
+
+The CPU runs of the parity checks (7, 8, the stream, plane, flowtrace and
+fault checks, and the hybrid parity's oracle and ``device="cpu"`` runs)
+need nothing of the card: they start at the top in worker processes (the
+card hidden from them) beside the build and the kernel checks, and are
+all done before 6, so no measurement shares the host with them.
 
 The last lines are the ``kernels`` JSON line, the ``nvidia-smi`` line and
 the result line.  Imports nothing of JAX.
@@ -198,6 +226,7 @@ from shadow_tpu_torch.config import presets, scenarios  # noqa: E402
 from shadow_tpu_torch.config.options import ConfigOptions  # noqa: E402
 from shadow_tpu_torch.config.presets import flagship_mesh_config  # noqa: E402
 from shadow_tpu_torch.core import rng as rng_mod  # noqa: E402
+from shadow_tpu_torch.engine.run_control import PerfLog  # noqa: E402
 from shadow_tpu_torch.models.base import builtin_models  # noqa: E402
 from shadow_tpu_torch.net import ltcp  # noqa: E402
 from shadow_tpu_torch.net.token_bucket import bucket_params  # noqa: E402
@@ -333,6 +362,101 @@ MAX_ERR = {}  # kernel name -> largest |kernel - plain| over its checks
 def check(name: str, tag: str, kern: dict, plain: dict) -> None:
     MAX_ERR[name] = max(MAX_ERR.get(name, 0),
                         assert_equal(f"{name} {tag}", kern, plain))
+
+
+# ---- the CPU references, run ahead -----------------------------------------
+
+# The parity phases hold each card run against the CPU plain path on the
+# same config.  The CPU runs need nothing of the card, so they start at the
+# top of the run in worker processes (spawned, the card hidden from them,
+# one intra-op thread each) and go on beside the kernel build and the
+# kernel checks.  The pool is drained and stopped before the first timing
+# phase, so no measurement shares the host with it; each parity phase takes
+# its references when it gets there (``cpu_ref``).
+CPU_POOL = None
+CPU_REFS: dict = {}  # (runner name, *args) -> future
+CPU_WORKERS = max(1, (os.cpu_count() or 2) - 2)  # a core each for the
+# process that runs the card and for the compiler
+
+
+class _Wire:
+    """A tensor on its way out of a worker, as a numpy array: pickled by
+    value, so no shared-memory handle outlives the worker."""
+
+    def __init__(self, t: torch.Tensor):
+        self.a = t.numpy()
+
+
+def _pack(x, out: bool = True):
+    if out and isinstance(x, torch.Tensor):
+        return _Wire(x)
+    if not out and isinstance(x, _Wire):
+        return torch.from_numpy(x.a)
+    if isinstance(x, dict):
+        return {k: _pack(v, out) for k, v in x.items()}
+    if type(x) in (tuple, list):
+        return type(x)(_pack(v, out) for v in x)
+    return x
+
+
+def _cpu_worker_init(data: str) -> None:
+    global DATA
+    DATA = data
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    torch.set_num_threads(1)
+
+
+def _cpu_job(fn, args: tuple):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return _pack(out), time.perf_counter() - t0
+
+
+def start_cpu_refs(jobs: list) -> None:
+    """Start the workers and submit ``jobs``: (runner, *args) each."""
+    global CPU_POOL
+    import concurrent.futures
+    import multiprocessing
+
+    CPU_POOL = concurrent.futures.ProcessPoolExecutor(
+        max_workers=CPU_WORKERS,
+        mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(DATA,))
+    submit_cpu_refs(jobs)
+
+
+def submit_cpu_refs(jobs: list) -> None:
+    for fn, *args in jobs:
+        CPU_REFS[(fn.__name__, *args)] = CPU_POOL.submit(_cpu_job, fn,
+                                                         tuple(args))
+
+
+def drain_cpu_refs() -> None:
+    """Wait for the CPU runs and stop the workers; their results stay."""
+    import concurrent.futures
+
+    if CPU_POOL is None:
+        return
+    t0 = time.perf_counter()
+    concurrent.futures.wait(CPU_REFS.values())
+    stop_cpu_refs()
+    busy = sum(f.result()[1] for f in CPU_REFS.values()
+               if f.exception() is None)
+    log(f"CPU references: {len(CPU_REFS)} runs, {busy:.1f} s in "
+        f"{CPU_WORKERS} worker processes, waited "
+        f"{time.perf_counter() - t0:.1f} s for the last")
+
+
+def stop_cpu_refs() -> None:
+    if CPU_POOL is not None:
+        CPU_POOL.shutdown(wait=True, cancel_futures=True)
+
+
+def cpu_ref(fn, *args):
+    """``fn(*args)``, a CPU reference run ahead in the pool, and its
+    seconds there."""
+    out, secs = CPU_REFS.pop((fn.__name__, *args)).result()
+    return _pack(out, out=False), secs
 
 
 # ---- seeded valid states at the flagship shapes ----------------------------
@@ -1786,37 +1910,49 @@ def assert_planes_equal(tag: str, a, b) -> None:
        "and the 10k tiered mixed mesh for 100 sim ms")
 def plane_parity():
     for name, cfg_fn in PLANE_PARITY.items():
-        t0 = time.perf_counter()
-        ref = plane_run(cfg_fn, "cpu", "device", name)
+        ref, secs = cpu_ref(plane_cpu, name)
         res, _st, snap, files = ref
         tot = {k: int(v.sum()) for k, v in snap["arrays"].items()}
         if not (files and tot["sent"] and snap["window_hist"].sum()):
             raise AssertionError(f"{name}: the planes saw nothing")
+        t0 = time.perf_counter()
         for mode in ("step", "device"):
             assert_planes_equal(f"{name} cuda/{mode}",
                                 plane_run(cfg_fn, "cuda", mode, name), ref)
         log(f"{name}: card = CPU; {len(res.event_log)} records, {len(files)} "
             f"capture files, netobs totals {tot}, windows "
-            f"{int(snap['window_hist'].sum())} "
-            f"({time.perf_counter() - t0:.1f} s)")
-
-    def mixed_100ms():
-        cfg = planes(mixed_tiered(1), "mixed10k-100ms")
-        cfg.general.stop_time = 100_000_000
-        return cfg
+            f"{int(snap['window_hist'].sum())} (card "
+            f"{time.perf_counter() - t0:.1f} s, CPU {secs:.1f} s)")
 
     runs = {}
     for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        runs[dev] = plane_run(mixed_100ms, dev, "device", "mixed10k",
-                              log_cap=400_000)
+        if dev == "cpu":
+            runs[dev], secs = cpu_ref(plane_mixed_run, dev)
+        else:
+            t0 = time.perf_counter()
+            runs[dev] = plane_mixed_run(dev)
+            secs = time.perf_counter() - t0
         log(f"mixed mesh tiered 100 ms, planes on, {dev}: "
             f"{len(runs[dev][0].event_log)} records, {len(runs[dev][3])} "
-            f"capture files ({time.perf_counter() - t0:.1f} s)")
+            f"capture files ({secs:.1f} s)")
     assert_planes_equal("mixed mesh tiered 100 ms, planes on", runs["cuda"],
                         runs["cpu"])
     if len(runs["cpu"][3]) != 300:
         raise AssertionError("want 300 capture files")
+
+
+def plane_cpu(name: str):
+    return plane_run(PLANE_PARITY[name], "cpu", "device", name)
+
+
+def plane_mixed_run(dev: str):
+    """The 10k tiered mixed mesh, 100 sim ms, netobs and 300 capturing
+    hosts, on ``dev``."""
+    def cfg_fn():
+        cfg = planes(mixed_tiered(1), "mixed10k-100ms")
+        cfg.general.stop_time = 100_000_000
+        return cfg
+    return plane_run(cfg_fn, dev, "device", "mixed10k", log_cap=400_000)
 
 
 # tests/test_torch_flowtrace.py's configurations (test_flowtrace.py's, the
@@ -1911,38 +2047,51 @@ def assert_flows_equal(tag: str, a, b) -> None:
        "the wide rows' opt-in and global merges among them, and the 10k "
        "untiered mixed mesh for 100 sim ms")
 def flow_parity():
-    for name, (cfg_fn, cpu_mode) in FLOW_PARITY.items():
-        t0 = time.perf_counter()
-        ref = flow_run(cfg_fn, "cpu", cpu_mode)
+    for name, (cfg_fn, _cpu_mode) in FLOW_PARITY.items():
+        ref, secs = cpu_ref(flow_cpu, name)
         res, _st, snap, p = ref
         if not snap["raw"]:
             raise AssertionError(f"{name}: no flow events")
+        t0 = time.perf_counter()
         for mode in ("step", "device"):
             assert_flows_equal(f"{name} cuda/{mode}",
                                flow_run(cfg_fn, "cuda", mode), ref)
         kinds = np.bincount([e[2] for e in snap["raw"]], minlength=6)
         log(f"{name}: card = CPU; {len(res.event_log)} records, "
             f"{len(snap['raw'])} flow events by kind {kinds.tolist()}, ring "
-            f"lost {snap['ring_lost']}; merges {merge_paths(p)} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"lost {snap['ring_lost']}; merges {merge_paths(p)} (card "
+            f"{time.perf_counter() - t0:.1f} s, CPU {secs:.1f} s)")
     wide = GpuEngine(FLOW_PARITY["mixed_wide"][0](), device="cpu").params
     if not merge_paths(wide)["merge"].startswith("global"):
         raise AssertionError("the wide rows did not take the global path")
 
-    def mixed_100ms():
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        if dev == "cpu":
+            runs[dev], secs = cpu_ref(flow_mixed_run, dev)
+        else:
+            t0 = time.perf_counter()
+            runs[dev] = flow_mixed_run(dev)
+            secs = time.perf_counter() - t0
+        log(f"mixed mesh untiered 100 ms, flowtrace, {dev}: "
+            f"{len(runs[dev][2]['raw'])} flow events ({secs:.1f} s)")
+    assert_flows_equal("mixed mesh untiered 100 ms, flowtrace", runs["cuda"],
+                       runs["cpu"])
+
+
+def flow_cpu(name: str):
+    cfg_fn, cpu_mode = FLOW_PARITY[name]
+    return flow_run(cfg_fn, "cpu", cpu_mode)
+
+
+def flow_mixed_run(dev: str):
+    """The 10k untiered mixed mesh, 100 sim ms, every flow traced, on
+    ``dev``."""
+    def cfg_fn():
         cfg = with_flowtrace(mixed_mesh(1), cap=1 << 20)
         cfg.general.stop_time = 100_000_000
         return cfg
-
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        runs[dev] = flow_run(mixed_100ms, dev, "device", log_cap=0)
-        log(f"mixed mesh untiered 100 ms, flowtrace, {dev}: "
-            f"{len(runs[dev][2]['raw'])} flow events "
-            f"({time.perf_counter() - t0:.1f} s)")
-    assert_flows_equal("mixed mesh untiered 100 ms, flowtrace", runs["cuda"],
-                       runs["cpu"])
+    return flow_run(cfg_fn, dev, "device", log_cap=0)
 
 
 def wide_pair(tiered: bool):
@@ -4234,27 +4383,47 @@ def mod_iters(r) -> dict:
     return {k: v for k, v in r.counters.items() if k != "lane_iters"}
 
 
+# name, device, worker processes, k
+HYB_PARITY_RUNS = (("card", "cuda", 2, FUSE_K), ("cpu", "cpu", 2, FUSE_K),
+                   ("card one-window", "cuda", 1, 1))
+
+
+def hybrid_oracle_run():
+    return CpuEngine(hybrid_cfg("oracle", HYB_CUT_S)).run()
+
+
+def hybrid_parity_run(name: str, dev: str, workers: int, fuse_k: int):
+    """One of the parity's engine runs: the result, the engine's name, its
+    workers and its transfer counts (``sync_counts``), and the engine when
+    it ran here."""
+    eng = hybrid_engine(f"parity-{name.replace(' ', '-')}", HYB_CUT_S,
+                        dev, workers, fuse_k)
+    res = eng.run()
+    about = (type(eng).__name__, getattr(eng, "workers", 1), sync_counts(eng))
+    return res, about, eng if dev == "cuda" else None
+
+
 @phase("hybrid parity: the hybrid flagship at full width for 2 sim s at the "
        "defaults (the fused law, k = 8, eager dispatch, 2 worker "
        "processes) on the card = device='cpu' = the port's CPU oracle = the "
        "one-window law on the card")
 def hybrid_parity():
     runs = {}
-    t0 = time.perf_counter()
-    runs["cpu oracle"] = CpuEngine(hybrid_cfg("oracle", HYB_CUT_S)).run()
-    log(f"hybrid parity: CPU oracle {time.perf_counter() - t0:.1f} s")
-    engs = {}
-    for name, dev, workers, fuse_k in (("card", "cuda", 2, FUSE_K),
-                                       ("cpu", "cpu", 2, FUSE_K),
-                                       ("card one-window", "cuda", 1, 1)):
-        t0 = time.perf_counter()
-        eng = hybrid_engine(f"parity-{name.replace(' ', '-')}", HYB_CUT_S,
-                            dev, workers, fuse_k)
-        runs[name] = eng.run()
-        engs[name] = eng
-        log(f"hybrid parity: {name} ({type(eng).__name__}, "
-            f"{getattr(eng, 'workers', 1)} workers, k = {fuse_k}) "
-            f"{time.perf_counter() - t0:.1f} s, {sync_counts(eng)}")
+    runs["cpu oracle"], secs = cpu_ref(hybrid_oracle_run)
+    log(f"hybrid parity: CPU oracle {secs:.1f} s")
+    engs, counts = {}, {}
+    for name, dev, workers, fuse_k in HYB_PARITY_RUNS:
+        if dev == "cpu":
+            (runs[name], about, engs[name]), secs = cpu_ref(
+                hybrid_parity_run, name, dev, workers, fuse_k)
+        else:
+            t0 = time.perf_counter()
+            runs[name], about, engs[name] = hybrid_parity_run(
+                name, dev, workers, fuse_k)
+            secs = time.perf_counter() - t0
+        counts[name] = about[2]
+        log(f"hybrid parity: {name} ({about[0]}, {about[1]} workers, k = "
+            f"{fuse_k}) {secs:.1f} s, {about[2]}")
     want = runs["cpu oracle"]
     for name, r in runs.items():
         # the workers report their partitions' errors in worker order
@@ -4279,7 +4448,7 @@ def hybrid_parity():
                                  f" != the oracle's {v}")
     if len({r.rounds for r in runs.values()}) != 1:
         raise AssertionError("hybrid parity: rounds differ")
-    if sync_counts(engs["card"]) != sync_counts(engs["cpu"]):
+    if counts["card"] != counts["cpu"]:
         raise AssertionError("hybrid parity: the transfer counts differ")
     st = engs["card"].sync_stats
     if st["fused_dispatches"] == 0:
@@ -4585,8 +4754,9 @@ def compute_apps() -> list:
 
 # the flagship's runs: the reference's defaults (the fused law, k = 8,
 # eager dispatch, one worker process per core, at most one per managed
-# host) and the serial one-window law
-HYB_LAWS = {"fused": (0, FUSE_K), "one-window": (1, 1)}
+# host) and the one-window law on as many workers (the serial engine's
+# one-window law runs in the hybrid parity and on the congested config)
+HYB_LAWS = {"fused": (0, FUSE_K), "one-window": (0, 1)}
 
 
 def hybrid_flagship(law: str) -> dict:
@@ -4669,8 +4839,8 @@ def hybrid_flagship(law: str) -> dict:
 
 @phase("hybrid main path: managed_relay_chains_large at full width, 10 sim s, "
        "strict capacity, at the reference's defaults (the fused law, k = 8, "
-       "eager dispatch, a worker process per core) and on the serial "
-       "one-window law")
+       "eager dispatch, a worker process per core) and on the one-window "
+       "law, a worker process per core")
 def hybrid_main() -> dict:
     out = {law: hybrid_flagship(law) for law in HYB_LAWS}
     a = out["fused"]["result"]
@@ -4791,15 +4961,20 @@ def run_engine(eng: GpuEngine, mode: str):
     return res, {f: t.cpu() for f, t in fields(state).items()}
 
 
+def parity_run(name: str, dev: str, mode: str):
+    doc, strict, _must = PARITY[name]
+    return run_engine(GpuEngine(ConfigOptions.from_dict(doc), device=dev,
+                                strict_capacity=strict), mode)
+
+
 @phase("parity: card and CPU, step and device, seven configs")
 def parity():
-    for name, (doc, strict, must) in PARITY.items():
+    for name, (_doc, _strict, must) in PARITY.items():
         runs = {}
         for dev in ("cuda", "cpu"):
             for mode in ("step", "device"):
-                eng = GpuEngine(ConfigOptions.from_dict(doc), device=dev,
-                                strict_capacity=strict)
-                res, st = run_engine(eng, mode)
+                res, st = (cpu_ref(parity_run, name, dev, mode)[0]
+                           if dev == "cpu" else parity_run(name, dev, mode))
                 runs[(dev, mode)] = (res, st)
                 log(f"{name} {dev}/{mode}: {len(res.event_log)} records, "
                     f"{res.counters}, rounds {res.rounds}")
@@ -4911,6 +5086,10 @@ TIERED_TWINS = (("stream_pair", "tier_pair"),
                 ("mixed_small", "tier_mixed_small"))
 
 
+def stream_cpu(name: str, mode: str):
+    return run_engine(GpuEngine(STREAM_PARITY[name][0](), device="cpu"), mode)
+
+
 @phase("stream parity: card (step and device) and CPU, five untiered and "
        "six tiered configs; tiered = untiered")
 def stream_parity():
@@ -4919,12 +5098,15 @@ def stream_parity():
         runs = {}
         for dev, modes in (("cpu", cpu_modes), ("cuda", ("step", "device"))):
             for mode in modes:
-                t0 = time.perf_counter()
-                res, st = run_engine(GpuEngine(cfg_fn(), device=dev), mode)
+                if dev == "cpu":
+                    (res, st), secs = cpu_ref(stream_cpu, name, mode)
+                else:
+                    t0 = time.perf_counter()
+                    res, st = run_engine(GpuEngine(cfg_fn(), device=dev), mode)
+                    secs = time.perf_counter() - t0
                 runs[(dev, mode)] = (res, st)
                 log(f"{name} {dev}/{mode}: {len(res.event_log)} records, "
-                    f"{res.counters}, rounds {res.rounds} "
-                    f"({time.perf_counter() - t0:.1f} s)")
+                    f"{res.counters}, rounds {res.rounds} ({secs:.1f} s)")
         ref_res, ref_st = runs[("cpu", cpu_modes[0])]
         refs[name] = ref_res
         if ref_res.counters.get(must, 0) == 0:
@@ -4950,6 +5132,14 @@ def stream_parity():
             "untiered")
 
 
+def tcp_prefix_run(dev: str):
+    """``examples/stream-tcp.yaml``'s first 0.75 sim s on ``dev``."""
+    doc = presets.stream_tcp_example_doc()
+    doc["general"]["stop_time"] = "750ms"
+    return run_engine(GpuEngine(ConfigOptions.from_dict(doc), device=dev),
+                      "device")
+
+
 @phase("examples/stream-tcp.yaml: 60 sim s on the card; a prefix card = CPU")
 def stream_tcp_example():
     """4 clients x 1 MiB into one server over a 40 ms link with 2% loss:
@@ -4966,13 +5156,14 @@ def stream_tcp_example():
         raise AssertionError(f"stream-tcp.yaml counters {c}")
     runs = {}
     for dev in ("cuda", "cpu"):
-        doc = presets.stream_tcp_example_doc()
-        doc["general"]["stop_time"] = "750ms"
-        t0 = time.perf_counter()
-        runs[dev] = run_engine(GpuEngine(ConfigOptions.from_dict(doc),
-                                         device=dev), "device")
+        if dev == "cpu":
+            runs[dev], secs = cpu_ref(tcp_prefix_run, dev)
+        else:
+            t0 = time.perf_counter()
+            runs[dev] = tcp_prefix_run(dev)
+            secs = time.perf_counter() - t0
         log(f"stream-tcp.yaml 0.75 s {dev}: {runs[dev][0].counters} "
-            f"({time.perf_counter() - t0:.1f} s)")
+            f"({secs:.1f} s)")
     (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
     retx = int(st_c["stream"][0, :, lstr.C_RETRANS].sum())
     if not retx:
@@ -4994,33 +5185,48 @@ def expected_mesh(n: int, sim_s: int) -> dict:
             "lane_iters": sim_s * 100}
 
 
+def mixed_100ms(make):
+    def cfg_fn():
+        cfg = make(1)
+        cfg.general.stop_time = 100_000_000
+        return cfg
+    return cfg_fn
+
+
+# name -> (config function, log capacity)
+FULL_WIDTH = {
+    "phold 25 ms": (lambda: phold(stop_time="25ms"), 1_000_000),
+    "lossy flagship 1 s": (lambda: flagship(sim_seconds=1, packet_loss=0.01),
+                           1_200_000),
+    "mixed mesh 100 ms": (mixed_100ms(mixed_mesh), 400_000),
+    "mixed mesh tiered 100 ms": (mixed_100ms(mixed_tiered), 400_000),
+}
+
+
+def full_width_run(name: str, dev: str):
+    cfg_fn, log_cap = FULL_WIDTH[name]
+    return run_engine(GpuEngine(cfg_fn(), log_capacity=log_cap, device=dev),
+                      "device")
+
+
 @phase("full width: card against the CPU plain path")
 def full_width_parity():
-    """PHOLD at 10,000 hosts for 50 sim ms, the lossy flagship for 1 sim s
+    """PHOLD at 10,000 hosts for 25 sim ms, the lossy flagship for 1 sim s
     and the mixed mesh, untiered and tiered, for 100 sim ms (the handshakes
     and the first bursts), device mode with logging: equal event logs,
     counters and final states."""
-    def mixed_100ms(make):
-        def cfg_fn():
-            cfg = make(1)
-            cfg.general.stop_time = 100_000_000
-            return cfg
-        return cfg_fn
-
-    for name, cfg_fn, log_cap in (
-            ("phold 25 ms", lambda: phold(stop_time="25ms"), 1_000_000),
-            ("lossy flagship 1 s",
-             lambda: flagship(sim_seconds=1, packet_loss=0.01), 1_200_000),
-            ("mixed mesh 100 ms", mixed_100ms(mixed_mesh), 400_000),
-            ("mixed mesh tiered 100 ms", mixed_100ms(mixed_tiered), 400_000)):
+    for name in FULL_WIDTH:
         runs = {}
         for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            res, st = run_engine(GpuEngine(cfg_fn(), log_capacity=log_cap,
-                                           device=dev), "device")
+            if dev == "cpu":
+                (res, st), secs = cpu_ref(full_width_run, name, dev)
+            else:
+                t0 = time.perf_counter()
+                res, st = full_width_run(name, dev)
+                secs = time.perf_counter() - t0
             runs[dev] = (res, st)
             log(f"{name} {dev}: {len(res.event_log)} records, {res.counters}, "
-                f"rounds {res.rounds} ({time.perf_counter() - t0:.1f} s)")
+                f"rounds {res.rounds} ({secs:.1f} s)")
         (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
         if len(res_c.event_log) < 10_000:
             raise AssertionError(f"{name}: logged too little")
@@ -5383,12 +5589,43 @@ def loss_band(sends: int, p: float) -> tuple:
     return int(np.floor(mean - 5 * sigma)), int(np.ceil(mean + 5 * sigma))
 
 
+def fault_cpu(name: str, mode: str):
+    return faulted_run(ConfigOptions.from_dict(FAULT_PARITY[name][0]), "cpu",
+                       mode)
+
+
+def faulted_flagship_run(dev: str):
+    return faulted_run(faulted_flagship(), dev, "device", 1_200_000)
+
+
+def cpu_jobs() -> list:
+    """The parity phases' CPU runs, in the order the phases take them:
+    (runner, *args)."""
+    jobs = [(parity_run, name, "cpu", mode) for name in PARITY
+            for mode in ("step", "device")]
+    jobs += [(stream_cpu, name, mode)
+             for name, (_f, modes, _m) in STREAM_PARITY.items()
+             for mode in modes]
+    jobs.append((tcp_prefix_run, "cpu"))
+    jobs += [(full_width_run, name, "cpu") for name in FULL_WIDTH]
+    jobs += [(plane_cpu, name) for name in PLANE_PARITY]
+    jobs.append((plane_mixed_run, "cpu"))
+    jobs += [(flow_cpu, name) for name in FLOW_PARITY]
+    jobs.append((flow_mixed_run, "cpu"))
+    jobs += [(fault_cpu, name, mode) for name in FAULT_PARITY
+             for mode in ("step", "device")]
+    jobs.append((faulted_flagship_run, "cpu"))
+    return jobs
+
+
 @phase("faults: card = CPU, step and device, six fault twins and the lossy "
        "flagship at 10k hosts with a latency and a loss epoch")
 def fault_parity():
     for name, (doc, must) in FAULT_PARITY.items():
-        runs = {(dev, mode): faulted_run(ConfigOptions.from_dict(doc), dev,
-                                         mode)
+        runs = {(dev, mode): (cpu_ref(fault_cpu, name, mode)[0]
+                              if dev == "cpu" else
+                              faulted_run(ConfigOptions.from_dict(doc), dev,
+                                          mode))
                 for dev in ("cuda", "cpu") for mode in ("step", "device")}
         ref_res, ref_st = runs[("cpu", "step")]
         if not ref_res.counters.get(must, 0):
@@ -5403,10 +5640,14 @@ def fault_parity():
             f"{len(ref_res.event_log)} records, {ref_res.counters}")
     runs = {}
     for dev in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        runs[dev] = faulted_run(faulted_flagship(), dev, "device", 1_200_000)
+        if dev == "cpu":
+            runs[dev], secs = cpu_ref(faulted_flagship_run, dev)
+        else:
+            t0 = time.perf_counter()
+            runs[dev] = faulted_flagship_run(dev)
+            secs = time.perf_counter() - t0
         log(f"faulted lossy flagship {dev}: {runs[dev][0].counters}, rounds "
-            f"{runs[dev][0].rounds} ({time.perf_counter() - t0:.1f} s)")
+            f"{runs[dev][0].rounds} ({secs:.1f} s)")
     (res_g, st_g), (res_c, st_c) = runs["cuda"], runs["cpu"]
     if (res_g.log_tuples() != res_c.log_tuples()
             or res_g.counters != res_c.counters or res_g.rounds != res_c.rounds):
@@ -5704,6 +5945,320 @@ def main_path():
     return totals, rates, drawing, per_path
 
 
+# ---- the command line on the card ----------------------------------------
+
+# ``python -m shadow_tpu_torch`` in a child process: the child runs the
+# package's __main__ through runpy (what ``-m`` does) and, when the command
+# returns, writes its wrappers' launch counts (zero at its start) to the
+# file CLI_LAUNCHES names
+CLI_CHILD = """\
+import json, os, runpy, sys
+from shadow_tpu_torch.backend import kernels
+kernels.reset_launches()
+code = 0
+try:
+    runpy.run_module("shadow_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as e:
+    code = e.code if isinstance(e.code, int) else 1
+finally:
+    with open(os.environ["CLI_LAUNCHES"], "w") as f:
+        json.dump({fn.__name__: fn.launches for fn in kernels.WRAPPERS}, f)
+sys.exit(code)
+"""
+# the rows of PHOLD 10k's event log in 1 sim s: each of its 40,000
+# messages hops 199 times (796 deliveries a host, measured at 200 hosts)
+PHOLD_1S_LOG = 9_000_000
+CLI_PROCS: list = []  # every child started; the phase kills what is left
+PHOLD_CLI: dict = {}  # (d): its config document and its started child
+
+
+def start_phold_cli() -> None:
+    """(d), PHOLD 10k for 1 sim s run twice by ``--determinism-check``: its
+    two 7,960,000-row logs are built and compared on the host for one to
+    two minutes, so it starts once the kernels are built and runs beside
+    the kernel checks, which time nothing; the run waits for it before the
+    first timing phase, and the command-line phase reads it."""
+    doc = phold_doc(stop_time="1s")
+    doc["general"]["data_directory"] = str(Path(DATA) / "cli-phold")
+    doc["experimental"] = {"network_backend": "tpu",
+                           "tpu_log_capacity": PHOLD_1S_LOG}
+    PHOLD_CLI["doc"] = doc
+    PHOLD_CLI["run"] = cli_start("phold", [config_file("phold", doc),
+                                           "--determinism-check"])
+
+
+def cli_start(tag: str, args: list, stdin: str = "") -> tuple:
+    """Start the command line with ``args`` in a child process, its output
+    into files (children that run side by side never wait on a pipe);
+    ``cli_wait`` finishes it."""
+    base = Path(DATA) / f"cli-{tag}"
+    with open(f"{base}.out", "w") as out, open(f"{base}.err", "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", CLI_CHILD, *args], stdin=subprocess.PIPE,
+            stdout=out, stderr=err, text=True, cwd=ROOT,
+            env={**os.environ, "CLI_LAUNCHES": f"{base}.json"})
+    CLI_PROCS.append(child)
+    try:
+        child.stdin.write(stdin)
+        child.stdin.close()
+    except BrokenPipeError:  # the child ended first: cli_wait reports it
+        pass
+    return tag, child, base, time.perf_counter()
+
+
+def cli_wait(started: tuple) -> tuple:
+    """The finished process, its launch counts and its wall seconds."""
+    tag, child, base, t0 = started
+    child.wait(timeout=900)
+    wall = time.perf_counter() - t0
+    proc = subprocess.CompletedProcess(
+        child.args, child.returncode, Path(f"{base}.out").read_text(),
+        Path(f"{base}.err").read_text())
+    for line in proc.stderr.splitlines()[-6:]:
+        log(f"  cli {tag} stderr: {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {tag}: exit {proc.returncode}")
+    return proc, json.loads(Path(f"{base}.json").read_text()), wall
+
+
+def cli(tag: str, args: list, stdin: str = "") -> tuple:
+    return cli_wait(cli_start(tag, args, stdin))
+
+
+def config_file(tag: str, doc: dict) -> str:
+    """``doc`` as a config file, in YAML's JSON (flow) form."""
+    path = Path(DATA) / f"{tag}.yaml"
+    path.write_text(json.dumps(doc, indent=1) + "\n")
+    return str(path)
+
+
+def mesh_doc(n: int, sim_s: int, mixed: bool = False,
+             log_cap: int | None = None) -> dict:
+    """``flagship_mesh_config(n)`` (``mixed``: ``mixed_flagship_config(n)``)
+    as the YAML document the preset builds, held equal to the preset's
+    config; ``log_cap``: ``experimental.tpu_log_capacity``."""
+    k = n // 100 if mixed else 0
+    want = (presets.mixed_flagship_config(n, sim_seconds=sim_s) if mixed
+            else flagship_mesh_config(n, sim_seconds=sim_s))
+    exp = {"network_backend": "tpu"}
+    if mixed:
+        exp.update(tpu_lane_queue_capacity=16, tpu_events_per_round=2,
+                   tpu_cross_capacity=8, tpu_stream_events_per_round=16)
+    if log_cap is not None:
+        exp["tpu_log_capacity"] = log_cap
+        want.experimental.tpu_log_capacity = log_cap
+    hosts = {"peer": {"count": n - 2 * k, "network_node_id": 0, "processes": [{
+        "path": "tgen-mesh", "args": "--interval 10ms --size 1428",
+        "start_time": "0 s"}]}}
+    for i in range(k):
+        hosts[f"sc{i:05d}"] = {"network_node_id": 0, "processes": [{
+            "path": "stream-client",
+            "args": f"--server ss{i:05d} --size 2000000",
+            "start_time": "0 s"}]}
+        hosts[f"ss{i:05d}"] = {"network_node_id": 0, "processes": [{
+            "path": "stream-server", "start_time": "0 s"}]}
+    doc = {"general": {"stop_time": f"{sim_s} s", "seed": 1},
+           "network": {"graph": {"type": "gml",
+                                 "inline": want.network.graph.inline}},
+           "experimental": exp, "hosts": hosts}
+    if ConfigOptions.from_dict(doc) != want:
+        raise AssertionError(f"mesh_doc({n}, mixed={mixed}) != the preset")
+    return doc
+
+
+def window_aggs(text: str) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith("[window-agg]")]
+
+
+def hybrid_agg_ints(text: str) -> list:
+    """The ``[hybrid-agg]`` lines' fields but the two wall-time ones."""
+    return [[f for f in ln.split()[1:]
+             if not f.startswith(("device_sync_ns=", "syscall_service_ns="))]
+            for ln in text.splitlines() if ln.startswith("[hybrid-agg]")]
+
+
+def stats_of(doc: dict) -> dict:
+    return json.loads((Path(doc["general"]["data_directory"])
+                       / "sim-stats.json").read_text())
+
+
+def cli_kernels(tag: str, counts: dict, p: lanes.LaneParams) -> None:
+    for k in path_kernels(p):
+        if counts.get(k, 0) <= 0:
+            raise AssertionError(f"cli {tag}: {k} was not launched")
+
+
+def flagship_seam_rates(reps: int = 3) -> dict:
+    """The flagship (bench tuning, 10 sim s, no log) in device mode, in
+    step mode, and in step mode with perf logging (its lines into a file):
+    sim-s/wall-s of the loop, the three in turns, ``reps`` times."""
+    modes = {"device": ("device", False), "step": ("step", False),
+             "step + perf logging": ("step", True)}
+    engines = {m: GpuEngine(flagship(sim_seconds=10), log_capacity=0)
+               for m in modes}
+    rates = {m: [] for m in modes}
+    for _ in range(reps):
+        for m, (mode, perf) in modes.items():
+            eng = engines[m]
+            sink = None
+            if perf:
+                sink = open(Path(DATA) / "perf-lines.log", "w")
+                eng.perf_log = PerfLog(out=sink)
+            res = eng.run(mode=mode)
+            if sink is not None:
+                sink.close()
+                lines = (Path(DATA) / "perf-lines.log").read_text()
+                if len(window_aggs(lines)) != res.rounds:
+                    raise AssertionError("a [window-agg] line per round")
+            check_flagship(res, 10, 0)
+            rates[m].append(res.sim_seconds_per_wall_second)
+    return rates
+
+
+@phase("the command line on the card: python -m shadow_tpu_torch on the "
+       "tiered mixed mesh 10k (device mode, netobs, event log) = the "
+       "in-process run; the flagship 10k with perf logging and a scripted "
+       "run-control console; the 100-host flagship's [window-agg] lines "
+       "card = CPU; PHOLD 10k --determinism-check; the congested managed "
+       "config's [hybrid-agg] lines card = CPU")
+def cli_phase() -> dict:
+    from shadow_tpu_torch.obs import netobs as nom
+
+    out = {"launches": {}, "rates": {}}
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the
+    # command's own process allocates beside this one
+
+    def tally(counts: dict) -> None:
+        for k, v in counts.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+
+    # (a) the tiered main path, device mode, netobs and the event log
+    doc = mesh_doc(N_FLAG, 1, mixed=True, log_cap=planes_log_capacity())
+    doc["general"]["data_directory"] = str(Path(DATA) / "cli-mixed")
+    proc, counts, wall = cli("mixed", [config_file("mixed", doc), "--netobs",
+                                       "--event-log"])
+    tally(counts)
+    stats = stats_of(doc)
+    cfg = ConfigOptions.from_dict(doc)
+    cfg.experimental.netobs = True
+    eng = GpuEngine(cfg)
+    cli_kernels("mixed", counts, eng.params)
+    res = eng.run(mode="device")
+    if stats["counters"] != dict(sorted(res.counters.items())):
+        raise AssertionError(f"sim-stats counters {stats['counters']} != "
+                             f"in-process {res.counters}")
+    if stats["rounds"] != res.rounds:
+        raise AssertionError("rounds differ")
+    data = Path(doc["general"]["data_directory"])
+    with open(data / "event-log.tsv") as f:
+        next(f)
+        rows = [tuple(map(int, ln.split("\t"))) for ln in f]
+    if rows != res.log_tuples():
+        raise AssertionError("event-log.tsv != the in-process event log")
+    netobs_doc = json.loads((data / "NETOBS_tpu-seed1.json").read_text())
+    want = nom.totals(eng.netobs_snapshot()["arrays"])
+    if netobs_doc["totals"] != want:
+        raise AssertionError(f"NETOBS totals {netobs_doc['totals']} != {want}")
+    rates = [res.sim_seconds_per_wall_second]
+    for _ in range(2):
+        rates.append(eng.run(mode="device").sim_seconds_per_wall_second)
+    out["rates"]["mixed mesh 10k tiered 1 s, device mode: the command line"] = [
+        stats["sim_seconds_per_wall_second"]]
+    out["rates"]["mixed mesh 10k tiered 1 s, device mode: in process"] = rates
+    log(f"cli mixed: {len(rows)} log rows, counters {stats['counters']}, "
+        f"NETOBS totals equal, command {wall:.1f} s, launches {counts}")
+
+    # the price of the per-window seam, in process, while nothing else runs
+    out["rates"].update({f"flagship 10k 10 s, {m}": r
+                         for m, r in flagship_seam_rates().items()})
+
+    # (b) the flagship in the step driver, perf logging and a scripted
+    # console: two pauses, a [window-agg] line a round, the closed form;
+    # (c)'s two commands start beside it (none of the three times anything)
+    doc = mesh_doc(N_FLAG, 1, log_cap=0)
+    doc["general"]["data_directory"] = str(Path(DATA) / "cli-flagship")
+    flagship_run = cli_start(
+        "flagship", [config_file("flagship", doc), "--perf-logging",
+                     "--run-control"], stdin="n\nn\nstats\nc\n")
+    doc100 = mesh_doc(100, 1)
+    started = {}
+    for dev in ("cuda", "cpu"):
+        doc100["general"]["data_directory"] = str(Path(DATA)
+                                                  / f"cli-100-{dev}")
+        started[dev] = cli_start(
+            f"100-{dev}", [config_file(f"flagship100-{dev}", doc100),
+                           "--perf-logging", "--run-control", "--device", dev])
+    proc, counts, wall = cli_wait(flagship_run)
+    tally(counts)
+    stats = stats_of(doc)
+    pauses = proc.stderr.count("[run-control] paused at window boundary")
+    aggs = window_aggs(proc.stderr)
+    exp = expected_mesh(N_FLAG, 1)
+    got = {k: stats["counters"].get(k, 0) for k in exp}
+    if pauses != 2 or len(aggs) != stats["rounds"] or got != exp:
+        raise AssertionError(f"cli flagship: {pauses} pauses, {len(aggs)} "
+                             f"[window-agg] lines for {stats['rounds']} "
+                             f"rounds, counters {got} != {exp}")
+    cli_kernels("flagship", counts,
+                GpuEngine(ConfigOptions.from_dict(doc)).params)
+    log(f"cli flagship: 2 pauses, {len(aggs)} [window-agg] lines = rounds, "
+        f"closed form, command {wall:.1f} s, launches {counts}")
+
+    # (c) the 100-host flagship: the card's lines = the CPU's, byte for byte
+    lines = {}
+    for dev in ("cuda", "cpu"):
+        proc, counts, wall = cli_wait(started[dev])
+        if dev == "cuda":
+            tally(counts)
+            cli_kernels("100-cuda", counts,
+                        GpuEngine(ConfigOptions.from_dict(doc100)).params)
+        lines[dev] = window_aggs(proc.stderr)
+    if lines["cuda"] != lines["cpu"] or not lines["cuda"]:
+        raise AssertionError("100-host flagship: [window-agg] card != CPU")
+    log(f"cli flagship 100: {len(lines['cuda'])} [window-agg] lines, card = "
+        "CPU byte for byte")
+
+    # (e) a managed config on the hybrid path: the congested config at the
+    # reference's defaults (the fused law, a syscall worker per core) with
+    # perf logging; the card's [hybrid-agg] lines = --device cpu's but
+    # their wall-time fields, and the hybrid kernels launched
+    aggs, started = {}, {}
+    for dev in ("cuda", "cpu"):
+        cfg_path = Path(DATA) / f"congested-cli-{dev}.yaml"
+        cfg_path.write_text(congested_yaml(Path(DATA) / f"cli-congested-{dev}",
+                                           FUSE_K))
+        started[dev] = cli_start(f"congested-{dev}", [
+            str(cfg_path), "--perf-logging", "--device", dev])
+    for dev in ("cuda", "cpu"):
+        proc, counts, wall = cli_wait(started[dev])
+        aggs[dev] = hybrid_agg_ints(proc.stderr)
+        if dev == "cuda":
+            tally(counts)
+            for k in ("lane_slots", "hybrid_fused_window", "append_log",
+                      "inject_merge"):
+                if counts.get(k, 0) <= 0:
+                    raise AssertionError(f"cli congested: {k} was not "
+                                         "launched")
+            log(f"cli congested: command {wall:.1f} s, launches {counts}")
+    if aggs["cuda"] != aggs["cpu"] or not aggs["cuda"]:
+        raise AssertionError("cli congested: [hybrid-agg] card != CPU")
+    log(f"cli congested: {len(aggs['cuda'])} [hybrid-agg] lines, card = CPU "
+        "but the wall-time fields")
+
+    # (d), started after the build (``start_phold_cli``)
+    proc, counts, _wall = cli_wait(PHOLD_CLI["run"])
+    tally(counts)
+    if "determinism check PASSED" not in proc.stderr:
+        raise AssertionError("PHOLD 10k: no PASSED line")
+    cli_kernels("phold", counts,
+                GpuEngine(ConfigOptions.from_dict(PHOLD_CLI["doc"])).params)
+    log(f"cli phold: determinism check PASSED, command "
+        f"{PHOLD_CLI['wall']:.1f} s or less, launches {counts}")
+    for name, r in out["rates"].items():
+        log(f"cli rates, {name}: {r}")
+    return out
+
+
 def main() -> int:
     global DATA
     if not torch.cuda.is_available():
@@ -5714,6 +6269,7 @@ def main() -> int:
         f"{torch.cuda.device_count()}, torch {torch.__version__}, cuda "
         f"{torch.version.cuda}")
     log(f"nvidia-smi: {smi_line()}")
+    start_cpu_refs(cpu_jobs())
     t0 = time.perf_counter()
     try:
         lib = kernels.build()
@@ -5730,6 +6286,12 @@ def main() -> int:
         log(f"  ptxas: {line}")
 
     native_build()
+    # the hybrid parity's CPU runs need the native build; the command
+    # line's (d) needs the kernels
+    submit_cpu_refs([(hybrid_oracle_run,)]
+                    + [(hybrid_parity_run, *run) for run in HYB_PARITY_RUNS
+                       if run[1] == "cpu"])
+    start_phold_cli()
     check_kernels()
     check_rand_u32()
     check_active_kernels()
@@ -5744,6 +6306,10 @@ def main() -> int:
     check_compact_cases()
     check_slot_cases()
     check_row_cases()
+    drain_cpu_refs()
+    PHOLD_CLI["run"][1].wait(timeout=900)
+    PHOLD_CLI["wall"] = time.perf_counter() - PHOLD_CLI["run"][3]
+    log(f"command line (d) done, {PHOLD_CLI['wall']:.1f} s after its start")
     times = time_all()
     parity()
     stream_parity()
@@ -5760,6 +6326,7 @@ def main() -> int:
     sweep_times = time_sweep(times) if sweeps else None
     main_out = main_path()
     hyb = hybrid_main()
+    cli_out = cli_phase()
     if FAILED:
         log(f"FAILED phases: {FAILED}")
         return 1
@@ -5771,11 +6338,17 @@ def main() -> int:
     for run in hyb.values():
         for k, v in run["counts"].items():
             launches[k] = launches.get(k, 0) + v
+    # and the command line's runs on the card
+    for k, v in cli_out["launches"].items():
+        launches[k] = launches.get(k, 0) + v
     smi = smi_line()
     for line in ptxas:  # again here: the start of a long output is cut
         log(f"ptxas: {line}")
     for name, rate in rates.items():
         log(f"sim-s/wall-s, {name}: {rate:.3f} ({smi})")
+    for name, runs in cli_out["rates"].items():
+        log(f"sim-s/wall-s, {name}: "
+            + ", ".join(f"{r:.3f}" for r in runs) + f" ({smi})")
     for cfg_name in ("mixed_tiered", "mixed_tiered_netobs", "mixed_tiered_log",
                      "mixed_tiered_pcap", "mixed", "mixed_flowtrace",
                      "flagship", "flagship_log", "phold", "lossy"):
@@ -5947,6 +6520,11 @@ if __name__ == "__main__":
     try:
         code = main()
     finally:
+        stop_cpu_refs()
+        for child in CLI_PROCS:  # a child a failed phase left running
+            if child.poll() is None:
+                child.kill()
+                child.wait()
         if DATA is not None:
             shutil.rmtree(DATA, ignore_errors=True)
     sys.exit(code)

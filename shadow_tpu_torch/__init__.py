@@ -8,12 +8,16 @@ for NVIDIA Hopper.  This package imports ``torch`` and never ``jax`` or
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (where the kernels' plain PyTorch versions run); without a card they
-raise rather than fall back.
+raise rather than fall back.  The command line is
+``python -m shadow_tpu_torch [options] <config.yaml>`` (``--device cpu``
+for the CPU).
 """
 
 from __future__ import annotations
 
 import torch
+
+__version__ = "0.1.0"
 
 
 def default_device(device=None) -> torch.device:

@@ -11,9 +11,13 @@ It is the port's all-host-side oracle (``chip_smoke.py`` holds the card's
 runs against it on a machine without JAX) and the base class of the
 hybrid engine's host side (``backend/hybrid.py``), whose managed hosts run
 real binaries under the LD_PRELOAD shim (``native/process.py``).  The
-observation planes (netobs, flowtrace), fault schedules, checkpoints and
-the run-control hooks of the JAX package's copy are not ported here: a
-config that asks for them raises :class:`LaneCompatError`.
+observation planes (netobs, flowtrace), fault schedules and checkpoints
+of the JAX package's copy are not ported here: a config that asks for
+them raises :class:`LaneCompatError`.  The facade's hooks are: the
+``on_window`` callback of :meth:`CpuEngine.run`, ``perf_log``
+(``[window-agg]`` and ``[host-exec-agg]`` lines), ``obs`` (the
+``window_compute`` span and the per-window metrics) and
+:meth:`CpuEngine.describe_next_window` for the run-control console.
 """
 
 from __future__ import annotations
@@ -204,7 +208,17 @@ class Host:
         self.local_seq += 1
 
     def execute(self, until: int) -> None:
-        """Pop and run all events < until (Host::execute, host.rs:762-803)."""
+        """Pop and run all events < until (Host::execute, host.rs:762-803),
+        timed into the ``[host-exec-agg]`` lines when perf logging is on."""
+        pl = self.engine.perf_log
+        if pl is not None:
+            t0 = pl.timer()
+            self._execute(until)
+            pl.host_exec(self.hostname, pl.timer() - t0, until)
+        else:
+            self._execute(until)
+
+    def _execute(self, until: int) -> None:
         while True:
             ev = self.queue.peek()
             if ev is None or ev.time >= until:
@@ -336,6 +350,9 @@ class CpuEngine:
         self.event_log: list[LogRecord] = []
         self.window_end = 0
         self.rounds = 0
+        # the facade's perf lines and obs Recorder: None costs nothing
+        self.perf_log = None
+        self.obs = None
 
     # -- DNS (network/dns.rs) ----------------------------------------------
 
@@ -535,9 +552,28 @@ class CpuEngine:
                     if err is not None:
                         self.process_errors.append(f"host {h.hostname}: {err}")
 
+    def describe_next_window(self, until: int) -> list[tuple[str, int, list[int]]]:
+        """Hosts with events before ``until`` and the native PIDs of their
+        live managed processes — what the run-control console prints while
+        paused, so a debugger can attach (manager.rs:660-748)."""
+        out = []
+        for h in self.hosts:
+            t = h.queue.next_time()
+            if t < until:
+                pids = [
+                    app.proc.pid
+                    for app in h.apps
+                    if getattr(app, "proc", None) is not None
+                    and app.proc.poll() is None
+                ]
+                out.append((h.hostname, t, pids))
+        return out
+
     def run(self, on_window=None) -> SimResult:
         """Round loop.  ``on_window(window_start, window_end,
-        next_event_time)`` runs after every round."""
+        next_event_time)`` runs after every round — the seam where the
+        facade hangs heartbeats and run-control pauses (and through which
+        a ``RestartRequest`` propagates)."""
         from ..engine.scheduler import HostScheduler
         from ..native.process import ManagedApp
 
@@ -573,16 +609,40 @@ class CpuEngine:
             raise
 
     def _round_loop(self, scheduler, on_window, t0) -> SimResult:
+        obs = self.obs
         while True:
             start = self.next_event_time()
             if start >= self.stop_time or start == stime.NEVER:
                 break
             self.window_end = min(start + self.current_runahead(), self.stop_time)
-            scheduler.run_round(self.window_end)
-            self._barrier_merge()
+            pl = self.perf_log
+            if pl is not None or obs is not None:
+                active = sum(
+                    1 for h in self.hosts if h.queue.next_time() < self.window_end
+                )
+            if obs is None:
+                scheduler.run_round(self.window_end)
+                self._barrier_merge()
+            else:
+                with obs.phase(
+                    "window_compute", window_end=self.window_end, active=active
+                ):
+                    scheduler.run_round(self.window_end)
+                    self._barrier_merge()
             self.rounds += 1
-            if on_window is not None:
-                on_window(start, self.window_end, self.next_event_time())
+            if obs is not None:
+                m = obs.metrics
+                m.count("windows")
+                m.observe("window_active_hosts", active)
+                m.observe("window_span_ns", self.window_end - start)
+            if pl is not None or on_window is not None:
+                next_ev = self.next_event_time()
+                if pl is not None:
+                    pl.window_agg(
+                        active, start, self.window_end, min(next_ev, self.stop_time)
+                    )
+                if on_window is not None:
+                    on_window(start, self.window_end, next_ev)
         self.finalize()
         wall = wall_time.perf_counter() - t0
 

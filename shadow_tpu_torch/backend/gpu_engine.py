@@ -124,6 +124,10 @@ class GpuEngine:
         # the netobs and flowtrace snapshots of the last collected run
         self._netobs_data = None
         self._flowtrace_data = None
+        # the facade's perf lines (engine.run_control.PerfLog) and obs
+        # Recorder: None costs nothing
+        self.perf_log = None
+        self.obs = None
 
         # --- per-lane model tables and initial events ---------------------
         model = np.zeros(n, dtype=np.int32)
@@ -277,6 +281,8 @@ class GpuEngine:
             )
 
         node_idx, lat, thresh = self.routing.device_tables()
+        if log_capacity is None:
+            log_capacity = cfg.experimental.tpu_log_capacity
         if log_capacity is None:
             log_capacity = 200_000
 
@@ -691,7 +697,7 @@ class GpuEngine:
         return [(0, stop, None)] + [(stop, stop, None)] * (pad_to - 1)
 
     def _run_faulted(self, mode: str, state: lanes.LaneState,
-                     plan: list) -> None:
+                     plan: list, on_window=None) -> None:
         """Run ``state`` to the end segment by segment along ``plan``
         (``segment_plan``; the reference's ``_run_faulted``): each segment
         an ordinary run whose stop time is the next fault epoch, against
@@ -699,7 +705,8 @@ class GpuEngine:
         carries across untouched.  A ``backend_stall`` epoch raises
         :class:`BackendStallError`.  In device mode the segments are one
         batched loop of one scenario, re-targeted at each epoch (the
-        sweep's own driver)."""
+        sweep's own driver); in step mode each segment goes through the
+        step driver (``_drive_steps``)."""
         ov = self._fault_overlay
         if mode == "device":
             run_fn = lanes._build_sweep_run([self.params], [self.tables],
@@ -714,15 +721,100 @@ class GpuEngine:
                 run_fn([tb], [seg_end])
             else:
                 p = dataclasses.replace(self.params, stop_time=seg_end)
-                round_fn = lanes._build_round(p, tb, state)
-                while not round_fn():
-                    pass
+                self._drive_steps(lanes._build_round(p, tb, state), state,
+                                  on_window, p)
 
-    def run(self, mode: str = "device") -> SimResult:
+    def _heads(self, s: lanes.LaneState) -> torch.Tensor:
+        """Each queue row's earliest event as one int64 word ``(hi << 31)
+        | lo`` — the ``[N]`` lane rows, and on the tiered pass the ``[2S]``
+        tier rows after them.  Rows are sorted, so column 0 is each row's
+        minimum; the words order as the (hi, lo) pairs do, and an empty
+        row's (NEVER32, NEVER32) lies above every time (``_host_time``
+        maps it to NEVER)."""
+        h = (s.q_thi[:, 0].to(torch.int64) << 31) | s.q_tlo[:, 0]
+        if self.params.stream_tiered:
+            q = s.stream.q
+            h = torch.cat([h, (q[lstr.TQ_THI, :, 0].to(torch.int64) << 31)
+                           | q[lstr.TQ_TLO, :, 0]])
+        return h
+
+    @staticmethod
+    def _host_time(word: int) -> int:
+        return NEVER if word >> 31 >= lanes.NEVER32 else word
+
+    def _seam_probe(self, s: lanes.LaneState,
+                    p: lanes.LaneParams) -> tuple[int, int, int]:
+        """The step driver's seam on the state ``s``: its window end, its
+        earliest head (NEVER when every row is empty) and its active count
+        (rows with a head below ``min(earliest + runahead, stop)``, the
+        reference's ``we_pred``), computed on the device and read back as
+        one small tensor, one read."""
+        stop = p.stop_time
+        heads = self._heads(s)
+        first = heads.min()
+        ra = lanes.effective_runahead(p, s.min_used_lat)
+        we_pred = torch.clamp(torch.clamp(first, max=stop) + ra, max=stop)
+        window_end = (s.now_we_hi.to(torch.int64) << 31) | s.now_we_lo
+        window_end, first, active = torch.stack(
+            [window_end, first, torch.count_nonzero(heads < we_pred)]).tolist()
+        return window_end, self._host_time(first), active
+
+    def _drive_steps(self, round_fn, s: lanes.LaneState, on_window,
+                     p: lanes.LaneParams) -> None:
+        """The step driver's round loop (the reference's ``_drive_steps``):
+        ``round_fn`` (``lanes._build_round``) once per window up to
+        ``p.stop_time``, shared by the plain run and every fault-epoch
+        segment.  With a consumer (``on_window``, ``perf_log`` or ``obs``)
+        each round also yields the reference's window telemetry: the
+        round's start (the earliest head) and active count, both of the
+        state before the round, and its window end and next event.  The
+        state after a round is the state before the next, so one
+        ``_seam_probe`` after each round gives this round's window end and
+        next event and the next round's start and active count: one read
+        per round (the round itself reads its flags after every
+        iteration).  Then the ``device_round`` span, the
+        ``window_active_hosts`` / ``window_span_ns`` metrics, the
+        ``[window-agg]`` line and ``on_window(start, window_end,
+        next_event)``, as in the reference; a round that finds the run
+        done reports its span and stops."""
+        obs = self.obs
+        if on_window is None and self.perf_log is None and obs is None:
+            while not round_fn():
+                pass
+            return
+        stop = p.stop_time
+        _, start_ns, act = self._seam_probe(s, p)
+        while True:
+            t_round = wall_time.perf_counter()
+            done = round_fn()
+            t_done = wall_time.perf_counter()
+            if obs is not None:
+                obs.record("device_turn", "device_round", t_round,
+                           t_done - t_round, active=act)
+                m = obs.metrics
+                m.count("device_turns")
+                m.observe("window_active_hosts", act)
+            if done:
+                return
+            window_end, next_ev, nxt_active = self._seam_probe(s, p)
+            if obs is not None:
+                obs.metrics.count("windows")
+                obs.metrics.observe("window_span_ns", window_end - start_ns)
+            if self.perf_log is not None:
+                self.perf_log.window_agg(act, start_ns, window_end,
+                                         min(next_ev, stop))
+            if on_window is not None:
+                on_window(start_ns, window_end, next_ev)
+            start_ns, act = next_ev, nxt_active
+
+    def run(self, mode: str = "device", on_window=None) -> SimResult:
         """``mode='device'``: the device loop, which reads the device's
-        ``live`` flag every few steps; ``mode='step'``: one window per
-        round, reading the flags after every iteration.  With a fault
-        schedule, either runs segment by segment (``_run_faulted``)."""
+        ``live`` flag every few steps; ``mode='step'``: the step driver
+        (``_drive_steps``), one window per round, reading the flags after
+        every iteration, with ``on_window(window_start, window_end,
+        next_event)`` after every window.  With a fault schedule, either
+        runs segment by segment (``_run_faulted``).  With ``obs`` set,
+        device mode records its loop as one ``device_free_run`` span."""
         if mode not in ("device", "step"):
             raise ValueError(f"mode must be 'device' or 'step', got {mode!r}")
         state = self.initial_state()
@@ -730,15 +822,21 @@ class GpuEngine:
         p, tb = self.params, self.tables
         if self._fault_overlay is not None:
             def run_fn() -> None:
-                self._run_faulted(mode, state, self.segment_plan())
+                self._run_faulted(mode, state, self.segment_plan(), on_window)
         elif mode == "device":
-            run_fn = lanes._build_full_run(p, tb, state)
+            full_run = lanes._build_full_run(p, tb, state)
+            if self.obs is None:
+                run_fn = full_run
+            else:
+                def run_fn() -> None:
+                    with self.obs.phase("device_turn", name="device_free_run"):
+                        full_run()
+                        self._sync()
         else:
             round_fn = lanes._build_round(p, tb, state)
 
             def run_fn() -> None:
-                while not round_fn():
-                    pass
+                self._drive_steps(round_fn, state, on_window, p)
 
         self._sync()
         t0 = wall_time.perf_counter()
@@ -746,6 +844,34 @@ class GpuEngine:
         self._sync()
         wall = wall_time.perf_counter() - t0
         return self.collect(state, wall)
+
+    def netobs_lines(self, host: Optional[str] = None) -> list[str]:
+        """The run-control ``netstats`` answer from the live device
+        counters (the step driver keeps ``_live_state`` current; reading
+        it at a pause is a snapshot fetch, not a new per-window sync)."""
+        if not self.params.netobs:
+            return ["netobs is not enabled (set experimental.netobs)"]
+        state = getattr(self, "_live_state", None)
+        if state is None:
+            return ["no live device state yet (step driver only)"]
+        snap = self._netobs_collect(state)
+        names = [h.hostname for h in self.cfg.hosts]
+        return nom.snapshot_lines(snap["arrays"], snap["window_hist"],
+                                  names, host)
+
+    def flowtrace_lines(self, host: Optional[str] = None) -> list[str]:
+        """The run-control ``flows`` answer from the live device ring."""
+        if not self.params.flowtrace:
+            return ["flowtrace is not enabled (set experimental.flowtrace)"]
+        state = getattr(self, "_live_state", None)
+        if state is None:
+            return ["no live device state yet (step driver only)"]
+        snap = self._flowtrace_collect(state)
+        events, lost = ftr.canonical_events(snap["raw"],
+                                            self.params.flow_capacity)
+        names = [h.hostname for h in self.cfg.hosts]
+        return ftr.snapshot_lines(events, lost + snap["ring_lost"], names,
+                                  host=host)
 
     def collect(self, s: lanes.LaneState, wall: float) -> SimResult:
         # every per-lane counter is monotone, so an int32 wrap shows as a

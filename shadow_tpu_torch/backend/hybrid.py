@@ -46,9 +46,17 @@ window law.  :func:`make_hybrid_engine` picks one as the reference's
 facade does.  Event logs, counters and rounds are the same at every
 worker count and on either law.
 
+With ``perf_log`` set (``experimental.perf_logging``) the engines print a
+``[hybrid-agg]`` line of the cumulative ``sync_stats`` after every device
+dispatch (``kind=device``) and every host round (``kind=host``), and the
+hosts' ``[host-exec-agg]`` lines; a syscall worker buffers its lines
+(``BufferedPerfLog``) and the parent prints them in round order.  With
+``obs`` set they record the ``device_turn``, ``injection``, ``egress``,
+``syscall_service`` and ``worker_pipe`` spans.
+
 Not ported here (ROADMAP item 12, each refused with ``LaneCompatError`` by
-``ConfigOptions.validate``): the turn ledger, perf logging and the tracer,
-and fault schedules with the watchdog and the CPU failover.
+``ConfigOptions.validate``): the turn ledger, and fault schedules with the
+watchdog and the CPU failover.
 """
 
 from __future__ import annotations
@@ -253,8 +261,13 @@ def _hybrid_worker_main(cfg: ConfigOptions, owned: list[int],
     the still-covered span?) and the partition's new peek schedule, so the
     parent can bound the next dispatch without another round trip.  The
     worker never touches the card.  It says "ready" once its replica is
-    built."""
+    built.  With perf logging on, its hosts' lines ride each reply to the
+    parent's sink."""
     engine = _HybridWorker(cfg, owned)
+    if cfg.experimental.perf_logging:
+        from ..engine.run_control import BufferedPerfLog
+
+        engine.perf_log = BufferedPerfLog()
     conn.send(("ready",))
     finished = False
     try:
@@ -282,6 +295,8 @@ def _hybrid_worker_main(cfg: ConfigOptions, owned: list[int],
                     engine.next_event_time(),
                     staged,
                     engine._min_used_lat,
+                    engine.perf_log.drain()
+                    if engine.perf_log is not None else (),
                     clean,
                     engine._peek_head_horizon(peek_slots)
                     if peek_slots else (),
@@ -444,6 +459,7 @@ class HybridEngine(_HostSideHybrid):
         nothing was staged."""
         if not staged:
             return None
+        t_inj = wall_time.perf_counter()
         b = self.device.params.inject_batch
         n_blk = -(-len(staged) // b)
         dev = self.device.device
@@ -469,10 +485,14 @@ class HybridEngine(_HostSideHybrid):
         st["inject_blocks"] += n_blk
         st["inject_rows"] += len(staged)
         st["inject_bytes"] += n_blk * b * (1 + 6 * 4)
-        if self._inj_dev is None:
-            return host
-        blocks = self._inj_dev[:n_blk]
-        blocks.copy_(host, non_blocking=True)
+        blocks = host
+        if self._inj_dev is not None:
+            blocks = self._inj_dev[:n_blk]
+            blocks.copy_(host, non_blocking=True)
+        if self.obs is not None:
+            self.obs.record("injection", None, t_inj,
+                            wall_time.perf_counter() - t_inj,
+                            rows=len(staged))
         return blocks
 
     def _read_egress(self, state, count: int, lost: int) -> list:
@@ -494,7 +514,13 @@ class HybridEngine(_HostSideHybrid):
         st["egress_reads"] += 1
         st["egress_rows"] += count
         st["egress_bytes"] += span * 6 * 8
-        return state.egress[:span].cpu()[:count].tolist()
+        obs = self.obs
+        if obs is None:
+            return state.egress[:span].cpu()[:count].tolist()
+        with obs.phase("egress", rows=count):
+            rows = state.egress[:span].cpu()[:count].tolist()
+        obs.metrics.count("egress_rows", count)
+        return rows
 
     def _device_turn(self, state, hybrid_run, next_host_fn):
         """Inject staged sends, run the device turn and apply its egress —
@@ -522,14 +548,24 @@ class HybridEngine(_HostSideHybrid):
             self._dev_min_used = (
                 None if dev_used >= lanes.NEVER32 else dev_used
             )
+            self._record_turn(t0, t1, dev_we)
             self._apply_egress(self._read_egress(
                 state, sc[lanes.HYB_EGRESS_COUNT], sc[lanes.HYB_EGRESS_LOST]))
+            if self.perf_log is not None:
+                self.perf_log.hybrid_agg("device", dev_we, st)
             if lane_min >= dev_we:
                 return lane_min, dev_we
             # mid-window pause (egress headroom): drain and resume, with
             # nothing to inject
             inj = None
             host_next = next_host_fn()
+
+    def _record_turn(self, t0: float, t1: float, dev_we: int) -> None:
+        """One dispatch's ``device_turn`` span and count (obs on)."""
+        obs = self.obs
+        if obs is not None:
+            obs.record("device_turn", None, t0, t1 - t0, window_end=dev_we)
+            obs.metrics.count("device_turns")
 
     # -- device snapshots (the fused law's rollback and eager dispatch) ------
 
@@ -663,9 +699,11 @@ class HybridEngine(_HostSideHybrid):
             h = fused.issue(ext, used_enc, inj, k_eff)
             self._gen += 1
         sc = fused.resolve(h)
-        st["device_sync_s"] += wall_time.perf_counter() - t0 + t_issue
+        t1 = wall_time.perf_counter()
+        st["device_sync_s"] += t1 - t0 + t_issue
         st["device_turns"] += 1
         st["scalar_reads"] += 1
+        self._record_turn(t0, t1, sc[lanes.HYB_DEV_WE])
         return sc
 
     def _dispatch_retrying(self, state, ckpt: int, fused, ext, used_enc,
@@ -842,6 +880,8 @@ class HybridEngine(_HostSideHybrid):
                 # pause) or past the span — host events the next
                 # dispatch's peek takes in
                 self._apply_egress(pend)
+            if self.perf_log is not None:
+                self.perf_log.hybrid_agg("device", dev_we, st)
             if not retry:
                 return lane_min
             # drain continuation: the device paused mid-window for egress
@@ -869,7 +909,13 @@ class HybridEngine(_HostSideHybrid):
         self._round_clean = (
             not probe or self._range_count(until, wf) == pre_range
         )
-        self.sync_stats["syscall_service_s"] += wall_time.perf_counter() - t0
+        t1 = wall_time.perf_counter()
+        self.sync_stats["syscall_service_s"] += t1 - t0
+        if self.obs is not None:
+            self.obs.record("syscall_service", None, t0, t1 - t0,
+                            window_end=until)
+        if self.perf_log is not None:
+            self.perf_log.hybrid_agg("host", until, self.sync_stats)
 
     def run(self, on_window=None) -> SimResult:
         from ..engine.scheduler import HostScheduler
@@ -1078,7 +1124,9 @@ class MpHybridEngine(HybridEngine):
         time, staged sends, least used latency, cleanliness, peek) — one
         pipe message each way per worker.  The workers run concurrently
         between the two loops; staged sends merge in worker order, which
-        the device merge's total key makes order-free anyway."""
+        the device merge's total key makes order-free anyway.  The
+        workers' buffered perf lines print here, in worker order, before
+        the round's ``[hybrid-agg]`` line."""
         t0 = wall_time.perf_counter()
         conns, procs = self._mp
         self._round_no += 1
@@ -1089,11 +1137,14 @@ class MpHybridEngine(HybridEngine):
                 wf if wf is not None else window_end,
             ))
             self._pending_rows[w] = []
+        t_ship = wall_time.perf_counter()
         staged = self._staged_merged
+        perf_lines: list[str] = []
         clean = True
         for w, conn in enumerate(conns):
-            next_t, out, mul, wclean, wpeek = recv_with_deadline(
+            next_t, out, mul, wlines, wclean, wpeek = recv_with_deadline(
                 conn, procs[w], self._heartbeat_s, w, self._round_no, "round")
+            perf_lines.extend(wlines)
             self._eff_next[w] = next_t
             if mul is not None and (
                 self._min_used_lat is None or mul < self._min_used_lat
@@ -1104,7 +1155,20 @@ class MpHybridEngine(HybridEngine):
             if wpeek:
                 self._worker_peeks[w] = wpeek
         self._round_clean = clean
-        self.sync_stats["syscall_service_s"] += wall_time.perf_counter() - t0
+        t1 = wall_time.perf_counter()
+        self.sync_stats["syscall_service_s"] += t1 - t0
+        obs = self.obs
+        if obs is not None:
+            # disjoint attribution: worker_pipe is the ship leg,
+            # syscall_service the collect leg (the barrier wait that IS
+            # the workers' execution wall); the two tile the round
+            obs.record("worker_pipe", "pipe_ship", t0, t_ship - t0)
+            obs.record("syscall_service", None, t_ship, t1 - t_ship,
+                       window_end=window_end)
+            obs.metrics.count("pipe_messages", 2 * len(conns))
+        if self.perf_log is not None:
+            self.perf_log.emit_many(perf_lines)
+            self.perf_log.hybrid_agg("host", window_end, self.sync_stats)
 
     def _peek_partition(self, owned):
         """A partition's initial (head, horizon) peek from the parent's

@@ -2,21 +2,24 @@
 trimmed to what the port reads.
 
     general:      { stop_time, seed, bootstrap_end_time, data_directory,
-                    parallelism, heartbeat_interval,
+                    parallelism, log_level, heartbeat_interval, progress,
                     model_unblocked_syscall_latency }
     network:      { graph: { type: gml|1_gbit_switch, file|inline }, ... }
     experimental: { runahead, use_dynamic_runahead, network_backend,
                     tpu_lane_queue_capacity, tpu_events_per_round,
-                    tpu_cross_capacity, tpu_stream_tiered,
+                    tpu_cross_capacity, tpu_log_capacity, tpu_stream_tiered,
                     tpu_stream_events_per_round, tpu_stream_queue_capacity,
                     netobs, flowtrace, flowtrace_capacity, flowtrace_sample,
-                    sweep_size, sweep_spec, mesh_devices,
+                    sweep_size, sweep_spec, mesh_devices, tpu_mesh_shape,
                     scheduler, use_cpu_pinning, socket_send_buffer,
                     socket_recv_buffer, strace_logging_mode, use_seccomp,
-                    use_vdso_patching, perf_logging, obs_turns, obs_trace,
-                    hybrid_workers, hybrid_fuse_k, hybrid_async_dispatch,
-                    tpu_inject_batch, dispatch_retry_max,
-                    worker_heartbeat_s }
+                    use_vdso_patching, run_control, perf_logging,
+                    obs_metrics, obs_trace, obs_jsonl, obs_jax_annotations,
+                    obs_dir, obs_turns, hybrid_workers, hybrid_fuse_k,
+                    hybrid_async_dispatch, tpu_inject_batch,
+                    dispatch_retry_max, worker_heartbeat_s,
+                    checkpoint_every_windows, checkpoint_dir,
+                    checkpoint_keep, resume_from }
     faults:       { events: [ { at, kind, ... } ], watchdog_timeout,
                     failover }
     hosts:
@@ -36,18 +39,25 @@ LD_PRELOAD shim.
 Unknown keys raise :class:`ConfigError`.  Settings the JAX package
 accepts but the port cannot run yet (device-loop unrolling, the fault
 watchdog and the CPU failover, the sweep command line's sweep_size > 1
-and sweep_spec, more than one device, the observation of runs, and on a
-hybrid run fault schedules) raise
-:class:`LaneCompatError`, which names the JAX package as the way to run
-them.  ``network_backend: tpu`` selects the lane backend, as there.
+and sweep_spec, more than one device, the device-turn ledger
+``obs_turns``, checkpoints and resume, and on a hybrid run fault
+schedules) raise :class:`LaneCompatError`, which names the ROADMAP item
+that ports them.  ``network_backend: tpu`` selects the lane backend, as
+there.
 
-PyYAML is imported only by :meth:`ConfigOptions.from_yaml`; the presets
-build their configs through :meth:`ConfigOptions.from_dict`.
+PyYAML is imported only by :meth:`ConfigOptions.from_yaml` and
+:meth:`ConfigOptions.from_yaml_file`; the presets build their configs
+through :meth:`ConfigOptions.from_dict`.
+
+``experimental.tpu_log_capacity`` is the port's own key: the rows of the
+lane engine's device event log when a run is built from the config (the
+JAX package fixes it at 200,000; so does the port when it is unset).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 from ..core import time as stime
@@ -79,8 +89,12 @@ class GeneralOptions:
     # syscall-servicing threads of the CPU engines' host scheduler (0 = all
     # cores where managed processes run)
     parallelism: int = 0
-    # the JAX package's progress heartbeat; accepted, the port prints none
+    # the command line's logging level (debug | info | warning | error)
+    log_level: str = "info"
+    # the facade's heartbeat: a progress line every this much simulated
+    # time (null: none)
     heartbeat_interval: Optional[int] = stime.NANOS_PER_SEC
+    progress: bool = False
     # managed processes: charge a modelled CPU latency to unblocked syscalls
     model_unblocked_syscall_latency: bool = False
 
@@ -116,6 +130,9 @@ class ExperimentalOptions:
     # cross-lane receive block width per iteration (0 = queue capacity);
     # overflow is counted and strict mode raises, like queue overflow
     tpu_cross_capacity: int = 0
+    # rows of the device event log (None: 200,000, the JAX package's fixed
+    # size; 0: no log); an engine's log_capacity argument wins over it
+    tpu_log_capacity: Optional[int] = None
     # the TIERED stream backend for one-to-one stream configs (a dedicated
     # [2S]-row tier: kernels F and G); false runs them untiered (kernel E),
     # bit-identical in events
@@ -137,8 +154,10 @@ class ExperimentalOptions:
     # line is not ported: 0/1 and unset = no sweep
     sweep_size: int = 0
     sweep_spec: Optional[str] = None
-    # devices to spread a run over (0 = one); the port runs on one card
+    # devices to spread a run over (0 = one; tpu_mesh_shape is the older
+    # spelling); the port runs on one card (ROADMAP item 14)
     mesh_devices: int = 0
+    tpu_mesh_shape: Optional[tuple[int, ...]] = None
     # the CPU engines' host scheduler (thread-per-core: a pool of workers;
     # thread-per-host: one each) and its CPU pinning
     scheduler: str = "thread-per-core"
@@ -151,11 +170,24 @@ class ExperimentalOptions:
     strace_logging_mode: str = "off"
     use_seccomp: bool = True
     use_vdso_patching: bool = True
-    # the JAX package's observation of runs: per-window perf lines, the
-    # device-turn ledger and the span tracer.  Not ported: true raises
+    # the fork's run-control console (pause/step/restart at window
+    # boundaries, engine/run_control.py) and its [window-agg] /
+    # [host-exec-agg] / [hybrid-agg] perf lines; either runs the lane
+    # engine's step driver
+    run_control: bool = False
     perf_logging: bool = False
-    obs_turns: bool = False
+    # the observation of runs (obs/): per-phase wall metrics ->
+    # METRICS_*.json, span tracing -> a Chrome trace, a JSONL event stream,
+    # torch.profiler annotations (the key keeps the JAX package's name),
+    # and where the reports go (None = general.data_directory).  Off costs
+    # nothing; the events are the same with everything on
+    obs_metrics: bool = False
     obs_trace: bool = False
+    obs_jsonl: bool = False
+    obs_jax_annotations: bool = False
+    obs_dir: Optional[str] = None
+    # the device-turn ledger: not ported (ROADMAP item 12), true raises
+    obs_turns: bool = False
     # the hybrid backend (backend/hybrid.py): managed hosts' syscalls on
     # the host CPU, every packet on the card.  hybrid_workers: the syscall
     # worker processes (1: serial, in the engine's process; 0: one per
@@ -172,6 +204,12 @@ class ExperimentalOptions:
     tpu_inject_batch: int = 512
     dispatch_retry_max: int = 2
     worker_heartbeat_s: float = 30.0
+    # crash-safe checkpoints and resume: not ported (ROADMAP item 11); any
+    # setting but the defaults raises
+    checkpoint_every_windows: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3
+    resume_from: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -240,6 +278,11 @@ class ConfigOptions:
         return cls.from_dict(yaml.safe_load(text))
 
     @classmethod
+    def from_yaml_file(cls, path) -> "ConfigOptions":
+        with open(path) as f:
+            return cls.from_yaml(f.read())
+
+    @classmethod
     def from_dict(cls, doc: dict[str, Any]) -> "ConfigOptions":
         if not isinstance(doc, dict):
             raise ConfigError("config must be a mapping")
@@ -259,8 +302,10 @@ class ConfigOptions:
             bootstrap_end_time=units.parse_time(gen_doc.pop("bootstrap_end_time", 0)),
             data_directory=str(gen_doc.pop("data_directory", "shadow.data")),
             parallelism=int(gen_doc.pop("parallelism", 0)),
+            log_level=str(gen_doc.pop("log_level", "info")),
             heartbeat_interval=_opt_time(gen_doc.pop("heartbeat_interval",
                                                      "1s")),
+            progress=bool(gen_doc.pop("progress", False)),
             model_unblocked_syscall_latency=bool(
                 gen_doc.pop("model_unblocked_syscall_latency", False)),
         )
@@ -310,6 +355,8 @@ class ConfigOptions:
                 v = exp_doc.pop(f.name)
                 if f.name == "runahead":
                     v = None if v is None else units.parse_time(v)
+                elif f.name == "tpu_mesh_shape" and v is not None:
+                    v = tuple(int(x) for x in v)
                 elif f.name in ("socket_send_buffer", "socket_recv_buffer"):
                     v = units.parse_bytes(v)
                 setattr(experimental, f.name, v)
@@ -380,6 +427,10 @@ class ConfigOptions:
                 current = getattr(target, field)
                 if field in self._TIME_FIELDS:
                     value = units.parse_time(value)
+                elif field == "tpu_mesh_shape":
+                    value = tuple(int(x) for x in (
+                        value.split(",") if isinstance(value, str)
+                        else value) if str(x).strip())
                 elif isinstance(current, bool):
                     value = (value if isinstance(value, bool)
                              else str(value).lower() in ("1", "true", "yes",
@@ -395,6 +446,9 @@ class ConfigOptions:
             raise ConfigError("general.stop_time must be > 0")
         if self.experimental.network_backend not in ("cpu", "tpu"):
             raise ConfigError("experimental.network_backend must be cpu|tpu")
+        if (self.experimental.tpu_log_capacity is not None
+                and self.experimental.tpu_log_capacity < 0):
+            raise ConfigError("experimental.tpu_log_capacity must be >= 0")
         if self.experimental.flowtrace_capacity < 1:
             raise ConfigError("experimental.flowtrace_capacity must be >= 1")
         if not 0.0 <= self.experimental.flowtrace_sample <= 1.0:
@@ -410,17 +464,20 @@ class ConfigOptions:
             raise LaneCompatError(
                 "experimental.sweep_size > 1 and experimental.sweep_spec are "
                 "read by the sweep command line, which is not ported yet "
-                "(ROADMAP item 3); build the variants with "
+                "(ROADMAP item 12); build the variants with "
                 "shadow_tpu_torch.sweep.expand_variants and run them with "
                 "SweepEngine, or use the shadow_tpu package")
         if self.experimental.mesh_devices < 0:
             raise ConfigError(
                 "experimental.mesh_devices must be >= 0 (0 = single-device)")
-        if self.experimental.mesh_devices > 1:
+        shape = self.experimental.tpu_mesh_shape
+        if self.experimental.mesh_devices > 1 or (
+                shape is not None and (not shape or math.prod(shape) != 1)):
             raise LaneCompatError(
-                "experimental.mesh_devices > 1: the port runs on one card; "
-                "spreading a run or a sweep over devices is not ported yet "
-                "(ROADMAP item 14; use the shadow_tpu package)")
+                "experimental.mesh_devices > 1 (or a tpu_mesh_shape of more "
+                "than one device): the port runs on one card; spreading a "
+                "run or a sweep over devices is not ported yet (ROADMAP item "
+                "14; use the shadow_tpu package)")
         if self.experimental.scheduler not in ("thread-per-core",
                                                "thread-per-host"):
             raise ConfigError(
@@ -432,11 +489,11 @@ class ConfigOptions:
         if self.experimental.worker_heartbeat_s <= 0:
             raise ConfigError(
                 "experimental.worker_heartbeat_s must be > 0 (wall seconds)")
-        for flag in ("perf_logging", "obs_turns", "obs_trace"):
-            if getattr(self.experimental, flag):
-                raise LaneCompatError(
-                    f"experimental.{flag}: the observation of runs is not "
-                    "ported yet (ROADMAP item 12; use the shadow_tpu package)")
+        if self.experimental.obs_turns:
+            raise LaneCompatError(
+                "experimental.obs_turns: the device-turn ledger is not "
+                "ported yet (ROADMAP item 12; use the shadow_tpu package)")
+        self._validate_checkpoints()
         self._validate_faults()
         self._validate_hybrid()
         names = [h.hostname for h in self.hosts]
@@ -449,6 +506,20 @@ class ConfigOptions:
                     f"got {h.congestion!r}"
                 )
 
+
+    def _validate_checkpoints(self) -> None:
+        exp = self.experimental
+        if exp.checkpoint_every_windows < 0:
+            raise ConfigError(
+                "experimental.checkpoint_every_windows must be >= 0")
+        if exp.checkpoint_keep < 1:
+            raise ConfigError("experimental.checkpoint_keep must be >= 1")
+        if (exp.checkpoint_every_windows > 0 or exp.checkpoint_dir is not None
+                or exp.checkpoint_keep != 3 or exp.resume_from is not None):
+            raise LaneCompatError(
+                "experimental.checkpoint_every_windows, checkpoint_dir, "
+                "checkpoint_keep and resume_from: checkpoints and resume are "
+                "not ported yet (ROADMAP item 11; use the shadow_tpu package)")
 
     def _validate_faults(self) -> None:
         f = self.faults

@@ -2,8 +2,8 @@
 
 The JAX package's ``obs/netobs.py``, trimmed to what the lane engine and a
 report need: the counter catalog, the drop-cause taxonomy, the log2 bucket
-law of the per-window packet-arrival histogram, the report document and
-the human-readable snapshot.  The lane kernels accumulate the counters on
+law of the per-window packet-arrival histogram, the report document, its
+``NETOBS_*.json`` file and the human-readable snapshot.  The lane kernels accumulate the counters on
 the device (``LaneParams.netobs``); ``GpuEngine.netobs_snapshot`` folds
 them into the per-host arrays of this schema, equal counter for counter
 to the reference's and the CPU oracle's.
@@ -19,6 +19,8 @@ without a packet are skipped.
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
@@ -138,6 +140,13 @@ def build_report(
     if extra:
         doc.update(extra)
     return doc
+
+
+def write_report(path: str | Path, report: dict) -> Path:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(json.dumps(report, indent=2, sort_keys=True) + "\n")
+    return path
 
 
 def snapshot_lines(

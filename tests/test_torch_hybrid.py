@@ -499,12 +499,18 @@ def test_scalar_threefry_matches_torch_and_reference():
     "obs_turns: true", "perf_logging: true", "obs_trace: true",
 ])
 def test_refused_hybrid_options(edit, tmp_path):
-    """The observation of runs stays refused on a hybrid run; the fused
-    law and the worker processes validate, and ``make_hybrid_engine``
-    picks the reference facade's engine for them (0 workers: one per
-    core, at most one per managed host)."""
+    """The turn ledger stays refused on a hybrid run; perf logging and the
+    tracer validate (the facade sets the engine's ``perf_log`` and
+    ``obs``); the fused law and the worker processes validate, and
+    ``make_hybrid_engine`` picks the reference facade's engine for them (0
+    workers: one per core, at most one per managed host)."""
     yaml = _mixed(tmp_path).replace("hybrid_fuse_k: 1", edit)
     cfg = ConfigOptions.from_yaml(yaml)
+    if edit in ("perf_logging: true", "obs_trace: true"):
+        cfg.validate()
+        eng = make_hybrid_engine(cfg, device="cpu")
+        assert eng.perf_log is None and eng.obs is None
+        return
     if edit.startswith("hybrid_"):
         cfg.validate()
         eng = make_hybrid_engine(cfg, device="cpu")

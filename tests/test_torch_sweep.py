@@ -252,7 +252,7 @@ def test_sweep_options_and_overrides():
         4, "grid.yaml")
     for size, spec in ((4, None), (1, "grid.yaml"), (4, "grid.yaml")):
         cfg.experimental.sweep_size, cfg.experimental.sweep_spec = size, spec
-        with pytest.raises(LaneCompatError, match="item 3"):
+        with pytest.raises(LaneCompatError, match="item 12"):
             cfg.validate()
     cfg.experimental.sweep_size, cfg.experimental.sweep_spec = 1, None
     cfg.validate()
